@@ -1,0 +1,373 @@
+"""The single-end full-alignment pipeline on a torch device.
+
+The port of ``bioseqdb_tpu/align/pipeline.py`` for ``mode="full"`` with
+the kmer seeder: ``Aligner.build`` uploads the index tables,
+``device_regions`` runs one read batch through seeding -> seed
+resolution -> chaining -> chain filter -> extension on the device and
+returns the same host dict as the JAX ``Aligner.device_regions`` (the
+row-packed region wire format plus n_regs, overflow and l_rep), so the
+JAX package's host code (``absorb_overflow``'s unpack, finalize, SAM)
+runs on it unchanged. ``absorb_overflow`` re-runs overflow rows with fat
+caps on the FM seeder.
+
+Not in this slice (each raises ``NotImplementedError``): reads wider
+than 320 bases (the seed-SW filter of long reads), indexes the kmer
+seeder cannot take (the FM seeder as the main seeder), int64 ranks,
+paired-end, exact mode and meshes.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from bioseqdb_tpu.align.options import AlignOptions
+from bioseqdb_tpu.align.result import ReadResult
+from bioseqdb_tpu.cpu.ksw import fill_scmat
+from bioseqdb_tpu.index.fmindex import FMIndex
+from bioseqdb_tpu.io.batch import ReadBatch, pack_reads
+from bioseqdb_tpu_torch.index import layout
+from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.chain import (chain_seeds, filter_chains,
+                                              l_rep_device, resolve_seeds)
+from bioseqdb_tpu_torch.kernels.extend import extend_all
+from bioseqdb_tpu_torch.kernels.kmer import collect_seeds_kmer
+from bioseqdb_tpu_torch.kernels.seed import collect_seeds_device
+
+MAX_WIDTH = 320  # widest read batch of this slice (pipeline.py:133 of JAX)
+
+# fields bounded by the read width / scoring config: int16 on the wire
+_NARROW_FIELDS = ("qb", "qe", "score", "truesc", "w", "seedlen0", "seedcov")
+
+
+def full_align_step(
+    fm: kfm.FMDevice, pac_rows, codes, lens, mat,
+    min_seed_len: int, split_len: int, split_width: int, max_mem_intv: int,
+    max_occ: int, max_seeds: int, max_chains: int,
+    match_score: int, mismatch_penalty: int,
+    o_del: int, e_del: int, o_ins: int, e_ins: int,
+    bandwidth: int, zdrop: int, pen_clip5: int, pen_clip3: int,
+    min_chain_weight: int, max_chain_gap: int,
+    mask_level: float, chain_drop_ratio: float,
+    sa_interval: int = 32, keep_mems: bool = False,
+    max_cand: int = 0, max_mem: int = 0, max_iters: int = 0,
+    max_regs: int = 0, kmer: dict | None = None,
+) -> dict:
+    """One batch through the device pipeline. ``kmer`` (bmeta, entries,
+    kmer_meta) selects the kmer seeder; None runs the FM state machine.
+    Returns regions + n_regs + overflow + l_rep (+ mems with keep_mems)."""
+    W = codes.shape[1]
+    if W > MAX_WIDTH:
+        raise NotImplementedError(
+            f"read batches wider than {MAX_WIDTH} bases (the long-read "
+            "seed-SW filter) are a later slice of the PyTorch port")
+    if W <= 200:
+        caps = dict(max_cand=max_cand or 16, max_mem=max_mem or 16)
+    else:
+        caps = dict(max_cand=max_cand) if max_cand else {}
+        if max_mem:
+            caps["max_mem"] = max_mem
+    if kmer is not None:
+        meta = kmer["kmer_meta"]
+        M_k = caps.get("max_mem") or 48
+        M_tot = M_k + 8
+        nmz = layout.nmz_for(W)
+        ko = collect_seeds_kmer(
+            kmer["bmeta"], kmer["entries"], pac_rows, fm.seq_len, codes,
+            lens, bb=meta.bb, min_seed_len=min_seed_len, split_len=split_len,
+            split_width=split_width, max_mem_intv=max_mem_intv,
+            smax=layout.smax_for(max_mem_intv),
+            dmax=layout.dmax_for(meta, nmz), nmz=nmz, max_mem=M_k)
+        r2m = collect_seeds_device(
+            fm, codes, lens, min_seed_len=min_seed_len, split_len=split_len,
+            split_width=split_width, max_mem_intv=0,  # round 2 only
+            max_cand=caps.get("max_cand") or max_cand or 24, max_mem=M_tot,
+            max_iters=max_iters, entry_reseed=True,
+            reseed_entry=dict(mem_s=ko["mem_s"], mem_b=ko["mem_b"],
+                              mem_e=ko["mem_e"], n_mem=ko["n_mem"],
+                              active=ko["needs_r2"]))
+        # rows [0, n_kmer) are the kmer mems: k column = POSITION, l = 1
+        # flags a position row (chain.resolve_seeds); rows beyond carry
+        # round-2 rank intervals
+        m5 = r2m["mems"]
+        isk = (torch.arange(M_tot, device=codes.device)[None, :]
+               < ko["n_mem"][:, None])
+        posk = torch.nn.functional.pad(ko["mem_pos"], (0, M_tot - M_k))
+        mems = dict(
+            mems=torch.stack([torch.where(isk, posk, m5[:, :, 0]),
+                              isk.to(torch.int32), m5[:, :, 2], m5[:, :, 3],
+                              m5[:, :, 4]], 2),
+            n_mem=r2m["n_mem"], overflow=ko["overflow"] | r2m["overflow"])
+    else:
+        mems = collect_seeds_device(
+            fm, codes, lens, min_seed_len=min_seed_len, split_len=split_len,
+            split_width=split_width, max_mem_intv=max_mem_intv,
+            max_cand=caps.get("max_cand", 24), max_mem=caps.get("max_mem", 48),
+            max_iters=max_iters)
+    seeds = resolve_seeds(fm, mems["mems"], mems["n_mem"], max_occ=max_occ,
+                          max_seeds=max_seeds, sa_interval=sa_interval,
+                          compact_cap=(4096 if kmer is not None else 0))
+    chains = chain_seeds(fm, seeds, max_chains=max_chains,
+                         bandwidth=bandwidth, max_chain_gap=max_chain_gap)
+    flt = filter_chains(chains, seeds, mask_level=mask_level,
+                        chain_drop_ratio=chain_drop_ratio,
+                        min_chain_weight=min_chain_weight,
+                        min_seed_len=min_seed_len, max_chain_gap=max_chain_gap)
+    ext = extend_all(
+        fm, pac_rows, codes, lens, seeds, chains, flt, mat,
+        match_score=match_score, mismatch_penalty=mismatch_penalty,
+        o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+        bandwidth=bandwidth, zdrop=zdrop, pen_clip5=pen_clip5,
+        pen_clip3=pen_clip3, **(dict(max_regs=max_regs) if max_regs else {}))
+    overflow = (mems["overflow"] | seeds["overflow"] | chains["overflow"]
+                | ext["overflow"])
+    regs = dict(ext["regs"])
+    regs.pop("cchain")  # extend-internal; the host never reads it
+    out = dict(regs=regs, n_regs=ext["n_regs"], overflow=overflow,
+               l_rep=l_rep_device(mems["mems"], mems["n_mem"], max_occ))
+    if keep_mems:
+        out["mems"] = mems["mems"]
+        out["n_mem"] = mems["n_mem"]
+    return out
+
+
+def pack_codes_2bit(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host wire packing of read codes: 2-bit base codes (4 per byte)
+    plus an ambiguity bitmap (8 per byte). The width pads to a multiple
+    of 8 with code 4. Unpacked on the device by ``unpack_codes``."""
+    codes = np.asarray(codes, np.uint8)
+    B, W = codes.shape
+    Wp = -(-W // 8) * 8
+    if Wp != W:
+        codes = np.concatenate(
+            [codes, np.full((B, Wp - W), 4, np.uint8)], axis=1)
+    nm = codes >= 4
+    c2 = np.where(nm, 0, codes).reshape(B, Wp // 4, 4)
+    u2 = ((c2 << (2 * np.arange(4, dtype=np.uint8))).sum(
+        axis=2, dtype=np.uint32)).astype(np.uint8)
+    nmb = np.packbits(nm, axis=1, bitorder="little")
+    return u2, nmb
+
+
+def unpack_codes(u2: torch.Tensor, nm: torch.Tensor) -> torch.Tensor:
+    """Device inverse of ``pack_codes_2bit``: (B, W/4) 2-bit words and
+    the (B, W/8) ambiguity bitmap -> (B, W) int32 codes 0..4."""
+    B, Wq = u2.shape
+    dev = u2.device
+    u2 = u2.to(torch.int32)
+    c = ((u2[:, :, None] >> (2 * torch.arange(4, device=dev))) & 3
+         ).reshape(B, Wq * 4)
+    m = ((nm.to(torch.int32)[:, :, None] >> torch.arange(8, device=dev)) & 1
+         ).reshape(B, -1)[:, : Wq * 4]
+    return torch.where(m == 1, 4, c).to(torch.int32)
+
+
+def pack_out(out: dict, cap: int, narrow: bool) -> dict:
+    """Row-compact the (B, R) region tables: read i's n_regs live rows
+    go to flat (cap,) arrays at off[i] = exclusive cumsum of counts;
+    rows past ``cap`` are dropped and the host detects them
+    (finalize.maybe_unpack). Narrow fields ship as int16."""
+    regs = out["regs"]
+    B, R = regs["qb"].shape
+    dev = regs["qb"].device
+    nr = out["n_regs"].clamp(max=R)
+    off = (torch.cumsum(nr, 0) - nr).to(torch.int32)
+    r_i = torch.arange(R, device=dev)[None, :]
+    valid = r_i < nr[:, None]
+    dst = torch.where(valid, off[:, None] + r_i, cap).reshape(-1).long()
+    packed = {}
+    for k, a in regs.items():
+        dt = torch.int16 if (narrow and k in _NARROW_FIELDS) else a.dtype
+        flat = torch.zeros(cap + 1, dtype=dt, device=dev)
+        flat[dst] = a.reshape(-1).to(dt)
+        packed[k] = flat[:cap]
+    return dict(out, regs=packed, off=off)
+
+
+def to_host(tree):
+    """numpy copy of a (nested dict of) tensor(s)."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
+@dataclass
+class Aligner:
+    """An index bound to options and a torch device, ready to align read
+    batches (the port of the JAX ``Aligner`` for ``mode="full"``)."""
+
+    index: FMIndex
+    options: AlignOptions
+    device: torch.device
+    fm: kfm.FMDevice
+    pac_rows: torch.Tensor
+    kmer: dict
+
+    @classmethod
+    def build(cls, index: FMIndex, options: AlignOptions | None = None,
+              device="cuda") -> "Aligner":
+        """Upload ``index``'s tables to ``device``. A CUDA device without
+        a card raises; nothing falls back to the CPU."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Aligner.build(device='cuda'): no CUDA device")
+        opts = options or AlignOptions()
+        if not (layout.kmer_eligible(index, opts)
+                and layout.smax_for(opts.max_mem_intv) >= 1):
+            raise NotImplementedError(
+                "indexes or options the kmer seeder cannot take (the FM "
+                "seeder as the main seeder) are a later slice of the "
+                "PyTorch port")
+        t = layout.to_device(layout.tables_from_host(index), device)
+        return cls(index=index, options=opts, device=device,
+                   fm=kfm.FMDevice.from_tables(t), pac_rows=t["pac_rows"],
+                   kmer=dict(bmeta=t["bmeta"], entries=t["entries"],
+                             kmer_meta=t["kmer_meta"]))
+
+    def _mat(self) -> torch.Tensor:
+        opt = self.options
+        return torch.from_numpy(
+            fill_scmat(opt.match_score, opt.mismatch_penalty)).to(self.device)
+
+    def _step_kwargs(self, W: int, keep_mems: bool = False):
+        """The device-step kwargs for a batch of width ``W``; returns
+        (kwargs, narrow)."""
+        opt = self.options
+        split_len = int(opt.min_seed_len * opt.reseed_factor + 0.499)
+        narrow = (W * max(int(opt.match_score), 1) < 30000
+                  and int(opt.bandwidth) * 16 < 30000 and W < 30000)
+        mcw = int(opt.min_chain_weight)
+        min_l = 1.1 * mcw if mcw else 5.5 * math.log(W)
+        if min_l <= 0.05 * W:
+            raise NotImplementedError(
+                "the seed-SW filter (min_chain_weight at this read width) "
+                "is a later slice of the PyTorch port")
+        common = dict(
+            min_seed_len=opt.min_seed_len, split_len=split_len,
+            split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+            max_occ=opt.resolve_max_occ(self.index.n_refs),
+            max_seeds=64 if W <= 512 else W // 12 + 64,
+            max_chains=16 if W <= 512 else 32,
+            match_score=opt.match_score, mismatch_penalty=opt.mismatch_penalty,
+            o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins,
+            bandwidth=opt.bandwidth, zdrop=opt.zdrop,
+            pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
+            min_chain_weight=opt.min_chain_weight,
+            max_chain_gap=opt.max_chain_gap,
+            mask_level=opt.mask_level, chain_drop_ratio=opt.chain_drop_ratio,
+            sa_interval=self.index.sa_interval, keep_mems=keep_mems,
+            kmer=self.kmer,
+        )
+        return common, narrow
+
+    def device_regions(self, batch: ReadBatch, keep_mems: bool = False
+                       ) -> dict:
+        """Run the device pipeline on one batch (no host finalize);
+        returns the host dict of the JAX ``Aligner.device_regions``:
+        packed regions + n_regs + overflow + l_rep, or with ``keep_mems``
+        the dense regions plus the seed-interval tables."""
+        u2, nmb = pack_codes_2bit(np.asarray(batch.codes, np.uint8))
+        codes = unpack_codes(torch.from_numpy(u2).to(self.device),
+                             torch.from_numpy(nmb).to(self.device))
+        lens = torch.from_numpy(np.asarray(batch.lens, np.int32)).to(
+            self.device)
+        B, W = codes.shape
+        common, narrow = self._step_kwargs(W, keep_mems)
+        out = full_align_step(self.fm, self.pac_rows, codes, lens,
+                              self._mat(), **common)
+        if not keep_mems:
+            out = pack_out(out, (5 * B) // 4, narrow)
+        return to_host(out)
+
+    # overflow-retry row buckets (the JAX package's compiled-program
+    # buckets; kept so both retry the same rows)
+    RETRY_BUCKETS = (64, 256, 1024)
+
+    def _fat_retry(self, codes_sel: np.ndarray, lens_sel: np.ndarray) -> dict:
+        """One fat-cap FM-seeder run over the selected overflow rows
+        (padded to a RETRY_BUCKETS row bucket); returns the host dict."""
+        k, W = codes_sel.shape
+        bucket = next(b for b in self.RETRY_BUCKETS if b >= k)
+        codes = np.full((bucket, W), 4, np.uint8)
+        codes[:k] = codes_sel
+        lens = np.zeros(bucket, np.int32)
+        lens[:k] = lens_sel
+        common, _ = self._step_kwargs(W)
+        common.update(
+            max_cand=32, max_mem=32,
+            max_seeds=max(2 * common["max_seeds"], 128),
+            max_chains=2 * common["max_chains"],
+            max_iters=3 * (10 * W + 256), max_regs=16,
+            # the retried rows are the ones the kmer fast path could not
+            # hold exact: run the FM seeder
+            kmer=None,
+        )
+        out = full_align_step(
+            self.fm, self.pac_rows,
+            torch.from_numpy(codes).to(self.device, torch.int32),
+            torch.from_numpy(lens).to(self.device), self._mat(), **common)
+        return to_host(out)
+
+    @staticmethod
+    def _splice_retry(out: dict, ovf: np.ndarray, r: dict, base: int) -> dict:
+        """Write retry rows r[base : base + len(ovf)] back into the dense
+        out tables (growing R when the retry has more region slots)."""
+        k = ovf.size
+        R_old = next(iter(out["regs"].values())).shape[1]
+        R_new = next(iter(r["regs"].values())).shape[1]
+        regs = {}
+        for key, a in out["regs"].items():
+            a = np.asarray(a)
+            if R_new > R_old:
+                a = np.concatenate(
+                    [a, np.zeros((a.shape[0], R_new - R_old), a.dtype)],
+                    axis=1)
+            else:
+                a = a.copy()
+            a[ovf] = np.asarray(r["regs"][key])[base : base + k].astype(a.dtype)
+            regs[key] = a
+        out = dict(out, regs=regs)
+        for key in ("n_regs", "overflow", "l_rep"):
+            if out.get(key) is not None:
+                col = np.asarray(out[key]).copy()
+                col[ovf] = np.asarray(r[key])[base : base + k]
+                out[key] = col
+        return out
+
+    def absorb_overflow(self, batch: ReadBatch, out: dict) -> dict:
+        """Re-run overflow rows on the device with fat caps before the
+        host oracle sees them; returns the unpacked out dict with the
+        retried rows spliced in (unchanged when nothing overflowed or
+        more rows overflowed than the largest bucket)."""
+        from bioseqdb_tpu.align.finalize import maybe_unpack
+
+        if "mems" in out:
+            return out
+        out = maybe_unpack(out)
+        n = len(batch.names)
+        ovf = np.flatnonzero(np.asarray(out["overflow"])[:n])
+        if ovf.size == 0 or ovf.size > self.RETRY_BUCKETS[-1]:
+            return out
+        r = self._fat_retry(np.asarray(batch.codes, np.uint8)[ovf],
+                            np.asarray(batch.lens, np.int32)[ovf])
+        return self._splice_retry(out, ovf, r, 0)
+
+    def align_batch(self, batch: ReadBatch,
+                    with_query_ids: bool = True) -> list[ReadResult]:
+        """Align a packed batch (BWA-MEM semantics); per-read results."""
+        from bioseqdb_tpu.align.finalize import finalize_batch
+
+        out = self.absorb_overflow(batch, self.device_regions(batch))
+        return finalize_batch(self.index, self.options, batch, out,
+                              with_query_ids)
+
+
+def align(reads, index: FMIndex, options: AlignOptions | None = None,
+          device="cuda") -> list[ReadResult]:
+    """One-shot: align sequences (or a ReadBatch) against an index."""
+    if not isinstance(reads, ReadBatch):
+        reads = pack_reads(list(reads))
+    return Aligner.build(index, options, device=device).align_batch(reads)

@@ -1,0 +1,353 @@
+"""Batched SMEM seeding: the FM-index state machine on torch tensors.
+
+The port of ``bioseqdb_tpu/kernels/seed.py`` ``collect_seeds_device``:
+each read is a lane running the three seeding rounds of bwa's
+mem_collect_intv (pivot / forward pass / backward pass / re-seed /
+LAST-like pass); every step performs one batched FMD extension for all
+live lanes. The JAX ``while_loop`` becomes a Python loop that checks for
+live lanes every ``CHUNK`` steps and runs each chunk on the live lanes
+only (lanes are independent, so compaction changes nothing).
+
+Dropped from the TPU version, with unchanged results: multi-candidate
+columns (``kcand > 1``), quad rows, the r3 jump table, and the fetch
+sharing itself. The per-lane step budget ``max_iters`` still counts the
+extra step that fetch sharing spends on a lane whose two rank positions
+fall in different 1024-base octo rows, so the overflow mask equals the
+JAX machine's whenever that machine runs without the r3 jump (the
+reseed entry of the main path). With the jump (the FM seeder's full
+machine) the JAX machine spends fewer steps on round 3, and a lane near
+the budget may overflow here and not there; overflow lanes go to the
+fat retry or the host oracle, so records stay equal.
+
+Returns the JAX layout: mems int32[B, M, 5] (k, l = 0, s, start, end),
+n_mem, overflow, iters, it_r1, it_r2.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row
+
+PH_PIVOT = 0   # choose the next pivot / round transition
+PH_FWD = 1     # forward pass of smem1
+PH_BWD = 2     # backward pass of smem1
+PH_R3 = 3      # bwt_seed_strategy1 forward scan
+PH_DONE = 4
+
+RD_SMEM = 0    # round 1: SMEMs
+RD_RESEED = 1  # round 2: re-seed long low-occ SMEMs
+RD_LAST = 2    # round 3: LAST-like seeds
+
+CHUNK = 32     # state-machine steps between live-lane checks
+
+
+def collect_seeds_device(
+    fm: kfm.FMDevice,
+    codes: torch.Tensor,   # int[B, W] 0..3 bases, >= 4 ambiguous/padding
+    lens: torch.Tensor,    # int32[B]
+    min_seed_len: int,
+    split_len: int,
+    split_width: int,
+    max_mem_intv: int,
+    max_cand: int = 24,
+    max_mem: int = 48,
+    max_iters: int = 0,
+    entry_reseed: bool = False,
+    reseed_entry: dict | None = None,
+) -> dict:
+    """All three seeding rounds for a batch of reads (or, with
+    ``entry_reseed``, round 2 alone from preloaded round-1/3 mems:
+    ``reseed_entry`` holds mem_s/mem_b/mem_e/n_mem and the ``active``
+    lanes). ``max_iters`` 0 means the default per-lane budget."""
+    B, W = codes.shape
+    P, M = max_cand, max_mem
+    dev = codes.device
+    i32 = torch.int32
+    if max_iters <= 0:
+        # the JAX machine's default under fetch sharing (its split-row
+        # stalls are counted below)
+        max_iters = (40 * W + 1024) // 3
+    primary = fm.primary
+    L2 = fm.L2
+
+    z = lambda *s: torch.zeros(*s, dtype=i32, device=dev)
+    st = dict(
+        phase=torch.where(lens > 0, PH_PIVOT, PH_DONE).to(i32),
+        round=z(B), x=z(B), i=z(B),
+        ik=z(B, 3),                      # current bi-interval (k, l, s)
+        ik_end=z(B),
+        cand=z(B, P, 3), n_cand=z(B),    # candidates (k, s, end)
+        prev=z(B, P, 3), n_prev=z(B),
+        curr=z(B, P, 3), n_curr=z(B),
+        j=z(B), ret=z(B),
+        rev1=torch.zeros(B, dtype=torch.bool, device=dev),
+        min_intv=torch.ones(B, dtype=i32, device=dev),
+        mem_k=z(B, M), mem_s=z(B, M), mem_b=z(B, M), mem_e=z(B, M),
+        n_mem=z(B), n_mem_r1=z(B), r2i=z(B),
+        last_start=torch.full((B,), W + 1, dtype=i32, device=dev),
+        iters=z(B), it_r1=z(B), it_r2=z(B),
+        overflow=torch.zeros(B, dtype=torch.bool, device=dev),
+        codes=codes.to(torch.int64), lens=lens.to(i32),
+    )
+    if entry_reseed:
+        pre = reseed_entry
+        M0 = pre["mem_s"].shape[1]
+        ld = lambda a: torch.nn.functional.pad(a.to(i32), (0, M - M0))
+        st["mem_s"] = ld(pre["mem_s"])
+        st["mem_b"] = ld(pre["mem_b"])
+        st["mem_e"] = ld(pre["mem_e"])
+        st["n_mem"] = pre["n_mem"].to(i32)
+        st["n_mem_r1"] = pre["n_mem"].to(i32)
+        st["round"] = torch.full((B,), RD_RESEED, dtype=i32, device=dev)
+        st["phase"] = torch.where(pre["active"] & (lens > 0),
+                                  PH_PIVOT, PH_DONE).to(i32)
+
+    def qat(s, pos):
+        """Code at per-lane column ``pos`` (clamped): 0..3 base, >= 4
+        ambiguous."""
+        p = pos.long().clamp(0, W - 1)
+        return torch.gather(s["codes"], 1, p[:, None])[:, 0]
+
+    def set_intv(c):
+        c = c.clamp(0, 3)
+        k = L2[c] + 1
+        l = L2[3 - c] + 1
+        s = L2[c + 1] - L2[c]
+        return torch.stack([k, l, s], -1).to(i32)
+
+    def push_row(buf, n, row, do):
+        cap = buf.shape[1]
+        ovf = do & (n >= cap)
+        write = do & ~ovf
+        buf = put_row(buf, torch.clamp(n, max=cap - 1), row, write)
+        return buf, n + write.to(i32), ovf
+
+    w_ = lambda c, a, b: torch.where(c, a, b)
+
+    def pivot_step(st):
+        st = dict(st)
+        phase, rnd, L, x = st["phase"], st["round"], st["lens"], st["x"]
+        qx = qat(st, x)
+        at_pivot = phase == PH_PIVOT
+        to_r2 = at_pivot & (rnd == RD_SMEM) & (x >= L)
+        rnd = w_(to_r2, RD_RESEED, rnd)
+        st["n_mem_r1"] = w_(to_r2, st["n_mem"], st["n_mem_r1"])
+        r2i = w_(to_r2, 0, st["r2i"])
+        st["it_r1"] = w_(to_r2, st["iters"], st["it_r1"])
+
+        at_r2 = at_pivot & (rnd == RD_RESEED)
+        r2ix = r2i.clamp(0, M - 1)
+        r2_s = pick_row(st["mem_s"], r2ix)
+        r2_b = pick_row(st["mem_b"], r2ix)
+        r2_e = pick_row(st["mem_e"], r2ix)
+        r2_eligible = ((r2_e - r2_b) >= split_len) & (r2_s <= split_width)
+        r2_exhausted = at_r2 & (r2i >= st["n_mem_r1"])
+        r2_skip = at_r2 & ~r2_exhausted & ~r2_eligible
+        r2_go = at_r2 & ~r2_exhausted & r2_eligible
+        r2i = w_(r2_skip, r2i + 1, r2i)
+
+        to_r3 = r2_exhausted
+        rnd = w_(to_r3, RD_LAST, rnd).to(i32)
+        st["round"] = rnd
+        x = w_(to_r3, 0, x)
+        st["it_r2"] = w_(to_r3, st["iters"], st["it_r2"])
+        at_r3p = at_pivot & (rnd == RD_LAST)
+        r3_off = at_r3p & ((max_mem_intv <= 0) | (x >= L))
+        st["phase"] = w_(r3_off, PH_DONE, st["phase"])
+
+        p1 = at_pivot & (rnd == RD_SMEM) & (x < L)
+        x = w_(p1 & (qx >= 4), x + 1, x)
+        go1 = p1 & (qx < 4)
+        go2 = r2_go
+        x = w_(go2, (r2_b + r2_e) >> 1, x)
+        st["min_intv"] = w_(go2, r2_s + 1, w_(go1, 1, st["min_intv"]))
+        go = go1 | go2
+        qpiv = qat(st, x)
+        piv_amb2 = go2 & (qpiv >= 4)   # re-seed pivot on an N: skip it
+        r2i = w_(piv_amb2, r2i + 1, r2i)
+        go = go & ~piv_amb2
+        st["ik"] = w_(go[:, None], set_intv(qpiv), st["ik"])
+        st["ik_end"] = w_(go, x + 1, st["ik_end"])
+        st["i"] = w_(go, x + 1, st["i"])
+        st["n_cand"] = w_(go, 0, st["n_cand"])
+        st["phase"] = w_(go, PH_FWD, st["phase"])
+
+        p3 = at_r3p & ~r3_off & (max_mem_intv > 0)
+        q3 = qat(st, x)
+        amb3 = p3 & (q3 >= 4)
+        x = w_(amb3, x + 1, x)
+        go3 = p3 & ~amb3
+        st["ik"] = w_(go3[:, None], set_intv(q3), st["ik"])
+        st["i"] = w_(go3, x + 1, st["i"])
+        st["phase"] = w_(go3, PH_R3, st["phase"]).to(i32)
+        st["x"] = x.to(i32)
+        st["r2i"] = r2i.to(i32)
+        return st
+
+    def body(st):
+        st = dict(st)
+        over_budget = (st["phase"] != PH_DONE) & (st["iters"] >= max_iters)
+        st["overflow"] = st["overflow"] | over_budget
+        st["phase"] = w_(over_budget, PH_DONE, st["phase"])
+        st["iters"] = st["iters"] + (st["phase"] != PH_DONE).to(i32)
+
+        st = pivot_step(st)
+
+        phase = st["phase"]
+        L = st["lens"]
+        x, i, j = st["x"], st["i"], st["j"]
+        qi = qat(st, i)
+        in_fwd = phase == PH_FWD
+        in_bwd = phase == PH_BWD
+        in_r3 = phase == PH_R3
+        nB = phase.shape[0]
+
+        j_eff = w_(st["rev1"], st["n_prev"] - 1 - j, j)
+        bwd_iv = pick_row(st["prev"], j_eff.clamp(0, P - 1))     # (B, 3)
+        src_k = w_(in_bwd, bwd_iv[:, 0], st["ik"][:, 0])
+        src_s = w_(in_bwd, bwd_iv[:, 1], st["ik"][:, 2])
+        src_l = w_(in_bwd, 0, st["ik"][:, 1])
+        a = w_(in_bwd, src_k, src_l)
+        b = w_(in_bwd, src_l, src_k)
+        s_eff = src_s.clamp(min=0)
+
+        # the JAX machine fetches one octo row per lane and stalls one
+        # step when the pair (a, a + s) spans two rows: count that step
+        qok = qi < 4
+        consume = ((in_fwd & (i < L) & qok) | (in_bwd & (i >= 0) & qok)
+                   | (in_r3 & (i < L) & qok))
+        jA = a - (a > primary).to(i32)
+        posB = a + s_eff
+        jB = posB - (posB > primary).to(i32)
+        split = consume & ((jA >> 10) != (jB >> 10))
+        over2 = split & (st["iters"] >= max_iters)
+        st["overflow"] = st["overflow"] | over2
+        st["phase"] = w_(over2, PH_DONE, st["phase"])
+        st["iters"] = st["iters"] + (split & ~over2).to(i32)
+        in_fwd = in_fwd & ~over2
+        in_bwd = in_bwd & ~over2
+        in_r3 = in_r3 & ~over2
+
+        rows, blk, off = kfm.occ_rows_for(fm, torch.cat([a, posB]))
+        occ = kfm.occ4_from_row(fm, rows, blk, off)
+        k4, l4, s4 = kfm.fmd_extend_from_occ(fm, a, b, s_eff, occ[:nB],
+                                             occ[nB:])
+        c_sel = w_(in_bwd, qi, 3 - qi).clamp(0, 3)[:, None]
+        pk = lambda t: torch.gather(t, 1, c_sel)[:, 0]
+        ok_k = pk(w_(in_bwd[:, None], k4, l4))
+        ok_l = pk(w_(in_bwd[:, None], l4, k4))
+        ok_s = pk(s4)
+
+        new = dict(st)
+        # ---- PH_FWD ----
+        fwd_end = in_fwd & (i >= L)
+        fwd_amb = in_fwd & (i < L) & (qi >= 4)
+        fwd_ext = in_fwd & (i < L) & qok
+        ik_row = torch.stack([st["ik"][:, 0], st["ik"][:, 2], st["ik_end"]], 1)
+        size_change = fwd_ext & (ok_s != st["ik"][:, 2])
+        push_fwd = fwd_end | fwd_amb | size_change
+        new["cand"], new["n_cand"], ovf1 = push_row(
+            new["cand"], new["n_cand"], ik_row, push_fwd)
+        new["overflow"] = st["overflow"] | ovf1
+        drop_below = size_change & (ok_s < st["min_intv"])
+        adv = fwd_ext & ~drop_below
+        new["ik"] = w_(adv[:, None], torch.stack([ok_k, ok_l, ok_s], 1),
+                       new["ik"])
+        new["ik_end"] = w_(adv, i + 1, new["ik_end"])
+        new["i"] = w_(adv, i + 1, new["i"])
+        fwd_done = fwd_end | fwd_amb | drop_below
+        new["prev"] = w_(fwd_done[:, None, None], new["cand"], st["prev"])
+        new["n_prev"] = w_(fwd_done, new["n_cand"], st["n_prev"])
+        new["rev1"] = w_(fwd_done, True, st["rev1"])
+        lastc = (new["n_cand"] - 1).clamp(0, P - 1)
+        new["ret"] = w_(fwd_done, pick_row(new["cand"][:, :, 2], lastc),
+                        st["ret"])
+        new["i"] = w_(fwd_done, x - 1, new["i"])
+        new["j"] = w_(fwd_done, 0, st["j"])
+        new["n_curr"] = w_(fwd_done, 0, st["n_curr"])
+        new["last_start"] = w_(fwd_done, W + 1, st["last_start"])
+        new["phase"] = w_(fwd_done, PH_BWD, new["phase"])
+
+        # ---- PH_BWD (one candidate per step) ----
+        bw_i = i
+        c_ok = in_bwd & (bw_i >= 0) & qok
+        n_curr_r = st["n_curr"]
+        last_s_r = pick_row(st["curr"][:, :, 1],
+                            (n_curr_r - 1).clamp(0, P - 1))
+        fail = in_bwd & (~c_ok | (c_ok & (ok_s < st["min_intv"])))
+        emit = fail & (n_curr_r == 0) & (bw_i + 1 < st["last_start"])
+        emit = emit & ((bwd_iv[:, 2] - (bw_i + 1)) >= min_seed_len)
+        last_start_r = w_(emit, bw_i + 1, st["last_start"])
+        keep = in_bwd & c_ok & (ok_s >= st["min_intv"])
+        push_t = keep & ((n_curr_r == 0) | (ok_s != last_s_r))
+        ovf_bwd = push_t & (n_curr_r >= P)
+        wr_c = push_t & (n_curr_r < P)
+        curr_row = torch.stack([ok_k, ok_s, bwd_iv[:, 2]], 1)
+        curr_buf = put_row(st["curr"], n_curr_r.clamp(max=P - 1), curr_row,
+                           wr_c)
+        n_curr_r = n_curr_r + wr_c.to(i32)
+
+        # ---- PH_R3 (its emit shares the mems push) ----
+        r3_end = in_r3 & (i >= L)
+        r3_amb = in_r3 & (i < L) & (qi >= 4)
+        r3_ext = in_r3 & (i < L) & qok
+        hit = r3_ext & (ok_s < max_mem_intv) & ((i - x) >= min_seed_len)
+        emit3 = hit & (ok_s > 0)
+        push_any = emit | emit3
+        pv = [w_(emit, bwd_iv[:, 0], ok_k), w_(emit, bwd_iv[:, 1], ok_s),
+              w_(emit, bw_i + 1, x), w_(emit, bwd_iv[:, 2], i + 1)]
+        nmm = new["n_mem"]
+        ovf2 = push_any & (nmm >= M)
+        wr = push_any & ~ovf2
+        slot = nmm.clamp(max=M - 1)
+        for name, v in zip(("mem_k", "mem_s", "mem_b", "mem_e"), pv):
+            new[name] = put_row(new[name], slot, v, wr)
+        new["n_mem"] = nmm + wr.to(i32)
+        new["overflow"] = new["overflow"] | ovf2 | ovf_bwd
+        new["last_start"] = w_(in_bwd, last_start_r, new["last_start"])
+        new["curr"] = w_(in_bwd[:, None, None], curr_buf, new["curr"])
+        new["n_curr"] = w_(in_bwd, n_curr_r, new["n_curr"])
+        nj = j + 1
+        dead = in_bwd & ((bw_i < 0) | (qi >= 4))
+        row_done = in_bwd & ((nj >= st["n_prev"]) | dead)
+        new["j"] = w_(in_bwd, w_(row_done, 0, nj), new["j"])
+        bwd_finished = row_done & (new["n_curr"] == 0)
+        cont2 = row_done & ~bwd_finished
+        new["prev"] = w_(cont2[:, None, None], new["curr"], new["prev"])
+        new["n_prev"] = w_(cont2, new["n_curr"], new["n_prev"])
+        new["rev1"] = w_(cont2, False, new["rev1"])
+        new["n_curr"] = w_(cont2, 0, new["n_curr"])
+        new["i"] = w_(cont2, bw_i - 1, new["i"])
+        new["phase"] = w_(bwd_finished, PH_PIVOT, new["phase"])
+        rnd = st["round"]
+        new["x"] = w_(bwd_finished & (rnd == RD_SMEM), st["ret"], new["x"])
+        new["r2i"] = w_(bwd_finished & (rnd == RD_RESEED), st["r2i"] + 1,
+                        new["r2i"])
+
+        r3_stop = r3_end | r3_amb | hit
+        new["x"] = w_(r3_stop & in_r3, w_(r3_end, L, i + 1), new["x"])
+        new["phase"] = w_(r3_stop, PH_PIVOT, new["phase"])
+        keep3 = r3_ext & ~hit
+        new["ik"] = w_(keep3[:, None], torch.stack([ok_k, ok_l, ok_s], 1),
+                       new["ik"])
+        new["i"] = w_(keep3, i + 1, new["i"])
+        return {k: (v.to(st[k].dtype) if v.dtype != st[k].dtype else v)
+                for k, v in new.items()}
+
+    st = {k: v.clone() for k, v in st.items()}  # updated in place below
+    while True:
+        live = torch.nonzero(st["phase"] != PH_DONE)[:, 0]
+        if live.numel() == 0:
+            break
+        sub = {k: v[live] for k, v in st.items()}
+        for _ in range(CHUNK):
+            sub = body(sub)
+        for k, v in sub.items():
+            st[k][live] = v
+
+    mems5 = torch.stack([st["mem_k"], torch.zeros_like(st["mem_k"]),
+                         st["mem_s"], st["mem_b"], st["mem_e"]], 2)
+    return dict(mems=mems5, n_mem=st["n_mem"], overflow=st["overflow"],
+                iters=st["iters"], it_r1=st["it_r1"], it_r2=st["it_r2"])

@@ -1,0 +1,39 @@
+"""The port runs without jax: the machine with the card has none.
+
+A subprocess blocks ``jax`` and ``jaxlib`` before any import, imports
+every module of ``bioseqdb_tpu_torch`` and aligns a few reads on the
+CPU."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import importlib
+import bioseqdb_tpu_torch
+for m in pkgutil.walk_packages(bioseqdb_tpu_torch.__path__, "bioseqdb_tpu_torch."):
+    importlib.import_module(m.name)
+from bioseqdb_tpu.index.builder import build_index
+from bioseqdb_tpu.utils.sim import simulate_genome, simulate_reads
+from bioseqdb_tpu_torch import align
+g = simulate_genome(30_000, seed=5)
+sim = simulate_reads(g, 6, read_len=150, sub_rate=0.01, seed=6)
+res = align(sim.reads, build_index([("g", g)]), device="cpu")
+ok = sum(r.hits[0].ref_begin == p for r, p in zip(res, sim.positions) if r.hits)
+assert ok == 6, ok
+assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
+               if v is not None)
+print("NOJAX_OK")
+"""
+
+
+def test_port_imports_and_aligns_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "NOJAX_OK" in r.stdout, r.stderr[-3000:]

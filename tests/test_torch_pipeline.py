@@ -1,0 +1,143 @@
+"""The slice as a whole: port == JAX package == host oracle.
+
+One read batch goes through the port's ``Aligner`` (torch on the CPU,
+plain kernels) and the JAX ``Aligner``: the dense ``device_regions``
+tables after ``maybe_unpack``, then ``absorb_overflow`` (the fat-cap FM
+retry), ``finalize_columns`` and the SAM text. The reads include repeat
+reads that overflow the kmer fast path, so the retry runs on both sides.
+The JAX retry uses the r3 jump table and the port does not, so a lane
+may overflow the seeding budget on one side only: the retried tables
+are compared where neither side overflowed, and the records must be
+equal everywhere. Reads off their simulated origin are checked against
+the host oracle."""
+
+import numpy as np
+import pytest
+
+import jax
+import torch
+
+from bioseqdb_tpu.align.columns import finalize_columns
+from bioseqdb_tpu.align.finalize import maybe_unpack
+from bioseqdb_tpu.align.options import AlignOptions
+from bioseqdb_tpu.align.pipeline import Aligner as JAligner
+from bioseqdb_tpu.cpu import oracle as O
+from bioseqdb_tpu.index.builder import build_index
+from bioseqdb_tpu.io.batch import pack_reads
+from bioseqdb_tpu.sam.emit import emit_sam_columns
+from bioseqdb_tpu.utils.sim import simulate_genome, simulate_reads
+from bioseqdb_tpu_torch.align.pipeline import Aligner, align
+
+
+@pytest.fixture(scope="module")
+def run():
+    core = simulate_genome(120_000, seed=61)
+    rep = simulate_genome(600, seed=62)
+    g = core[:30000] + rep + core[30000:70000] + rep + core[70000:]
+    idx = build_index([("chrA", g), ("chrB", simulate_genome(20_000, seed=63))])
+    sim = simulate_reads(g, 112, read_len=150, sub_rate=0.01, seed=64)
+    reads = list(sim.reads)
+    reads += [g[30000 + 70 * k : 30150 + 70 * k] for k in range(6)]  # repeats
+    reads += [g[5000:5070] + g[90000:90080], "N" * 150,
+              g[44000:44060] + "NNN" + g[44063:44150]]
+    names = [f"r{i}" for i in range(len(reads))]
+    batch = pack_reads(reads, names)
+    opt = AlignOptions()
+
+    jal = JAligner.build(idx, opt, mode="full")
+    j_out = jax.device_get(jal.device_regions(batch))
+    j_abs = jal.absorb_overflow(batch, j_out)
+    tal = Aligner.build(idx, opt, device="cpu")
+    t_out = tal.device_regions(batch)
+    t_abs = tal.absorb_overflow(batch, t_out)
+    cols = {}
+    for side, (al, ab) in dict(jax=(jal, j_abs), torch=(tal, t_abs)).items():
+        c = finalize_columns(idx, opt, batch, ab)
+        cols[side] = (c, emit_sam_columns(c, idx, batch, header=False))
+    return dict(idx=idx, opt=opt, g=g, sim=sim, batch=batch, reads=reads,
+                out=(j_out, t_out), abs=(j_abs, t_abs), cols=cols, tal=tal)
+
+
+def test_device_regions_wire_format_equal(run):
+    j_out, t_out = run["out"]
+    assert set(t_out) == set(j_out)
+    assert set(t_out["regs"]) == set(j_out["regs"])
+    for k in ("n_regs", "overflow", "l_rep", "off"):
+        a, b = np.asarray(j_out[k]), t_out[k]
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    for k, v in j_out["regs"].items():
+        a, b = np.asarray(v), t_out["regs"][k]
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    # repeat reads overflow the kmer fast path: the retry has work
+    assert np.asarray(j_out["overflow"]).sum() >= 3
+
+
+def test_dense_regions_equal(run):
+    j, t = (maybe_unpack(o) for o in run["out"])
+    for k in ("n_regs", "overflow", "l_rep"):
+        assert np.array_equal(np.asarray(j[k]), t[k]), k
+    for k, v in j["regs"].items():
+        assert np.array_equal(np.asarray(v), t["regs"][k]), k
+
+
+def test_absorb_overflow_equal(run):
+    j, t = run["abs"]
+    n = run["batch"].n
+    ovf_j, ovf_t = np.asarray(j["overflow"])[:n], t["overflow"][:n]
+    both = ~ovf_j & ~ovf_t
+    assert np.array_equal(np.asarray(j["n_regs"])[:n][both],
+                          t["n_regs"][:n][both])
+    for k, v in j["regs"].items():
+        assert np.array_equal(np.asarray(v)[:n][both], t["regs"][k][:n][both]), k
+    # the retry resolved the kmer fallbacks on both sides
+    assert ovf_t.sum() < np.asarray(run["out"][1]["overflow"])[:n].sum()
+
+
+def test_records_and_sam_equal(run):
+    (cj, sam_j), (ct, sam_t) = run["cols"]["jax"], run["cols"]["torch"]
+    assert sam_t == sam_j
+    for f in ("mapped", "pos", "rid", "mapq", "nm", "score", "sub", "is_rev",
+              "qb", "qe", "cig_len", "md_len"):
+        assert np.array_equal(getattr(cj, f), getattr(ct, f)), f
+
+
+def test_off_truth_reads_equal_oracle(run):
+    ct, _ = run["cols"]["torch"]
+    sim, batch, idx, opt = run["sim"], run["batch"], run["idx"], run["opt"]
+    n = len(sim.positions)
+    at_truth = (ct.mapped[:n] & (ct.pos[:n] == sim.positions)
+                & (ct.is_rev[:n] == sim.strands.astype(bool)))
+    assert at_truth.mean() > 0.95
+    check = list(np.flatnonzero(~at_truth)) + list(range(n, batch.n))
+    for i in check:
+        q = np.asarray(batch.codes)[i, : batch.lens[i]].astype(np.uint8)
+        regs = O.align_read(idx, opt, q, rand_id=int(i),
+                            min_score=opt.min_score, all_hits=True)
+        prim = next((a for a in regs if not a.flag & 0x100), None)
+        if prim is None:
+            assert not ct.mapped[i], i
+        else:
+            assert (bool(ct.mapped[i]), int(ct.pos[i]), bool(ct.is_rev[i]),
+                    int(ct.score[i])) == (True, prim.pos, bool(prim.is_rev),
+                                          prim.score), i
+
+
+def test_align_entry_point(run):
+    got = align(run["reads"][:8], run["idx"], run["opt"], device="cpu")
+    want = run["tal"].align_batch(pack_reads(run["reads"][:8]))
+    assert [[(h.ref_begin, h.cigar, h.score) for h in r.hits] for r in got] \
+        == [[(h.ref_begin, h.cigar, h.score) for h in r.hits] for r in want]
+    assert got[0].hits and got[0].hits[0].cigar
+
+
+def test_unsupported_inputs_raise(run):
+    idx = run["idx"]
+    with pytest.raises(NotImplementedError):
+        Aligner.build(idx, AlignOptions(min_seed_len=15), device="cpu")
+    with pytest.raises(NotImplementedError):   # smax_for(1) == 0
+        Aligner.build(idx, AlignOptions(max_mem_intv=1), device="cpu")
+    with pytest.raises(NotImplementedError):
+        run["tal"].device_regions(pack_reads([run["g"][:400]]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            Aligner.build(idx, AlignOptions(), device="cuda")
