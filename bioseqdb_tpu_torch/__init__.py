@@ -3,13 +3,20 @@
 Runs the single-end full-alignment path (kmer seeding, FM reseed,
 chaining, banded-SW extension) on a torch device; the banded SW is a
 hand-written CUDA kernel for Hopper (``csrc/sw_extend.cu``). The host
-half (index build, finalize, SAM) is the JAX package's jax-free code,
-reused as it is. Imports torch, never jax.
+half (index build, finalize, SAM, the oracle) is the port's own copy of
+the JAX package's jax-free modules, under the same relative paths.
+Imports torch, never jax, and nothing of ``bioseqdb_tpu``.
 
 Package map (mirrors ``bioseqdb_tpu``):
+- ``seq``, ``io``, ``index``  codec, FASTA/read batches, FM-index build
+  (native SA-IS), ``index.convert`` for indexes the JAX package built
 - ``index.layout``  host device-table layouts + upload
-- ``kernels``       FM queries, seeding, chaining, extension, SW (+ CUDA)
-- ``align.pipeline`` ``Aligner`` / ``align``
+- ``kernels``       FM queries, seeding, chaining, extension, SW (+ CUDA),
+  the gather/launch probes (``kernels.probes``, CUDA)
+- ``align``         ``pipeline`` (``Aligner`` / ``align``), options,
+  finalize, columns
+- ``cpu``, ``sam``, ``utils``  host oracle, SAM emission, read simulator
+- ``tools``         the probes' microbenchmarks (run on the card)
 """
 
 from bioseqdb_tpu_torch.align.pipeline import Aligner, align

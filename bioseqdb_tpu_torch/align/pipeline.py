@@ -6,9 +6,9 @@ the kmer seeder: ``Aligner.build`` uploads the index tables,
 resolution -> chaining -> chain filter -> extension on the device and
 returns the same host dict as the JAX ``Aligner.device_regions`` (the
 row-packed region wire format plus n_regs, overflow and l_rep), so the
-JAX package's host code (``absorb_overflow``'s unpack, finalize, SAM)
-runs on it unchanged. ``absorb_overflow`` re-runs overflow rows with fat
-caps on the FM seeder.
+port's copies of the JAX package's host code (``absorb_overflow``'s
+unpack, finalize, SAM) run on it unchanged. ``absorb_overflow`` re-runs
+overflow rows with fat caps on the FM seeder.
 
 Not in this slice (each raises ``NotImplementedError``): reads wider
 than 320 bases (the seed-SW filter of long reads), indexes the kmer
@@ -24,12 +24,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bioseqdb_tpu.align.options import AlignOptions
-from bioseqdb_tpu.align.result import ReadResult
-from bioseqdb_tpu.cpu.ksw import fill_scmat
-from bioseqdb_tpu.index.fmindex import FMIndex
-from bioseqdb_tpu.io.batch import ReadBatch, pack_reads
+from bioseqdb_tpu_torch.align.options import AlignOptions
+from bioseqdb_tpu_torch.align.result import ReadResult
+from bioseqdb_tpu_torch.cpu.ksw import fill_scmat
 from bioseqdb_tpu_torch.index import layout
+from bioseqdb_tpu_torch.index.fmindex import FMIndex
+from bioseqdb_tpu_torch.io.batch import ReadBatch, pack_reads
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.chain import (chain_seeds, filter_chains,
                                               l_rep_device, resolve_seeds)
@@ -342,7 +342,7 @@ class Aligner:
         host oracle sees them; returns the unpacked out dict with the
         retried rows spliced in (unchanged when nothing overflowed or
         more rows overflowed than the largest bucket)."""
-        from bioseqdb_tpu.align.finalize import maybe_unpack
+        from bioseqdb_tpu_torch.align.finalize import maybe_unpack
 
         if "mems" in out:
             return out
@@ -358,7 +358,7 @@ class Aligner:
     def align_batch(self, batch: ReadBatch,
                     with_query_ids: bool = True) -> list[ReadResult]:
         """Align a packed batch (BWA-MEM semantics); per-read results."""
-        from bioseqdb_tpu.align.finalize import finalize_batch
+        from bioseqdb_tpu_torch.align.finalize import finalize_batch
 
         out = self.absorb_overflow(batch, self.device_regions(batch))
         return finalize_batch(self.index, self.options, batch, out,

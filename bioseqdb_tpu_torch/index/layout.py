@@ -3,8 +3,8 @@
 Copies of the JAX package's host layout builders (``kernels/fm.py``
 ``pack_oct``, ``kernels/extend.py`` ``pack_doubled_rows`` and the host
 half of ``kernels/kmer.py``), kept byte-for-byte equal to them by
-``tests/test_torch_layout.py``. The JAX modules import jax at module
-level, so the port cannot import them on a machine without jax.
+``tests/test_torch_layout.py``. The port imports nothing of the JAX
+package, and those JAX modules import jax besides.
 
 ``tables_from_host`` returns every device table of an index as numpy
 arrays; ``to_device`` moves them onto a torch device. Together they are
@@ -19,7 +19,7 @@ import typing
 import numpy as np
 import torch
 
-from bioseqdb_tpu.index.fmindex import FMIndex
+from bioseqdb_tpu_torch.index.fmindex import FMIndex
 
 # ---- FM octo rows (kernels/fm.py pack_oct) ---------------------------------
 
@@ -230,8 +230,8 @@ def nmz_for(width: int) -> int:
 
 def kmer_table_arrays(idx: FMIndex) -> tuple[dict, KmerMeta]:
     """``build_kmer_table(idx.pac)``, cached in memory on the index
-    object (the port's own cache; ``FMIndex.kmer_table_arrays`` imports
-    the JAX package)."""
+    object (the port's own cache; the port's ``FMIndex`` carries no
+    ``kmer_table_arrays``)."""
     cached = getattr(idx, "_torch_kmer_cache", None)
     if cached is None:
         cached = build_kmer_table(np.asarray(idx.pac))

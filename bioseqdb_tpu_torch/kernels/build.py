@@ -7,8 +7,8 @@ Each source in ``bioseqdb_tpu_torch/csrc`` is compiled by ``nvcc`` for
 source never loads a stale library. ``build`` starts one ``nvcc`` per
 source, all at once.
 
-``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
-it launches its kernel, so a run can show that it went through the
+``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
+where it launches its kernel, so a run can show that it went through the
 kernels.
 """
 
@@ -25,11 +25,13 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = {"sw_extend": "sw_extend.cu"}
+SOURCES = {"sw_extend": "sw_extend.cu", "probes": "probes.cu"}
+KERNELS = ("sw_extend",                            # sw_extend.cu
+           "gather_rows", "gather_chain", "add_one")  # probes.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -55,7 +57,7 @@ def lib_path(name: str) -> Path:
 
 
 def build(names=None) -> dict:
-    """Compile the named kernels (all by default) that are not built yet,
+    """Compile the named sources (all by default) that are not built yet,
     one ``nvcc`` each, concurrently. Returns {name: nvcc log}; raises
     with the compiler's output if any build fails."""
     names = list(SOURCES) if names is None else list(names)
@@ -85,6 +87,6 @@ def build(names=None) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of source ``name``, built on first use."""
     build([name])
     return ctypes.CDLL(str(lib_path(name)))

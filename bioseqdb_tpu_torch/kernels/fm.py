@@ -15,8 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from bioseqdb_tpu.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK, FMIndex
 from bioseqdb_tpu_torch.index import layout
+from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK, FMIndex
 
 LOG2_OCC_BLOCK = 7
 LOG2_MAJOR = MAJOR_BLOCKS.bit_length() - 1

@@ -29,9 +29,12 @@ def sw_extend_batch(
     end_bonus: int, zdrop: int,
     h0: torch.Tensor,       # int32[B] initial score per lane
     max_qlen: int,
+    count_cells: bool = False,
 ) -> dict:
     """Batched ksw_extend. Returns dict of int32[B]: score, qle, tle,
-    gtle, gscore, max_off."""
+    gtle, gscore, max_off; with ``count_cells`` also ``cells``, int64[B]:
+    the DP cells each lane computed (its in-band columns summed over its
+    rows), the work a kernel must do on these inputs."""
     B = query.shape[0]
     dev = query.device
     i32 = torch.int32
@@ -64,6 +67,7 @@ def sw_extend_batch(
     gscore, max_off = z - 1, z.clone()
     active = (tlen > 0) & (qlen > 0)
     rows = torch.arange(B, device=dev)
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
 
     while bool(active.any()):
         beg_r = torch.maximum(beg, i - w)
@@ -71,6 +75,8 @@ def sw_extend_batch(
         tbase = target[rows, i.clamp(max=max_tlen - 1).long()]
         srow = prof[rows, tbase.clamp(0, 4).long()]             # (B, Q)
         in_band = (jj >= beg_r[:, None]) & (jj < end_r[:, None])
+        if count_cells:
+            cells += w_(active, (end_r - beg_r).clamp(min=0), 0)
         h1_bound = w_(beg_r == 0,
                       (h0 - (o_del + e_del * (i + 1))).clamp(min=0), 0)
 
@@ -137,5 +143,8 @@ def sw_extend_batch(
         i = w_(active, i + 1, i)
         active = active & ~terminated
 
-    return dict(score=mx, qle=max_j + 1, tle=max_i + 1, gtle=max_ie + 1,
-                gscore=gscore, max_off=max_off)
+    out = dict(score=mx, qle=max_j + 1, tle=max_i + 1, gtle=max_ie + 1,
+               gscore=gscore, max_off=max_off)
+    if count_cells:
+        out["cells"] = cells
+    return out

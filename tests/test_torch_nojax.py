@@ -1,8 +1,11 @@
-"""The port runs without jax: the machine with the card has none.
+"""The port stands alone: it runs without jax (the machine with the card
+has none) and imports nothing of the JAX package.
 
-A subprocess blocks ``jax`` and ``jaxlib`` before any import, imports
-every module of ``bioseqdb_tpu_torch`` and aligns a few reads on the
-CPU."""
+A subprocess blocks ``jax``, ``jaxlib`` and ``bioseqdb_tpu`` before any
+import, imports every module of ``bioseqdb_tpu_torch`` (its tools
+included) and ``chip_smoke`` as a module, builds an index with the port's
+own builder and read simulator, and aligns a few reads on the CPU. It
+then asserts that no ``jax`` or ``bioseqdb_tpu`` module was loaded."""
 
 import os
 import subprocess
@@ -11,23 +14,24 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
-import importlib
+import importlib, pkgutil, sys
+for blocked in ("jax", "jaxlib", "bioseqdb_tpu"):
+    sys.modules[blocked] = None
 import bioseqdb_tpu_torch
 for m in pkgutil.walk_packages(bioseqdb_tpu_torch.__path__, "bioseqdb_tpu_torch."):
     importlib.import_module(m.name)
-from bioseqdb_tpu.index.builder import build_index
-from bioseqdb_tpu.utils.sim import simulate_genome, simulate_reads
+import chip_smoke
 from bioseqdb_tpu_torch import align
+from bioseqdb_tpu_torch.index.builder import build_index
+from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
 g = simulate_genome(30_000, seed=5)
 sim = simulate_reads(g, 6, read_len=150, sub_rate=0.01, seed=6)
 res = align(sim.reads, build_index([("g", g)]), device="cpu")
 ok = sum(r.hits[0].ref_begin == p for r, p in zip(res, sim.positions) if r.hits)
 assert ok == 6, ok
-assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
-               if v is not None)
+loaded = [k for k, v in sys.modules.items() if v is not None and (
+    k.split(".")[0] in ("jax", "jaxlib", "bioseqdb_tpu"))]
+assert not loaded, loaded
 print("NOJAX_OK")
 """
 

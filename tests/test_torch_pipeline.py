@@ -9,7 +9,9 @@ The JAX retry uses the r3 jump table and the port does not, so a lane
 may overflow the seeding budget on one side only: the retried tables
 are compared where neither side overflowed, and the records must be
 equal everywhere. Reads off their simulated origin are checked against
-the host oracle."""
+the host oracle. The port's side runs on its own host code (read batch,
+finalize, SAM, oracle) and on the JAX index carried over with
+``fmindex_from_jax``."""
 
 import numpy as np
 import pytest
@@ -17,16 +19,22 @@ import pytest
 import jax
 import torch
 
-from bioseqdb_tpu.align.columns import finalize_columns
-from bioseqdb_tpu.align.finalize import maybe_unpack
-from bioseqdb_tpu.align.options import AlignOptions
+from bioseqdb_tpu.align.columns import finalize_columns as jfinalize_columns
+from bioseqdb_tpu.align.finalize import maybe_unpack as jmaybe_unpack
+from bioseqdb_tpu.align.options import AlignOptions as JAlignOptions
 from bioseqdb_tpu.align.pipeline import Aligner as JAligner
-from bioseqdb_tpu.cpu import oracle as O
 from bioseqdb_tpu.index.builder import build_index
-from bioseqdb_tpu.io.batch import pack_reads
-from bioseqdb_tpu.sam.emit import emit_sam_columns
+from bioseqdb_tpu.io.batch import pack_reads as jpack_reads
+from bioseqdb_tpu.sam.emit import emit_sam_columns as jemit_sam_columns
 from bioseqdb_tpu.utils.sim import simulate_genome, simulate_reads
+from bioseqdb_tpu_torch.align.columns import finalize_columns
+from bioseqdb_tpu_torch.align.finalize import maybe_unpack
+from bioseqdb_tpu_torch.align.options import AlignOptions
 from bioseqdb_tpu_torch.align.pipeline import Aligner, align
+from bioseqdb_tpu_torch.cpu import oracle as O
+from bioseqdb_tpu_torch.index.convert import fmindex_from_jax
+from bioseqdb_tpu_torch.io.batch import pack_reads
+from bioseqdb_tpu_torch.sam.emit import emit_sam_columns
 
 
 @pytest.fixture(scope="module")
@@ -41,20 +49,21 @@ def run():
     reads += [g[5000:5070] + g[90000:90080], "N" * 150,
               g[44000:44060] + "NNN" + g[44063:44150]]
     names = [f"r{i}" for i in range(len(reads))]
-    batch = pack_reads(reads, names)
-    opt = AlignOptions()
+    jbatch = jpack_reads(reads, names)
+    jal = JAligner.build(idx, JAlignOptions(), mode="full")
+    j_out = jax.device_get(jal.device_regions(jbatch))
+    j_abs = jal.absorb_overflow(jbatch, j_out)
+    jc = jfinalize_columns(idx, jal.options, jbatch, j_abs)
 
-    jal = JAligner.build(idx, opt, mode="full")
-    j_out = jax.device_get(jal.device_regions(batch))
-    j_abs = jal.absorb_overflow(batch, j_out)
-    tal = Aligner.build(idx, opt, device="cpu")
+    tidx, opt = fmindex_from_jax(idx), AlignOptions()
+    batch = pack_reads(reads, names)
+    tal = Aligner.build(tidx, opt, device="cpu")
     t_out = tal.device_regions(batch)
     t_abs = tal.absorb_overflow(batch, t_out)
-    cols = {}
-    for side, (al, ab) in dict(jax=(jal, j_abs), torch=(tal, t_abs)).items():
-        c = finalize_columns(idx, opt, batch, ab)
-        cols[side] = (c, emit_sam_columns(c, idx, batch, header=False))
-    return dict(idx=idx, opt=opt, g=g, sim=sim, batch=batch, reads=reads,
+    tc = finalize_columns(tidx, opt, batch, t_abs)
+    cols = dict(jax=(jc, jemit_sam_columns(jc, idx, jbatch, header=False)),
+                torch=(tc, emit_sam_columns(tc, tidx, batch, header=False)))
+    return dict(idx=tidx, opt=opt, g=g, sim=sim, batch=batch, reads=reads,
                 out=(j_out, t_out), abs=(j_abs, t_abs), cols=cols, tal=tal)
 
 
@@ -73,7 +82,7 @@ def test_device_regions_wire_format_equal(run):
 
 
 def test_dense_regions_equal(run):
-    j, t = (maybe_unpack(o) for o in run["out"])
+    j, t = jmaybe_unpack(run["out"][0]), maybe_unpack(run["out"][1])
     for k in ("n_regs", "overflow", "l_rep"):
         assert np.array_equal(np.asarray(j[k]), t[k]), k
     for k, v in j["regs"].items():

@@ -139,3 +139,31 @@ def test_random_sweep(seed):
 
 def test_pallas_interpret_agrees():
     run_both(random_pairs(5, n=12), pallas=True)
+
+
+@pytest.mark.parametrize("w", [100, 2])
+def test_count_cells(w):
+    """``count_cells`` leaves the six outputs as they are and counts each
+    lane's in-band cells: on identical sequences with a large h0 every
+    band cell stays live and no row ends early, so row i counts
+    min(qlen, i + w + 1) - max(0, i - w); a lane with nothing to align
+    counts 0."""
+    rng = np.random.default_rng(9)
+    same = [rng.integers(0, 4, n) for n in (1, 7, 20, 33)]
+    cases = [(s, s.copy(), 80) for s in same] + random_pairs(6, n=8)
+    cases.append((np.zeros(0, np.int64), rng.integers(0, 4, 9), 30))
+    q, qlen, t, tlen, h0 = (torch.from_numpy(x)
+                            for x in _pack(cases, 64, 128))
+    mat = torch.from_numpy(fill_scmat(1, 4).astype(np.int32))
+    args = (q, qlen, t, tlen, mat, 6, 1, 6, 1,
+            torch.full((len(cases),), w, dtype=torch.int32), 5, 100, h0, 64)
+    plain, counted = tsw(*args), tsw(*args, count_cells=True)
+    for f in FIELDS:
+        assert torch.equal(plain[f], counted[f]), f
+    cells = counted["cells"].numpy()
+    for k, s in enumerate(same):
+        n = len(s)
+        assert cells[k] == sum(min(n, i + w + 1) - max(0, i - w)
+                               for i in range(n)), k
+    assert cells[-1] == 0
+    assert (cells <= qlen.numpy().astype(np.int64) * tlen.numpy()).all()

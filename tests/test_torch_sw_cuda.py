@@ -8,15 +8,15 @@ import numpy as np
 import pytest
 import torch
 
-from bioseqdb_tpu.align.options import AlignOptions
-from bioseqdb_tpu.cpu.ksw import fill_scmat
-from bioseqdb_tpu.index.builder import build_index
-from bioseqdb_tpu.io.batch import pack_reads
-from bioseqdb_tpu.utils.sim import simulate_genome, simulate_reads
+from bioseqdb_tpu_torch.align.options import AlignOptions
 from bioseqdb_tpu_torch.align.pipeline import Aligner
+from bioseqdb_tpu_torch.cpu.ksw import fill_scmat
+from bioseqdb_tpu_torch.index.builder import build_index
+from bioseqdb_tpu_torch.io.batch import pack_reads
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels.sw import FIELDS, sw_extend_batch
 from bioseqdb_tpu_torch.kernels.sw_cuda import sw_extend_cuda
+from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
 
 pytestmark = pytest.mark.cuda
 
