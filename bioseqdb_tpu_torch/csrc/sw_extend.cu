@@ -4,150 +4,131 @@
 // (wrapper sw_extend_batch_pallas). It computes exactly what the plain
 // version bioseqdb_tpu_torch/kernels/sw.py:sw_extend_batch computes, with
 // the scoring matrix as arithmetic: +a on a match, -b on a mismatch, -1
-// when either base is ambiguous (code > 3). All arithmetic is int32; the
-// band clamp max_ins/max_del is float32, as in the TPU kernel.
+// when either base is ambiguous (code > 3). The band clamp max_ins/max_del
+// is float32, as in the TPU kernel.
 //
-// What bounds it: each lane is a chain of dependent target rows (up to
-// ~qlen + band rows), and every row needs a prefix max over the query
-// axis plus a handful of row reductions. The work per row is a few
-// hundred int ops, so a lane is latency-bound on that chain, not on
-// memory (the query row is read once, the target one int per row).
+// What bounds it: a lane is a chain of dependent target rows (up to ~250
+// on the main path), and each row a prefix max (F) along the band, then
+// a handful of reductions the next row's band depends on. So a launch
+// lasts about as long as its longest lane's chain of rows: the kernel is
+// bound by the latency of a row (~2,000 cycles for a wide row of one lane
+// alone on an H100, most of it in the two passes over the stripe; see
+// tools/sw_profile.py and PERF.md), not by the card's issue rate or
+// memory. The query row is read once and the target one int a row.
 //
-// Design: one warp per lane, so a lane that terminates (Z-drop, zero
-// row, end of target) leaves at once and never waits for other lanes.
-// The query axis is split into contiguous runs of CPT columns per
-// thread, with H, E and the query codes in registers. F is a per-thread
-// serial prefix max followed by a warp-shuffle scan; the row max, the
-// argmax (ties to the largest column), the value at the band end and the
-// first/last live columns are warp reductions. The target base of row i
-// is read straight from global memory (one broadcast load per row).
+// Design:
+// - A lane is served by a group of G = 8 threads (the fastest on the main
+//   path's launches of 2, 4, 8 and 16), so a lane that stops (Z-drop, zero
+//   row, end of target) costs its warp little and 16,384 lanes are all
+//   resident at once: at WQ = 160 a block of 16 lanes takes 24,832 bytes
+//   of shared memory and 128 x 56 registers, so 9 blocks (36 warps) fit an
+//   SM, 19,008 lanes on 132 SMs.
+// - Only the band is computed. A row's in-band columns [bg, en) are cut
+//   into G contiguous stripes; thread t walks its stripe in order. H, E
+//   and the query codes of a lane live in shared memory (any band
+//   position, up to WQ = 320), so the band slides without moving data
+//   between threads.
+// - F runs serially inside a stripe as g = max(g - e_ins, max(M - oe_ins,
+//   0)), and across the stripes as a log2(G)-step shuffle max-scan of each
+//   stripe's max(t_ins + e_ins * j) (the plain version's prefix-max form):
+//   a row is two passes over the stripe (M and the stripe total first,
+//   then the cells) with the scan between.
+// - The row's reductions are fused into one round of log2(G) shuffle
+//   steps: the row max and its column (ties to the largest j) as one
+//   packed key, the first and last live columns as one per-halfword max,
+//   and H at the band end.
+// - The recurrences use the s32 DPX forms (__viaddmax_s32 for E and F,
+//   __vimax3_s32 for H, __vibmax_s32 for the row max and its column). A
+//   packed int16x2 path for lanes whose values fit int16 (two columns an
+//   instruction) was timed in turns against this one and was no faster on
+//   the main path's launches, since it does not shorten a row's chain of
+//   dependent steps (PERF.md).
+// - The rolling H of the plain version (H(i, j-1) at column j) is written
+//   in place: a thread writes its own stripe shifted by one column and
+//   takes the value at its first column from its left neighbour by one
+//   shuffle, so no thread writes a cell another one still reads. Columns
+//   left of the band are never visited again (the band start never moves
+//   left); the two columns right of it are set each row, since the next
+//   row's band ends at most there.
+// - Each warp stays converged: its groups run the row loop until its last
+//   lane stops, so every shuffle can name the whole warp.
 // Nothing is allocated and nothing synchronises beyond the warp.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int G = 8;           // threads serving one lane
+constexpr int kThreads = 128;  // a block: kThreads / G lanes
 constexpr int kNeg = -(1 << 30);
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;
+constexpr int kChunk = 4;  // cells a thread loads before it computes them
 
-template <int CPT>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-sw_extend_kernel(const int* __restrict__ query, const int* __restrict__ qlen_p,
-                 const int* __restrict__ target, const int* __restrict__ tlen_p,
-                 const int* __restrict__ w0_p, const int* __restrict__ h0_p,
-                 int* __restrict__ out, int B, int WQ, int WT, int a, int b,
-                 int o_del, int e_del, int o_ins, int e_ins, int end_bonus,
-                 int zdrop) {
-  const int t = threadIdx.x & 31;
-  const int lane = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (lane >= B) return;  // the whole warp leaves together
+// Built with -DSW_PROFILE (tools/sw_profile.py), the kernel adds the
+// cycles of each phase of lane 0's rows to sw_prof: [0] the whole row,
+// [k] the phase that ends at mark k, [9] the rows. Otherwise the marks
+// are empty.
+#ifdef SW_PROFILE
+__device__ unsigned long long sw_prof[10];
+#define SW_ROW_BEGIN \
+  long long c_[9];   \
+  c_[0] = clock64();
+#define SW_MARK(k) c_[k] = clock64()
+#define SW_ROW_END(who)                                               \
+  if (who) {                                                          \
+    atomicAdd(&sw_prof[0], (unsigned long long)(c_[8] - c_[0]));      \
+    for (int k_ = 1; k_ < 9; ++k_)                                    \
+      atomicAdd(&sw_prof[k_], (unsigned long long)(c_[k_] - c_[k_ - 1])); \
+    atomicAdd(&sw_prof[9], 1ull);                                     \
+  }
+#else
+#define SW_ROW_BEGIN
+#define SW_MARK(k)
+#define SW_ROW_END(who)
+#endif
 
-  const int qlen = qlen_p[lane];
-  const int tlen = tlen_p[lane];
-  const int h0 = h0_p[lane];
-  const int oe_del = o_del + e_del;
-  const int oe_ins = o_ins + e_ins;
-  const int max_sc = max(a, 1);
-  const int max_ins = (int)((float)(qlen * max_sc + end_bonus - o_ins) /
-                                (float)e_ins + 1.0f);
-  const int max_del = (int)((float)(qlen * max_sc + end_bonus - o_del) /
-                                (float)e_del + 1.0f);
-  int w = min(w0_p[lane], max(max_ins, 1));
-  w = min(w, max(max_del, 1));
+struct Args {
+  const int* query;
+  const int* qlen;
+  const int* target;
+  const int* tlen;
+  const int* w0;
+  const int* h0;
+  int* out;
+  int B, WQ, WT, a, b, o_del, e_del, o_ins, e_ins, end_bonus, zdrop;
+};
 
-  const int j0 = t * CPT;
-  const int* qrow = query + (size_t)lane * WQ;
-  const int* trow = target + (size_t)lane * WT;
-  int q[CPT], h[CPT], e[CPT];
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int j = j0 + k;
-    q[k] = j < WQ ? qrow[j] : 4;
-    const int hf = (j == 0) ? h0 : h0 - oe_ins - e_ins * (j - 1);
-    h[k] = (j < WQ && hf > 0 && j < qlen + 1) ? hf : 0;
-    e[k] = 0;
+// One lane's scalar state, held alike by every thread that serves it.
+struct Lane {
+  int qlen, tlen, h0, w;
+  int i, beg, end, mx, max_i, max_j, max_ie, gscore, max_off;
+  bool active;
+
+  // real: false for the padding threads of the last block past B
+  __device__ void init(const Args& p, int lane, bool real) {
+    qlen = real ? p.qlen[lane] : 0;
+    tlen = real ? p.tlen[lane] : 0;
+    h0 = real ? p.h0[lane] : 0;
+    const int max_sc = max(p.a, 1);
+    const int max_ins = (int)((float)(qlen * max_sc + p.end_bonus - p.o_ins) /
+                                  (float)p.e_ins + 1.0f);
+    const int max_del = (int)((float)(qlen * max_sc + p.end_bonus - p.o_del) /
+                                  (float)p.e_del + 1.0f);
+    w = min(real ? p.w0[lane] : 0, max(max_ins, 1));
+    w = min(w, max(max_del, 1));
+    i = 0, beg = 0, end = qlen, mx = h0;
+    max_i = -1, max_j = -1, max_ie = -1, gscore = -1, max_off = 0;
+    active = tlen > 0 && qlen > 0;
   }
 
-  int i = 0, beg = 0, end = qlen, mx = h0;
-  int max_i = -1, max_j = -1, max_ie = -1, gscore = -1, max_off = 0;
-  bool active = tlen > 0 && qlen > 0;
-
-  while (active) {
-    const int bg = max(beg, i - w);
-    const int en = min(min(end, i + w + 1), qlen);
-    const int tb = trow[min(i, WT - 1)];
-    const int h1b = (bg == 0) ? max(h0 - (o_del + e_del * (i + 1)), 0) : 0;
-
-    // M and the per-thread inclusive prefix max of t_ins + e_ins * j
-    int m[CPT], pre[CPT];
-    int run = kNeg;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int j = j0 + k;
-      const bool inb = j >= bg && j < en && j < WQ;
-      const int s = (q[k] > 3 || tb > 3) ? -1 : (q[k] == tb ? a : -b);
-      const int mk = (inb && h[k] != 0) ? h[k] + s : 0;
-      m[k] = mk;
-      const int sc = inb ? max(mk - oe_ins, 0) + e_ins * j : kNeg;
-      run = max(run, sc);
-      pre[k] = run;
-    }
-    // warp scan of the thread totals -> max over all columns before j0
-    int tot = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(kFull, tot, off);
-      if (t >= off) tot = max(tot, v);
-    }
-    int excl = __shfl_up_sync(kFull, tot, 1);
-    if (t == 0) excl = kNeg;
-
-    int hrow[CPT];
-    int best = -1, bestj = -1, h_end = 0;
-    int prev_run = excl;  // inclusive prefix max at column j - 1
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int j = j0 + k;
-      const bool inb = j >= bg && j < en && j < WQ;
-      const int f = (j == 0) ? 0 : max(prev_run - e_ins * (j - 1), 0);
-      prev_run = max(excl, pre[k]);
-      const int ec = inb ? e[k] : 0;
-      const int hr = inb ? max(max(m[k], ec), f) : 0;
-      e[k] = inb ? max(ec - e_del, max(m[k] - oe_del, 0)) : 0;
-      hrow[k] = hr;
-      const int hm = inb ? hr : -1;
-      if (hm >= best) {  // columns ascend: ties keep the largest j
-        best = hm;
-        bestj = j;
-      }
-      if (j == en - 1) h_end = hr;
-    }
-    const int row_max = __reduce_max_sync(kFull, best);
-    const int m_best = max(row_max, 0);
-    int mj = __reduce_max_sync(kFull, best == row_max ? bestj : -1);
-    if (m_best <= 0) mj = -1;
-    const int h_endm1 = (en > bg) ? __reduce_max_sync(kFull, h_end) : h1b;
-
-    // rolling H holds H(i, j-1); the band start takes the boundary value
-    int left = __shfl_up_sync(kFull, hrow[CPT - 1], 1);
-    if (t == 0) left = 0;
-    int first_live = 1 << 30, last_live = -1;
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int j = j0 + k;
-      const bool in_be = j >= bg && j <= en && j < WQ;
-      const int hs = (k == 0) ? left : hrow[k - 1];
-      const int nh = in_be ? ((j == bg) ? h1b : hs) : 0;
-      h[k] = nh;
-      if (in_be && (nh != 0 || e[k] != 0)) {
-        first_live = min(first_live, j);
-        last_live = max(last_live, j);
-      }
-    }
-    first_live = __reduce_min_sync(kFull, first_live);
-    last_live = __reduce_max_sync(kFull, last_live);
-
+  // The end of row i, whose band was [bg, en): its largest H (best, -1
+  // for an empty band) at column bestj (the largest j among ties), H at
+  // the band's last column (h_endm1), and the first and last live columns
+  // of the rolled-over H and E over [bg, en] when any_live.
+  __device__ void row(const Args& p, int bg, int en, int h_endm1, int best,
+                      int bestj, bool any_live, int first, int last) {
+    const int m_best = max(best, 0);
+    const int mj = m_best > 0 ? bestj : -1;
     if (en == qlen && gscore <= h_endm1) {
       gscore = h_endm1;
       max_ie = i;
@@ -155,18 +136,18 @@ sw_extend_kernel(const int* __restrict__ query, const int* __restrict__ qlen_p,
     const bool improved = m_best > mx;
     const int di = i - max_i;
     const int dj = mj - max_j;
-    const bool zd1 = mx - m_best - (di - dj) * e_del > zdrop;
-    const bool zd2 = mx - m_best - (dj - di) * e_ins > zdrop;
-    const bool break_z = !improved && zdrop > 0 && (di > dj ? zd1 : zd2);
+    const bool zd1 = mx - m_best - (di - dj) * p.e_del > p.zdrop;
+    const bool zd2 = mx - m_best - (dj - di) * p.e_ins > p.zdrop;
+    const bool break_z = !improved && p.zdrop > 0 && (di > dj ? zd1 : zd2);
     if (improved) {
       max_off = max(max_off, abs(mj - i));
       mx = m_best;
       max_i = i;
       max_j = mj;
     }
-    if (last_live >= 0) {
-      beg = first_live;
-      end = min(last_live + 2, qlen);
+    if (any_live) {
+      beg = first;
+      end = min(last + 2, qlen);
     } else {
       beg = en;
       end = min(bg + 1, qlen);
@@ -175,28 +156,265 @@ sw_extend_kernel(const int* __restrict__ query, const int* __restrict__ qlen_p,
     ++i;
   }
 
-  if (t == 0) {
-    out[0 * B + lane] = mx;
-    out[1 * B + lane] = max_j + 1;
-    out[2 * B + lane] = max_i + 1;
-    out[3 * B + lane] = max_ie + 1;
-    out[4 * B + lane] = gscore;
-    out[5 * B + lane] = max_off;
+  __device__ void write(const Args& p, int lane) const {
+    p.out[0 * p.B + lane] = mx;
+    p.out[1 * p.B + lane] = max_j + 1;
+    p.out[2 * p.B + lane] = max_i + 1;
+    p.out[3 * p.B + lane] = max_ie + 1;
+    p.out[4 * p.B + lane] = gscore;
+    p.out[5 * p.B + lane] = max_off;
   }
+};
+
+// Columns of one lane in shared memory: the band ends at qlen <= WQ and a
+// row writes up to column en + 1; a stripe's last chunk may run up to
+// G + kChunk - 2 columns past the band end.
+__host__ __device__ constexpr int lane_cols(int WQ) { return WQ + G + kChunk; }
+
+// Shared memory of one lane: H and E as int32, then one byte of query
+// code a column.
+__host__ __device__ constexpr int lane_bytes(int WQ) {
+  return (lane_cols(WQ) * 9 + 15) & ~15;
 }
 
-template <int CPT>
-void launch(const int* query, const int* qlen, const int* target,
-            const int* tlen, const int* w0, const int* h0, int* out, int B,
-            int WQ, int WT, int a, int b, int o_del, int e_del, int o_ins,
-            int e_ins, int end_bonus, int zdrop, cudaStream_t stream) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sw_extend_kernel<CPT><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      query, qlen, target, tlen, w0, h0, out, B, WQ, WT, a, b, o_del, e_del,
-      o_ins, e_ins, end_bonus, zdrop);
+// a thread's first and last live column as (1023 - first, last + 1):
+// one per-halfword max over the group gives the group's; 0 for none
+__device__ __forceinline__ unsigned live_pair(int first, int last) {
+  return last >= 0 ? ((unsigned)(1023 - first) << 16) | (unsigned)(last + 1)
+                   : 0u;
+}
+
+__global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char sw_smem[];
+  const int t = threadIdx.x % G;
+  const int slot = threadIdx.x / G;
+  const int lane = blockIdx.x * (kThreads / G) + slot;
+  const bool real = lane < p.B;  // groups past B idle along with their warp
+
+  const int WQ = p.WQ;
+  const int NC = lane_cols(WQ);
+  int* H = reinterpret_cast<int*>(sw_smem + (size_t)slot * lane_bytes(WQ));
+  int* E = H + NC;
+  unsigned char* Q = reinterpret_cast<unsigned char*>(E + NC);
+
+  Lane ln;
+  ln.init(p, lane, real);
+  const int qlen = ln.qlen, h0 = ln.h0, w = ln.w;
+  const int a = p.a, b = p.b, e_del = p.e_del, e_ins = p.e_ins;
+  const int oe_del = p.o_del + e_del;
+  const int oe_ins = p.o_ins + e_ins;
+
+  const int* qrow = p.query + (size_t)(real ? lane : 0) * WQ;
+  const int* trow = p.target + (size_t)(real ? lane : 0) * p.WT;
+  for (int j = t; j < NC; j += G) {
+    const int q = (real && j < WQ) ? qrow[j] : 4;
+    Q[j] = (unsigned char)((q >= 0 && q <= 3) ? q : 4);
+    // the boundary row's H
+    const int hf = (j == 0) ? h0 : h0 - oe_ins - e_ins * (j - 1);
+    H[j] = (j < WQ && hf > 0 && j < qlen + 1) ? hf : 0;
+    E[j] = 0;
+  }
+  __syncwarp();
+
+  // Target bases are read G rows at a time, a chunk ahead of use, so no
+  // row waits on device memory: thread t holds row r + t of the current
+  // chunk [r, r + G) and of the next one.
+  const auto tbase = [&](int row) { return trow[min(row, p.WT - 1)]; };
+  int t_cur = tbase(t), t_next = tbase(G + t);
+  int tb_raw = __shfl_sync(kFull, t_cur, 0, G);  // this row's target base
+
+  // The warp stays converged: its groups run the row loop until the last
+  // of its lanes stops (a stopped lane has an empty band and keeps its
+  // state).
+  while (__any_sync(kFull, ln.active)) {
+    SW_ROW_BEGIN
+    const int i = ln.i;
+    const int bg = max(ln.beg, i - w);
+    const int en = min(min(ln.end, i + w + 1), qlen);
+    const int h1b = (bg == 0) ? max(h0 - (oe_del + e_del * i), 0) : 0;
+    const int tb = min(max(tb_raw, 0), 4);
+    // the next row's base, fetched now so that no row waits on a shuffle
+    const int k_nx = (i + 1) & (G - 1);
+    const int tb_nx = __shfl_sync(kFull, k_nx ? t_cur : t_next, k_nx, G);
+    const int n = ln.active ? en - bg : 0;  // in-band columns (none if <= 0)
+
+    // this row's scores: sa on a match, sb on a mismatch, -1 on an
+    // ambiguous query base (code 4)
+    const int sa = tb <= 3 ? a : -1;
+    const int sb = tb <= 3 ? -b : -1;
+    const int L = (max(n, 0) + G - 1) / G;
+    const int c0 = bg + t * L;
+    const int c1 = min(c0 + L, en);
+    SW_MARK(1);
+
+    // pass 1: M of each cell (stored over H, whose old value only M
+    // needs), and the stripe's max of t_ins + e_ins * j for the F scan.
+    // Cells go kChunk at a time, loads first; a chunk may run past the
+    // stripe end c1 into the next stripe or the lane's padding, where it
+    // only reads.
+    int g = 0;
+    for (int c = c0; c < c0 + L; c += kChunk) {
+      int hv[kChunk], qv[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        hv[u] = H[c + u];
+        qv[u] = Q[c + u];
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const bool ok = c + u < c1;
+        const int s = qv[u] == tb ? sa : (qv[u] > 3 ? -1 : sb);
+        const int m = hv[u] != 0 ? hv[u] + s : 0;
+        if (ok) H[c + u] = m;
+        const int gn = __viaddmax_s32(g, -e_ins, __viaddmax_s32(m, -oe_ins, 0));
+        g = ok ? gn : g;
+      }
+    }
+    SW_MARK(2);
+    int run = c1 > c0 ? g + e_ins * (c1 - 1) : kNeg;
+#pragma unroll
+    for (int d = 1; d < G; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, run, d, G);
+      if (t >= d) run = max(run, v);
+    }
+    int excl = __shfl_up_sync(kFull, run, 1, G);
+    if (t == 0) excl = kNeg;
+    SW_MARK(3);
+
+    // pass 2: the cells. g is F at the next column; H is written shifted
+    // by one column (H[j] = H(i, j-1)), H[c0] after the loop.
+    g = max(excl - e_ins * (c0 - 1), 0);
+    int best = -1, bestj = -1, first = 1 << 30, last = -1, hprev = 0;
+    for (int c = c0; c < c0 + L; c += kChunk) {
+      int mv[kChunk], ev[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        mv[u] = H[c + u];
+        ev[u] = E[c + u];
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = c + u;
+        const bool ok = j < c1;
+        const int m = mv[u], ec = ev[u];
+        const int f = g;
+        const int gn = __viaddmax_s32(g, -e_ins, __viaddmax_s32(m, -oe_ins, 0));
+        g = ok ? gn : g;
+        const int hr = __vimax3_s32(m, ec, f);
+        const int enx =
+            __viaddmax_s32(ec, -e_del, __viaddmax_s32(m, -oe_del, 0));
+        if (ok) {
+          E[j] = enx;
+          H[j] = hprev;
+        }
+        bool ge;
+        best = __vibmax_s32(ok ? hr : -2, best, &ge);
+        bestj = ge ? j : bestj;
+        if (ok && (hprev | enx) != 0) {  // live: H(i, j-1) or E(i, j)
+          first = min(first, j);
+          last = j;
+        }
+        hprev = ok ? hr : hprev;
+      }
+    }
+    SW_MARK(4);
+    const int left = __shfl_up_sync(kFull, hprev, 1, G);
+    int h_end = 0;
+    if (c1 > c0) {
+      const int hc0 = t == 0 ? h1b : left;
+      H[c0] = hc0;
+      if (hc0 != 0) {
+        first = c0;
+        last = max(last, c0);
+      }
+      if (c1 == en) {  // this thread holds the band end
+        h_end = hprev;
+        H[en] = hprev;
+        E[en] = 0;
+        H[en + 1] = 0;
+        E[en + 1] = 0;
+        if (hprev != 0) {
+          first = min(first, en);
+          last = en;
+        }
+      }
+    }
+    SW_MARK(5);
+    // the row max and its column as one 64-bit key: values may need all
+    // 32 bits
+    long long key = (long long)best * 4294967296LL + (bestj + 1);
+    unsigned live = live_pair(first, last);
+#pragma unroll
+    for (int d = G / 2; d > 0; d >>= 1) {
+      key = max(key, __shfl_xor_sync(kFull, key, d, G));
+      live = __vmaxu2(live, __shfl_xor_sync(kFull, live, d, G));
+      h_end = max(h_end, __shfl_xor_sync(kFull, h_end, d, G));  // H >= 0
+    }
+    best = (int)(key >> 32);
+    bestj = (int)(key & 0xffffffffLL) - 1;
+    SW_MARK(6);
+    // An empty band (n <= 0) leaves H and E as they are: its row max is 0,
+    // so the lane stops after this row.
+
+    if (ln.active) {
+      ln.row(p, bg, en, n > 0 ? h_end : h1b, best, bestj,
+             (live & 0xffffu) != 0, 1023 - (int)(live >> 16),
+             (int)(live & 0xffffu) - 1);
+      tb_raw = tb_nx;
+      if ((ln.i & (G - 1)) == 0) {
+        t_cur = t_next;
+        t_next = tbase(ln.i + G + t);
+      }
+    }
+    SW_MARK(7);
+    __syncwarp();  // this row's H and E before the next row reads them
+    SW_MARK(8);
+    SW_ROW_END(lane == 0 && t == 0)
+  }
+
+  if (real && t == 0) ln.write(p, lane);
+}
+
+// The block's shared memory for query width WQ. The first call lets the
+// kernel take as much as WQ = 320 needs and asks for the SM's whole
+// carveout as shared memory, so that as many lanes as fit stay resident;
+// later calls (a CUDA graph capture among them) set nothing.
+int set_smem(int WQ) {
+  const auto bytes = [](int wq) { return kThreads / G * lane_bytes(wq); };
+  static const bool once = [&] {
+    cudaFuncSetAttribute(sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes(320));
+    cudaFuncSetAttribute(sw_kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    return true;
+  }();
+  (void)once;
+  return bytes(WQ);
 }
 
 }  // namespace
+
+// Occupancy of the kernel at query width WQ, for reports: blocks of
+// kThreads resident on one SM, or -1 on a CUDA error.
+extern "C" int sw_extend_blocks_per_sm(int WQ) {
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, sw_kernel, kThreads, set_smem(WQ));
+  return rc == 0 ? n : -1;
+}
+
+#ifdef SW_PROFILE
+// the phase counters of a profile build: copied out to / zeroed from a
+// host array of 10 unsigned 64-bit ints
+extern "C" int sw_prof_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, sw_prof, sizeof(sw_prof));
+}
+extern "C" int sw_prof_zero() {
+  const unsigned long long z[10] = {0};
+  return (int)cudaMemcpyToSymbol(sw_prof, z, sizeof(z));
+}
+#endif
 
 // Plain C entry point (bound with ctypes). query int32[B, WQ], target
 // int32[B, WT], qlen/tlen/w0/h0 int32[B], out int32[6, B] (score, qle,
@@ -207,26 +425,15 @@ extern "C" int sw_extend_launch(const void* query, const void* qlen,
                                 int B, int WQ, int WT, int a, int b,
                                 int o_del, int e_del, int o_ins, int e_ins,
                                 int end_bonus, int zdrop, void* stream) {
-  const int cpt = (WQ + 31) / 32;
-  auto* q = static_cast<const int*>(query);
-  auto* ql = static_cast<const int*>(qlen);
-  auto* tg = static_cast<const int*>(target);
-  auto* tl = static_cast<const int*>(tlen);
-  auto* w = static_cast<const int*>(w0);
-  auto* hh = static_cast<const int*>(h0);
-  auto* o = static_cast<int*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-#define SW_CASE(N)                                                       \
-  case N:                                                                \
-    launch<N>(q, ql, tg, tl, w, hh, o, B, WQ, WT, a, b, o_del, e_del,    \
-              o_ins, e_ins, end_bonus, zdrop, s);                        \
-    break;
-  switch (cpt) {
-    SW_CASE(1) SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5)
-    SW_CASE(6) SW_CASE(7) SW_CASE(8) SW_CASE(9) SW_CASE(10)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SW_CASE
+  if (WQ < 1 || WQ > 320 || WT < 1) return (int)cudaErrorInvalidValue;
+  const Args p{static_cast<const int*>(query), static_cast<const int*>(qlen),
+               static_cast<const int*>(target), static_cast<const int*>(tlen),
+               static_cast<const int*>(w0), static_cast<const int*>(h0),
+               static_cast<int*>(out), B, WQ, WT, a, b, o_del, e_del, o_ins,
+               e_ins, end_bonus, zdrop};
+  const int smem = set_smem(WQ);
+  const int lanes = kThreads / G;
+  sw_kernel<<<(B + lanes - 1) / lanes, kThreads, smem,
+              static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

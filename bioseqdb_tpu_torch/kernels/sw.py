@@ -34,7 +34,10 @@ def sw_extend_batch(
     """Batched ksw_extend. Returns dict of int32[B]: score, qle, tle,
     gtle, gscore, max_off; with ``count_cells`` also ``cells``, int64[B]:
     the DP cells each lane computed (its in-band columns summed over its
-    rows), the work a kernel must do on these inputs."""
+    rows), the work a kernel must do on these inputs; ``rows``, int64[B]:
+    the target rows each lane ran; and ``max_value``, int32[B]: the
+    largest H, E or F any of its cells held (h0 at least), the range a
+    kernel's arithmetic must hold."""
     B = query.shape[0]
     dev = query.device
     i32 = torch.int32
@@ -68,6 +71,8 @@ def sw_extend_batch(
     active = (tlen > 0) & (qlen > 0)
     rows = torch.arange(B, device=dev)
     cells = torch.zeros(B, dtype=torch.int64, device=dev)
+    n_rows = torch.zeros(B, dtype=torch.int64, device=dev)
+    max_value = h0.clone()
 
     while bool(active.any()):
         beg_r = torch.maximum(beg, i - w)
@@ -77,6 +82,7 @@ def sw_extend_batch(
         in_band = (jj >= beg_r[:, None]) & (jj < end_r[:, None])
         if count_cells:
             cells += w_(active, (end_r - beg_r).clamp(min=0), 0)
+            n_rows += active
         h1_bound = w_(beg_r == 0,
                       (h0 - (o_del + e_del * (i + 1))).clamp(min=0), 0)
 
@@ -90,6 +96,11 @@ def sw_extend_batch(
         hrow = w_(in_band, torch.maximum(torch.maximum(M, e_cur), f), 0)
         e_next = w_(in_band, torch.maximum(e_cur - e_del,
                                            (M - oe_del).clamp(min=0)), 0)
+
+        if count_cells:
+            held = torch.maximum(torch.maximum(hrow, e_next), f)
+            held = w_(in_band & active[:, None], held, -1).amax(1)
+            max_value = torch.maximum(max_value, held)
 
         # row max; argmax ties take the LARGEST j
         hmask = w_(in_band, hrow, -1)
@@ -146,5 +157,5 @@ def sw_extend_batch(
     out = dict(score=mx, qle=max_j + 1, tle=max_i + 1, gtle=max_ie + 1,
                gscore=gscore, max_off=max_off)
     if count_cells:
-        out["cells"] = cells
+        out.update(cells=cells, rows=n_rows, max_value=max_value)
     return out

@@ -62,3 +62,15 @@ def sw_extend_cuda(query, qlen, target, tlen, w0, h0, *,
                                f"{rc}")
         build.LAUNCHES["sw_extend"] += 1
     return dict(zip(FIELDS, out))
+
+
+def blocks_per_sm(query_width: int) -> int:
+    """Blocks of the kernel (128 threads each) resident on one SM of the
+    current card at this query width: its occupancy, for reports."""
+    fn = build.library("sw_extend").sw_extend_blocks_per_sm
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(query_width)
+    if n < 0:
+        raise RuntimeError("sw_extend occupancy query failed")
+    return n

@@ -13,7 +13,8 @@ measures
    nanoseconds per row, device time from a CUDA graph of the chain;
 3. the cost of one launch: ``add_one`` on int32 (8, 128) chained 100
    times, launched eagerly from Python and replayed as one CUDA graph;
-   and one call timed as in 1, beside ``x + 1`` and ``torch.add``.
+   and one call's device time (a CUDA graph of 20 calls), timed in turns
+   with ``torch.add``'s, beside ``x + 1``.
 
 It runs at the TPU tool's shape (a (20480, 16) table, 8192 lanes) and at
 the seeding machine's: 16,384 lanes over the main-path Occ table and a
@@ -26,6 +27,7 @@ it raises.
 from __future__ import annotations
 
 import argparse
+import statistics
 
 import torch
 
@@ -33,6 +35,8 @@ from bioseqdb_tpu_torch.kernels import probes
 from bioseqdb_tpu_torch.tools import shapes
 
 CHAIN = 100
+GRAPH_CALLS = 20   # calls in the graph that times one call
+LAUNCH_TURNS = 8   # add_one, torch.add, torch.add, add_one, ...
 
 
 def gather_chain(gather, tab: torch.Tensor, idx: torch.Tensor
@@ -88,25 +92,37 @@ def run_table(t: shapes.Table, seed: int, dev) -> dict:
 
 def run_launch(dev) -> dict:
     """``max_abs_err`` (0, or it raises); one call's ``ms``, ``plain_ms``
-    and ``library_ms`` as in ``run_table``; microseconds a launch in the
-    chain, eagerly and in a CUDA graph."""
+    and ``library_ms`` as in ``run_table``, except that ``add_one`` and
+    ``torch.add`` are timed in turns (each a CUDA graph of 20 calls;
+    ``ms_turns`` and ``library_turns`` hold every turn); microseconds a
+    launch in the chain, eagerly and in a CUDA graph."""
     x = torch.zeros(8, 128, dtype=torch.int32, device=dev)
     err = shapes.max_abs_err(launch_chain(probes.add_one_cuda, x),
                              launch_chain(probes.add_one_plain, x))
     if err:
         raise AssertionError("add_one chain != x + 100")
-    one = dict(max_abs_err=err,
-               ms=shapes.graph_ms(lambda: probes.add_one_cuda(x)),
+    graphs = {"add_one": shapes.graph_of(lambda: probes.add_one_cuda(x),
+                                            GRAPH_CALLS),
+              "torch.add": shapes.graph_of(lambda: torch.add(x, 1),
+                                              GRAPH_CALLS)}
+    turns = shapes.turns_ms({k: g.replay for k, g in graphs.items()},
+                            rounds=LAUNCH_TURNS)
+    per_call = {k: [ms / GRAPH_CALLS for ms in v] for k, v in turns.items()}
+    one = dict(max_abs_err=err, ms=statistics.median(per_call["add_one"]),
                plain_ms=shapes.event_ms(lambda: probes.add_one_plain(x)),
-               library_ms=shapes.graph_ms(lambda: torch.add(x, 1)))
+               library_ms=statistics.median(per_call["torch.add"]),
+               ms_turns=per_call["add_one"],
+               library_turns=per_call["torch.add"])
     eager = shapes.event_ms(lambda: launch_chain(probes.add_one_cuda, x),
                             reps=5) * 1e3 / CHAIN
     graph = shapes.graph_ms(lambda: launch_chain(probes.add_one_cuda, x),
                             calls=1, reps=5) * 1e3 / CHAIN
+    fmt = lambda v: ", ".join(f"{ms * 1e3:.4f}" for ms in v)
     print(f"add_one launch: eager {eager:.3f} us/launch, CUDA graph "
-          f"{graph:.3f} us/launch ({CHAIN} chained launches); one call "
-          f"{one['ms']:.4f} ms, x + 1 {one['plain_ms']:.4f} ms, torch.add "
-          f"{one['library_ms']:.4f} ms", flush=True)
+          f"{graph:.3f} us/launch ({CHAIN} chained launches); one call, "
+          f"{LAUNCH_TURNS} turns each (us): add_one {fmt(one['ms_turns'])}; "
+          f"torch.add {fmt(one['library_turns'])}; x + 1 "
+          f"{one['plain_ms']:.4f} ms", flush=True)
     return dict(one, eager_us=eager, graph_us=graph)
 
 

@@ -84,11 +84,9 @@ def event_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
-    """Median device milliseconds per ``fn()``, from a CUDA graph of
-    ``calls`` back-to-back calls replayed ``reps`` times: the host's
-    enqueue time of each call does not count. ``fn`` must not
-    synchronise."""
+def graph_of(fn, calls: int = 20) -> "torch.cuda.CUDAGraph":
+    """A CUDA graph of ``calls`` back-to-back ``fn()`` calls (one warm-up
+    call outside the capture). ``fn`` must not synchronise."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -98,4 +96,25 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return event_ms(graph.replay, reps) / calls
+    return graph
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Median device milliseconds per ``fn()``, from a CUDA graph of
+    ``calls`` back-to-back calls replayed ``reps`` times: the host's
+    enqueue time of each call does not count. ``fn`` must not
+    synchronise."""
+    return event_ms(graph_of(fn, calls).replay, reps) / calls
+
+
+def turns_ms(fns: dict, reps: int = 10, rounds: int = 2) -> dict:
+    """Each ``fn``'s median milliseconds (``event_ms``), timed in turns in
+    one process: the order of ``fns``, then the reverse, ``rounds``
+    times (old, new, new, old for two). Returns {name: [ms of each
+    turn]}."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            out[n].append(event_ms(fns[n], reps))
+    return out

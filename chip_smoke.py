@@ -7,16 +7,26 @@
 2. builds the hand-written CUDA kernels from ``bioseqdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once);
 3. SW kernel phase: ``sw_extend`` against its plain PyTorch version on
-   the card (bit-equal on every case set and at the main-path shape),
-   with both times from CUDA events and its bound from the DP cells the
-   plain version counts on the main-path case set;
+   the card, bit-equal on every case set of ``tools/sw_sets.py``: small
+   ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
+   widths, Wq 160, Wt 624), ``int16_edge`` (h0 + a * qlen just below and
+   just above the int16 limit), ``wide_320`` (Wq 320) and ``retry_band``
+   (band 200, the band-doubling retry); the bound from the DP cells and
+   rows the plain version counts on the synthetic set, which gives the
+   kernels line its time; and the synthetic set's 1% of lanes with the
+   most cells timed alone;
 4. main path: a 4.6 Mb simulated genome (E. coli scale), two batches of
    16,384 150 bp single-end reads at 1% substitutions through
    ``Aligner.device_regions`` -> ``absorb_overflow`` ->
    ``finalize_columns``; the second batch is timed. Reads at their
    simulated origin are counted, and every read off it must equal the
    host oracle. Launch counts are zeroed just before the timed batch and
-   read just after: ``sw_extend`` must have run;
+   read just after: ``sw_extend`` must have run. The warm-up batch
+   records the inputs of every ``sw_extend`` launch the extension stage
+   makes (the wrapper ``kernels/extend.py`` calls is wrapped for that
+   batch only, and the recorded calls must match the launches counted);
+   each recorded launch is then run again alone: active lanes, DP cells,
+   rows, time, bound and share, bit-equal to plain;
 5. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
@@ -27,14 +37,16 @@
    main-path table;
 6. prints the kernels line, then the device line as the last line.
 
-Kernel times: CUDA events around one call, or, for kernels shorter than
-the host's enqueue time (``gather_rows``, ``add_one`` and their library
-calls), the device time per call of a CUDA graph of 20 calls. Plain
-versions are timed eagerly with CUDA events. ``bound_ms`` is the larger
+Kernel times: the device time per call of a CUDA graph of calls
+(``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
+library calls: 20), so that the host's enqueue time does not count;
+``gather_chain``: CUDA events around one call. Plain versions are timed
+eagerly with CUDA events. ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and the instructions
 it must issue over the card's issue rate (132 SMs x 4 schedulers x 32
 lanes x 1.98 GHz), each fused instruction (a multiply-add, a three-input
-add, a DPX add-max) counted once.
+add, a DPX add-max) counted once. ``tools/sw_profile.py`` times other
+builds of the SW kernel in turns with this one.
 
 Nothing is caught: any failed check exits non-zero.
 """
@@ -50,22 +62,16 @@ import numpy as np
 import torch
 
 from bioseqdb_tpu_torch.align.columns import finalize_columns
-from bioseqdb_tpu_torch.align.options import AlignOptions
-from bioseqdb_tpu_torch.align.pipeline import Aligner
 from bioseqdb_tpu_torch.cpu import oracle as O
-from bioseqdb_tpu_torch.cpu.ksw import fill_scmat
-from bioseqdb_tpu_torch.index.builder import build_index
-from bioseqdb_tpu_torch.io.batch import pack_reads
 from bioseqdb_tpu_torch.kernels import build
-from bioseqdb_tpu_torch.kernels.sw import FIELDS, sw_extend_batch
-from bioseqdb_tpu_torch.kernels.sw_cuda import sw_extend_cuda
+from bioseqdb_tpu_torch.kernels.sw_cuda import blocks_per_sm
 from bioseqdb_tpu_torch.tools import microbench_gather, microbench_seed
 from bioseqdb_tpu_torch.tools.shapes import OCC_MAIN, SEED_STEPS, event_ms
-from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
+from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, MAIN_WQ,
+                                              READ_LEN, SwCall,
+                                              main_path_setup, recording,
+                                              sw_sets)
 
-GENOME_LEN = 4_600_000
-BATCH = 16_384
-READ_LEN = 150
 # exact equality: the kernels and their plain versions are integer programs
 TOLERANCE = 0
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
@@ -105,100 +111,93 @@ def bound(n_bytes: float, n_instr: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sw_cases(rng, n, max_q, max_t, amb=False, indel=False):
-    """Read-like (query, target, h0) triples: a query, and a target that
-    starts with its mutated copy and runs on with random bases."""
-    cases = []
-    for _ in range(n):
-        ql = int(rng.integers(1, max_q + 1))
-        qq = rng.integers(0, 5 if amb else 4, ql)
-        tt = qq.copy()
-        if indel and tt.size > 8:
-            p = int(rng.integers(2, tt.size - 4))
-            k = int(rng.integers(1, 4))
-            tt = (np.delete(tt, slice(p, p + k)) if rng.random() < 0.5
-                  else np.insert(tt, p, rng.integers(0, 4, k)))
-        m = rng.random(tt.size) < 0.05
-        tt[m] = rng.integers(0, 5 if amb else 4, m.sum())
-        tail = rng.integers(0, 4, int(rng.integers(0, max_t)))
-        tt = np.concatenate([tt, tail])[:max_t]
-        if rng.random() < 0.2:   # unrelated pair
-            tt = rng.integers(0, 4, int(rng.integers(1, max_t + 1)))
-        cases.append((qq, tt, int(rng.integers(0, 80))))
-    return cases
-
-
-def sw_inputs(cases, max_q, max_t, dev):
-    B = len(cases)
-    q = np.full((B, max_q), 4, np.int32)
-    t = np.full((B, max_t), 4, np.int32)
-    qlen, tlen, h0 = (np.zeros(B, np.int32) for _ in range(3))
-    for i, (qq, tt, hh) in enumerate(cases):
-        q[i, : len(qq)] = qq
-        t[i, : len(tt)] = tt
-        qlen[i], tlen[i], h0[i] = len(qq), len(tt), hh
-    return [torch.from_numpy(x).to(dev) for x in (q, qlen, t, tlen, h0)]
+def sw_bound(call: SwCall, counted: dict) -> tuple[float, str]:
+    """The SW bound on ``call``'s inputs, from what the plain version
+    counted there: the function must read the query codes of each lane
+    that runs a row, one target code a row it runs, and four int32 inputs
+    a lane, and write six int32 outputs a lane; it does SW_INSTR_PER_CELL
+    instructions a DP cell."""
+    qlen, rows = call.args[1], counted["rows"]
+    n_bytes = 4 * (int(qlen[rows > 0].sum()) + int(rows.sum())
+                   + 10 * len(qlen))
+    return bound(n_bytes, SW_INSTR_PER_CELL * int(counted["cells"].sum()))
 
 
 def kernel_phase(dev) -> dict:
+    for wq in (MAIN_WQ, 320):
+        n = blocks_per_sm(wq)
+        log(f"sw_extend occupancy at Wq={wq}: {n} blocks of 128 threads an "
+            f"SM ({4 * n} warps)")
     rng = np.random.default_rng(7)
-    gaps = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
-    sets = [  # (name, cases, max_qlen, max_tlen, w, zdrop, end_bonus, a, b)
-        ("random", sw_cases(rng, 64, 50, 90), 64, 128, 100, 100, 5, 1, 4),
-        ("narrow_band", sw_cases(rng, 64, 40, 60), 64, 128, 3, 100, 5, 1, 4),
-        ("zdrop", sw_cases(rng, 64, 40, 60), 64, 128, 100, 5, 5, 1, 4),
-        ("ambiguous_indels", sw_cases(rng, 64, 60, 90, amb=True, indel=True),
-         64, 128, 100, 100, 5, 1, 4),
-        ("ragged_11", sw_cases(rng, 11, 20, 30), 24, 32, 100, 100, 5, 2, 3),
-        ("main_path", sw_cases(rng, BATCH, 152, 616, indel=True), 152, 616,
-         100, 100, 5, 1, 4),
-    ]
-    max_err = 0
-    for name, cases, mq, mt, w, zdrop, bonus, a, b in sets:
-        q, qlen, t, tlen, h0 = sw_inputs(cases, mq, mt, dev)
-        w0 = torch.full_like(qlen, w)
-        mat = torch.from_numpy(fill_scmat(a, b)).to(dev)
-        plain = lambda: sw_extend_batch(q, qlen, t, tlen, mat, gaps["o_del"],
-                                        gaps["e_del"], gaps["o_ins"],
-                                        gaps["e_ins"], w0, bonus, zdrop, h0, mq)
-        kern = lambda: sw_extend_cuda(q, qlen, t, tlen, w0, h0, match_score=a,
-                                      mismatch_penalty=b, end_bonus=bonus,
-                                      zdrop=zdrop, **gaps)
-        ref, got = plain(), kern()
-        torch.cuda.synchronize()
-        err = max(int((ref[f] - got[f]).abs().max()) for f in FIELDS)
+    max_err, calls = 0, {}
+    for name, cases, *opts in sw_sets(rng):
+        call = SwCall.from_cases(cases, *opts, dev)
+        calls[name] = call
+        err = call.err(call.plain())
         max_err = max(max_err, err)
-        log(f"kernel sw_extend vs plain [{name}] B={len(cases)} Wq={mq} "
-            f"Wt={mt}: max_abs_err={err}")
+        timing = ""
+        if len(cases) >= 2048:
+            timing = f", cuda {call.ms():.4f} ms"
+        log(f"kernel sw_extend vs plain [{name}] {call.shape()}: "
+            f"max_abs_err={err}{timing}")
         if err > TOLERANCE:
             raise AssertionError(f"sw_extend disagrees with plain on {name}")
-    ms = event_ms(kern, 20)
-    plain_ms = event_ms(plain, 3)
-    cells = int(sw_extend_batch(q, qlen, t, tlen, mat, gaps["o_del"],
-                                gaps["e_del"], gaps["o_ins"], gaps["e_ins"],
-                                w0, bonus, zdrop, h0, mq,
-                                count_cells=True)["cells"].sum())
-    n_bytes = 4 * (q.numel() + t.numel() + 4 * BATCH + 6 * BATCH)
-    bound_ms, bound_by = bound(n_bytes, SW_INSTR_PER_CELL * cells)
-    log(f"sw_extend main-path shape B={BATCH} Wq=152 Wt=616: "
-        f"cuda {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events); "
-        f"{cells} DP cells -> bound {bound_ms:.5f} ms ({bound_by}), kernel "
-        f"at {100 * bound_ms / ms:.2f}% of it")
+    syn = calls["synthetic"]
+    ms = syn.ms()
+    plain_ms = event_ms(syn.plain, 3)
+    counted = syn.plain(count_cells=True)
+    lane_cells, ref_rows = counted["cells"], counted["rows"]
+    cells = int(lane_cells.sum())
+    bound_ms, bound_by = sw_bound(syn, counted)
+    log(f"sw_extend [synthetic] {syn.shape()}: cuda {ms:.4f} ms (a launch "
+        f"in a CUDA graph), plain {plain_ms:.3f} ms (CUDA events); {cells} "
+        f"DP cells, {int(ref_rows.sum())} rows -> "
+        f"bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+        f"{100 * bound_ms / ms:.2f}% of it")
+    # what holds the kernel back: the lanes with the most work alone show
+    # how much of the time is one lane's chain of rows
+    top = torch.argsort(lane_cells, descending=True)[: BATCH // 100]
+    slow = syn.subset(top)
+    log(f"sw_extend [synthetic, the {len(top)} lanes with the most cells "
+        f"({int(lane_cells[top].sum())} DP cells) alone]: cuda "
+        f"{slow.ms():.4f} ms")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=f"B={BATCH} Wq=152 Wt=616, {cells} DP cells")
+                shape=f"synthetic set, {syn.shape()}, {cells} DP cells")
+
+
+def main_path_launches(calls: list) -> list[dict]:
+    """Each recorded main-path launch alone: bit-equal to plain, its time,
+    DP cells, bound and share."""
+    rows = []
+    for k, call in enumerate(calls):
+        ref = call.plain(count_cells=True)
+        err = call.err(ref)
+        cells = int(ref["cells"].sum())
+        active = ref["rows"] > 0
+        ms = call.ms()
+        bound_ms, bound_by = sw_bound(call, ref)
+        log(f"main-path launch {k}: {call.shape()}, {cells} DP cells, rows "
+            f"a lane that ran: mean {float(ref['rows'][active].float().mean()):.1f}, "
+            f"max {int(ref['rows'].max())}; largest value "
+            f"{int(ref['max_value'].max())}: cuda {ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), kernel at "
+            f"{100 * bound_ms / ms:.2f}% of it, max_abs_err={err}")
+        if err > TOLERANCE:
+            raise AssertionError(f"sw_extend disagrees with plain on "
+                                 f"main-path launch {k}")
+        rows.append(dict(ms=ms, cells=cells, bound_ms=bound_ms))
+    log(f"main-path launches: {len(rows)}, together cuda "
+        f"{sum(r['ms'] for r in rows):.4f} ms, {sum(r['cells'] for r in rows)} "
+        f"DP cells, bound {sum(r['bound_ms'] for r in rows):.5f} ms")
+    return rows
 
 
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
-    genome = simulate_genome(GENOME_LEN, seed=1)
-    idx = build_index([("sim", genome)])
-    al = Aligner.build(idx, AlignOptions(), device=dev)
-    log(f"index {GENOME_LEN} bases + Aligner.build: {time.time() - t0:.1f} s")
-
-    sims = [simulate_reads(genome, BATCH, read_len=READ_LEN, sub_rate=0.01,
-                           seed=100 + k) for k in range(2)]
-    batches = [pack_reads(s.reads, s.names) for s in sims]
+    idx, al, sims, batches = main_path_setup(dev)
+    log(f"index {GENOME_LEN} bases + Aligner.build + reads: "
+        f"{time.time() - t0:.1f} s")
 
     def run(batch):
         t = [time.time()]
@@ -212,8 +211,16 @@ def main_path(dev, card: str) -> dict:
         return cols, n_ovf, np.diff(t)
 
     t0 = time.time()
-    run(batches[0])
-    log(f"warm-up batch: {time.time() - t0:.1f} s")
+    calls = []
+    n0 = build.LAUNCHES["sw_extend"]
+    with recording(calls):
+        run(batches[0])
+    warm = build.LAUNCHES["sw_extend"] - n0
+    log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
+        f"launches recorded, {warm} counted")
+    if not 0 < len(calls) == warm:
+        raise AssertionError("the warm-up batch's sw_extend launches were "
+                             "not all recorded")
     build.reset_launches()
     cols, n_ovf, parts = run(batches[1])
     launches = dict(build.LAUNCHES)
@@ -251,7 +258,7 @@ def main_path(dev, card: str) -> dict:
         f"off-truth reads: {off.size}, device_ne_oracle: {ne_oracle}")
     if ne_oracle or at_truth.sum() < 0.98 * n:
         raise AssertionError("main path disagrees with the host oracle")
-    return dict(launches=launches, rps=rps)
+    return dict(launches=launches, rps=rps, calls=calls)
 
 
 def chain_instructions(rows: int = 1, floor: str | None = None,
@@ -349,6 +356,7 @@ def main() -> None:
 
     sw = kernel_phase(dev)
     m = main_path(dev, card)
+    main_path_launches(m["calls"])
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",

@@ -111,10 +111,10 @@ def test_ragged_lane_count():
               for _ in range(11)])
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_random_sweep(seed):
+def sweep(seed):
     """Read-like pairs (a query and its mutated, indel-carrying target)
-    at main-path widths, scoring and band options varied."""
+    at main-path widths, scoring and band options varied: (cases,
+    run_both keywords)."""
     rng = np.random.default_rng(100 + seed)
     cases = []
     for _ in range(32):
@@ -132,9 +132,16 @@ def test_random_sweep(seed):
         tt = np.concatenate([tt, rng.integers(0, 4, int(rng.integers(0, 80)))])
         cases.append((qq, tt[:300], int(rng.integers(0, 160))))
     a, b = [(1, 4), (2, 3), (1, 1)][seed % 3]
-    run_both(cases, w=[100, 16, 5, 33][seed], zdrop=[100, 30, 0, 7][seed],
-             end_bonus=[5, 0, 3, 5][seed], max_qlen=152, max_tlen=300,
-             a=a, b=b, gaps=[(6, 1, 6, 1), (5, 2, 4, 1)][seed % 2])
+    return cases, dict(w=[100, 16, 5, 33][seed], zdrop=[100, 30, 0, 7][seed],
+                       end_bonus=[5, 0, 3, 5][seed], max_qlen=152,
+                       max_tlen=300, a=a, b=b,
+                       gaps=[(6, 1, 6, 1), (5, 2, 4, 1)][seed % 2])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_sweep(seed):
+    cases, kw = sweep(seed)
+    run_both(cases, **kw)
 
 
 def test_pallas_interpret_agrees():
@@ -161,9 +168,57 @@ def test_count_cells(w):
     for f in FIELDS:
         assert torch.equal(plain[f], counted[f]), f
     cells = counted["cells"].numpy()
+    rows = counted["rows"].numpy()
     for k, s in enumerate(same):
         n = len(s)
         assert cells[k] == sum(min(n, i + w + 1) - max(0, i - w)
                                for i in range(n)), k
-    assert cells[-1] == 0
+        assert rows[k] == n, k
+    assert cells[-1] == 0 and rows[-1] == 0
     assert (cells <= qlen.numpy().astype(np.int64) * tlen.numpy()).all()
+    assert (rows <= tlen.numpy()).all()
+
+
+def adversarial(kind):
+    """Cases built to push a lane's values up: identical sequences with
+    a large h0, a = 2, and ambiguous bases."""
+    rng = np.random.default_rng(12)
+    same = [rng.integers(0, 4, n) for n in (1, 17, 64, 151)]
+    if kind == "identical":
+        return [(s, s.copy(), h) for s in same for h in (0, 90, 30000)], {}
+    if kind == "identical_a2":
+        return ([(s, np.concatenate([s, rng.integers(0, 4, 40)]), h)
+                 for s in same for h in (1, 200)], dict(a=2, b=3))
+    return ([(np.where(rng.random(len(s)) < 0.2, 4, s), s.copy(), 500)
+             for s in same], {})
+
+
+VALUE_SETS = {
+    "random": lambda: (random_pairs(1), {}),
+    "narrow": lambda: (narrow_cases(), dict(w=3)),
+    "ambiguous_indels": lambda: (ambiguous_indel_cases(), {}),
+    **{f"sweep{k}": (lambda k=k: sweep(k)) for k in range(4)},
+    **{k: (lambda k=k: adversarial(k))
+       for k in ("identical", "identical_a2", "ambiguous_h0")},
+}
+
+
+@pytest.mark.parametrize("name", list(VALUE_SETS))
+def test_max_value_bound(name):
+    """Every H, E and F a lane holds lies in [0, h0 + max(a, 1) * qlen]:
+    the range a kernel's arithmetic must hold, and the fact a narrower
+    (int16) form for lanes whose bound fits it would rest on."""
+    cases, kw = VALUE_SETS[name]()
+    mq, mt = kw.get("max_qlen", 160), kw.get("max_tlen", 320)
+    a, b = kw.get("a", 1), kw.get("b", 4)
+    o_del, e_del, o_ins, e_ins = kw.get("gaps", (6, 1, 6, 1))
+    q, qlen, t, tlen, h0 = (torch.from_numpy(x) for x in _pack(cases, mq, mt))
+    mat = torch.from_numpy(fill_scmat(a, b).astype(np.int32))
+    out = tsw(q, qlen, t, tlen, mat, o_del, e_del, o_ins, e_ins,
+              torch.full((len(cases),), kw.get("w", 100), dtype=torch.int32),
+              kw.get("end_bonus", 5), kw.get("zdrop", 100), h0, mq,
+              count_cells=True)
+    bound = h0.long() + max(a, 1) * qlen.long()
+    assert (out["max_value"].long() <= bound).all()
+    assert (out["max_value"] >= h0).all()
+    assert (out["score"] <= out["max_value"]).all()

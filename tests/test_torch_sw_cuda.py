@@ -107,6 +107,56 @@ def test_kernel_main_path_width(dev, a, b, w):
     _both(dev, cases, w=w, max_qlen=152, max_tlen=616, a=a, b=b)
 
 
+def _read_like(rng, n, max_q, max_t):
+    """Read-like pairs: a query and its mutated copy running on into
+    random bases, h0 in [0, 160)."""
+    cases = []
+    for _ in range(n):
+        qq = rng.integers(0, 5, int(rng.integers(1, max_q + 1)))
+        tt = np.concatenate([qq, rng.integers(0, 4, int(rng.integers(0, max_t)))])
+        m = rng.random(tt.size) < 0.03
+        tt[m] = rng.integers(0, 4, m.sum())
+        cases.append((qq, tt[:max_t], int(rng.integers(0, 160))))
+    return cases
+
+
+@pytest.mark.parametrize("a,b", [(1, 4), (2, 3)])
+def test_kernel_int16_boundary(dev, a, b):
+    """h0 + a * qlen from 200 below to 8 above the int16 limit, lanes in
+    that order: the kernel's int32 arithmetic holds values past int16
+    alike in whole warps and in one that mixes both sides."""
+    rng = np.random.default_rng(31 + a)
+    cases = [(qq, tt, 32767 - a * len(qq) + int(rng.integers(-200, 9)))
+             for qq, tt, _ in _read_like(rng, 256, 152, 400)]
+    cases.sort(key=lambda c: c[2] + a * len(c[0]))
+    _both(dev, cases, max_qlen=160, max_tlen=400, a=a, b=b)
+
+
+def test_kernel_wide_query(dev):
+    """The widest query the kernel takes (Wq = 320)."""
+    _both(dev, _read_like(np.random.default_rng(32), 512, 320, 640),
+          max_qlen=320, max_tlen=640)
+
+
+def test_kernel_retry_band(dev):
+    """The band-doubling retry's band (w = 200) at the main path's
+    widths."""
+    _both(dev, _read_like(np.random.default_rng(33), 1024, 152, 624),
+          w=200, max_qlen=160, max_tlen=624)
+
+
+def test_kernel_few_active_lanes(dev):
+    """A few active lanes among 16,384, as the retry launch has them:
+    the idle lanes (qlen 0) must leave their outputs as the plain version
+    does."""
+    rng = np.random.default_rng(34)
+    cases = [(np.zeros(0, np.int64), rng.integers(0, 4, 9), 30)] * 16384
+    for k, c in zip(rng.choice(16384, 5, replace=False),
+                    _read_like(rng, 5, 152, 624)):
+        cases[int(k)] = c
+    _both(dev, cases, max_qlen=160, max_tlen=624)
+
+
 def test_kernel_rejects_bad_inputs(dev):
     q = torch.zeros(4, 8, dtype=torch.int64, device=dev)
     v = torch.zeros(4, dtype=torch.int32, device=dev)
