@@ -1,4 +1,4 @@
-"""The single-end full-alignment pipeline on a torch device.
+"""The single-end and paired-end full-alignment pipeline on a torch device.
 
 The port of ``bioseqdb_tpu/align/pipeline.py`` for ``mode="full"`` with
 the kmer seeder: ``Aligner.build`` uploads the index tables,
@@ -8,12 +8,17 @@ returns the same host dict as the JAX ``Aligner.device_regions`` (the
 row-packed region wire format plus n_regs, overflow and l_rep), so the
 port's copies of the JAX package's host code (``absorb_overflow``'s
 unpack, finalize, SAM) run on it unchanged. ``absorb_overflow`` re-runs
-overflow rows with fat caps on the FM seeder.
+overflow rows with fat caps on the FM seeder. Paired-end:
+``device_regions_pair`` runs both mates as one 2B-row step,
+``absorb_overflow_pair`` retries both mates' overflow rows in one fat
+step, and ``align_pairs`` / ``align_pairs_columns`` finalize through
+``align/paired.py`` (insert-size statistics, pairing, mate rescue on the
+host).
 
 Not in this slice (each raises ``NotImplementedError``): reads wider
 than 320 bases (the seed-SW filter of long reads), indexes the kmer
 seeder cannot take (the FM seeder as the main seeder), int64 ranks,
-paired-end, exact mode and meshes.
+exact mode and meshes.
 """
 
 from __future__ import annotations
@@ -263,24 +268,62 @@ class Aligner:
         )
         return common, narrow
 
+    def _wire_step(self, codes: np.ndarray, lens: np.ndarray,
+                   keep_mems: bool = False) -> tuple[dict, bool]:
+        """Upload a batch in the 2-bit wire form, unpack it on the device
+        and run one device step at the packed width; returns the device
+        out dict and the step's ``narrow``."""
+        u2, nmb = pack_codes_2bit(codes)
+        codes = unpack_codes(torch.from_numpy(u2).to(self.device),
+                             torch.from_numpy(nmb).to(self.device))
+        common, narrow = self._step_kwargs(codes.shape[1], keep_mems)
+        out = full_align_step(
+            self.fm, self.pac_rows, codes,
+            torch.from_numpy(np.asarray(lens, np.int32)).to(self.device),
+            self._mat(), **common)
+        return out, narrow
+
     def device_regions(self, batch: ReadBatch, keep_mems: bool = False
                        ) -> dict:
         """Run the device pipeline on one batch (no host finalize);
         returns the host dict of the JAX ``Aligner.device_regions``:
         packed regions + n_regs + overflow + l_rep, or with ``keep_mems``
         the dense regions plus the seed-interval tables."""
-        u2, nmb = pack_codes_2bit(np.asarray(batch.codes, np.uint8))
-        codes = unpack_codes(torch.from_numpy(u2).to(self.device),
-                             torch.from_numpy(nmb).to(self.device))
-        lens = torch.from_numpy(np.asarray(batch.lens, np.int32)).to(
-            self.device)
-        B, W = codes.shape
-        common, narrow = self._step_kwargs(W, keep_mems)
-        out = full_align_step(self.fm, self.pac_rows, codes, lens,
-                              self._mat(), **common)
+        out, narrow = self._wire_step(np.asarray(batch.codes, np.uint8),
+                                      batch.lens, keep_mems)
         if not keep_mems:
-            out = pack_out(out, (5 * B) // 4, narrow)
+            out = pack_out(out, (5 * batch.n_padded) // 4, narrow)
         return to_host(out)
+
+    def device_regions_pair(self, batch1: ReadBatch, batch2: ReadBatch
+                            ) -> tuple[dict, dict]:
+        """Run both mates of a pair batch through ONE device step: the
+        mates concatenate row-wise as [mates1; mates2] (padded to a common
+        width with code 4), the step runs once over the 2B rows, and each
+        half packs on its own. Returns (out1, out2), each shaped exactly
+        like a ``device_regions`` result. One step, not two, because the
+        step's caps are batch-global (``resolve_seeds`` compacts rank
+        lanes over the whole batch), as in the JAX package's fused pair
+        step."""
+        c1 = np.asarray(batch1.codes, np.uint8)
+        c2 = np.asarray(batch2.codes, np.uint8)
+        B = c1.shape[0]
+        if c2.shape[0] != B:
+            raise ValueError(f"mate batches of {B} and {c2.shape[0]} rows")
+        W = max(c1.shape[1], c2.shape[1])
+        codes = np.full((2 * B, W), 4, np.uint8)
+        codes[:B, : c1.shape[1]] = c1
+        codes[B:, : c2.shape[1]] = c2
+        out, narrow = self._wire_step(
+            codes, np.concatenate([batch1.lens, batch2.lens]))
+
+        def half(lo):
+            h = {k: ({kk: vv[lo : lo + B] for kk, vv in v.items()}
+                     if isinstance(v, dict) else v[lo : lo + B])
+                 for k, v in out.items()}
+            return to_host(pack_out(h, (5 * B) // 4, narrow))
+
+        return half(0), half(B)
 
     # overflow-retry row buckets (the JAX package's compiled-program
     # buckets; kept so both retry the same rows)
@@ -355,6 +398,39 @@ class Aligner:
                             np.asarray(batch.lens, np.int32)[ovf])
         return self._splice_retry(out, ovf, r, 0)
 
+    def absorb_overflow_pair(self, batch1: ReadBatch, out1: dict,
+                             batch2: ReadBatch, out2: dict
+                             ) -> tuple[dict, dict]:
+        """``absorb_overflow`` for a pair batch: both mates' overflow rows
+        go through ONE fat retry (its row bucket chosen by their total),
+        and are spliced back into each mate's unpacked tables."""
+        from bioseqdb_tpu_torch.align.finalize import maybe_unpack
+
+        if "mems" in out1 or "mems" in out2:
+            return out1, out2
+        out1, out2 = maybe_unpack(out1), maybe_unpack(out2)
+        o1 = np.flatnonzero(np.asarray(out1["overflow"])[: batch1.n])
+        o2 = np.flatnonzero(np.asarray(out2["overflow"])[: batch2.n])
+        total = o1.size + o2.size
+        if total == 0 or total > self.RETRY_BUCKETS[-1]:
+            return out1, out2
+        c1 = np.asarray(batch1.codes, np.uint8)[o1]
+        c2 = np.asarray(batch2.codes, np.uint8)[o2]
+        # the width of the mates that overflowed (the JAX package's rule)
+        W = max(c1.shape[1] if o1.size else 0, c2.shape[1] if o2.size else 0)
+        codes = np.full((total, W), 4, np.uint8)
+        for lo, c in ((0, c1), (o1.size, c2)):
+            if len(c):
+                codes[lo : lo + len(c), : c.shape[1]] = c
+        r = self._fat_retry(codes, np.concatenate(
+            [np.asarray(batch1.lens, np.int32)[o1],
+             np.asarray(batch2.lens, np.int32)[o2]]))
+        if o1.size:
+            out1 = self._splice_retry(out1, o1, r, 0)
+        if o2.size:
+            out2 = self._splice_retry(out2, o2, r, o1.size)
+        return out1, out2
+
     def align_batch(self, batch: ReadBatch,
                     with_query_ids: bool = True) -> list[ReadResult]:
         """Align a packed batch (BWA-MEM semantics); per-read results."""
@@ -364,10 +440,55 @@ class Aligner:
         return finalize_batch(self.index, self.options, batch, out,
                               with_query_ids)
 
+    def _pair_outs(self, batch1: ReadBatch, batch2: ReadBatch):
+        out1, out2 = self.device_regions_pair(batch1, batch2)
+        return self.absorb_overflow_pair(batch1, out1, batch2, out2)
+
+    def align_pairs(self, batch1: ReadBatch, batch2: ReadBatch
+                    ) -> list[tuple[ReadResult, ReadResult]]:
+        """Paired-end alignment of two row-aligned batches (the two ends
+        of the same templates): one (ReadResult, ReadResult) a template,
+        with PE flags and mate fields attached (``align/paired.py``)."""
+        from bioseqdb_tpu_torch.align.paired import finalize_pairs
+
+        out1, out2 = self._pair_outs(batch1, batch2)
+        return finalize_pairs(self.index, self.options, batch1, out1,
+                              batch2, out2)
+
+    def align_pairs_columns(self, batch1: ReadBatch, batch2: ReadBatch):
+        """Columnar paired-end alignment: (AlignColumns, AlignColumns)
+        with the PE columns attached, equal to ``align_pairs``; render
+        with ``sam.emit.emit_sam_pair_columns``."""
+        from bioseqdb_tpu_torch.align.paired import finalize_pairs_columns
+
+        out1, out2 = self._pair_outs(batch1, batch2)
+        return finalize_pairs_columns(self.index, self.options, batch1,
+                                      out1, batch2, out2)
+
+
+def _as_batch(reads) -> ReadBatch:
+    return reads if isinstance(reads, ReadBatch) else pack_reads(list(reads))
+
 
 def align(reads, index: FMIndex, options: AlignOptions | None = None,
           device="cuda") -> list[ReadResult]:
     """One-shot: align sequences (or a ReadBatch) against an index."""
-    if not isinstance(reads, ReadBatch):
-        reads = pack_reads(list(reads))
-    return Aligner.build(index, options, device=device).align_batch(reads)
+    return Aligner.build(index, options, device=device).align_batch(
+        _as_batch(reads))
+
+
+def align_pairs(reads1, reads2, index: FMIndex,
+                options: AlignOptions | None = None, device="cuda"
+                ) -> list[tuple[ReadResult, ReadResult]]:
+    """One-shot paired-end alignment: the two ends' sequences (or
+    ReadBatches), row-aligned, against an index."""
+    return Aligner.build(index, options, device=device).align_pairs(
+        _as_batch(reads1), _as_batch(reads2))
+
+
+def align_pairs_columns(reads1, reads2, index: FMIndex,
+                        options: AlignOptions | None = None, device="cuda"):
+    """One-shot columnar paired-end alignment
+    (``Aligner.align_pairs_columns``)."""
+    return Aligner.build(index, options, device=device).align_pairs_columns(
+        _as_batch(reads1), _as_batch(reads2))

@@ -1,5 +1,5 @@
-"""Shapes, seeded tables and CUDA timers shared by the probe
-microbenchmarks and ``chip_smoke.py``.
+"""Shapes, seeded tables, CUDA timers and the card's name line shared by
+the probe microbenchmarks, the paired-end leg and ``chip_smoke.py``.
 
 Two sets of shapes:
 - the TPU tools' own (``tools/microbench_pallas_gather.py``: a
@@ -16,6 +16,7 @@ Tables are filled on the card from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import statistics
+import subprocess
 from typing import NamedTuple
 
 import torch
@@ -38,6 +39,14 @@ OCC_MAIN = Table("main-path occ (71875, 12)", 71_875, OCC_COLS, MAIN_LANES)
 OCC_GRCH38 = Table("GRCh38-class occ (48437500, 12)", 48_437_500, OCC_COLS,
                    MAIN_LANES)
 SEED_STEPS = (1024, 16384)     # the TPU tool's in-kernel step counts
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
 
 
 def require_cuda() -> torch.device:

@@ -161,7 +161,7 @@ def sass_census() -> dict:
 
 def main_path_calls(dev) -> list:
     """The SW launches of the main path's warm-up batch, recorded."""
-    idx, al, _, batches = sw_sets.main_path_setup(dev)
+    idx, al, _, batches, _ = sw_sets.main_path_setup(dev)
     calls = []
     with sw_sets.recording(calls):
         al.absorb_overflow(batches[0], al.device_regions(batches[0]))

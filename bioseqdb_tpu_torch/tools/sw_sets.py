@@ -175,12 +175,12 @@ class recording:
 
 
 def main_path_setup(dev):
-    """The main path's index (genome seed 1), ``Aligner`` on ``dev``, and
-    its two read batches (read seeds 100, the warm-up, and 101) with
-    their simulations."""
+    """The main path's index (genome seed 1), ``Aligner`` on ``dev``, its
+    two read batches (read seeds 100, the warm-up, and 101) with their
+    simulations, and the genome."""
     genome = simulate_genome(GENOME_LEN, seed=1)
     idx = build_index([("sim", genome)])
     al = Aligner.build(idx, AlignOptions(), device=dev)
     sims = [simulate_reads(genome, BATCH, read_len=READ_LEN, sub_rate=0.01,
                            seed=100 + k) for k in range(2)]
-    return idx, al, sims, [pack_reads(s.reads, s.names) for s in sims]
+    return idx, al, sims, [pack_reads(s.reads, s.names) for s in sims], genome

@@ -27,7 +27,19 @@
    batch only, and the recorded calls must match the launches counted);
    each recorded launch is then run again alone: active lanes, DP cells,
    rows, time, bound and share, bit-equal to plain;
-5. probe path: counts zeroed, the two probe entry points
+5. paired-end path, on the main path's index: two batches of 8,192 FR
+   pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
+   the warm-up, and 701) through ``device_regions_pair`` ->
+   ``absorb_overflow_pair`` -> ``finalize_pairs_columns``
+   (``tools/pe_leg.py``), both mates of a batch in one 16,384-row device
+   step. The warm-up batch's ``sw_extend`` launches are recorded and each
+   is run again alone, as on the main path; counts are zeroed just before
+   the timed batch and read just after: ``sw_extend`` must have run. R1
+   and R2 at their simulated origin are counted (each >= 98%), and every
+   pair with a mate off it must equal the host's slow PE path
+   (``pe_ne_oracle`` 0). The timed batch's SAM text is rendered with
+   ``emit_sam_pair_columns``;
+6. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
    the main-path and a GRCh38-class Occ table), counts read: every probe
@@ -35,7 +47,9 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-6. prints the kernels line, then the device line as the last line.
+7. prints the kernels line (``sw_extend``'s launches: the timed
+   single-end and paired-end batches'), then the device line as the last
+   line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
@@ -54,7 +68,6 @@ Nothing is caught: any failed check exits non-zero.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -65,8 +78,10 @@ from bioseqdb_tpu_torch.align.columns import finalize_columns
 from bioseqdb_tpu_torch.cpu import oracle as O
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels.sw_cuda import blocks_per_sm
-from bioseqdb_tpu_torch.tools import microbench_gather, microbench_seed
-from bioseqdb_tpu_torch.tools.shapes import OCC_MAIN, SEED_STEPS, event_ms
+from bioseqdb_tpu_torch.sam.emit import emit_sam_pair_columns
+from bioseqdb_tpu_torch.tools import microbench_gather, microbench_seed, pe_leg
+from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
+                                             card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, MAIN_WQ,
                                               READ_LEN, SwCall,
                                               main_path_setup, recording,
@@ -93,13 +108,6 @@ REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
 
 
 def bound(n_bytes: float, n_instr: float) -> tuple[float, str]:
@@ -166,28 +174,29 @@ def kernel_phase(dev) -> dict:
                 shape=f"synthetic set, {syn.shape()}, {cells} DP cells")
 
 
-def main_path_launches(calls: list) -> list[dict]:
-    """Each recorded main-path launch alone: bit-equal to plain, its time,
-    DP cells, bound and share."""
+def main_path_launches(calls: list, path: str = "main-path") -> list[dict]:
+    """Each recorded launch of ``path`` alone: bit-equal to plain, its
+    time, DP cells, bound and share."""
     rows = []
     for k, call in enumerate(calls):
         ref = call.plain(count_cells=True)
         err = call.err(ref)
         cells = int(ref["cells"].sum())
-        active = ref["rows"] > 0
+        ran = ref["rows"][ref["rows"] > 0].float()
+        mean_rows = float(ran.mean()) if len(ran) else 0.0
         ms = call.ms()
         bound_ms, bound_by = sw_bound(call, ref)
-        log(f"main-path launch {k}: {call.shape()}, {cells} DP cells, rows "
-            f"a lane that ran: mean {float(ref['rows'][active].float().mean()):.1f}, "
+        log(f"{path} launch {k}: {call.shape()}, {cells} DP cells, rows "
+            f"a lane that ran: mean {mean_rows:.1f}, "
             f"max {int(ref['rows'].max())}; largest value "
             f"{int(ref['max_value'].max())}: cuda {ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}), kernel at "
-            f"{100 * bound_ms / ms:.2f}% of it, max_abs_err={err}")
+            f"{bound_ms:.3g} ms ({bound_by}), kernel at "
+            f"{100 * bound_ms / ms:.3g}% of it, max_abs_err={err}")
         if err > TOLERANCE:
             raise AssertionError(f"sw_extend disagrees with plain on "
-                                 f"main-path launch {k}")
+                                 f"{path} launch {k}")
         rows.append(dict(ms=ms, cells=cells, bound_ms=bound_ms))
-    log(f"main-path launches: {len(rows)}, together cuda "
+    log(f"{path} launches: {len(rows)}, together cuda "
         f"{sum(r['ms'] for r in rows):.4f} ms, {sum(r['cells'] for r in rows)} "
         f"DP cells, bound {sum(r['bound_ms'] for r in rows):.5f} ms")
     return rows
@@ -195,7 +204,7 @@ def main_path_launches(calls: list) -> list[dict]:
 
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
-    idx, al, sims, batches = main_path_setup(dev)
+    idx, al, sims, batches, genome = main_path_setup(dev)
     log(f"index {GENOME_LEN} bases + Aligner.build + reads: "
         f"{time.time() - t0:.1f} s")
 
@@ -258,7 +267,62 @@ def main_path(dev, card: str) -> dict:
         f"off-truth reads: {off.size}, device_ne_oracle: {ne_oracle}")
     if ne_oracle or at_truth.sum() < 0.98 * n:
         raise AssertionError("main path disagrees with the host oracle")
-    return dict(launches=launches, rps=rps, calls=calls)
+    return dict(launches=launches, rps=rps, calls=calls, idx=idx, al=al,
+                genome=genome)
+
+
+def pe_path(m: dict, card: str) -> dict:
+    """The paired-end path on the main path's index and ``Aligner``."""
+    idx, al = m["idx"], m["al"]
+    t0 = time.time()
+    warm, timed = (pe_leg.simulate(m["genome"], pe_leg.PAIRS, seed)
+                   for seed in (700, 701))
+    log(f"two batches of {pe_leg.PAIRS} pairs simulated: "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    calls = []
+    n0 = build.LAUNCHES["sw_extend"]
+    with recording(calls):
+        pe_leg.run_batch(al, warm)
+    counted = build.LAUNCHES["sw_extend"] - n0
+    log(f"PE warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
+        f"sw_extend launches recorded, {counted} counted")
+    if not 0 < len(calls) == counted:
+        raise AssertionError("the PE warm-up batch's sw_extend launches "
+                             "were not all recorded")
+    build.reset_launches()
+    res = pe_leg.run_batch(al, timed)
+    launches = dict(build.LAUNCHES)
+    if launches["sw_extend"] <= 0:
+        raise AssertionError("kernel sw_extend was not launched on the PE "
+                             "path")
+    sec = res["seconds"]
+    total = sum(sec.values())
+    log("PE timed batch: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                       sec.items())
+        + f", total {total:.3f} s; rows overflowing before the retry "
+        f"{res['n_ovf']}; sw_extend launches {launches['sw_extend']}")
+    log(f"PE path: {2 * pe_leg.PAIRS / total:.1f} reads/s "
+        f"({pe_leg.PAIRS} pairs x 2 x {pe_leg.READ_LEN} bp, {GENOME_LEN} b "
+        f"genome) on {card}")
+    t0 = time.time()
+    chk = pe_leg.check(al, timed, res)
+    n = chk["pairs"]
+    log(f"PE truth: R1 {chk['r1_truth']}/{n}, R2 {chk['r2_truth']}/{n}, "
+        f"proper {chk['proper']}/{n}; pairs off truth "
+        f"{chk['off_truth_pairs']}, pe_ne_oracle {chk['pe_ne_oracle']} "
+        f"(check {time.time() - t0:.1f} s)")
+    if (chk["pe_ne_oracle"] or chk["r1_truth"] < 0.98 * n
+            or chk["r2_truth"] < 0.98 * n):
+        raise AssertionError("PE path disagrees with the host")
+    t0 = time.time()
+    sam = emit_sam_pair_columns(*res["cols"], idx, *timed.batches,
+                                header=False)
+    n_rec = sam.count("\n")
+    log(f"PE SAM text (emit_sam_pair_columns): {n_rec} records, "
+        f"{time.time() - t0:.3f} s")
+    main_path_launches(calls, "PE")
+    return launches
 
 
 def chain_instructions(rows: int = 1, floor: str | None = None,
@@ -357,10 +421,14 @@ def main() -> None:
     sw = kernel_phase(dev)
     m = main_path(dev, card)
     main_path_launches(m["calls"])
+    t0 = time.time()
+    pe = pe_path(m, card)
+    log(f"PE phase: {time.time() - t0:.1f} s")
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
-                    launches=m["launches"]["sw_extend"], **sw)]
+                    launches=m["launches"]["sw_extend"] + pe["sw_extend"],
+                    **sw)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

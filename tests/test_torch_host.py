@@ -2,8 +2,10 @@
 originals, exactly: the index the port builds (and the one
 ``fmindex_from_jax`` carries over, and the one ``FMIndex.load`` reads
 from a JAX-saved directory), the read simulator, FASTA and read-batch
-packing, the host oracle's records, and, given one ``out`` dict,
-``finalize_columns``, ``finalize_batch`` and the SAM text."""
+packing, the host oracle's records, given one ``out`` dict,
+``finalize_columns``, ``finalize_batch`` and the SAM text, given one
+pair of ``out`` dicts, ``finalize_pairs``, ``finalize_pairs_columns``
+and the PE SAM text, and the insert-size statistics."""
 
 import copy
 import dataclasses
@@ -13,6 +15,7 @@ import pytest
 
 from bioseqdb_tpu.align import columns as jcolumns
 from bioseqdb_tpu.align import finalize as jfinalize
+from bioseqdb_tpu.align import paired as jpaired
 from bioseqdb_tpu.align.options import AlignOptions as JAlignOptions
 from bioseqdb_tpu.cpu import oracle as joracle
 from bioseqdb_tpu.index import builder as jbuilder
@@ -23,6 +26,7 @@ from bioseqdb_tpu.sam import emit as jemit
 from bioseqdb_tpu.utils import sim as jsim
 from bioseqdb_tpu_torch.align import columns as tcolumns
 from bioseqdb_tpu_torch.align import finalize as tfinalize
+from bioseqdb_tpu_torch.align import paired as tpaired
 from bioseqdb_tpu_torch.align.options import AlignOptions
 from bioseqdb_tpu_torch.align.pipeline import Aligner
 from bioseqdb_tpu_torch.cpu import oracle as toracle
@@ -136,7 +140,7 @@ def reads():
                             g[5000:5070] + "NNNN" + g[5074:5150],
                             "N" * 150, g[40000:40100]]
     refs = [("g", g)]
-    return dict(reads=rd, names=[f"q{i}" for i in range(len(rd))],
+    return dict(g=g, reads=rd, names=[f"q{i}" for i in range(len(rd))],
                 jidx=jbuilder.build_index(refs),
                 tidx=tbuilder.build_index(refs))
 
@@ -195,4 +199,70 @@ def test_finalize_and_sam_equal_jax(finalized, what):
         assert j.mapped.sum() >= j.n - 2 and j.extra
     else:
         assert _dump(j) == _dump(t)
+
+
+@pytest.fixture(scope="module")
+def pairs_finalized(reads):
+    """One pair batch's device ``out`` dicts (the port's fused step on the
+    CPU), finalized by both packages' PE finalizers. The batch holds a
+    mate mutated at every 12th base, which only mate rescue places, and
+    an all-N mate."""
+    sr1, sr2, _ = jsim.simulate_pairs(reads["g"], 24, read_len=100,
+                                      insert_mean=300, insert_std=30,
+                                      sub_rate=0.01, seed=23)
+    reads2 = list(sr2.reads)
+    bad = list(reads2[5])
+    for k in range(0, 100, 12):
+        bad[k] = {"A": "C", "C": "G", "G": "T", "T": "A"}[bad[k]]
+    reads2[5], reads2[9] = "".join(bad), "N" * 100
+    names = sr1.names
+    tb, jb = ((P.pack_reads(sr1.reads, names), P.pack_reads(reads2, names))
+              for P in (tbatch, jbatch))
+    al = Aligner.build(reads["tidx"], AlignOptions(), device="cpu")
+    o1, o2 = al.device_regions_pair(*tb)
+    out = al.absorb_overflow_pair(tb[0], o1, tb[1], o2)
+    side = dict(jax=(reads["jidx"], JAlignOptions(), jb, jpaired, jemit),
+                torch=(reads["tidx"], AlignOptions(), tb, tpaired, temit))
+    res = {}
+    for name, (idx, opt, b, P, E) in side.items():
+        args = (idx, opt, b[0], copy.deepcopy(out[0]), b[1],
+                copy.deepcopy(out[1]))
+        cols = P.finalize_pairs_columns(*args)
+        res[name] = dict(
+            cols=cols, pairs=P.finalize_pairs(*args),
+            sam=E.emit_sam_pair_columns(*cols, idx, *b, header=True))
+    return res
+
+
+@pytest.mark.parametrize("what", ["cols", "pairs", "sam"])
+def test_finalize_pairs_equal_jax(pairs_finalized, what):
+    j, t = pairs_finalized["jax"][what], pairs_finalized["torch"][what]
+    if what == "cols":
+        assert [_dump_cols(c) for c in j] == [_dump_cols(c) for c in t]
+        assert j[0].fast.any() and j[1].extra
+    else:
+        assert _dump(j) == _dump(t)
+    if what == "pairs":     # the mutated mate was rescued into a proper pair
+        assert t[5][1].mapped and t[5][1].pe.flag_extra & 0x2
+        assert not t[9][1].mapped
+
+
+def test_pestat_and_infer_dir_equal_jax():
+    rng = np.random.default_rng(24)
+    l_pac = 50_000
+    n = 64
+    rb1 = rng.integers(0, l_pac - 1000, n)
+    # mostly FR pairs (the mate on the reverse strand), the rest anywhere
+    fr = 2 * l_pac - (rb1 + rng.normal(300, 30, n).astype(np.int64))
+    rb2 = np.where(rng.random(n) < 0.8, fr, rng.integers(0, 2 * l_pac, n))
+    s1, s2 = rng.integers(0, 160, n), rng.integers(0, 160, n)
+    for min_score in (AlignOptions().min_score, 10):
+        opt_j = JAlignOptions(min_score=min_score)
+        opt_t = AlignOptions(min_score=min_score)
+        j = jpaired.pestat_arrays(rb1, rb2, s1, s2, opt_j, l_pac)
+        t = tpaired.pestat_arrays(rb1, rb2, s1, s2, opt_t, l_pac)
+        assert _dump(j) == _dump(t)
+        assert any(not st.failed for st in t)
+    for a, b in zip(rb1.tolist(), rb2.tolist()):
+        assert jpaired.infer_dir(l_pac, a, b) == tpaired.infer_dir(l_pac, a, b)
 

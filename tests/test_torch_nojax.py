@@ -4,8 +4,11 @@ has none) and imports nothing of the JAX package.
 A subprocess blocks ``jax``, ``jaxlib`` and ``bioseqdb_tpu`` before any
 import, imports every module of ``bioseqdb_tpu_torch`` (its tools
 included) and ``chip_smoke`` as a module, builds an index with the port's
-own builder and read simulator, and aligns a few reads on the CPU. It
-then asserts that no ``jax`` or ``bioseqdb_tpu`` module was loaded."""
+own builder and read simulator, and aligns a few reads on the CPU, then
+a few pairs through ``align_pairs_columns`` and ``align_pairs`` (one
+pair with an all-N mate, so mate rescue runs) and renders their SAM
+text: every function-level import of ``align/paired.py`` runs. It then
+asserts that no ``jax`` or ``bioseqdb_tpu`` module was loaded."""
 
 import os
 import subprocess
@@ -21,14 +24,27 @@ import bioseqdb_tpu_torch
 for m in pkgutil.walk_packages(bioseqdb_tpu_torch.__path__, "bioseqdb_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-from bioseqdb_tpu_torch import align
+from bioseqdb_tpu_torch import align, align_pairs, align_pairs_columns
 from bioseqdb_tpu_torch.index.builder import build_index
-from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
+from bioseqdb_tpu_torch.io.batch import pack_reads
+from bioseqdb_tpu_torch.sam.emit import emit_sam_pair_columns
+from bioseqdb_tpu_torch.utils.sim import (simulate_genome, simulate_pairs,
+                                          simulate_reads)
 g = simulate_genome(30_000, seed=5)
+idx = build_index([("g", g)])
 sim = simulate_reads(g, 6, read_len=150, sub_rate=0.01, seed=6)
-res = align(sim.reads, build_index([("g", g)]), device="cpu")
+res = align(sim.reads, idx, device="cpu")
 ok = sum(r.hits[0].ref_begin == p for r, p in zip(res, sim.positions) if r.hits)
 assert ok == 6, ok
+r1, r2, _ = simulate_pairs(g, 12, read_len=150, insert_std=30, seed=7)
+b1 = pack_reads(r1.reads, r1.names)
+b2 = pack_reads(r2.reads[:-1] + ["N" * 150], r2.names)
+cols1, cols2 = align_pairs_columns(b1, b2, idx, device="cpu")
+sam = emit_sam_pair_columns(cols1, cols2, idx, b1, b2, header=False)
+assert sam.count("\n") == 24 and cols1.fast.any() and cols1.extra
+pairs = align_pairs(b1, b2, idx, device="cpu")
+assert sum(bool(a.pe.flag_extra & 0x2) for a, _ in pairs) == 11
+assert (pairs[-1][1].mapped, int(cols1.pos[0])) == (False, r1.positions[0])
 loaded = [k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "bioseqdb_tpu"))]
 assert not loaded, loaded
