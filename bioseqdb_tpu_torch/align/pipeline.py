@@ -1,9 +1,12 @@
 """The single-end and paired-end full-alignment pipeline on a torch device.
 
-The port of ``bioseqdb_tpu/align/pipeline.py`` for ``mode="full"`` with
-the kmer seeder: ``Aligner.build`` uploads the index tables,
-``device_regions`` runs one read batch through seeding -> seed
-resolution -> chaining -> chain filter -> extension on the device and
+The port of ``bioseqdb_tpu/align/pipeline.py`` for ``mode="full"``:
+``Aligner.build`` uploads the index tables and picks the seeder as the
+JAX package does (the kmer seeder where the index and options allow it
+and ``BST_SEEDER`` is ``auto`` or ``kmer``, else the FM state machine
+with its round-3 jump table), ``device_regions`` runs one read batch
+through seeding -> seed resolution -> chaining -> chain filter (->
+the seed-SW filter of long reads) -> extension on the device and
 returns the same host dict as the JAX ``Aligner.device_regions`` (the
 row-packed region wire format plus n_regs, overflow and l_rep), so the
 port's copies of the JAX package's host code (``absorb_overflow``'s
@@ -15,15 +18,15 @@ step, and ``align_pairs`` / ``align_pairs_columns`` finalize through
 ``align/paired.py`` (insert-size statistics, pairing, mate rescue on the
 host).
 
-Not in this slice (each raises ``NotImplementedError``): reads wider
-than 320 bases (the seed-SW filter of long reads), indexes the kmer
-seeder cannot take (the FM seeder as the main seeder), int64 ranks,
-exact mode and meshes.
+Batches wider than 320 bases take the FM seeder, as in the JAX package.
+Indexes of 2^31 or more doubled bases (int64 ranks) raise
+``NotImplementedError`` (``index/layout.py``); exact mode and meshes are
+not ported.
 """
 
 from __future__ import annotations
 
-import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,9 +43,12 @@ from bioseqdb_tpu_torch.kernels.chain import (chain_seeds, filter_chains,
                                               l_rep_device, resolve_seeds)
 from bioseqdb_tpu_torch.kernels.extend import extend_all
 from bioseqdb_tpu_torch.kernels.kmer import collect_seeds_kmer
-from bioseqdb_tpu_torch.kernels.seed import collect_seeds_device
+from bioseqdb_tpu_torch.kernels.seed import (R3Jump, build_r3_jump,
+                                             collect_seeds_device)
+from bioseqdb_tpu_torch.kernels.seedsw import possibly_active, seed_sw_filter
 
-MAX_WIDTH = 320  # widest read batch of this slice (pipeline.py:133 of JAX)
+KMER_MAX_WIDTH = 320  # wider batches take the FM seeder (JAX pipeline.py:133)
+SEEDERS = ("auto", "kmer", "fm")
 
 # fields bounded by the read width / scoring config: int16 on the wire
 _NARROW_FIELDS = ("qb", "qe", "score", "truesc", "w", "seedlen0", "seedcov")
@@ -59,22 +65,26 @@ def full_align_step(
     mask_level: float, chain_drop_ratio: float,
     sa_interval: int = 32, keep_mems: bool = False,
     max_cand: int = 0, max_mem: int = 0, max_iters: int = 0,
-    max_regs: int = 0, kmer: dict | None = None,
+    max_regs: int = 0, kmer: dict | None = None, jump: R3Jump | None = None,
 ) -> dict:
     """One batch through the device pipeline. ``kmer`` (bmeta, entries,
-    kmer_meta) selects the kmer seeder; None runs the FM state machine.
-    Returns regions + n_regs + overflow + l_rep (+ mems with keep_mems)."""
+    kmer_meta) selects the kmer seeder for batches up to KMER_MAX_WIDTH
+    wide; otherwise the FM state machine runs, with the round-3 ``jump``
+    table when given. Returns regions + n_regs + overflow + l_rep (+ mems
+    with keep_mems)."""
     W = codes.shape[1]
-    if W > MAX_WIDTH:
-        raise NotImplementedError(
-            f"read batches wider than {MAX_WIDTH} bases (the long-read "
-            "seed-SW filter) are a later slice of the PyTorch port")
     if W <= 200:
         caps = dict(max_cand=max_cand or 16, max_mem=max_mem or 16)
     else:
         caps = dict(max_cand=max_cand) if max_cand else {}
+        if W >= 768:
+            # long reads carry more seeds: round 3 alone emits about one
+            # per min_seed_len span of unique sequence
+            caps["max_mem"] = W // 16 + 48
         if max_mem:
             caps["max_mem"] = max_mem
+    if W > KMER_MAX_WIDTH:
+        kmer = None
     if kmer is not None:
         meta = kmer["kmer_meta"]
         M_k = caps.get("max_mem") or 48
@@ -111,16 +121,26 @@ def full_align_step(
             fm, codes, lens, min_seed_len=min_seed_len, split_len=split_len,
             split_width=split_width, max_mem_intv=max_mem_intv,
             max_cand=caps.get("max_cand", 24), max_mem=caps.get("max_mem", 48),
-            max_iters=max_iters)
+            max_iters=max_iters, jump=jump)
+    # the kmer path walks the JAX package's 4,096 rank lanes at most; the
+    # FM seeder's seeds are all rank rows, and long reads fill ~40% of the
+    # seed slots, past the JAX buffer's (B * S) // 4 (a third of a batch
+    # of 1,500 bp reads overflowed there), so they all walk
     seeds = resolve_seeds(fm, mems["mems"], mems["n_mem"], max_occ=max_occ,
                           max_seeds=max_seeds, sa_interval=sa_interval,
-                          compact_cap=(4096 if kmer is not None else 0))
+                          compact_cap=(4096 if kmer is not None else None))
     chains = chain_seeds(fm, seeds, max_chains=max_chains,
                          bandwidth=bandwidth, max_chain_gap=max_chain_gap)
     flt = filter_chains(chains, seeds, mask_level=mask_level,
                         chain_drop_ratio=chain_drop_ratio,
                         min_chain_weight=min_chain_weight,
                         min_seed_len=min_seed_len, max_chain_gap=max_chain_gap)
+    if possibly_active(min_chain_weight, W):
+        # long reads: re-score short seeds by local SW, drop sub-HSP ones
+        seeds = seed_sw_filter(
+            fm, pac_rows, codes, lens, seeds, match_score=match_score,
+            mismatch_penalty=mismatch_penalty, o_del=o_del, e_del=e_del,
+            o_ins=o_ins, e_ins=e_ins, min_chain_weight=min_chain_weight)
     ext = extend_all(
         fm, pac_rows, codes, lens, seeds, chains, flt, mat,
         match_score=match_score, mismatch_penalty=mismatch_penalty,
@@ -181,8 +201,10 @@ def pack_out(out: dict, cap: int, narrow: bool) -> dict:
     nr = out["n_regs"].clamp(max=R)
     off = (torch.cumsum(nr, 0) - nr).to(torch.int32)
     r_i = torch.arange(R, device=dev)[None, :]
-    valid = r_i < nr[:, None]
-    dst = torch.where(valid, off[:, None] + r_i, cap).reshape(-1).long()
+    dst = off[:, None] + r_i
+    # rows past the cap land in the dropped slot ``cap``
+    dst = torch.where((r_i < nr[:, None]) & (dst < cap), dst, cap
+                      ).reshape(-1).long()
     packed = {}
     for k, a in regs.items():
         dt = torch.int16 if (narrow and k in _NARROW_FIELDS) else a.dtype
@@ -209,28 +231,40 @@ class Aligner:
     device: torch.device
     fm: kfm.FMDevice
     pac_rows: torch.Tensor
-    kmer: dict
+    kmer: dict | None        # the kmer seeder's tables; None: FM seeder
+    jump: R3Jump | None      # the FM machine's round-3 jump table
 
     @classmethod
     def build(cls, index: FMIndex, options: AlignOptions | None = None,
-              device="cuda") -> "Aligner":
+              device="cuda", seeder: str | None = None) -> "Aligner":
         """Upload ``index``'s tables to ``device``. A CUDA device without
-        a card raises; nothing falls back to the CPU."""
+        a card raises; nothing falls back to the CPU.
+
+        ``seeder`` (default: the ``BST_SEEDER`` variable, else ``auto``)
+        picks the main seeder as the JAX package does: ``auto`` or
+        ``kmer`` take the kmer seeder when it can hold exact parity for
+        the index and options (``layout.kmer_eligible``, and an
+        occurrence-scan cap of at least 1), ``fm`` and every other case
+        the FM state machine, with no kmer table built. The round-3 jump
+        table is built either way: the FM machine runs in the fat
+        overflow retry and on batches wider than KMER_MAX_WIDTH."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Aligner.build(device='cuda'): no CUDA device")
         opts = options or AlignOptions()
-        if not (layout.kmer_eligible(index, opts)
-                and layout.smax_for(opts.max_mem_intv) >= 1):
-            raise NotImplementedError(
-                "indexes or options the kmer seeder cannot take (the FM "
-                "seeder as the main seeder) are a later slice of the "
-                "PyTorch port")
-        t = layout.to_device(layout.tables_from_host(index), device)
-        return cls(index=index, options=opts, device=device,
-                   fm=kfm.FMDevice.from_tables(t), pac_rows=t["pac_rows"],
-                   kmer=dict(bmeta=t["bmeta"], entries=t["entries"],
-                             kmer_meta=t["kmer_meta"]))
+        want = seeder or os.environ.get("BST_SEEDER", "auto")
+        if want not in SEEDERS:
+            raise ValueError(f"seeder {want!r} is not one of {SEEDERS}")
+        use_kmer = (want in ("auto", "kmer")
+                    and layout.kmer_eligible(index, opts)
+                    and layout.smax_for(opts.max_mem_intv) >= 1)
+        t = layout.to_device(layout.tables_from_host(index, kmer=use_kmer),
+                             device)
+        fm = kfm.FMDevice.from_tables(t)
+        kmer = (dict(bmeta=t["bmeta"], entries=t["entries"],
+                     kmer_meta=t["kmer_meta"]) if use_kmer else None)
+        return cls(index=index, options=opts, device=device, fm=fm,
+                   pac_rows=t["pac_rows"], kmer=kmer, jump=build_r3_jump(fm))
 
     def _mat(self) -> torch.Tensor:
         opt = self.options
@@ -244,12 +278,6 @@ class Aligner:
         split_len = int(opt.min_seed_len * opt.reseed_factor + 0.499)
         narrow = (W * max(int(opt.match_score), 1) < 30000
                   and int(opt.bandwidth) * 16 < 30000 and W < 30000)
-        mcw = int(opt.min_chain_weight)
-        min_l = 1.1 * mcw if mcw else 5.5 * math.log(W)
-        if min_l <= 0.05 * W:
-            raise NotImplementedError(
-                "the seed-SW filter (min_chain_weight at this read width) "
-                "is a later slice of the PyTorch port")
         common = dict(
             min_seed_len=opt.min_seed_len, split_len=split_len,
             split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
@@ -264,7 +292,7 @@ class Aligner:
             max_chain_gap=opt.max_chain_gap,
             mask_level=opt.mask_level, chain_drop_ratio=opt.chain_drop_ratio,
             sa_interval=self.index.sa_interval, keep_mems=keep_mems,
-            kmer=self.kmer,
+            kmer=self.kmer, jump=self.jump,
         )
         return common, narrow
 

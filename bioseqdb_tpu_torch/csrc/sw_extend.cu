@@ -25,9 +25,26 @@
 //   SM, 19,008 lanes on 132 SMs.
 // - Only the band is computed. A row's in-band columns [bg, en) are cut
 //   into G contiguous stripes; thread t walks its stripe in order. H, E
-//   and the query codes of a lane live in shared memory (any band
-//   position, up to WQ = 320), so the band slides without moving data
-//   between threads.
+//   and the query codes of a lane live in shared memory, so the band
+//   slides without moving data between threads.
+// - Two layouts of a lane's columns, picked by the query width. Up to
+//   WQ = 320 (every short-read launch) H and E hold every column, 9
+//   bytes a column with the query code. Wider queries (long reads: WQ =
+//   W, up to thousands) would need more shared memory than an SM has, so
+//   H and E become a ring of R slots (a power of two), column j in slot
+//   j & (R - 1), while the query codes keep one byte a column. That is
+//   exact because a row touches only columns [bg, en + 1], at most 2w + 3
+//   of them (bg >= i - w, en <= i + w + 1), and the band never moves left:
+//   every column a row reads was written by the row before it, or holds
+//   the boundary row when the row is the first. So R >= 2 * max_w + 3,
+//   with max_w the widest band of the launch (the caller's bound on w0):
+//   512 slots, 4 KB a lane, for the band-doubling retry's w = 200. Reads
+//   past a stripe's end (values never used) may alias a live slot; no
+//   write does. Shared memory then grows with WQ by one byte a column,
+//   and the launch is refused only past the card's per-block limit (WQ
+//   above ~10,400 at w <= 200). Keeping H and E in device memory instead
+//   would have put every cell's two loads and two stores on the L2; a
+//   fixed lane count a block keeps one code path for both layouts.
 // - F runs serially inside a stripe as g = max(g - e_ins, max(M - oe_ins,
 //   0)), and across the stripes as a log2(G)-step shuffle max-scan of each
 //   stripe's max(t_ins + e_ins * j) (the plain version's prefix-max form):
@@ -96,6 +113,7 @@ struct Args {
   const int* h0;
   int* out;
   int B, WQ, WT, a, b, o_del, e_del, o_ins, e_ins, end_bonus, zdrop;
+  int ring;  // H and E slots of a lane in the ring layout (a power of two)
 };
 
 // One lane's scalar state, held alike by every thread that serves it.
@@ -171,19 +189,37 @@ struct Lane {
 // G + kChunk - 2 columns past the band end.
 __host__ __device__ constexpr int lane_cols(int WQ) { return WQ + G + kChunk; }
 
+constexpr int kFullMaxWQ = 320;  // widest query of the every-column layout
+
+// H and E slots of a lane: every column, or the ring's R slots
+__host__ __device__ constexpr int lane_slots(int WQ, int ring) {
+  return WQ <= kFullMaxWQ ? lane_cols(WQ) : ring;
+}
+
 // Shared memory of one lane: H and E as int32, then one byte of query
 // code a column.
-__host__ __device__ constexpr int lane_bytes(int WQ) {
-  return (lane_cols(WQ) * 9 + 15) & ~15;
+__host__ __device__ constexpr int lane_bytes(int WQ, int ring) {
+  return (lane_slots(WQ, ring) * 8 + lane_cols(WQ) + 15) & ~15;
 }
 
-// a thread's first and last live column as (1023 - first, last + 1):
+// a thread's first and last live column as (65535 - first, last + 1):
 // one per-halfword max over the group gives the group's; 0 for none
 __device__ __forceinline__ unsigned live_pair(int first, int last) {
-  return last >= 0 ? ((unsigned)(1023 - first) << 16) | (unsigned)(last + 1)
-                   : 0u;
+  return last >= 0
+             ? ((unsigned)(65535 - first) << 16) | (unsigned)(last + 1)
+             : 0u;
 }
 
+// The shared-memory slot of column j: the column itself, or its ring slot
+template <bool kRing>
+struct Cols {
+  int mask;
+  __device__ __forceinline__ int operator()(int j) const {
+    return kRing ? (j & mask) : j;
+  }
+};
+
+template <bool kRing>
 __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
   extern __shared__ __align__(16) unsigned char sw_smem[];
   const int t = threadIdx.x % G;
@@ -193,9 +229,12 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
 
   const int WQ = p.WQ;
   const int NC = lane_cols(WQ);
-  int* H = reinterpret_cast<int*>(sw_smem + (size_t)slot * lane_bytes(WQ));
-  int* E = H + NC;
-  unsigned char* Q = reinterpret_cast<unsigned char*>(E + NC);
+  const int NS = kRing ? p.ring : NC;  // H and E slots
+  const Cols<kRing> col{p.ring - 1};
+  int* H = reinterpret_cast<int*>(sw_smem +
+                                  (size_t)slot * lane_bytes(WQ, p.ring));
+  int* E = H + NS;
+  unsigned char* Q = reinterpret_cast<unsigned char*>(E + NS);
 
   Lane ln;
   ln.init(p, lane, real);
@@ -209,7 +248,9 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
   for (int j = t; j < NC; j += G) {
     const int q = (real && j < WQ) ? qrow[j] : 4;
     Q[j] = (unsigned char)((q >= 0 && q <= 3) ? q : 4);
-    // the boundary row's H
+  }
+  // the boundary row's H (in the ring, of the columns the first row reads)
+  for (int j = t; j < NS; j += G) {
     const int hf = (j == 0) ? h0 : h0 - oe_ins - e_ins * (j - 1);
     H[j] = (j < WQ && hf > 0 && j < qlen + 1) ? hf : 0;
     E[j] = 0;
@@ -257,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
       int hv[kChunk], qv[kChunk];
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        hv[u] = H[c + u];
+        hv[u] = H[col(c + u)];
         qv[u] = Q[c + u];
       }
 #pragma unroll
@@ -265,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
         const bool ok = c + u < c1;
         const int s = qv[u] == tb ? sa : (qv[u] > 3 ? -1 : sb);
         const int m = hv[u] != 0 ? hv[u] + s : 0;
-        if (ok) H[c + u] = m;
+        if (ok) H[col(c + u)] = m;
         const int gn = __viaddmax_s32(g, -e_ins, __viaddmax_s32(m, -oe_ins, 0));
         g = ok ? gn : g;
       }
@@ -289,8 +330,8 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
       int mv[kChunk], ev[kChunk];
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        mv[u] = H[c + u];
-        ev[u] = E[c + u];
+        mv[u] = H[col(c + u)];
+        ev[u] = E[col(c + u)];
       }
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
@@ -304,8 +345,8 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
         const int enx =
             __viaddmax_s32(ec, -e_del, __viaddmax_s32(m, -oe_del, 0));
         if (ok) {
-          E[j] = enx;
-          H[j] = hprev;
+          E[col(j)] = enx;
+          H[col(j)] = hprev;
         }
         bool ge;
         best = __vibmax_s32(ok ? hr : -2, best, &ge);
@@ -322,17 +363,17 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
     int h_end = 0;
     if (c1 > c0) {
       const int hc0 = t == 0 ? h1b : left;
-      H[c0] = hc0;
+      H[col(c0)] = hc0;
       if (hc0 != 0) {
         first = c0;
         last = max(last, c0);
       }
       if (c1 == en) {  // this thread holds the band end
         h_end = hprev;
-        H[en] = hprev;
-        E[en] = 0;
-        H[en + 1] = 0;
-        E[en + 1] = 0;
+        H[col(en)] = hprev;
+        E[col(en)] = 0;
+        H[col(en + 1)] = 0;
+        E[col(en + 1)] = 0;
         if (hprev != 0) {
           first = min(first, en);
           last = en;
@@ -358,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
 
     if (ln.active) {
       ln.row(p, bg, en, n > 0 ? h_end : h1b, best, bestj,
-             (live & 0xffffu) != 0, 1023 - (int)(live >> 16),
+             (live & 0xffffu) != 0, 65535 - (int)(live >> 16),
              (int)(live & 0xffffu) - 1);
       tb_raw = tb_nx;
       if ((ln.i & (G - 1)) == 0) {
@@ -375,32 +416,62 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
   if (real && t == 0) ln.write(p, lane);
 }
 
-// The block's shared memory for query width WQ. The first call lets the
-// kernel take as much as WQ = 320 needs and asks for the SM's whole
-// carveout as shared memory, so that as many lanes as fit stay resident;
-// later calls (a CUDA graph capture among them) set nothing.
-int set_smem(int WQ) {
-  const auto bytes = [](int wq) { return kThreads / G * lane_bytes(wq); };
-  static const bool once = [&] {
-    cudaFuncSetAttribute(sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes(320));
-    cudaFuncSetAttribute(sw_kernel,
+// The ring's slots for bands up to max_w: the least power of two that
+// holds a row's 2 * max_w + 3 columns (0 in the every-column layout).
+int ring_slots(int WQ, int max_w) {
+  if (WQ <= kFullMaxWQ) return 0;
+  int r = 16;
+  while (r < 2 * max_w + 3) r <<= 1;
+  return r;
+}
+
+// Lets the kernel's instantiation take `bytes` of shared memory a block
+// and asks for the SM's whole carveout as shared memory, so that as many
+// lanes as fit stay resident. The first call at the every-column layout
+// sets WQ = 320's size; a wider ring launch raises the limit to its
+// size, once a size, so that a CUDA graph capture replaying a launch
+// already made sets nothing. Returns false past the card's limit.
+template <bool kRing>
+bool set_smem(int bytes) {
+  static int allowed = 0;
+  static const int optin = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaFuncSetAttribute(sw_kernel<kRing>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
-    return true;
+    return v;
   }();
-  (void)once;
-  return bytes(WQ);
+  if (bytes > optin) return false;
+  if (bytes > allowed) {
+    allowed = kRing ? bytes : kThreads / G * lane_bytes(kFullMaxWQ, 0);
+    cudaFuncSetAttribute(sw_kernel<kRing>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, allowed);
+  }
+  return true;
+}
+
+// The block's shared memory at query width WQ with bands up to max_w.
+int block_bytes(int WQ, int max_w) {
+  return kThreads / G * lane_bytes(WQ, ring_slots(WQ, max_w));
 }
 
 }  // namespace
 
-// Occupancy of the kernel at query width WQ, for reports: blocks of
-// kThreads resident on one SM, or -1 on a CUDA error.
-extern "C" int sw_extend_blocks_per_sm(int WQ) {
+// Occupancy of the kernel at query width WQ and bands up to max_w, for
+// reports: blocks of kThreads resident on one SM, or -1 on a CUDA error
+// or past the card's shared-memory limit.
+extern "C" int sw_extend_blocks_per_sm(int WQ, int max_w) {
   int n = 0;
-  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, sw_kernel, kThreads, set_smem(WQ));
+  const int bytes = block_bytes(WQ, max_w);
+  const bool ring = WQ > kFullMaxWQ;
+  if (!(ring ? set_smem<true>(bytes) : set_smem<false>(bytes))) return -1;
+  const cudaError_t rc =
+      ring ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, sw_kernel<true>, kThreads, bytes)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, sw_kernel<false>, kThreads, bytes);
   return rc == 0 ? n : -1;
 }
 
@@ -418,22 +489,35 @@ extern "C" int sw_prof_zero() {
 
 // Plain C entry point (bound with ctypes). query int32[B, WQ], target
 // int32[B, WT], qlen/tlen/w0/h0 int32[B], out int32[6, B] (score, qle,
-// tle, gtle, gscore, max_off). WQ <= 320. Returns cudaGetLastError().
+// tle, gtle, gscore, max_off). max_w bounds every lane's w0 (it sizes the
+// ring of a WQ > 320 launch; a lane's band past it would be wrong).
+// Returns cudaErrorInvalidValue for bad sizes or a block's shared memory
+// past the card's limit, else cudaGetLastError().
 extern "C" int sw_extend_launch(const void* query, const void* qlen,
                                 const void* target, const void* tlen,
                                 const void* w0, const void* h0, void* out,
                                 int B, int WQ, int WT, int a, int b,
                                 int o_del, int e_del, int o_ins, int e_ins,
-                                int end_bonus, int zdrop, void* stream) {
-  if (WQ < 1 || WQ > 320 || WT < 1) return (int)cudaErrorInvalidValue;
+                                int end_bonus, int zdrop, int max_w,
+                                void* stream) {
+  if (WQ < 1 || WT < 1 || max_w < 0 || WQ > 65000)
+    return (int)cudaErrorInvalidValue;
+  const int ring = ring_slots(WQ, max_w);
   const Args p{static_cast<const int*>(query), static_cast<const int*>(qlen),
                static_cast<const int*>(target), static_cast<const int*>(tlen),
                static_cast<const int*>(w0), static_cast<const int*>(h0),
                static_cast<int*>(out), B, WQ, WT, a, b, o_del, e_del, o_ins,
-               e_ins, end_bonus, zdrop};
-  const int smem = set_smem(WQ);
+               e_ins, end_bonus, zdrop, ring};
+  const int smem = block_bytes(WQ, max_w);
   const int lanes = kThreads / G;
-  sw_kernel<<<(B + lanes - 1) / lanes, kThreads, smem,
-              static_cast<cudaStream_t>(stream)>>>(p);
+  const dim3 grid((B + lanes - 1) / lanes);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (ring) {
+    if (!set_smem<true>(smem)) return (int)cudaErrorInvalidValue;
+    sw_kernel<true><<<grid, kThreads, smem, st>>>(p);
+  } else {
+    if (!set_smem<false>(smem)) return (int)cudaErrorInvalidValue;
+    sw_kernel<false><<<grid, kThreads, smem, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }

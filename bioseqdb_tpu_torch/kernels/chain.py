@@ -22,14 +22,17 @@ NEG = -(1 << 30)
 
 def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
                   max_occ: int, max_seeds: int, sa_interval: int = 32,
-                  compact_cap: int = 0) -> dict:
+                  compact_cap: int | None = 0) -> dict:
     """Expand seed intervals (mems int32[B, M, 5] = k, l, s, start, end)
     into located seeds, ordered by (start, end) then sampled rank.
 
     A row whose l column is nonzero carries a doubled-text position in
     its k column (the kmer seeder's s == 1 rows) and skips the SA walk.
     Only the rank rows walk, compacted to at most ``(B * S) // 4`` lanes
-    (or ``compact_cap``); lanes past it overflow."""
+    (or ``compact_cap``), as the JAX version's static buffer holds them;
+    lanes past it overflow. ``compact_cap`` None walks every rank lane:
+    the buffer is a TPU static-shape cap, and the port compacts to the
+    lanes there are."""
     B, M, _ = mems.shape
     S = max_seeds
     dev = mems.device
@@ -61,7 +64,9 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
 
     if B * S > 4096:
         K = (B * S) // 4
-        if compact_cap > 0:
+        if compact_cap is None:
+            K = B * S
+        elif compact_cap > 0:
             K = min(K, compact_cap)
         fvalid = (valid & ~isposrow).reshape(-1)
         cpos = torch.cumsum(fvalid.to(i32), 0) - 1

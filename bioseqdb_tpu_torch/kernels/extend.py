@@ -2,7 +2,8 @@
 
 The port of ``bioseqdb_tpu/kernels/extend.py`` ``extend_all``: seeds are
 visited in the reference order (kept chains by descending weight, seeds
-by descending score, ties to the later seed); each is skipped when an
+by descending score, ties to the later seed; the score is the seed-SW
+filter's where it ran, else length x match); each is skipped when an
 accumulated region covers it (with the overlap-rescue test) or extended
 left and right by the banded SW, with bwa's band-doubling retry. The
 per-read sequential loop becomes global rounds: every lane scans to its
@@ -73,8 +74,13 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
     ckept = torch.gather(flt["kept"], 1, cis.long()) > 0
     usable = in_chain & ckept & seeds["valid"]
     sidx = torch.arange(S, device=dev)[None, :]
+    # seed score: len * match, unless the long-read seed-SW filter
+    # (kernels/seedsw.py) re-scored it (bwa's s->score)
+    sscore = seeds.get("score")
+    if sscore is None:
+        sscore = slen * match_score
     key = (crank * (1 << 19)
-           + (4095 - (slen * match_score).clamp(0, 4095)) * (1 << 7)
+           + (4095 - sscore.clamp(0, 4095)) * (1 << 7)
            + (S - 1 - sidx))
     key = torch.where(usable, key, 0x7FFFFFF0)
     order = torch.argsort(key, dim=1, stable=True)
@@ -163,12 +169,13 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
                 cursor, decided = scan_body(cursor, decided)
         return cursor, pick_row(order, cursor.clamp(0, S - 1)), cursor < n_usable
 
-    def sw_one(qbuf, qn, tbuf, tn, w, bonus, h0):
+    def sw_one(qbuf, qn, tbuf, tn, w, bonus, h0, max_w):
         if qbuf.is_cuda:
             return sw_extend_cuda(
                 qbuf, qn, tbuf, tn, w, h0, match_score=match_score,
                 mismatch_penalty=mismatch_penalty, o_del=o_del, e_del=e_del,
-                o_ins=o_ins, e_ins=e_ins, end_bonus=bonus, zdrop=zdrop)
+                o_ins=o_ins, e_ins=e_ins, end_bonus=bonus, zdrop=zdrop,
+                max_w=max_w)
         return sw_extend_batch(qbuf, qn, tbuf, tn, mat, o_del, e_del, o_ins,
                                e_ins, w, bonus, zdrop, h0, max_qlen)
 
@@ -187,7 +194,7 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
             qbuf, qn_a, tbuf, tn, h0, prev_sc, active = (
                 x[perm].contiguous() for x in
                 (qbuf, qn_a, tbuf, tn, h0, prev_sc, active))
-        r1 = sw_one(qbuf, qn_a, tbuf, tn, w1, bonus, h0)
+        r1 = sw_one(qbuf, qn_a, tbuf, tn, w1, bonus, h0, bandwidth)
         retry = (active & (r1["score"] != prev_sc)
                  & (r1["max_off"] >= ((w1 >> 1) + (w1 >> 2))))
         out = r1
@@ -195,7 +202,7 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
         if bool(retry.any()):
             w2 = w1 * 2
             r2 = sw_one(qbuf, torch.where(retry, qn_a, 0).to(i32), tbuf, tn,
-                        w2, bonus, h0)
+                        w2, bonus, h0, 2 * bandwidth)
             out = {k: torch.where(retry, r2[k], r1[k]) for k in r1}
             aw = torch.where(retry, w2, w1)
         if perm is not None:

@@ -9,15 +9,18 @@ live lanes every ``CHUNK`` steps and runs each chunk on the live lanes
 only (lanes are independent, so compaction changes nothing).
 
 Dropped from the TPU version, with unchanged results: multi-candidate
-columns (``kcand > 1``), quad rows, the r3 jump table, and the fetch
-sharing itself. The per-lane step budget ``max_iters`` still counts the
-extra step that fetch sharing spends on a lane whose two rank positions
-fall in different 1024-base octo rows, so the overflow mask equals the
-JAX machine's whenever that machine runs without the r3 jump (the
-reseed entry of the main path). With the jump (the FM seeder's full
-machine) the JAX machine spends fewer steps on round 3, and a lane near
-the budget may overflow here and not there; overflow lanes go to the
-fat retry or the host oracle, so records stay equal.
+columns (``kcand > 1``), quad rows and the fetch sharing itself. The
+per-lane step budget ``max_iters`` still counts the extra step that
+fetch sharing spends on a lane whose two rank positions fall in
+different 1024-base octo rows, and the round-3 prefix jump (``R3Jump``)
+takes one step as on the TPU, so ``iters`` and the overflow mask equal
+the JAX machine's, with the jump or without it.
+
+The round-3 jump: a round-3 pivot whose depth-J window is clean and
+inside the read starts its forward scan at depth J, its bi-interval read
+from a table of every length-J pattern, in one step instead of J - 1
+(``PH_R3J``). The TPU version appends that table to the Occ rows so the
+step's one gather reaches it; here it is a tensor of its own.
 
 Returns the JAX layout: mems int32[B, M, 5] (k, l = 0, s, start, end),
 n_mem, overflow, iters, it_r1, it_r2.
@@ -25,8 +28,12 @@ n_mem, overflow, iters, it_r1, it_r2.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK
+from bioseqdb_tpu_torch.index.layout import OCT_BLOCKS
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row
 
@@ -35,12 +42,84 @@ PH_FWD = 1     # forward pass of smem1
 PH_BWD = 2     # backward pass of smem1
 PH_R3 = 3      # bwt_seed_strategy1 forward scan
 PH_DONE = 4
+PH_R3J = 5     # round-3 jump: the depth-J prefix interval from the table
 
 RD_SMEM = 0    # round 1: SMEMs
 RD_RESEED = 1  # round 2: re-seed long low-occ SMEMs
 RD_LAST = 2    # round 3: LAST-like seeds
 
 CHUNK = 32     # state-machine steps between live-lane checks
+
+JUMP_DEPTH = 8  # r3 jump table depth (4^J keys)
+# The JAX package sizes its jump table by the TPU's gather tiers: the
+# depth rules below are copied from it verbatim so that the port's
+# machine picks the same depth, and so takes the same steps and
+# overflows the same lanes, for a given index; they mean nothing for the
+# card.
+_FAST_TIER_BYTES = int(20 * (1 << 20))
+
+
+class R3Jump(NamedTuple):
+    """The round-3 jump table: ``table`` int32[4^depth, 3] holds the
+    bi-interval (k, l, s) of every length-``depth`` pattern, keyed by
+    sum_t code[t] << 2t."""
+
+    table: torch.Tensor
+    depth: int
+
+
+def jump_depth(n_block_rows: int, depth: int | None = None) -> int:
+    """The jump depth the JAX package's ``build_r3_jump`` takes for an
+    Occ table of ``n_block_rows`` blocks (its octo rows x 8): the largest
+    depth whose table extension stays under the TPU's fast gather tier
+    (any depth once the table is past it), or ``depth`` when given; 0
+    (no jump) when the extended table's ranks would leave int32."""
+    base = -(-n_block_rows // MAJOR_BLOCKS) * MAJOR_BLOCKS
+    if depth is None:
+        if n_block_rows * 48 >= _FAST_TIER_BYTES:
+            depth = JUMP_DEPTH
+        else:
+            depth = next((d for d in (JUMP_DEPTH, 6)
+                          if (base + 2 * (4 ** d)) * 48 <= _FAST_TIER_BYTES),
+                         0)
+    if depth and (base + 2 * 4 ** depth) * OCC_BLOCK + 2 >= 2**31:
+        return 0
+    return depth
+
+
+def build_r3_jump(fm: kfm.FMDevice, depth: int | None = None
+                  ) -> R3Jump | None:
+    """The jump table of ``fm`` at ``jump_depth``'s depth (``depth``
+    forces one); None when the depth is 0. Built a depth at a time: the
+    4^t patterns of length t, each extended forward by all four codes at
+    once, are the 4^(t+1) of length t + 1 (the code at t lands in key bits
+    2t and 2t + 1)."""
+    J = jump_depth(fm.blocks.shape[0] * OCT_BLOCKS, depth)
+    if J == 0:
+        return None
+    c0 = torch.arange(4, device=fm.L2.device)
+    k = fm.L2[c0] + 1
+    l = fm.L2[3 - c0] + 1
+    s = fm.L2[c0 + 1] - fm.L2[c0]
+    for _ in range(1, J):
+        # (4^t, 4) by (key, code) -> code-major: index code * 4^t + key
+        k, l, s = (v.t().reshape(-1) for v in kfm.fmd_extend_fwd(fm, k, l, s))
+    return R3Jump(torch.stack([k, l, s], 1).to(torch.int32).contiguous(), J)
+
+
+def _jump_keys(codes: torch.Tensor, J: int) -> torch.Tensor:
+    """int32[B, W]: the jump key of the depth-J window at each column
+    (sum_t codes[p + t] << 2t), or -1 when the window holds a code >= 4
+    or runs past W."""
+    B, W = codes.shape
+    cpad = torch.nn.functional.pad(codes, (0, J), value=4)
+    key = torch.zeros(B, W, dtype=torch.int64, device=codes.device)
+    clean = torch.ones(B, W, dtype=torch.bool, device=codes.device)
+    for t in range(J):
+        c = cpad[:, t : t + W]
+        clean &= c < 4
+        key |= (c & 3) << (2 * t)
+    return torch.where(clean, key, -1).to(torch.int32)
 
 
 def collect_seeds_device(
@@ -56,11 +135,15 @@ def collect_seeds_device(
     max_iters: int = 0,
     entry_reseed: bool = False,
     reseed_entry: dict | None = None,
+    jump: R3Jump | None = None,
 ) -> dict:
     """All three seeding rounds for a batch of reads (or, with
     ``entry_reseed``, round 2 alone from preloaded round-1/3 mems:
     ``reseed_entry`` holds mem_s/mem_b/mem_e/n_mem and the ``active``
-    lanes). ``max_iters`` 0 means the default per-lane budget."""
+    lanes). ``max_iters`` 0 means the default per-lane budget. ``jump``
+    turns the round-3 jump on where it is exact: stepwise round 3 cannot
+    stop before depth ``min_seed_len``, so only for J <= min_seed_len
+    (and W > J)."""
     B, W = codes.shape
     P, M = max_cand, max_mem
     dev = codes.device
@@ -91,6 +174,11 @@ def collect_seeds_device(
         overflow=torch.zeros(B, dtype=torch.bool, device=dev),
         codes=codes.to(torch.int64), lens=lens.to(i32),
     )
+    J = jump.depth if jump is not None else 0
+    use_jump = J > 0 and min_seed_len >= J and W > J
+    if use_jump:
+        st["jkey"] = _jump_keys(st["codes"], J)
+        st["jkey_pend"] = z(B)      # the key latched at the pivot
     if entry_reseed:
         pre = reseed_entry
         M0 = pre["mem_s"].shape[1]
@@ -179,6 +267,15 @@ def collect_seeds_device(
         amb3 = p3 & (q3 >= 4)
         x = w_(amb3, x + 1, x)
         go3 = p3 & ~amb3
+        if use_jump:
+            # start at depth J from the table when the window is clean
+            # and inside the read
+            jk3 = torch.gather(st["jkey"], 1, x.long().clamp(0, W - 1)[:, None]
+                               )[:, 0]
+            jump3 = go3 & (jk3 >= 0) & (x + J <= L)
+            go3 = go3 & ~jump3
+            st["phase"] = w_(jump3, PH_R3J, st["phase"])
+            st["jkey_pend"] = w_(jump3, jk3.clamp(min=0), st["jkey_pend"])
         st["ik"] = w_(go3[:, None], set_intv(q3), st["ik"])
         st["i"] = w_(go3, x + 1, st["i"])
         st["phase"] = w_(go3, PH_R3, st["phase"]).to(i32)
@@ -241,6 +338,13 @@ def collect_seeds_device(
         ok_s = pk(s4)
 
         new = dict(st)
+        # ---- PH_R3J: one step, then the forward scan at depth J ----
+        if use_jump:
+            in_r3j = phase == PH_R3J
+            new["ik"] = w_(in_r3j[:, None],
+                           jump.table[st["jkey_pend"].long()], new["ik"])
+            new["i"] = w_(in_r3j, x + J, new["i"])
+            new["phase"] = w_(in_r3j, PH_R3, new["phase"])
         # ---- PH_FWD ----
         fwd_end = in_fwd & (i >= L)
         fwd_amb = in_fwd & (i < L) & (qi >= 4)

@@ -5,7 +5,16 @@ The Hopper counterpart of ``bioseqdb_tpu/kernels/sw_pallas.py``
 int32[B] results. Scoring is the match/mismatch form (the plain version
 ``sw.sw_extend_batch`` with ``fill_scmat(match, mismatch)`` computes the
 same thing). It launches on PyTorch's current stream, allocates only the
-output, and does not synchronise.
+output, and does not synchronise (unless a wide launch is not told its
+widest band, ``max_w``).
+
+Any query width runs on the card: up to 320 (every short-read launch)
+a lane keeps every column of H and E in shared memory; wider queries
+(long reads) keep them in a ring over the band, sized by ``max_w``, so
+shared memory grows by one byte a query column (``csrc/sw_extend.cu``).
+A launch is refused (RuntimeError) only when a block's shared memory
+passes the card's limit: Wq above about 10,400 at bands up to 200 on an
+H100. Nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -17,12 +26,12 @@ import torch
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels.sw import FIELDS
 
-MAX_QLEN = 320   # query width the kernel's column split supports
+FULL_MAX_QLEN = 320  # widest query of the every-column layout
 
 
 def _fn():
     fn = build.library("sw_extend").sw_extend_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -31,10 +40,14 @@ def _fn():
 def sw_extend_cuda(query, qlen, target, tlen, w0, h0, *,
                    match_score: int, mismatch_penalty: int,
                    o_del: int, e_del: int, o_ins: int, e_ins: int,
-                   end_bonus: int, zdrop: int) -> dict:
-    """Batched ksw_extend on the card. query int32[B, Wq] (codes 0..4,
-    Wq <= 320), target int32[B, Wt], qlen/tlen/w0/h0 int32[B], all
-    contiguous CUDA tensors on one device."""
+                   end_bonus: int, zdrop: int, max_w: int | None = None
+                   ) -> dict:
+    """Batched ksw_extend on the card. query int32[B, Wq] (codes 0..4),
+    target int32[B, Wt], qlen/tlen/w0/h0 int32[B], all contiguous CUDA
+    tensors on one device. ``max_w`` must bound every lane's w0; a launch
+    wider than FULL_MAX_QLEN sizes its band ring by it, and reads it from
+    w0 (a device synchronisation, so not inside a CUDA graph capture) when
+    it is None."""
     dev = query.device
     if dev.type != "cuda":
         raise ValueError("sw_extend_cuda takes CUDA tensors")
@@ -47,8 +60,8 @@ def sw_extend_cuda(query, qlen, target, tlen, w0, h0, *,
     if target.dim() != 2 or target.shape[0] != B or any(
             v.shape != (B,) for v in vecs):
         raise ValueError("sw_extend_cuda: inconsistent shapes")
-    if WQ > MAX_QLEN:
-        raise ValueError(f"sw_extend_cuda: query width {WQ} > {MAX_QLEN}")
+    if max_w is None:
+        max_w = int(w0.max()) if B and WQ > FULL_MAX_QLEN else 0
     out = torch.empty(6, B, dtype=torch.int32, device=dev)
     if B:
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -56,21 +69,22 @@ def sw_extend_cuda(query, qlen, target, tlen, w0, h0, *,
                    tlen.data_ptr(), w0.data_ptr(), h0.data_ptr(),
                    out.data_ptr(), B, WQ, int(target.shape[1]),
                    match_score, mismatch_penalty, o_del, e_del, o_ins, e_ins,
-                   end_bonus, zdrop, stream)
+                   end_bonus, zdrop, max(int(max_w), 0), stream)
         if rc != 0:
             raise RuntimeError(f"sw_extend kernel launch failed: CUDA error "
-                               f"{rc}")
+                               f"{rc} (Wq {WQ}, max_w {max_w})")
         build.LAUNCHES["sw_extend"] += 1
     return dict(zip(FIELDS, out))
 
 
-def blocks_per_sm(query_width: int) -> int:
+def blocks_per_sm(query_width: int, max_w: int = 200) -> int:
     """Blocks of the kernel (128 threads each) resident on one SM of the
-    current card at this query width: its occupancy, for reports."""
+    current card at this query width and widest band: its occupancy, for
+    reports."""
     fn = build.library("sw_extend").sw_extend_blocks_per_sm
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    n = fn(query_width)
+    n = fn(query_width, max_w)
     if n < 0:
         raise RuntimeError("sw_extend occupancy query failed")
     return n

@@ -74,23 +74,27 @@ def build_sources(specs: dict) -> dict:
     return out
 
 
-def launcher(lib: ctypes.CDLL):
+def launcher(lib: ctypes.CDLL, takes_max_w: bool = True):
     """A function with ``sw_cuda.sw_extend_cuda``'s signature that
     launches ``lib``'s ``sw_extend_launch`` on the current stream (inputs
-    as the package's wrapper takes them, unchecked)."""
+    as the package's wrapper takes them, unchecked). ``takes_max_w``:
+    the entry point has the ``max_w`` argument (sources before the wide
+    query layout do not)."""
     fn = lib.sw_extend_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * (
+        11 + takes_max_w) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def launch(query, qlen, target, tlen, w0, h0, *, match_score,
-               mismatch_penalty, o_del, e_del, o_ins, e_ins, end_bonus, zdrop):
+               mismatch_penalty, o_del, e_del, o_ins, e_ins, end_bonus, zdrop,
+               max_w=None):
         B, WQ = query.shape
         out = torch.empty(6, B, dtype=torch.int32, device=query.device)
+        extra = (int(w0.max()) if max_w is None else max_w,) * takes_max_w
         rc = fn(query.data_ptr(), qlen.data_ptr(), target.data_ptr(),
                 tlen.data_ptr(), w0.data_ptr(), h0.data_ptr(), out.data_ptr(),
                 B, WQ, int(target.shape[1]), match_score, mismatch_penalty,
-                o_del, e_del, o_ins, e_ins, end_bonus, zdrop,
+                o_del, e_del, o_ins, e_ins, end_bonus, zdrop, *extra,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"sw_extend_launch failed: CUDA error {rc}")
@@ -178,7 +182,8 @@ def turns(dev, sources: dict) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"  {label}: {line.strip()}", flush=True)
     launches = {"this": sw_extend_cuda,
-                **{k: launcher(lib) for k, (lib, _) in libs.items()}}
+                **{k: launcher(lib, "max_w" in Path(sources[k]).read_text())
+                   for k, (lib, _) in libs.items()}}
     synthetic = next(sw_sets.SwCall.from_cases(cases, *opts, dev)
                      for name, cases, *opts in
                      sw_sets.sw_sets(np.random.default_rng(7))

@@ -7,7 +7,11 @@ Case sets (``sw_sets``): small ones at narrow widths; ``synthetic``
 624); ``int16_edge`` (h0 + a * qlen from 200 below to 8 above the int16
 limit, so the kernel's arithmetic must hold values past int16);
 ``wide_320`` (Wq 320) and ``retry_band`` (band 200, the band-doubling
-retry).
+retry); and the long-read widths, where the kernel keeps H and E in a
+ring over the band: ``long_1500`` (4,096 read-like pairs up to 1,500
+bases at the widths a batch of 1,500 bp reads launches, Wq 1,504 and Wt
+1,968, band 100) and ``wide_2048`` (1,024 pairs up to 2,048 bases at Wq
+2,048, Wt 2,512, band 200).
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ SW_GAPS = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
 MAIN_WQ, MAIN_WT = 160, 624
 INT16_MAX = 32767
 SW_CALLS = 5        # launches in the CUDA graph that times one
+# a long-read batch's widths: Wq = W (1,500 bp reads pack to 1,504) and
+# Wt = W + 4 * band + 64
+LONG_WQ, LONG_WT = 1504, 1968
+WIDE_WQ, WIDE_WT = 2048, 2512
 
 
 def sw_cases(rng, n, max_q, max_t, amb=False, indel=False):
@@ -100,6 +108,10 @@ def sw_sets(rng) -> list:
          100, 100, 5, 1, 4),
         ("retry_band", sw_cases(rng, 2048, 152, 616, indel=True), MAIN_WQ,
          MAIN_WT, 200, 100, 5, 1, 4),
+        ("long_1500", sw_cases(rng, 4096, 1500, LONG_WT, indel=True),
+         LONG_WQ, LONG_WT, 100, 100, 5, 1, 4),
+        ("wide_2048", sw_cases(rng, 1024, WIDE_WQ, WIDE_WT, indel=True),
+         WIDE_WQ, WIDE_WT, 200, 100, 5, 1, 4),
     ]
 
 
@@ -109,6 +121,11 @@ class SwCall:
     package's kernel by default)."""
 
     def __init__(self, q, qlen, t, tlen, w0, h0, kw):
+        # the widest band is passed, so that a wide launch inside a CUDA
+        # graph capture need not read it from w0
+        kw = dict(kw)
+        if kw.get("max_w") is None:
+            kw["max_w"] = int(w0.max()) if len(w0) else 0
         self.args, self.kw = (q, qlen, t, tlen, w0, h0), kw
         self.mat = torch.from_numpy(fill_scmat(
             kw["match_score"], kw["mismatch_penalty"])).to(q.device)
@@ -153,17 +170,18 @@ class SwCall:
 
 class recording:
     """Within the block, every call of the SW wrapper that
-    ``kernels/extend.py`` makes also appends a copy of its inputs to
-    ``calls`` as a ``SwCall``."""
+    ``kernels/extend.py`` makes also appends its inputs to ``calls`` as a
+    ``SwCall``: a copy, or with ``copy=False`` the tensors themselves
+    (for their shapes)."""
 
-    def __init__(self, calls: list):
-        self.calls = calls
+    def __init__(self, calls: list, copy: bool = True):
+        self.calls, self.copy = calls, copy
 
     def __enter__(self):
         self.real = real = extend_mod.sw_extend_cuda
 
         def rec(q, qlen, t, tlen, w0, h0, **kw):
-            self.calls.append(SwCall(*(x.clone() for x in
+            self.calls.append(SwCall(*(x.clone() if self.copy else x for x in
                                        (q, qlen, t, tlen, w0, h0)), kw))
             return real(q, qlen, t, tlen, w0, h0, **kw)
 

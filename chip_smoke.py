@@ -11,10 +11,13 @@
    ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
    widths, Wq 160, Wt 624), ``int16_edge`` (h0 + a * qlen just below and
    just above the int16 limit), ``wide_320`` (Wq 320) and ``retry_band``
-   (band 200, the band-doubling retry); the bound from the DP cells and
-   rows the plain version counts on the synthetic set, which gives the
-   kernels line its time; and the synthetic set's 1% of lanes with the
-   most cells timed alone;
+   (band 200, the band-doubling retry), and the long-read widths, where
+   the kernel keeps H and E in a ring over the band: ``long_1500``
+   (4,096 pairs, Wq 1,504, Wt 1,968) and ``wide_2048`` (1,024 pairs, Wq
+   2,048, Wt 2,512, band 200); the bound from the DP cells and rows the
+   plain version counts on the synthetic set, which gives the kernels
+   line its time, and on the two long-read sets (time, bound, share);
+   and the synthetic set's 1% of lanes with the most cells timed alone;
 4. main path: a 4.6 Mb simulated genome (E. coli scale), two batches of
    16,384 150 bp single-end reads at 1% substitutions through
    ``Aligner.device_regions`` -> ``absorb_overflow`` ->
@@ -39,7 +42,25 @@
    pair with a mate off it must equal the host's slow PE path
    (``pe_ne_oracle`` 0). The timed batch's SAM text is rendered with
    ``emit_sam_pair_columns``;
-6. probe path: counts zeroed, the two probe entry points
+6. FM-seeded main path: the main path's index and read batches (seeds
+   100, the warm-up, and 101) through an ``Aligner`` built with
+   ``seeder="fm"``: the FM state machine with its round-3 jump table
+   seeds every read. Counts zeroed just before the timed batch and read
+   just after (``sw_extend`` must have run); the timed batch runs under
+   ``tools/long_leg.py``'s ``stage_clock``, which gives the FM machine's
+   seconds and its slowest lane's steps, so seconds a step. Truth >= 98%
+   and ``device_ne_oracle`` 0, as on the main path;
+7. long-read leg (``tools/long_leg.py``), on the main path's index and
+   kmer ``Aligner``: 1,500 bp reads at 1% substitutions, read seed 300
+   (1,024 reads, the warm-up) and 301 (4,096 reads, timed). Batches this
+   wide take the FM seeder and the seed-SW filter. The warm-up's
+   ``sw_extend`` launches are recorded and each one wider than 320 is run
+   again alone, as on the main path; the timed batch runs under the stage
+   clock with counts zeroed just before and read just after, and must
+   launch ``sw_extend`` at Wq > 320 (its launches' widths are recorded).
+   Reads/s, bases/s, the stage split, truth >= 98% and every read off
+   truth equal to the host oracle;
+8. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
    the main-path and a GRCh38-class Occ table), counts read: every probe
@@ -47,9 +68,9 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-7. prints the kernels line (``sw_extend``'s launches: the timed
-   single-end and paired-end batches'), then the device line as the last
-   line.
+9. prints the kernels line (``sw_extend``'s launches: the timed batches
+   of the main, paired-end, FM-seeded and long-read paths), then the
+   device line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
@@ -74,18 +95,19 @@ import time
 import numpy as np
 import torch
 
-from bioseqdb_tpu_torch.align.columns import finalize_columns
-from bioseqdb_tpu_torch.cpu import oracle as O
+from bioseqdb_tpu_torch.align.options import AlignOptions
+from bioseqdb_tpu_torch.align.pipeline import Aligner
 from bioseqdb_tpu_torch.kernels import build
-from bioseqdb_tpu_torch.kernels.sw_cuda import blocks_per_sm
+from bioseqdb_tpu_torch.kernels.sw_cuda import FULL_MAX_QLEN, blocks_per_sm
 from bioseqdb_tpu_torch.sam.emit import emit_sam_pair_columns
-from bioseqdb_tpu_torch.tools import microbench_gather, microbench_seed, pe_leg
+from bioseqdb_tpu_torch.tools import (long_leg, microbench_gather,
+                                      microbench_seed, pe_leg)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
-from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, MAIN_WQ,
-                                              READ_LEN, SwCall,
-                                              main_path_setup, recording,
-                                              sw_sets)
+from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
+                                              MAIN_WQ, READ_LEN, WIDE_WQ,
+                                              SwCall, main_path_setup,
+                                              recording, sw_sets)
 
 # exact equality: the kernels and their plain versions are integer programs
 TOLERANCE = 0
@@ -131,11 +153,14 @@ def sw_bound(call: SwCall, counted: dict) -> tuple[float, str]:
     return bound(n_bytes, SW_INSTR_PER_CELL * int(counted["cells"].sum()))
 
 
+LONG_SETS = ("long_1500", "wide_2048")
+
+
 def kernel_phase(dev) -> dict:
-    for wq in (MAIN_WQ, 320):
-        n = blocks_per_sm(wq)
-        log(f"sw_extend occupancy at Wq={wq}: {n} blocks of 128 threads an "
-            f"SM ({4 * n} warps)")
+    for wq, w in ((MAIN_WQ, 200), (320, 200), (LONG_WQ, 100), (WIDE_WQ, 200)):
+        n = blocks_per_sm(wq, w)
+        log(f"sw_extend occupancy at Wq={wq}, bands up to {w}: {n} blocks "
+            f"of 128 threads an SM ({4 * n} warps)")
     rng = np.random.default_rng(7)
     max_err, calls = 0, {}
     for name, cases, *opts in sw_sets(rng):
@@ -169,6 +194,16 @@ def kernel_phase(dev) -> dict:
     log(f"sw_extend [synthetic, the {len(top)} lanes with the most cells "
         f"({int(lane_cells[top].sum())} DP cells) alone]: cuda "
         f"{slow.ms():.4f} ms")
+    for name in LONG_SETS:   # the band-ring layout of long reads
+        call = calls[name]
+        ref = call.plain(count_cells=True)
+        wide_ms = call.ms()
+        b_ms, b_by = sw_bound(call, ref)
+        log(f"sw_extend [{name}] {call.shape()}: cuda {wide_ms:.4f} ms (a "
+            f"launch in a CUDA graph); {int(ref['cells'].sum())} DP cells, "
+            f"{int(ref['rows'].sum())} rows, a lane at most "
+            f"{int(ref['rows'].max())} -> bound {b_ms:.5f} ms ({b_by}), "
+            f"kernel at {100 * b_ms / wide_ms:.3f}% of it")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 shape=f"synthetic set, {syn.shape()}, {cells} DP cells")
@@ -208,22 +243,11 @@ def main_path(dev, card: str) -> dict:
     log(f"index {GENOME_LEN} bases + Aligner.build + reads: "
         f"{time.time() - t0:.1f} s")
 
-    def run(batch):
-        t = [time.time()]
-        out = al.device_regions(batch)
-        t.append(time.time())
-        n_ovf = int(np.asarray(out["overflow"])[: batch.n].sum())
-        out = al.absorb_overflow(batch, out)
-        t.append(time.time())
-        cols = finalize_columns(idx, al.options, batch, out)
-        t.append(time.time())
-        return cols, n_ovf, np.diff(t)
-
     t0 = time.time()
     calls = []
     n0 = build.LAUNCHES["sw_extend"]
     with recording(calls):
-        run(batches[0])
+        long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
         f"launches recorded, {warm} counted")
@@ -231,44 +255,124 @@ def main_path(dev, card: str) -> dict:
         raise AssertionError("the warm-up batch's sw_extend launches were "
                              "not all recorded")
     build.reset_launches()
-    cols, n_ovf, parts = run(batches[1])
+    res = long_leg.run_batch(al, batches[1])
     launches = dict(build.LAUNCHES)
-    total = float(parts.sum())
+    sec = res["seconds"]
+    total = sum(sec.values())
     rps = BATCH / total
-    log(f"timed batch: device_regions {parts[0]:.3f} s, absorb_overflow "
-        f"{parts[1]:.3f} s, finalize_columns {parts[2]:.3f} s, total "
-        f"{total:.3f} s")
+    log("timed batch: " + ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+        + f", total {total:.3f} s")
     log(f"main path: {rps:.1f} reads/s ({BATCH} x {READ_LEN} bp SE, "
         f"{GENOME_LEN} b genome) on {card}")
     if launches["sw_extend"] <= 0:
         raise AssertionError("kernel sw_extend was not launched on the "
                              "main path")
-
-    sim, batch = sims[1], batches[1]
-    n = len(sim.positions)
-    at_truth = (cols.mapped[:n] & (cols.pos[:n] == sim.positions)
-                & (cols.is_rev[:n] == sim.strands.astype(bool)))
-    ne_oracle = 0
-    off = np.flatnonzero(~at_truth)
-    for i in off:
-        q = np.asarray(batch.codes)[i, : batch.lens[i]].astype(np.uint8)
-        regs = O.align_read(idx, al.options, q, rand_id=int(i),
-                            min_score=al.options.min_score, all_hits=True)
-        prim = next((a for a in regs if not a.flag & 0x100), None)
-        if prim is None:
-            agree = not cols.mapped[i]
-        else:
-            agree = (bool(cols.mapped[i]) and int(cols.pos[i]) == prim.pos
-                     and bool(cols.is_rev[i]) == bool(prim.is_rev)
-                     and int(cols.score[i]) == prim.score)
-        ne_oracle += not agree
-    log(f"truth: {int(at_truth.sum())}/{n}; device overflow before retry: "
-        f"{n_ovf}; host-oracle rows after retry: {len(cols.extra)}; "
-        f"off-truth reads: {off.size}, device_ne_oracle: {ne_oracle}")
-    if ne_oracle or at_truth.sum() < 0.98 * n:
-        raise AssertionError("main path disagrees with the host oracle")
+    truth_check("main path", al, sims[1], batches[1], res["cols"],
+                res["n_ovf"])
     return dict(launches=launches, rps=rps, calls=calls, idx=idx, al=al,
-                genome=genome)
+                genome=genome, sims=sims, batches=batches)
+
+
+def truth_check(path: str, al, sim, batch, cols, n_ovf: int) -> None:
+    """Reads at their simulated origin (>= 98%), and every read off it
+    equal to the host oracle (``tools/long_leg.py`` ``check``)."""
+    chk = long_leg.check(al, sim, batch, cols)
+    n = chk["reads"]
+    log(f"{path} truth: {chk['truth']}/{n}; device overflow before retry: "
+        f"{n_ovf}; host-oracle rows after retry: {chk['host_oracle_rows']}; "
+        f"off-truth reads: {chk['off_truth']}, device_ne_oracle: "
+        f"{chk['ne_oracle']}")
+    if chk["ne_oracle"] or chk["truth"] < 0.98 * n:
+        raise AssertionError(f"{path} disagrees with the host oracle")
+
+
+def stage_line(clock: "long_leg.stage_clock") -> str:
+    """The device step's stage split of a clocked batch, and the FM
+    machine's slowest lane's steps and seconds a step."""
+    sp = clock.split()
+    text = ", ".join(f"{k} {sp[k]:.3f} s" for k in long_leg.CLOCKED
+                     if k in sp)
+    if "fm_machine_steps" in sp:
+        text += (f"; FM machine {sp['fm_machine_s']:.3f} s for its slowest "
+                 f"lane's {sp['fm_machine_steps']} steps: "
+                 f"{1e3 * sp['fm_s_per_step']:.3f} ms a step")
+    return text
+
+
+def fm_main_path(m: dict, dev, card: str) -> dict:
+    """The main path's index and batches through an FM-seeded Aligner."""
+    t0 = time.time()
+    al = Aligner.build(m["idx"], AlignOptions(), device=dev, seeder="fm")
+    log(f"FM-seeded Aligner.build (jump depth {al.jump.depth}): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    long_leg.run_batch(al, m["batches"][0])
+    log(f"FM-seeded warm-up batch: {time.time() - t0:.1f} s")
+    build.reset_launches()
+    with long_leg.stage_clock() as clock:
+        res = long_leg.run_batch(al, m["batches"][1])
+    launches = dict(build.LAUNCHES)
+    sec = res["seconds"]
+    total = sum(sec.values())
+    log("FM-seeded timed batch: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in sec.items()) + f", total {total:.3f} s")
+    log(f"FM-seeded device step: {stage_line(clock)}")
+    log(f"FM-seeded main path: {BATCH / total:.1f} reads/s ({BATCH} x "
+        f"{READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; sw_extend "
+        f"launches {launches['sw_extend']}")
+    if launches["sw_extend"] <= 0:
+        raise AssertionError("kernel sw_extend was not launched on the "
+                             "FM-seeded main path")
+    truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
+                res["cols"], res["n_ovf"])
+    return launches
+
+
+def long_path(m: dict, card: str) -> dict:
+    """The long-read leg on the main path's index and Aligner."""
+    al = m["al"]
+    t0 = time.time()
+    warm, timed = (long_leg.simulate(m["genome"], n, seed) for n, seed in
+                   ((long_leg.WARM_READS, long_leg.WARM_SEED),
+                    (long_leg.TIMED_READS, long_leg.TIMED_SEED)))
+    log(f"long reads simulated: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    calls = []
+    n0 = build.LAUNCHES["sw_extend"]
+    with recording(calls):
+        long_leg.run_batch(al, warm[1])
+    counted = build.LAUNCHES["sw_extend"] - n0
+    log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
+        f"{long_leg.READ_LEN} bp): {time.time() - t0:.1f} s, {len(calls)} "
+        f"sw_extend launches recorded, {counted} counted")
+    if not 0 < len(calls) == counted:
+        raise AssertionError("the long-read warm-up batch's sw_extend "
+                             "launches were not all recorded")
+    build.reset_launches()
+    widths = []
+    with long_leg.stage_clock() as clock, recording(widths, copy=False):
+        res = long_leg.run_batch(al, timed[1])
+    launches = dict(build.LAUNCHES)
+    wide = [c.args[0].shape[1] for c in widths
+            if c.args[0].shape[1] > FULL_MAX_QLEN]
+    sec = res["seconds"]
+    total = sum(sec.values())
+    n = long_leg.TIMED_READS
+    log("long-read timed batch: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in sec.items()) + f", total {total:.3f} s")
+    log(f"long-read device step: {stage_line(clock)}")
+    log(f"long-read path: {n / total:.1f} reads/s, "
+        f"{n * long_leg.READ_LEN / total:.0f} bases/s ({n} x "
+        f"{long_leg.READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; "
+        f"sw_extend launches {launches['sw_extend']}, at Wq > "
+        f"{FULL_MAX_QLEN}: {len(wide)} (Wq {sorted(set(wide))})")
+    if launches["sw_extend"] != len(widths) or not wide:
+        raise AssertionError("the long-read batch did not launch sw_extend "
+                             f"at Wq > {FULL_MAX_QLEN}")
+    truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
+    main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
+                       "long-read")
+    return launches
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -424,10 +528,17 @@ def main() -> None:
     t0 = time.time()
     pe = pe_path(m, card)
     log(f"PE phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    fm = fm_main_path(m, dev, card)
+    log(f"FM-seeded phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    lr = long_path(m, card)
+    log(f"long-read phase: {time.time() - t0:.1f} s")
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
-                    launches=m["launches"]["sw_extend"] + pe["sw_extend"],
+                    launches=sum(x["sw_extend"] for x in
+                                 (m["launches"], pe, fm, lr)),
                     **sw)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))

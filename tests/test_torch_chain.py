@@ -114,6 +114,22 @@ def test_resolve_chain_filter_equal(setup, src, max_occ, cap):
         assert (flt_j["kept"] == 2).any()
 
 
+def test_resolve_uncapped_walks_every_rank_lane(setup):
+    """``compact_cap`` None (the port's FM seeder) cuts no rank lane: on
+    this batch it equals the JAX version whose (B * S) // 4 buffer holds
+    every lane, and the reads a 64-lane cap overflows resolve."""
+    idx, jf, tf, mems = setup
+    m, n = mems["fm"]
+    kw = dict(max_occ=500, max_seeds=64, sa_interval=idx.sa_interval)
+    seeds_j = _np(jax.device_get(jch.resolve_seeds(
+        jf, jnp.asarray(m.numpy()), jnp.asarray(n.numpy()), compact_cap=0,
+        **kw)))
+    seeds_t = tch.resolve_seeds(tf, m, n, compact_cap=None, **kw)
+    _eq(seeds_j, seeds_t)
+    capped = tch.resolve_seeds(tf, m, n, compact_cap=64, **kw)["overflow"]
+    assert capped.any() and not seeds_t["overflow"][capped].any()
+
+
 @pytest.mark.parametrize("max_occ", [1, 500])
 def test_l_rep_equal(setup, max_occ):
     _, _, _, mems = setup

@@ -1,7 +1,8 @@
 """Banded SW extension: the port's plain ``sw_extend_batch`` equals the
 JAX ``sw_extend_batch`` exactly (all six outputs), on the case
-generators of test_sw_pallas.py plus a random sweep, and equals the
-Pallas kernel (interpret mode) on one small case set."""
+generators of test_sw_pallas.py plus a random sweep and long-read
+widths (Wq 1,504 and 2,048), and equals the Pallas kernel (interpret
+mode) on one small case set."""
 
 import numpy as np
 import pytest
@@ -142,6 +143,33 @@ def sweep(seed):
 def test_random_sweep(seed):
     cases, kw = sweep(seed)
     run_both(cases, **kw)
+
+
+def long_cases(seed, n, max_q, max_t):
+    """Long-read-like pairs: a query up to ``max_q`` bases, and a target
+    that starts with its copy carrying 3% substitutions and an indel,
+    then runs on with random bases."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for k in range(n):
+        qq = rng.integers(0, 4, int(rng.integers(max_q // 2, max_q + 1)))
+        tt = qq.copy()
+        p = int(rng.integers(10, tt.size - 10))
+        tt = (np.delete(tt, slice(p, p + 3)) if k % 2
+              else np.insert(tt, p, rng.integers(0, 4, 2)))
+        m = rng.random(tt.size) < 0.03
+        tt[m] = rng.integers(0, 4, m.sum())
+        tt = np.concatenate([tt, rng.integers(0, 4, max_t)])[:max_t]
+        cases.append((qq, tt, int(rng.integers(0, 100))))
+    return cases
+
+
+@pytest.mark.parametrize("wq,w", [(1504, 100), (2048, 200)])
+def test_long_query_widths(wq, w):
+    """The widths a batch of long reads launches: Wq = W and Wt = W + 4 *
+    band + 64, at the first band and the retry's."""
+    wt = wq + 4 * 100 + 64
+    run_both(long_cases(wq, 4, wq, wt), w=w, max_qlen=wq, max_tlen=wt)
 
 
 def test_pallas_interpret_agrees():

@@ -138,6 +138,17 @@ def test_kernel_wide_query(dev):
           max_qlen=320, max_tlen=640)
 
 
+@pytest.mark.parametrize("wq", [321, 1504, 2048])
+def test_kernel_long_query(dev, wq):
+    """Query widths past 320 (long reads): H and E in a ring over the
+    band, at the band-doubling retry's band (w = 200), with lanes up to
+    the full width and lanes much shorter than it."""
+    rng = np.random.default_rng(wq)
+    wt = wq + 4 * 100 + 64
+    _both(dev, _read_like(rng, 256, wq, wt), w=200, max_qlen=wq,
+          max_tlen=wt)
+
+
 def test_kernel_retry_band(dev):
     """The band-doubling retry's band (w = 200) at the main path's
     widths."""
