@@ -1,10 +1,15 @@
-"""The single-end and paired-end full-alignment pipeline on a torch device.
+"""The alignment pipeline on a torch device: exact mode, and the
+single-end and paired-end full pipeline.
 
-The port of ``bioseqdb_tpu/align/pipeline.py`` for ``mode="full"``:
-``Aligner.build`` uploads the index tables and picks the seeder as the
-JAX package does (the kmer seeder where the index and options allow it
-and ``BST_SEEDER`` is ``auto`` or ``kmer``, else the FM state machine
-with its round-3 jump table), ``device_regions`` runs one read batch
+The port of ``bioseqdb_tpu/align/pipeline.py``. ``mode="exact"``:
+``exact_align_step`` runs backward search, SA resolution and the
+coordinate rebase of a read batch on the device, and ``align_batch``
+turns its hits into records (full-length exact matches only; MAPQ 60 or
+0, as in the JAX package). ``mode="full"``: ``Aligner.build`` uploads
+the index tables and picks the seeder as the JAX package does (the kmer
+seeder where the index and options allow it and ``BST_SEEDER`` is
+``auto`` or ``kmer``, else the FM state machine with its round-3 jump
+table), ``device_regions`` runs one read batch
 through seeding -> seed resolution -> chaining -> chain filter (->
 the seed-SW filter of long reads) -> extension on the device and
 returns the same host dict as the JAX ``Aligner.device_regions`` (the
@@ -20,8 +25,7 @@ host).
 
 Batches wider than 320 bases take the FM seeder, as in the JAX package.
 Indexes of 2^31 or more doubled bases (int64 ranks) raise
-``NotImplementedError`` (``index/layout.py``); exact mode and meshes are
-not ported.
+``NotImplementedError`` (``index/layout.py``); meshes are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from bioseqdb_tpu_torch.align.options import AlignOptions
-from bioseqdb_tpu_torch.align.result import ReadResult
+from bioseqdb_tpu_torch.align.result import Hit, ReadResult
 from bioseqdb_tpu_torch.cpu.ksw import fill_scmat
 from bioseqdb_tpu_torch.index import layout
 from bioseqdb_tpu_torch.index.fmindex import FMIndex
@@ -49,9 +53,37 @@ from bioseqdb_tpu_torch.kernels.seedsw import possibly_active, seed_sw_filter
 
 KMER_MAX_WIDTH = 320  # wider batches take the FM seeder (JAX pipeline.py:133)
 SEEDERS = ("auto", "kmer", "fm")
+MODES = ("full", "exact")
 
 # fields bounded by the read width / scoring config: int16 on the wire
 _NARROW_FIELDS = ("qb", "qe", "score", "truesc", "w", "seedlen0", "seedcov")
+
+
+def exact_align_step(fm: kfm.FMDevice, codes: torch.Tensor,
+                     lens: torch.Tensor, max_hits: int,
+                     sa_interval: int = 32) -> dict:
+    """Exact-match alignment of one read batch on the device.
+
+    codes: [B, W] (uint8 on the wire, cast here), lens: int32 [B].
+    Returns the host dict of per-read hit arrays of width ``max_hits``:
+    the interval size ``n_hits``, and ``valid``, ``rid``, ``pos`` (0-based
+    within the reference) and ``rev``."""
+    codes = codes.to(torch.int32)
+    lens = lens.to(torch.int32)
+    lo, hi = kfm.backward_search(fm, codes, lens)
+    n_hits = hi - lo
+    h = torch.arange(max_hits, dtype=torch.int32, device=codes.device)[None, :]
+    valid = h < n_hits.clamp(max=max_hits)[:, None]
+    ranks = torch.where(valid, lo[:, None] + h, 1)   # 1: a safe dummy rank
+    pos = kfm.sa_resolve(fm, ranks, sa_interval)
+    fwd, rev = kfm.depos(fm, pos, lens[:, None])
+    rid = kfm.rid_of(fm, fwd)
+    ref_off = fm.ref_offsets[rid.long()]
+    ref_len = fm.ref_lens[rid.long()]
+    # drop hits bridging two concatenated references (bwa drops these too)
+    inside = (fwd >= ref_off) & (fwd + lens[:, None] <= ref_off + ref_len)
+    return to_host(dict(n_hits=n_hits, valid=valid & inside, rid=rid,
+                        pos=fwd - ref_off, rev=rev))
 
 
 def full_align_step(
@@ -224,21 +256,27 @@ def to_host(tree):
 @dataclass
 class Aligner:
     """An index bound to options and a torch device, ready to align read
-    batches (the port of the JAX ``Aligner`` for ``mode="full"``)."""
+    batches (the port of the JAX ``Aligner``)."""
 
     index: FMIndex
     options: AlignOptions
     device: torch.device
     fm: kfm.FMDevice
-    pac_rows: torch.Tensor
+    pac_rows: torch.Tensor | None  # packed doubled text; None in exact mode
     kmer: dict | None        # the kmer seeder's tables; None: FM seeder
     jump: R3Jump | None      # the FM machine's round-3 jump table
+    mode: str = "full"
 
     @classmethod
     def build(cls, index: FMIndex, options: AlignOptions | None = None,
-              device="cuda", seeder: str | None = None) -> "Aligner":
+              device="cuda", seeder: str | None = None,
+              mode: str = "full") -> "Aligner":
         """Upload ``index``'s tables to ``device``. A CUDA device without
         a card raises; nothing falls back to the CPU.
+
+        ``mode`` is ``full`` (the BWA-MEM pipeline) or ``exact`` (the
+        exact-match path, which uploads the FM tables alone: no packed
+        text, kmer table or jump table).
 
         ``seeder`` (default: the ``BST_SEEDER`` variable, else ``auto``)
         picks the main seeder as the JAX package does: ``auto`` or
@@ -248,10 +286,16 @@ class Aligner:
         the FM state machine, with no kmer table built. The round-3 jump
         table is built either way: the FM machine runs in the fat
         overflow retry and on batches wider than KMER_MAX_WIDTH."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} is not one of {MODES}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Aligner.build(device='cuda'): no CUDA device")
         opts = options or AlignOptions()
+        if mode == "exact":
+            return cls(index=index, options=opts, device=device,
+                       fm=kfm.FMDevice.from_host(index, device),
+                       pac_rows=None, kmer=None, jump=None, mode=mode)
         want = seeder or os.environ.get("BST_SEEDER", "auto")
         if want not in SEEDERS:
             raise ValueError(f"seeder {want!r} is not one of {SEEDERS}")
@@ -301,6 +345,10 @@ class Aligner:
         """Upload a batch in the 2-bit wire form, unpack it on the device
         and run one device step at the packed width; returns the device
         out dict and the step's ``narrow``."""
+        if self.mode != "full":
+            raise ValueError(f"the full pipeline's device step (and "
+                             f"paired-end alignment) requires mode='full', "
+                             f"not {self.mode!r}")
         u2, nmb = pack_codes_2bit(codes)
         codes = unpack_codes(torch.from_numpy(u2).to(self.device),
                              torch.from_numpy(nmb).to(self.device))
@@ -459,11 +507,31 @@ class Aligner:
             out2 = self._splice_retry(out2, o2, r, o1.size)
         return out1, out2
 
-    def align_batch(self, batch: ReadBatch,
+    def align_batch(self, batch: ReadBatch, max_hits: int | None = None,
                     with_query_ids: bool = True) -> list[ReadResult]:
-        """Align a packed batch (BWA-MEM semantics); per-read results."""
+        """Align a packed batch; per-read results.
+
+        mode="full": BWA-MEM semantics (``max_hits`` is not used).
+        mode="exact": full-length exact matches only, up to ``max_hits``
+        a read (default min(max_occ, 64)); reads with any mismatch, indel
+        or clip come back unmapped. The records are field-complete for
+        what they report (CIGAR, NM, MD, AS by construction; MAPQ and XS
+        as the bwa formula's outcome for a full-length exact match, see
+        ``_to_results``), except that a unique exact hit has XS 0 even
+        where full mode would report an inexact sub-optimal score."""
         from bioseqdb_tpu_torch.align.finalize import finalize_batch
 
+        if self.mode == "exact":
+            if max_hits is None:
+                max_hits = min(
+                    self.options.resolve_max_occ(self.index.n_refs), 64)
+            out = exact_align_step(
+                self.fm, torch.from_numpy(
+                    np.asarray(batch.codes, np.uint8)).to(self.device),
+                torch.from_numpy(
+                    np.asarray(batch.lens, np.int32)).to(self.device),
+                max_hits, sa_interval=self.index.sa_interval)
+            return self._to_results(batch, out, with_query_ids)
         out = self.absorb_overflow(batch, self.device_regions(batch))
         return finalize_batch(self.index, self.options, batch, out,
                               with_query_ids)
@@ -493,16 +561,59 @@ class Aligner:
         return finalize_pairs_columns(self.index, self.options, batch1,
                                       out1, batch2, out2)
 
+    def _to_results(self, batch: ReadBatch, out: dict,
+                    with_query_ids: bool) -> list[ReadResult]:
+        """Exact mode's records from ``exact_align_step``'s host dict."""
+        idx = self.index
+        results: list[ReadResult] = []
+        m = int(self.options.match_score)
+        for i, name in enumerate(batch.names):
+            L = int(batch.lens[i])
+            hits: list[Hit] = []
+            n_hits = int(out["n_hits"][i])
+            for j_rank, j in enumerate(np.flatnonzero(out["valid"][i])):
+                rid = int(out["rid"][i, j])
+                begin = int(out["pos"][i, j])
+                primary = j_rank == 0
+                hits.append(Hit(
+                    ref_id=int(idx.ref_ids[rid]) if len(idx.ref_ids) else rid,
+                    ref_name=idx.ref_names[rid],
+                    ref_begin=begin,
+                    ref_end=begin + L,
+                    query_id=i if with_query_ids else None,
+                    query_name=name,
+                    query_begin=0,
+                    query_end=L,
+                    is_primary=primary,
+                    is_secondary=not primary,
+                    is_reverse=bool(out["rev"][i, j]),
+                    cigar=f"{L}M",
+                    score=m * L,
+                    # the bwa MAPQ formula's outcome for a full-length exact
+                    # match: unique -> clips to 60 (any L >= ~25 bp);
+                    # repeated -> sub == score -> 0 (mem_approx_mapq_se)
+                    mapq=(60 if n_hits == 1 else 0) if primary else 0,
+                    nm=0,
+                    md=str(L),
+                    # XS as in full mode: an equal-score repeat's score, 0
+                    # when unique, on the primary record only
+                    sub=(m * L if n_hits > 1 else 0) if primary else -1,
+                    rid=rid,
+                ))
+            results.append(ReadResult(query_name=name, hits=hits))
+        return results
+
 
 def _as_batch(reads) -> ReadBatch:
     return reads if isinstance(reads, ReadBatch) else pack_reads(list(reads))
 
 
 def align(reads, index: FMIndex, options: AlignOptions | None = None,
-          device="cuda") -> list[ReadResult]:
-    """One-shot: align sequences (or a ReadBatch) against an index."""
+          max_hits: int | None = None, device="cuda") -> list[ReadResult]:
+    """One-shot: align sequences (or a ReadBatch) against an index in
+    full mode (``max_hits`` is passed on to ``align_batch``)."""
     return Aligner.build(index, options, device=device).align_batch(
-        _as_batch(reads))
+        _as_batch(reads), max_hits=max_hits)
 
 
 def align_pairs(reads1, reads2, index: FMIndex,

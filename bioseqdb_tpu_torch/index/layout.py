@@ -7,7 +7,7 @@ half of ``kernels/kmer.py``), kept byte-for-byte equal to them by
 package, and those JAX modules import jax besides.
 
 ``tables_from_host`` returns every device table of an index as numpy
-arrays; ``to_device`` moves them onto a torch device. Together they are
+arrays (``fm_tables`` the FM fields alone); ``to_device`` moves them onto a torch device. Together they are
 the port's counterpart of ``FMDevice.from_host`` + the ``Aligner.build``
 table uploads.
 """
@@ -246,11 +246,9 @@ FM_FIELDS = ("L2", "primary", "blocks", "sa_sample", "sa_cnt", "sa_words",
              "seq_len")
 
 
-def tables_from_host(idx: FMIndex, kmer: bool = True) -> dict:
-    """Every device table of ``idx`` as numpy arrays: the FM fields
-    (``FMDevice`` layout, int32 ranks), ``pac_rows`` (packed doubled
-    text) and, with ``kmer``, the minimizer table (``bmeta``,
-    ``entries``, ``kmer_meta``).
+def fm_tables(idx: FMIndex) -> dict:
+    """The FM fields of ``idx`` as numpy arrays (``FMDevice`` layout, int32
+    ranks).
 
     Indexes of 2^31 or more doubled bases need int64 ranks, which the
     port does not carry yet."""
@@ -260,7 +258,7 @@ def tables_from_host(idx: FMIndex, kmer: bool = True) -> dict:
             "of the PyTorch port")
     i32 = lambda x: np.asarray(x).astype(np.int32)
     sa_bits = np.ascontiguousarray(np.asarray(idx.sa_bits))
-    t = dict(
+    return dict(
         L2=i32(idx.L2),
         primary=i32(idx.primary),
         blocks=pack_oct(idx.blocks, sa_bits),
@@ -273,8 +271,16 @@ def tables_from_host(idx: FMIndex, kmer: bool = True) -> dict:
         ref_lens=i32(idx.ref_lens),
         l_pac=i32(idx.l_pac),
         seq_len=i32(idx.seq_len),
-        pac_rows=pack_doubled_rows(np.asarray(idx.pac)),
     )
+
+
+def tables_from_host(idx: FMIndex, kmer: bool = True) -> dict:
+    """Every device table of ``idx`` as numpy arrays: the FM fields
+    (``fm_tables``), ``pac_rows`` (packed doubled text) and, with
+    ``kmer``, the minimizer table (``bmeta``, ``entries``,
+    ``kmer_meta``)."""
+    t = fm_tables(idx)
+    t["pac_rows"] = pack_doubled_rows(np.asarray(idx.pac))
     if kmer:
         host, meta = kmer_table_arrays(idx)
         t.update(bmeta=host["bmeta"], entries=host["entries"], kmer_meta=meta)

@@ -47,7 +47,8 @@ class FMDevice(NamedTuple):
 
     @classmethod
     def from_tables(cls, t: dict) -> "FMDevice":
-        """From ``layout.to_device(layout.tables_from_host(idx))``."""
+        """From ``layout.to_device(layout.fm_tables(idx))`` (or
+        ``tables_from_host``, which holds the same fields)."""
         scalars = ("primary", "l_pac", "seq_len")
         return cls(
             **{k: t[k] for k in layout.FM_FIELDS if k not in scalars},
@@ -57,8 +58,8 @@ class FMDevice(NamedTuple):
 
     @classmethod
     def from_host(cls, idx: FMIndex, device) -> "FMDevice":
-        return cls.from_tables(layout.to_device(
-            layout.tables_from_host(idx, kmer=False), device))
+        return cls.from_tables(layout.to_device(layout.fm_tables(idx),
+                                                device))
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +150,30 @@ def backward_ext(fm: FMDevice, lo, hi, c):
     both = occB(fm, torch.cat([c, c]), torch.cat([lo, hi]))
     n = lo.shape[0]
     return C + both[:n], C + both[n:]
+
+
+def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor):
+    """Exact-match intervals of a batch of reads: codes int32 [B, W]
+    (0..3 bases, >= 4 ambiguous), lens int32 [B]. Returns (lo, hi) int32
+    [B]; the empty interval (0, 0) on no match, an ambiguous base or an
+    empty read."""
+    B, W = codes.shape
+    lens = lens.to(torch.int32)
+    lo = torch.zeros(B, dtype=torch.int32, device=codes.device)
+    hi = torch.full((B,), fm.seq_len + 1, dtype=torch.int32,
+                    device=codes.device)
+    for t in range(W):
+        # column lens-1-t (right to left); masked once t >= lens
+        idx = (lens - 1 - t).clamp(0, W - 1).long()
+        c = torch.gather(codes, 1, idx[:, None])[:, 0]
+        live = t < lens
+        active = live & (lo < hi) & (c < 4)
+        nlo, nhi = backward_ext(fm, lo, hi, c.clamp(0, 3))
+        bad = live & (c >= 4)       # an ambiguous base kills the match
+        lo = torch.where(active, nlo, torch.where(bad, 1, lo))
+        hi = torch.where(active, nhi, torch.where(bad, 1, hi))
+    empty = (hi <= lo) | (lens == 0)
+    return torch.where(empty, 0, lo), torch.where(empty, 0, hi)
 
 
 def fmd_extend_from_occ(fm: FMDevice, k, l, s, o1, o2):

@@ -29,7 +29,9 @@
    makes (the wrapper ``kernels/extend.py`` calls is wrapped for that
    batch only, and the recorded calls must match the launches counted);
    each recorded launch is then run again alone: active lanes, DP cells,
-   rows, time, bound and share, bit-equal to plain;
+   rows, time, bound and share, bit-equal to plain. The timed batch's
+   SAM text is rendered with ``emit_sam_columns`` outside the timed
+   window (for the CLI phase);
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -41,7 +43,7 @@
    and R2 at their simulated origin are counted (each >= 98%), and every
    pair with a mate off it must equal the host's slow PE path
    (``pe_ne_oracle`` 0). The timed batch's SAM text is rendered with
-   ``emit_sam_pair_columns``;
+   ``emit_sam_pair_columns`` (for the CLI phase);
 6. FM-seeded main path: the main path's index and read batches (seeds
    100, the warm-up, and 101) through an ``Aligner`` built with
    ``seeder="fm"``: the FM state machine with its round-3 jump table
@@ -60,7 +62,28 @@
    launch ``sw_extend`` at Wq > 320 (its launches' widths are recorded).
    Reads/s, bases/s, the stage split, truth >= 98% and every read off
    truth equal to the host oracle;
-8. probe path: counts zeroed, the two probe entry points
+8. exact phase (``bench.py bench_exact``'s workload): the main path's
+   genome, 16,384 150 bp reads with no edits (read seed 2), an ``Aligner``
+   built with ``mode="exact"``; one warm-up and five timed calls of
+   ``exact_align_step`` at ``max_hits`` 4, then one ``align_batch`` at the
+   default ``max_hits``. Every read must have a hit, every read with one
+   hit its primary at its simulated position and strand, and the records
+   and SAM text must equal the port's CPU path on the same batch;
+9. API phase: ``multi_search`` of the first 256 reads of the main path's
+   timed batch against the main path's ``Aligner``, counts zeroed just
+   before and read just after (``sw_extend`` must have run); the
+   ``SearchResult`` list must equal an ``Aligner`` on the CPU's;
+10. CLI phase, in process through ``cli.main``: the genome written as
+   FASTA, the main path's timed batch, the exact phase's reads and the PE
+   phase's timed pairs as FASTQ; ``index``, ``align --batch-size 16384``
+   (its SAM body equal to the main path's), ``align --mode exact`` (equal
+   to the exact phase's), ``align --mate`` at 8,192 pairs (equal to the PE
+   phase's), ``align --profile`` on one batch of 2,048 reads (the trace
+   must name the SW kernel) and ``import`` (shards equal to
+   ``pack_reads`` of the file). Every command returns 0, and the reads
+   counted in its report are the reads given; counts zeroed just before
+   each command and read just after;
+11. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
    the main-path and a GRCh38-class Occ table), counts read: every probe
@@ -68,9 +91,9 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-9. prints the kernels line (``sw_extend``'s launches: the timed batches
-   of the main, paired-end, FM-seeded and long-read paths), then the
-   device line as the last line.
+12. prints the kernels line (``sw_extend``'s launches: the timed batches
+   of the main, paired-end, FM-seeded and long-read paths, the API phase
+   and the CLI's commands), then the device line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
@@ -88,18 +111,31 @@ Nothing is caught: any failed check exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import os
+import re
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from bioseqdb_tpu_torch import cli
 from bioseqdb_tpu_torch.align.options import AlignOptions
-from bioseqdb_tpu_torch.align.pipeline import Aligner
+from bioseqdb_tpu_torch.align.pipeline import Aligner, exact_align_step
+from bioseqdb_tpu_torch.api import multi_search
+from bioseqdb_tpu_torch.io.batch import pack_reads, pack_reads_from_file
+from bioseqdb_tpu_torch.io.fasta import FastaRecord, write_fasta, write_fastq
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels.sw_cuda import FULL_MAX_QLEN, blocks_per_sm
-from bioseqdb_tpu_torch.sam.emit import emit_sam_pair_columns
+from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
+                                         emit_sam_pair_columns)
+from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
+from bioseqdb_tpu_torch.utils.sim import simulate_reads
 from bioseqdb_tpu_torch.tools import (long_leg, microbench_gather,
                                       microbench_seed, pe_leg)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
@@ -123,6 +159,11 @@ ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 # do two cells an instruction, since main-path scores fit int16
 SW_INSTR_PER_CELL = 9 / 2
 PROBES = ("gather_rows", "gather_chain", "add_one")
+# exact phase: bench.py bench_exact's reads and step
+EXACT_SEED, EXACT_STEPS, EXACT_MAX_HITS = 2, 5, 4
+API_READS = 256
+PROFILE_READS = 2048
+QUAL = "I"   # the base quality written to every FASTQ record
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
                 add_one="tools/microbench_pallas_gather.py:110")
@@ -269,8 +310,30 @@ def main_path(dev, card: str) -> dict:
                              "main path")
     truth_check("main path", al, sims[1], batches[1], res["cols"],
                 res["n_ovf"])
+    sam = se_sam(idx, res["cols"], batches[1])
     return dict(launches=launches, rps=rps, calls=calls, idx=idx, al=al,
-                genome=genome, sims=sims, batches=batches)
+                genome=genome, sims=sims, batches=batches, sam=sam)
+
+
+def with_quals(batch):
+    """``batch`` with the qualities of its FASTQ records (``QUAL``)."""
+    return dataclasses.replace(batch, qualities=[
+        QUAL * int(n) for n in batch.lens[: batch.n]])
+
+
+def texts(batch) -> list[str]:
+    return [batch.read_text(i) for i in range(batch.n)]
+
+
+def se_sam(idx, cols, batch) -> str:
+    """A single-end batch's SAM records, rendered as the CLI renders the
+    batch read from its FASTQ file."""
+    t0 = time.time()
+    sam = emit_sam_columns(cols, idx, with_quals(batch), header=False,
+                           seqs=texts(batch))
+    log(f"SAM text (emit_sam_columns): {sam.count(chr(10))} records, "
+        f"{time.time() - t0:.3f} s")
+    return sam
 
 
 def truth_check(path: str, al, sim, batch, cols, n_ovf: int) -> None:
@@ -419,14 +482,224 @@ def pe_path(m: dict, card: str) -> dict:
     if (chk["pe_ne_oracle"] or chk["r1_truth"] < 0.98 * n
             or chk["r2_truth"] < 0.98 * n):
         raise AssertionError("PE path disagrees with the host")
-    t0 = time.time()
-    sam = emit_sam_pair_columns(*res["cols"], idx, *timed.batches,
-                                header=False)
-    n_rec = sam.count("\n")
-    log(f"PE SAM text (emit_sam_pair_columns): {n_rec} records, "
-        f"{time.time() - t0:.3f} s")
+    sam = pe_sam(idx, res["cols"], timed)
     main_path_launches(calls, "PE")
+    return dict(launches=launches, timed=timed, sam=sam)
+
+
+def pe_sam(idx, cols, pb) -> str:
+    """A pair batch's SAM records, rendered as the CLI renders the pairs
+    read from their FASTQ files."""
+    t0 = time.time()
+    b1, b2 = pb.batches
+    sam = emit_sam_pair_columns(*cols, idx, with_quals(b1), with_quals(b2),
+                                header=False, seqs1=texts(b1),
+                                seqs2=texts(b2))
+    log(f"PE SAM text (emit_sam_pair_columns): {sam.count(chr(10))} "
+        f"records, {time.time() - t0:.3f} s")
+    return sam
+
+
+def exact_path(m: dict, dev, card: str, n_reads: int = BATCH) -> dict:
+    """Exact mode on the main path's index: ``exact_align_step`` timed,
+    then ``align_batch``, held against truth and the port's CPU path."""
+    idx = m["idx"]
+    t0 = time.time()
+    sim = simulate_reads(m["genome"], n_reads, read_len=READ_LEN,
+                         sub_rate=0.0, seed=EXACT_SEED)
+    batch = pack_reads(sim.reads, sim.names)
+    log(f"exact reads simulated: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    al = Aligner.build(idx, AlignOptions(), device=dev, mode="exact")
+    log(f"exact-mode Aligner.build: {time.time() - t0:.2f} s")
+    codes = torch.from_numpy(batch.codes).to(dev)
+    lens = torch.from_numpy(batch.lens).to(dev)
+
+    def step():
+        return exact_align_step(al.fm, codes, lens, EXACT_MAX_HITS,
+                                sa_interval=idx.sa_interval)
+
+    t0 = time.perf_counter()
+    step()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(EXACT_STEPS):
+        out = step()
+    step_s = (time.perf_counter() - t0) / EXACT_STEPS
+    log(f"exact_align_step ({n_reads} x {READ_LEN} bp, max_hits "
+        f"{EXACT_MAX_HITS}, {READ_LEN} backward steps + "
+        f"{idx.sa_interval - 1} LF steps): warm-up {warm:.4f} s, "
+        f"{step_s:.4f} s a call (mean of {EXACT_STEPS}), "
+        f"{n_reads / step_s:.1f} reads/s on {card}")
+    n_hits = out["n_hits"][:n_reads]
+    t0 = time.perf_counter()
+    res = al.align_batch(batch)
+    batch_s = time.perf_counter() - t0
+    log(f"exact align_batch (default max_hits "
+        f"{min(al.options.resolve_max_occ(idx.n_refs), 64)}): "
+        f"{batch_s:.3f} s, {n_reads / batch_s:.1f} reads/s on {card}")
+    uniq = np.flatnonzero(n_hits == 1)
+    at = sum(res[i].hits[0].ref_begin == sim.positions[i]
+             and res[i].hits[0].is_reverse == bool(sim.strands[i])
+             for i in uniq.tolist())
+    log(f"exact truth: every read has a hit: {bool((n_hits >= 1).all())}; "
+        f"{uniq.size} reads with one hit, {at} of them at their simulated "
+        f"position and strand; {int((n_hits > 1).sum())} repeated")
+    if not (n_hits >= 1).all() or at != uniq.size:
+        raise AssertionError("exact mode missed a read's simulated origin")
+    t0 = time.time()
+    cpu = Aligner.build(idx, AlignOptions(), device="cpu", mode="exact")
+    want = cpu.align_batch(batch)
+    seqs, quals = texts(batch), with_quals(batch).qualities
+    sam = emit_sam(res, idx, seqs, quals, header=False)
+    same = ([dataclasses.asdict(r) for r in res]
+            == [dataclasses.asdict(r) for r in want]
+            and sam == emit_sam(want, idx, seqs, quals, header=False))
+    log(f"exact records and SAM text equal to the CPU path's: {same} "
+        f"({time.time() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("exact mode on the card differs from the CPU")
+    return dict(sim=sim, sam=sam, step_rps=n_reads / step_s,
+                batch_rps=n_reads / batch_s)
+
+
+def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
+    """``multi_search`` on the main path's ``Aligner`` against an
+    ``Aligner`` on the CPU; counts zeroed just before the card's call and
+    read just after."""
+    reads = m["sims"][1].reads[:n_reads]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = multi_search(reads, m["al"])
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    t0 = time.time()
+    want = multi_search(reads, Aligner.build(m["idx"], AlignOptions(),
+                                             device="cpu"))
+    same = ([dataclasses.asdict(r) for r in got]
+            == [dataclasses.asdict(r) for r in want])
+    log(f"API multi_search ({n_reads} reads): {dt:.3f} s on {card}, "
+        f"{len(got)} results over {len({r.query_id for r in got})} queries; "
+        f"sw_extend launches {launches['sw_extend']}; equal to the CPU "
+        f"Aligner's: {same} ({time.time() - t0:.1f} s)")
+    if not same or launches["sw_extend"] <= 0:
+        raise AssertionError("API phase: the card's SearchResults differ "
+                             "from the CPU's, or sw_extend did not run")
     return launches
+
+
+def run_cli(argv: list[str]) -> tuple[int, str, float]:
+    """``cli.main(argv)`` in process: its exit code, its standard error
+    and its seconds."""
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, err.getvalue(), time.perf_counter() - t0
+
+
+def check_report(what: str, err: str, stage: str, n: int) -> None:
+    """The ``aligned N reads`` line and the ``StageTimer`` report must
+    count the ``n`` reads given."""
+    aligned = re.findall(r"aligned (\d+) reads", err)
+    stages = json.loads(re.findall(r'^\{"stages".*$', err, re.M)[-1])
+    log(f"  {what}: {aligned[-1] if aligned else None} reads aligned; "
+        f"stages {json.dumps(stages['stages'])}")
+    if aligned != [str(n)] or stages["stages"][stage]["items"] != n:
+        raise AssertionError(f"CLI {what}: the report does not count the "
+                             f"{n} reads given:\n{err[-2000:]}")
+
+
+def sam_body(path: str) -> str:
+    with open(path) as fh:
+        return "".join(l for l in fh if not l.startswith("@"))
+
+
+def cli_path(m: dict, ex: dict, pe: dict, card: str,
+             batch_size: int = BATCH, profile_reads: int = PROFILE_READS
+             ) -> dict:
+    """The CLI's commands on files of the earlier phases' data, each
+    checked against that phase's result; returns the launches of every
+    command summed."""
+    total = {k: 0 for k in build.KERNELS}
+    with tempfile.TemporaryDirectory() as d:
+        f = {k: os.path.join(d, k) for k in (
+            "ref.fa", "se.fq", "prof.fq", "exact.fq", "r1.fq", "r2.fq",
+            "idx", "se.sam", "exact.sam", "pe.sam", "prof.sam", "trace",
+            "shards")}
+        t0 = time.time()
+        write_fasta(f["ref.fa"], [("sim", m["genome"])])
+
+        def fastq(path, sim, n=None):
+            write_fastq(path, [FastaRecord(a, a, r, QUAL * len(r)) for a, r
+                               in list(zip(sim.names, sim.reads))[:n]])
+
+        fastq(f["se.fq"], m["sims"][1])
+        fastq(f["prof.fq"], m["sims"][1], profile_reads)
+        fastq(f["exact.fq"], ex["sim"])
+        fastq(f["r1.fq"], pe["timed"].sims[0])
+        fastq(f["r2.fq"], pe["timed"].sims[1])
+        log(f"CLI files written: {time.time() - t0:.1f} s")
+        n_se, n_ex = len(m["sims"][1].reads), len(ex["sim"].reads)
+        n_pe = 2 * len(pe["timed"].sims[0].reads)
+        runs = [
+            ("index", ["index", f["ref.fa"], "-o", f["idx"]], None, 0),
+            ("align", ["align", f["idx"], f["se.fq"], "-o", f["se.sam"],
+                       "--batch-size", str(batch_size)], "finalize", n_se),
+            ("align --mode exact", ["align", f["idx"], f["exact.fq"], "-o",
+                                    f["exact.sam"], "--mode", "exact",
+                                    "--batch-size", str(batch_size)],
+             "align", n_ex),
+            ("align --mate", ["align", f["idx"], f["r1.fq"], "--mate",
+                              f["r2.fq"], "-o", f["pe.sam"], "--batch-size",
+                              str(n_pe // 2)], "align_pe", n_pe),
+            ("align --profile", ["align", f["idx"], f["prof.fq"], "-o",
+                                 f["prof.sam"], "--profile", f["trace"],
+                                 "--batch-size", str(profile_reads)],
+             "finalize", profile_reads),
+            ("import", ["import", f["se.fq"], "-o", f["shards"],
+                        "--batch-size", str(batch_size)], None, 0),
+        ]
+        for what, argv, stage, n in runs:
+            build.reset_launches()
+            rc, err, sec = run_cli(argv)
+            launches = dict(build.LAUNCHES)
+            for k in total:
+                total[k] += launches[k]
+            rps = f", {n / sec:.1f} reads/s" if n else ""
+            log(f"CLI {what}: exit {rc}, {sec:.2f} s{rps} on {card}; "
+                f"sw_extend launches {launches['sw_extend']}")
+            if rc != 0:
+                raise AssertionError(f"CLI {what} exited {rc}:\n"
+                                     f"{err[-2000:]}")
+            if stage:
+                check_report(what, err, stage, n)
+        checks = {
+            "align = main path": sam_body(f["se.sam"]) == m["sam"],
+            "align --mode exact = exact phase":
+                sam_body(f["exact.sam"]) == ex["sam"],
+            "align --mate = PE phase": sam_body(f["pe.sam"]) == pe["sam"],
+        }
+        trace = os.path.join(f["trace"], TRACE_FILE)
+        with open(trace) as fh:
+            text = fh.read()
+        checks["trace names sw_kernel"] = "sw_kernel" in text
+        log(f"  profile trace: {os.path.getsize(trace)} bytes, "
+            f"{text.count('sw_kernel')} mentions of sw_kernel")
+        batches = list(pack_reads_from_file(f["se.fq"],
+                                            batch_size=batch_size))
+        with open(os.path.join(f["shards"], "manifest.json")) as fh:
+            shards = sorted(json.load(fh)["shards"])
+        ok = len(shards) == len(batches)
+        for name, b in zip(shards, batches):
+            z = np.load(os.path.join(f["shards"], name))
+            ok &= (np.array_equal(z["codes"], b.codes)
+                   and np.array_equal(z["lens"], b.lens))
+        checks["import = pack_reads"] = ok
+        log(f"CLI checks: {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"CLI phase failed: {checks}")
+    return total
 
 
 def chain_instructions(rows: int = 1, floor: str | None = None,
@@ -534,11 +807,21 @@ def main() -> None:
     t0 = time.time()
     lr = long_path(m, card)
     log(f"long-read phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ex = exact_path(m, dev, card)
+    log(f"exact phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    api = api_path(m, card)
+    log(f"API phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cl = cli_path(m, ex, pe, card)
+    log(f"CLI phase: {time.time() - t0:.1f} s")
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
                     launches=sum(x["sw_extend"] for x in
-                                 (m["launches"], pe, fm, lr)),
+                                 (m["launches"], pe["launches"], fm, lr,
+                                  api, cl)),
                     **sw)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@ included) and ``chip_smoke`` as a module, builds an index with the port's
 own builder and read simulator, and aligns a few reads on the CPU, then
 a few pairs through ``align_pairs_columns`` and ``align_pairs`` (one
 pair with an all-N mate, so mate rescue runs) and renders their SAM
-text: every function-level import of ``align/paired.py`` runs. It then
-asserts that no ``jax`` or ``bioseqdb_tpu`` module was loaded."""
+text: every function-level import of ``align/paired.py`` runs. Then the
+CLI (``index``, ``align --cpu`` in full and exact mode, ``import``) and
+``search`` run on the CPU. It then asserts that no ``jax`` or
+``bioseqdb_tpu`` module was loaded."""
 
 import os
 import subprocess
@@ -45,6 +47,22 @@ assert sam.count("\n") == 24 and cols1.fast.any() and cols1.extra
 pairs = align_pairs(b1, b2, idx, device="cpu")
 assert sum(bool(a.pe.flag_extra & 0x2) for a, _ in pairs) == 11
 assert (pairs[-1][1].mapped, int(cols1.pos[0])) == (False, r1.positions[0])
+import os, tempfile
+from bioseqdb_tpu_torch import cli, search
+from bioseqdb_tpu_torch.io.fasta import write_fasta
+with tempfile.TemporaryDirectory() as d:
+    fa, fq, ix = (os.path.join(d, f) for f in ("g.fa", "r.fa", "g.idx"))
+    write_fasta(fa, [("g", g)])
+    write_fasta(fq, list(zip(sim.names, sim.reads)))
+    assert cli.main(["index", fa, "-o", ix]) == 0
+    for extra in ([], ["--mode", "exact"]):
+        out = os.path.join(d, "o.sam")
+        assert cli.main(["align", ix, fq, "-o", out, "--cpu", *extra]) == 0
+        body = [l for l in open(out) if not l.startswith("@")]
+        assert len(body) >= 6 and (extra or all("\tg\t" in l for l in body))
+    assert cli.main(["import", fq, "-o", os.path.join(d, "sh")]) == 0
+hit = search(g[300:400], [("g", g)], device="cpu")[0]
+assert (hit.ref_match_start, hit.cigar) == (300, "100M")
 loaded = [k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "bioseqdb_tpu"))]
 assert not loaded, loaded
