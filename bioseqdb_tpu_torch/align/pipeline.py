@@ -24,8 +24,12 @@ step, and ``align_pairs`` / ``align_pairs_columns`` finalize through
 host).
 
 Batches wider than 320 bases take the FM seeder, as in the JAX package.
-Indexes of 2^31 or more doubled bases (int64 ranks) raise
-``NotImplementedError`` (``index/layout.py``); meshes are not ported.
+Indexes of 2^31 or more doubled bases run with int64 ranks, which
+``layout.fm_tables`` chooses by the index's size: the FM seeder (the
+kmer table holds int32 positions), the jump table at any depth and a
+candidate stack of 24 (``_step_kwargs``), and int64 reference
+coordinates through chaining, extension and the wire dict. Meshes are
+not ported.
 """
 
 from __future__ import annotations
@@ -138,14 +142,15 @@ def full_align_step(
                               active=ko["needs_r2"]))
         # rows [0, n_kmer) are the kmer mems: k column = POSITION, l = 1
         # flags a position row (chain.resolve_seeds); rows beyond carry
-        # round-2 rank intervals
+        # round-2 rank intervals. Both join the rank dtype.
         m5 = r2m["mems"]
         isk = (torch.arange(M_tot, device=codes.device)[None, :]
                < ko["n_mem"][:, None])
-        posk = torch.nn.functional.pad(ko["mem_pos"], (0, M_tot - M_k))
+        posk = torch.nn.functional.pad(ko["mem_pos"].to(m5.dtype),
+                                       (0, M_tot - M_k))
         mems = dict(
             mems=torch.stack([torch.where(isk, posk, m5[:, :, 0]),
-                              isk.to(torch.int32), m5[:, :, 2], m5[:, :, 3],
+                              isk.to(m5.dtype), m5[:, :, 2], m5[:, :, 3],
                               m5[:, :, 4]], 2),
             n_mem=r2m["n_mem"], overflow=ko["overflow"] | r2m["overflow"])
     else:
@@ -285,7 +290,12 @@ class Aligner:
         occurrence-scan cap of at least 1), ``fm`` and every other case
         the FM state machine, with no kmer table built. The round-3 jump
         table is built either way: the FM machine runs in the fat
-        overflow retry and on batches wider than KMER_MAX_WIDTH."""
+        overflow retry and on batches wider than KMER_MAX_WIDTH.
+
+        The ranks take the dtype ``layout.fm_tables`` chooses by the
+        index's size (``self.fm.rank_dtype``: int64 from 2^31 doubled
+        bases); there is no argument to force it, as in the JAX package.
+        """
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} is not one of {MODES}")
         device = torch.device(device)
@@ -337,6 +347,9 @@ class Aligner:
             mask_level=opt.mask_level, chain_drop_ratio=opt.chain_drop_ratio,
             sa_interval=self.index.sa_interval, keep_mems=keep_mems,
             kmer=self.kmer, jump=self.jump,
+            # the candidate stack grows with log4 of the genome: 24 past
+            # 2^31 doubled bases (JAX pipeline.py:611)
+            max_cand=(24 if self.index.seq_len >= (1 << 31) else 0),
         )
         return common, narrow
 

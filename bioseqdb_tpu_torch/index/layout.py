@@ -7,9 +7,11 @@ half of ``kernels/kmer.py``), kept byte-for-byte equal to them by
 package, and those JAX modules import jax besides.
 
 ``tables_from_host`` returns every device table of an index as numpy
-arrays (``fm_tables`` the FM fields alone); ``to_device`` moves them onto a torch device. Together they are
-the port's counterpart of ``FMDevice.from_host`` + the ``Aligner.build``
-table uploads.
+arrays (``fm_tables`` the FM fields alone, their ranks int32 below 2^31
+doubled bases and int64 from there, or as forced); ``to_device`` moves
+them onto a torch device, dtypes unchanged. Together they are the port's
+counterpart of ``FMDevice.from_host`` + the ``Aligner.build`` table
+uploads.
 """
 
 from __future__ import annotations
@@ -246,39 +248,53 @@ FM_FIELDS = ("L2", "primary", "blocks", "sa_sample", "sa_cnt", "sa_words",
              "seq_len")
 
 
-def fm_tables(idx: FMIndex) -> dict:
-    """The FM fields of ``idx`` as numpy arrays (``FMDevice`` layout, int32
-    ranks).
+def rank_dtype_for(idx: FMIndex, rank_dtype=None) -> torch.dtype:
+    """The rank dtype of ``idx``'s device tables: ``rank_dtype`` when
+    given (torch.int32 or torch.int64), else int64 from 2^31 - 1 doubled
+    bases up (the conceptual BWT's n + 1 ranks no longer fit int32) and
+    int32 below, as the JAX package's ``FMDevice.from_host`` picks."""
+    if rank_dtype is None:
+        return torch.int64 if idx.seq_len + 1 >= 2**31 else torch.int32
+    if rank_dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"rank_dtype {rank_dtype} is not torch.int32 or "
+                         "torch.int64")
+    return rank_dtype
 
-    Indexes of 2^31 or more doubled bases need int64 ranks, which the
-    port does not carry yet."""
-    if idx.seq_len + 1 >= 2**31:
-        raise NotImplementedError(
-            "int64-rank indexes (>= 2^31 doubled bases) are a later slice "
-            "of the PyTorch port")
+
+def fm_tables(idx: FMIndex, rank_dtype=None) -> dict:
+    """The FM fields of ``idx`` as numpy arrays (``FMDevice`` layout).
+
+    The rank-valued fields (``L2``, ``primary``, ``sa_sample``, the major
+    checkpoints, the reference offsets and lengths, ``l_pac`` and
+    ``seq_len``) take ``rank_dtype_for(idx, rank_dtype)``; the packed
+    tables (``blocks``, ``sa_cnt``, ``sa_words``) stay int32 at any size,
+    their counts relative to the major checkpoints."""
+    rdt = {torch.int32: np.int32,
+           torch.int64: np.int64}[rank_dtype_for(idx, rank_dtype)]
+    rk = lambda x: np.asarray(x).astype(rdt)
     i32 = lambda x: np.asarray(x).astype(np.int32)
     sa_bits = np.ascontiguousarray(np.asarray(idx.sa_bits))
     return dict(
-        L2=i32(idx.L2),
-        primary=i32(idx.primary),
+        L2=rk(idx.L2),
+        primary=rk(idx.primary),
         blocks=pack_oct(idx.blocks, sa_bits),
-        sa_sample=i32(idx.sa_sample),
+        sa_sample=rk(idx.sa_sample),
         sa_cnt=i32(sa_bits[:, 0]),
         sa_words=i32(sa_bits[:, 1:].reshape(-1)),
-        occ_majors=i32(idx.occ_majors),
-        sa_majors=i32(idx.sa_majors),
-        ref_offsets=i32(idx.ref_offsets),
-        ref_lens=i32(idx.ref_lens),
-        l_pac=i32(idx.l_pac),
-        seq_len=i32(idx.seq_len),
+        occ_majors=rk(idx.occ_majors),
+        sa_majors=rk(idx.sa_majors),
+        ref_offsets=rk(idx.ref_offsets),
+        ref_lens=rk(idx.ref_lens),
+        l_pac=rk(idx.l_pac),
+        seq_len=rk(idx.seq_len),
     )
 
 
 def tables_from_host(idx: FMIndex, kmer: bool = True) -> dict:
     """Every device table of ``idx`` as numpy arrays: the FM fields
-    (``fm_tables``), ``pac_rows`` (packed doubled text) and, with
-    ``kmer``, the minimizer table (``bmeta``, ``entries``,
-    ``kmer_meta``)."""
+    (``fm_tables``, ranks in the dtype it chooses by the index's size),
+    ``pac_rows`` (packed doubled text) and, with ``kmer``, the minimizer
+    table (``bmeta``, ``entries``, ``kmer_meta``)."""
     t = fm_tables(idx)
     t["pac_rows"] = pack_doubled_rows(np.asarray(idx.pac))
     if kmer:

@@ -8,6 +8,10 @@ closest-chain test; ``filter_chains`` weighs chains and applies the
 shadowing filter; ``l_rep_device`` is the repetitive-coverage length.
 The per-seed and per-chain loops stay sequential in the seed or chain
 index (their steps depend on each other) and vectorized over reads.
+Reference positions (``rbeg``, a chain's ``pos``, ``f_rbeg`` and
+``l_rbeg``, the filter's reference ends) hold the index's rank dtype,
+int64 past 2^31 doubled bases, as in the JAX version; query positions,
+lengths and weights stay int32.
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ NEG = -(1 << 30)
 def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
                   max_occ: int, max_seeds: int, sa_interval: int = 32,
                   compact_cap: int | None = 0) -> dict:
-    """Expand seed intervals (mems int32[B, M, 5] = k, l, s, start, end)
-    into located seeds, ordered by (start, end) then sampled rank.
+    """Expand seed intervals (mems [B, M, 5] = k, l, s, start, end, in
+    the rank dtype) into located seeds, ordered by (start, end) then
+    sampled rank; ``rbeg`` comes back in the rank dtype.
 
     A row whose l column is nonzero carries a doubled-text position in
     its k column (the kmer seeder's s == 1 rows) and skips the SA walk.
@@ -60,7 +65,7 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     isposrow = take(sm[:, :, 1], midx) > 0
     t = ss - take(off, midx)
     ranks = torch.where(valid & ~isposrow, k0 + t * take(step, midx), 1
-                        ).to(i32)
+                        ).to(fm.rank_dtype)
 
     if B * S > 4096:
         K = (B * S) // 4
@@ -71,7 +76,7 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
         fvalid = (valid & ~isposrow).reshape(-1)
         cpos = torch.cumsum(fvalid.to(i32), 0) - 1
         src = torch.nonzero(fvalid & (cpos < K))[:, 0]
-        pos = torch.zeros(B * S, dtype=i32, device=dev)
+        pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=dev)
         pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src], sa_interval)
         pos = pos.reshape(B, S)
         truncated = (fvalid & (cpos >= K)).reshape(B, S)
@@ -90,7 +95,7 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     rid_e = kfm.rid_of(fm, fe)
     ok = valid & ~bridge & (rid_b == rid_e)
     return dict(
-        rbeg=torch.where(ok, pos, 0).to(i32),
+        rbeg=torch.where(ok, pos, 0).to(fm.rank_dtype),
         qbeg=torch.where(ok, start, 0).to(i32),
         len=torch.where(ok, slen, 0).to(i32),
         rid=torch.where(ok, rid_b, -1).to(i32),
@@ -128,9 +133,10 @@ def chain_seeds(fm: kfm.FMDevice, seeds: dict, max_chains: int,
     C = max_chains
     dev = seeds["rbeg"].device
     i32 = torch.int32
-    zc = lambda v=0: torch.full((B, C), v, dtype=i32, device=dev)
-    st = dict(pos=zc(), rid=zc(-1), f_qbeg=zc(), f_rbeg=zc(), l_qbeg=zc(),
-              l_rbeg=zc(), l_len=zc())
+    rdt = seeds["rbeg"].dtype
+    zc = lambda v=0, dt=i32: torch.full((B, C), v, dtype=dt, device=dev)
+    st = dict(pos=zc(0, rdt), rid=zc(-1), f_qbeg=zc(), f_rbeg=zc(0, rdt),
+              l_qbeg=zc(), l_rbeg=zc(0, rdt), l_len=zc())
     n = torch.zeros(B, dtype=i32, device=dev)
     assign = torch.full((B, S), -1, dtype=i32, device=dev)
     overflow = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -196,7 +202,8 @@ def filter_chains(chains: dict, seeds: dict, mask_level: float,
     dev = seeds["rbeg"].device
     i32 = torch.int32
     zc = lambda v=0: torch.full((B, C), v, dtype=i32, device=dev)
-    wq, endq, wr, endr = zc(), zc(), zc(), zc()
+    wq, endq, wr = zc(), zc(), zc()
+    endr = torch.zeros(B, C, dtype=seeds["rbeg"].dtype, device=dev)
     beg, end = zc(1 << 29), zc()
 
     for s in range(S):

@@ -13,6 +13,11 @@ next seed to extend, then one batched SW call serves all active lanes.
 tensors on a CUDA device, and the plain ``sw.sw_extend_batch`` only for
 tensors on the CPU. The SW lanes are sorted by expected DP row count
 before the kernel (a permutation: results are identical).
+
+Reference coordinates (the chains' windows, the regions' ``rb`` and
+``re``) hold the seeds' rank dtype, int64 past 2^31 doubled bases, as
+in the JAX version; the SW kernel still takes int32 codes, fetched from
+the packed text by 64-bit positions.
 """
 
 from __future__ import annotations
@@ -49,13 +54,14 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
                e_ins: int, bandwidth: int, zdrop: int, pen_clip5: int,
                pen_clip3: int, max_rounds: int = 6, max_regs: int = 8) -> dict:
     """Run the extension stage. Returns the per-read region table
-    (rb/re/qb/qe/score/truesc/w/seedlen0/cchain/rid/seedcov int32[B, R])
-    with n_regs and overflow."""
+    (qb/qe/score/truesc/w/seedlen0/cchain/rid/seedcov int32[B, R], and
+    rb/re [B, R] in the seeds' rank dtype) with n_regs and overflow."""
     B, S = seeds["rbeg"].shape
     C = chains["pos"].shape[1]
     R = max_regs
     dev = codes.device
     i32 = torch.int32
+    rdt = seeds["rbeg"].dtype
     W = codes.shape[1]
     max_qlen = W
     # a window spans the read plus the band-bounded gap on both sides
@@ -92,13 +98,13 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
     gap_l = cal_max_gap(qbeg, match_score, o_del, e_del, o_ins, e_ins, bandwidth)
     gap_r = cal_max_gap(qlen_rem, match_score, o_del, e_del, o_ins, e_ins,
                         bandwidth)
-    big = (2**31 - 1) // 2
+    big = torch.iinfo(rdt).max // 2
     b_all = torch.where(in_chain, rbeg - (qbeg + gap_l), big)
     e_all = torch.where(in_chain, rbeg + slen + qlen_rem + gap_r, 0)
-    rmax0 = torch.full((B, C), big, dtype=i32, device=dev).scatter_reduce(
-        1, cis.long(), b_all.to(i32), "amin")
-    rmax1 = torch.zeros(B, C, dtype=i32, device=dev).scatter_reduce(
-        1, cis.long(), e_all.to(i32), "amax")
+    rmax0 = torch.full((B, C), big, dtype=rdt, device=dev).scatter_reduce(
+        1, cis.long(), b_all.to(rdt), "amin")
+    rmax1 = torch.zeros(B, C, dtype=rdt, device=dev).scatter_reduce(
+        1, cis.long(), e_all.to(rdt), "amax")
     rmax0 = rmax0.clamp(min=0)
     rmax1 = rmax1.clamp(max=seq_len)
     cfirst = chains["f_rbeg"]
@@ -116,9 +122,10 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
         mid_rev, seq_len - roff, roff + rlen_ref))
 
     # ---- extension rounds ----
-    zr = lambda v=0: torch.full((B, R), v, dtype=i32, device=dev)
-    regs = dict(rb=zr(), re=zr(), qb=zr(), qe=zr(), score=zr(), truesc=zr(),
-                w=zr(), seedlen0=zr(), cchain=zr(-1), rid=zr(-1))
+    zr = lambda v=0, dt=i32: torch.full((B, R), v, dtype=dt, device=dev)
+    regs = dict(rb=zr(0, rdt), re=zr(0, rdt), qb=zr(), qe=zr(), score=zr(),
+                truesc=zr(), w=zr(), seedlen0=zr(), cchain=zr(-1),
+                rid=zr(-1))
     n_regs = torch.zeros(B, dtype=i32, device=dev)
     cursor = torch.zeros(B, dtype=i32, device=dev)
     was_ext = torch.zeros(B, S, dtype=torch.bool, device=dev)

@@ -1,7 +1,12 @@
 """Batched FM-index rank queries on torch tensors.
 
-The port of ``bioseqdb_tpu/kernels/fm.py``. Rank values are int32
-(indexes below 2^31 doubled bases). The one-hot ``dense.py`` picks of
+The port of ``bioseqdb_tpu/kernels/fm.py``. Rank values take the
+index's rank dtype (``FMDevice.rank_dtype``): int32 below 2^31 doubled
+bases, int64 from there (``layout.rank_dtype_for``), while the packed
+tables stay int32 at any size. Every function here returns ranks in the
+rank dtype, and the scalar fields (``primary``, ``l_pac``, ``seq_len``)
+are Python ints, so rank tensors must already hold that dtype before
+they meet them. The one-hot ``dense.py`` picks of
 the TPU version become plain indexing and ``torch.gather``; 32-bit
 unsigned word arithmetic runs in int64 masked to 32 bits (torch has no
 uint32 shifts or popcount). Out-of-range row indices are clamped, as
@@ -29,17 +34,17 @@ _MASK_TABLE = [((0x55555555 << (2 * (16 - v))) & M32) if v else 0
 
 class FMDevice(NamedTuple):
     """FM-index tensors on one device (``bioseqdb_tpu`` FMDevice layout;
-    the scalar fields as Python ints)."""
+    the scalar fields as Python ints). "rank" is the rank dtype."""
 
-    L2: torch.Tensor          # (5,) int32
+    L2: torch.Tensor          # (5,) rank
     blocks: torch.Tensor      # (n_blocks/8, 128) int32 octo rows
-    sa_sample: torch.Tensor   # (n_marked,) int32
+    sa_sample: torch.Tensor   # (n_marked,) rank
     sa_cnt: torch.Tensor      # (nb,) int32
     sa_words: torch.Tensor    # (nb*4,) int32
-    occ_majors: torch.Tensor  # (nm, 4) int32
-    sa_majors: torch.Tensor   # (nm2,) int32
-    ref_offsets: torch.Tensor  # (n_refs,) int32
-    ref_lens: torch.Tensor    # (n_refs,) int32
+    occ_majors: torch.Tensor  # (nm, 4) rank
+    sa_majors: torch.Tensor   # (nm2,) rank
+    ref_offsets: torch.Tensor  # (n_refs,) rank
+    ref_lens: torch.Tensor    # (n_refs,) rank
     occ_rows: torch.Tensor    # (n_blocks, 12) int32: blocks[:, :96] as rows
     primary: int
     l_pac: int
@@ -57,9 +62,17 @@ class FMDevice(NamedTuple):
         )
 
     @classmethod
-    def from_host(cls, idx: FMIndex, device) -> "FMDevice":
-        return cls.from_tables(layout.to_device(layout.fm_tables(idx),
-                                                device))
+    def from_host(cls, idx: FMIndex, device, rank_dtype=None
+                  ) -> "FMDevice":
+        """``idx``'s tables on ``device``, ranks in ``rank_dtype`` (None:
+        int64 from 2^31 doubled bases, else int32; ``torch.int64``
+        forces int64 on any index)."""
+        return cls.from_tables(layout.to_device(
+            layout.fm_tables(idx, rank_dtype), device))
+
+    @property
+    def rank_dtype(self) -> torch.dtype:
+        return self.sa_sample.dtype
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -154,13 +167,13 @@ def backward_ext(fm: FMDevice, lo, hi, c):
 
 def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor):
     """Exact-match intervals of a batch of reads: codes int32 [B, W]
-    (0..3 bases, >= 4 ambiguous), lens int32 [B]. Returns (lo, hi) int32
-    [B]; the empty interval (0, 0) on no match, an ambiguous base or an
-    empty read."""
+    (0..3 bases, >= 4 ambiguous), lens int32 [B]. Returns (lo, hi) [B]
+    in the rank dtype; the empty interval (0, 0) on no match, an
+    ambiguous base or an empty read."""
     B, W = codes.shape
     lens = lens.to(torch.int32)
-    lo = torch.zeros(B, dtype=torch.int32, device=codes.device)
-    hi = torch.full((B,), fm.seq_len + 1, dtype=torch.int32,
+    lo = torch.zeros(B, dtype=fm.rank_dtype, device=codes.device)
+    hi = torch.full((B,), fm.seq_len + 1, dtype=fm.rank_dtype,
                     device=codes.device)
     for t in range(W):
         # column lens-1-t (right to left); masked once t >= lens
@@ -243,7 +256,7 @@ def sa_resolve(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32
                ) -> torch.Tensor:
     """Resolve conceptual ranks to doubled-text positions: at most
     ``sa_interval - 1`` LF steps to a marked rank."""
-    r = ranks.to(torch.int32)
+    r = ranks.to(fm.rank_dtype)
     steps = torch.zeros_like(r)
     for _ in range(sa_interval - 1):
         done = _sa_marked(fm, r)

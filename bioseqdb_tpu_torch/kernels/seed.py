@@ -22,8 +22,12 @@ from a table of every length-J pattern, in one step instead of J - 1
 (``PH_R3J``). The TPU version appends that table to the Occ rows so the
 step's one gather reaches it; here it is a tensor of its own.
 
-Returns the JAX layout: mems int32[B, M, 5] (k, l = 0, s, start, end),
-n_mem, overflow, iters, it_r1, it_r2.
+Rank-valued state (the bi-interval, the candidate stacks, ``min_intv``
+and the mems) holds the index's rank dtype, as the JAX machine's ``rdt``
+state does; positions, counts and phases stay int32.
+
+Returns the JAX layout: mems [B, M, 5] (k, l = 0, s, start, end) in the
+rank dtype, n_mem, overflow, iters, it_r1, it_r2.
 """
 
 from __future__ import annotations
@@ -60,20 +64,22 @@ _FAST_TIER_BYTES = int(20 * (1 << 20))
 
 
 class R3Jump(NamedTuple):
-    """The round-3 jump table: ``table`` int32[4^depth, 3] holds the
-    bi-interval (k, l, s) of every length-``depth`` pattern, keyed by
+    """The round-3 jump table: ``table`` [4^depth, 3] (rank dtype) holds
+    the bi-interval (k, l, s) of every length-``depth`` pattern, keyed by
     sum_t code[t] << 2t."""
 
     table: torch.Tensor
     depth: int
 
 
-def jump_depth(n_block_rows: int, depth: int | None = None) -> int:
+def jump_depth(n_block_rows: int, depth: int | None = None,
+               rank_dtype: torch.dtype = torch.int32) -> int:
     """The jump depth the JAX package's ``build_r3_jump`` takes for an
     Occ table of ``n_block_rows`` blocks (its octo rows x 8): the largest
     depth whose table extension stays under the TPU's fast gather tier
     (any depth once the table is past it), or ``depth`` when given; 0
-    (no jump) when the extended table's ranks would leave int32."""
+    (no jump) when the ranks are int32 and the extended table's would
+    leave int32. Under int64 ranks the jump is always taken."""
     base = -(-n_block_rows // MAJOR_BLOCKS) * MAJOR_BLOCKS
     if depth is None:
         if n_block_rows * 48 >= _FAST_TIER_BYTES:
@@ -82,7 +88,8 @@ def jump_depth(n_block_rows: int, depth: int | None = None) -> int:
             depth = next((d for d in (JUMP_DEPTH, 6)
                           if (base + 2 * (4 ** d)) * 48 <= _FAST_TIER_BYTES),
                          0)
-    if depth and (base + 2 * 4 ** depth) * OCC_BLOCK + 2 >= 2**31:
+    if (depth and rank_dtype == torch.int32
+            and (base + 2 * 4 ** depth) * OCC_BLOCK + 2 >= 2**31):
         return 0
     return depth
 
@@ -94,7 +101,7 @@ def build_r3_jump(fm: kfm.FMDevice, depth: int | None = None
     4^t patterns of length t, each extended forward by all four codes at
     once, are the 4^(t+1) of length t + 1 (the code at t lands in key bits
     2t and 2t + 1)."""
-    J = jump_depth(fm.blocks.shape[0] * OCT_BLOCKS, depth)
+    J = jump_depth(fm.blocks.shape[0] * OCT_BLOCKS, depth, fm.rank_dtype)
     if J == 0:
         return None
     c0 = torch.arange(4, device=fm.L2.device)
@@ -104,7 +111,8 @@ def build_r3_jump(fm: kfm.FMDevice, depth: int | None = None
     for _ in range(1, J):
         # (4^t, 4) by (key, code) -> code-major: index code * 4^t + key
         k, l, s = (v.t().reshape(-1) for v in kfm.fmd_extend_fwd(fm, k, l, s))
-    return R3Jump(torch.stack([k, l, s], 1).to(torch.int32).contiguous(), J)
+    return R3Jump(torch.stack([k, l, s], 1).to(fm.rank_dtype).contiguous(),
+                  J)
 
 
 def _jump_keys(codes: torch.Tensor, J: int) -> torch.Tensor:
@@ -148,6 +156,7 @@ def collect_seeds_device(
     P, M = max_cand, max_mem
     dev = codes.device
     i32 = torch.int32
+    rdt = fm.rank_dtype
     if max_iters <= 0:
         # the JAX machine's default under fetch sharing (its split-row
         # stalls are counted below)
@@ -156,18 +165,19 @@ def collect_seeds_device(
     L2 = fm.L2
 
     z = lambda *s: torch.zeros(*s, dtype=i32, device=dev)
+    zr = lambda *s: torch.zeros(*s, dtype=rdt, device=dev)
     st = dict(
         phase=torch.where(lens > 0, PH_PIVOT, PH_DONE).to(i32),
         round=z(B), x=z(B), i=z(B),
-        ik=z(B, 3),                      # current bi-interval (k, l, s)
+        ik=zr(B, 3),                     # current bi-interval (k, l, s)
         ik_end=z(B),
-        cand=z(B, P, 3), n_cand=z(B),    # candidates (k, s, end)
-        prev=z(B, P, 3), n_prev=z(B),
-        curr=z(B, P, 3), n_curr=z(B),
+        cand=zr(B, P, 3), n_cand=z(B),   # candidates (k, s, end)
+        prev=zr(B, P, 3), n_prev=z(B),
+        curr=zr(B, P, 3), n_curr=z(B),
         j=z(B), ret=z(B),
         rev1=torch.zeros(B, dtype=torch.bool, device=dev),
-        min_intv=torch.ones(B, dtype=i32, device=dev),
-        mem_k=z(B, M), mem_s=z(B, M), mem_b=z(B, M), mem_e=z(B, M),
+        min_intv=torch.ones(B, dtype=rdt, device=dev),
+        mem_k=zr(B, M), mem_s=zr(B, M), mem_b=zr(B, M), mem_e=zr(B, M),
         n_mem=z(B), n_mem_r1=z(B), r2i=z(B),
         last_start=torch.full((B,), W + 1, dtype=i32, device=dev),
         iters=z(B), it_r1=z(B), it_r2=z(B),
@@ -182,7 +192,7 @@ def collect_seeds_device(
     if entry_reseed:
         pre = reseed_entry
         M0 = pre["mem_s"].shape[1]
-        ld = lambda a: torch.nn.functional.pad(a.to(i32), (0, M - M0))
+        ld = lambda a: torch.nn.functional.pad(a.to(rdt), (0, M - M0))
         st["mem_s"] = ld(pre["mem_s"])
         st["mem_b"] = ld(pre["mem_b"])
         st["mem_e"] = ld(pre["mem_e"])
@@ -203,7 +213,7 @@ def collect_seeds_device(
         k = L2[c] + 1
         l = L2[3 - c] + 1
         s = L2[c + 1] - L2[c]
-        return torch.stack([k, l, s], -1).to(i32)
+        return torch.stack([k, l, s], -1).to(rdt)
 
     def push_row(buf, n, row, do):
         cap = buf.shape[1]
@@ -284,6 +294,7 @@ def collect_seeds_device(
         return st
 
     def body(st):
+        dtypes = {k: v.dtype for k, v in st.items()}
         st = dict(st)
         over_budget = (st["phase"] != PH_DONE) & (st["iters"] >= max_iters)
         st["overflow"] = st["overflow"] | over_budget
@@ -315,9 +326,9 @@ def collect_seeds_device(
         qok = qi < 4
         consume = ((in_fwd & (i < L) & qok) | (in_bwd & (i >= 0) & qok)
                    | (in_r3 & (i < L) & qok))
-        jA = a - (a > primary).to(i32)
+        jA = a - (a > primary).to(rdt)
         posB = a + s_eff
-        jB = posB - (posB > primary).to(i32)
+        jB = posB - (posB > primary).to(rdt)
         split = consume & ((jA >> 10) != (jB >> 10))
         over2 = split & (st["iters"] >= max_iters)
         st["overflow"] = st["overflow"] | over2
@@ -437,7 +448,7 @@ def collect_seeds_device(
         new["ik"] = w_(keep3[:, None], torch.stack([ok_k, ok_l, ok_s], 1),
                        new["ik"])
         new["i"] = w_(keep3, i + 1, new["i"])
-        return {k: (v.to(st[k].dtype) if v.dtype != st[k].dtype else v)
+        return {k: (v.to(dtypes[k]) if v.dtype != dtypes[k] else v)
                 for k, v in new.items()}
 
     st = {k: v.clone() for k, v in st.items()}  # updated in place below

@@ -1,0 +1,151 @@
+"""The leg of the port past 2^31 doubled bases (int64 ranks) on the card.
+
+    python -m bioseqdb_tpu_torch.tools.big_leg [--genome-gb 1.1] [--index-dir DIR]
+
+Simulates a genome of ``--genome-gb`` billion bases (default 1.1, seed
+5: 2.2 G doubled bases, past the int32 rank range; the size of the JAX
+package's ``tools/bigindex_check.py`` and ``tools/grch38_bench_leg.py``),
+builds its index with the port's builder (the int64 SA-IS path), saves
+it under ``--index-dir`` (default ``.big_leg/`` in the checkout, listed
+in ``.gitignore``) and loads it from there on a later run. Then
+``Aligner.build(idx, device="cuda")``, with nothing forced, must choose
+int64 ranks, the FM seeder (the kmer table holds int32 positions), the
+round-3 jump at depth 8 and a candidate stack of 24. Two batches of
+16,384 150 bp reads at 1% substitutions (read seeds 500, the warm-up,
+and 501, timed) go through ``device_regions`` -> ``absorb_overflow`` ->
+``finalize_columns`` under ``long_leg.stage_clock``, as in
+``tools/long_leg.py``.
+
+It prints JSON lines: the set-up (the genome, the build or the load, the
+save, ``Aligner.build`` with its host pack of the doubled text and the
+upload, the device tables' bytes and the choices made), then one line a
+batch: each stage's host seconds, the device step's stage split (the FM
+machine's seconds, its slowest lane's steps and seconds a step), reads/s,
+reads at their simulated origin (``truth``), rows overflowing before the
+retry, rows left to the host finalize, and ``ne_oracle`` over the reads
+off truth (``long_leg.check``). Heavy: the build takes tens of GB of
+host memory and tens of minutes. Needs a CUDA device; without one it
+raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import resource
+import time
+
+import torch
+
+from bioseqdb_tpu_torch.align.options import AlignOptions
+from bioseqdb_tpu_torch.align.pipeline import Aligner
+from bioseqdb_tpu_torch.index.builder import build_index
+from bioseqdb_tpu_torch.index.fmindex import FMIndex
+from bioseqdb_tpu_torch.tools import long_leg
+from bioseqdb_tpu_torch.tools.shapes import card_line
+from bioseqdb_tpu_torch.utils.sim import simulate_genome
+
+GENOME_GB, GENOME_SEED = 1.1, 5
+BATCH, READ_LEN = 16_384, 150
+WARM_SEED, TIMED_SEED = 500, 501
+INDEX_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".big_leg")
+
+
+def emit(**row) -> None:
+    """One JSON line, with the process's peak host memory so far."""
+    kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    print(json.dumps(dict(row, peak_rss_gb=kb / 2**20)), flush=True)
+
+
+def index_for(genome: str, path: str) -> tuple[FMIndex, dict]:
+    """The genome's index: loaded from ``path`` when a build was saved
+    there, else built and saved (a failed save is reported, not raised);
+    with the seconds each part took."""
+    t0 = time.perf_counter()
+    if os.path.exists(os.path.join(path, "meta.json")):
+        idx = FMIndex.load(path)
+        return idx, dict(load_s=time.perf_counter() - t0)
+    idx = build_index([("big", genome)])
+    t1 = time.perf_counter()
+    try:
+        idx.save(path)
+    except OSError as e:     # no room to keep it: the run goes on
+        return idx, dict(build_index_s=t1 - t0, save_error=str(e))
+    return idx, dict(build_index_s=t1 - t0,
+                     save_s=time.perf_counter() - t1)
+
+
+def device_bytes(al: Aligner) -> dict:
+    """Bytes of the tables ``al`` holds on the card."""
+    fm = sum(v.numel() * v.element_size() for v in al.fm
+             if isinstance(v, torch.Tensor))
+    return dict(fm_tables=fm,
+                pac_rows=al.pac_rows.numel() * al.pac_rows.element_size(),
+                jump=(al.jump.table.numel() * al.jump.table.element_size()
+                      if al.jump is not None else 0))
+
+
+def choices(al: Aligner) -> dict:
+    """What ``Aligner.build`` chose for the index, unforced."""
+    return dict(seq_len=int(al.index.seq_len),
+                rank_dtype=str(al.fm.rank_dtype).removeprefix("torch."),
+                seeder="kmer" if al.kmer is not None else "fm",
+                jump_depth=al.jump.depth if al.jump is not None else 0,
+                max_cand=al._step_kwargs(READ_LEN)[0]["max_cand"])
+
+
+def run(al: Aligner, genome: str, seed: int) -> dict:
+    """One batch of the leg, clocked and checked."""
+    t0 = time.perf_counter()
+    sim, batch = long_leg.simulate(genome, BATCH, seed, read_len=READ_LEN)
+    sim_s = time.perf_counter() - t0
+    with long_leg.stage_clock() as clock:
+        res = long_leg.run_batch(al, batch)
+    total = sum(res["seconds"].values())
+    t0 = time.perf_counter()
+    chk = long_leg.check(al, sim, batch, res["cols"])
+    return dict(seed=seed, warm_up=seed == WARM_SEED, simulate_s=sim_s,
+                **res["seconds"], reads_per_s=BATCH / total,
+                overflow=res["n_ovf"], stages=clock.split(),
+                events=clock.events, **chk,
+                check_s=time.perf_counter() - t0)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--genome-gb", type=float, default=GENOME_GB)
+    ap.add_argument("--index-dir", default=None,
+                    help=f"default: {INDEX_DIR}/<size>")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("the big-index leg needs a CUDA device")
+    n = int(args.genome_gb * 1e9)
+    path = args.index_dir or os.path.join(INDEX_DIR, f"genome_{n}_seed5")
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    genome = simulate_genome(n, seed=GENOME_SEED)
+    setup = dict(genome_bases=n, simulate_genome_s=time.perf_counter() - t0)
+    emit(genome=setup, index_dir=path)    # before the long build
+    idx, times = index_for(genome, path)
+    setup.update(times, doubled_bases=int(idx.seq_len),
+                 past_2_31=idx.seq_len >= 2**31, index_dir=path)
+    emit(setup=setup)
+    t0 = time.perf_counter()
+    al = Aligner.build(idx, AlignOptions(), device="cuda")
+    torch.cuda.synchronize()
+    chosen = choices(al)
+    emit(aligner_build_s=time.perf_counter() - t0,
+         device_bytes=device_bytes(al), choices=chosen,
+         cuda_max_allocated=torch.cuda.max_memory_allocated())
+    want = dict(rank_dtype="int64", seeder="fm", jump_depth=8, max_cand=24)
+    if idx.seq_len >= 2**31 and any(chosen[k] != v for k, v in want.items()):
+        raise AssertionError(f"choices past 2^31: {chosen}, not {want}")
+    for seed in (WARM_SEED, TIMED_SEED):
+        emit(batch=run(al, genome, seed))
+
+
+if __name__ == "__main__":
+    main()

@@ -69,11 +69,23 @@
    default ``max_hits``. Every read must have a hit, every read with one
    hit its primary at its simulated position and strand, and the records
    and SAM text must equal the port's CPU path on the same batch;
-9. API phase: ``multi_search`` of the first 256 reads of the main path's
+9. int64 phase: the main path's index with int64 ranks forced (an
+   ``FMDevice`` built with ``rank_dtype=torch.int64`` and its jump table,
+   put into the main path's kmer ``Aligner``, the FM-seeded one and the
+   exact one, as the tests build them). The warm-up batch (kmer-seeded)
+   records its ``sw_extend`` launches, each run again alone against the
+   plain version as on the main path; the timed batch runs kmer-seeded
+   and FM-seeded (under the stage clock: the FM machine's steps and ms a
+   step), counts zeroed just before each and read just after
+   (``sw_extend`` must have run); then exact mode's 16,384 reads. Each
+   one's records (every ``AlignColumns`` field, or the exact
+   ``ReadResult``s) and SAM text must equal the int32 phase's, and the
+   regions' ``rb`` must be int64;
+10. API phase: ``multi_search`` of the first 256 reads of the main path's
    timed batch against the main path's ``Aligner``, counts zeroed just
    before and read just after (``sw_extend`` must have run); the
    ``SearchResult`` list must equal an ``Aligner`` on the CPU's;
-10. CLI phase, in process through ``cli.main``: the genome written as
+11. CLI phase, in process through ``cli.main``: the genome written as
    FASTA, the main path's timed batch, the exact phase's reads and the PE
    phase's timed pairs as FASTQ; ``index``, ``align --batch-size 16384``
    (its SAM body equal to the main path's), ``align --mode exact`` (equal
@@ -83,7 +95,7 @@
    ``pack_reads`` of the file). Every command returns 0, and the reads
    counted in its report are the reads given; counts zeroed just before
    each command and read just after;
-11. probe path: counts zeroed, the two probe entry points
+12. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
    the main-path and a GRCh38-class Occ table), counts read: every probe
@@ -91,9 +103,10 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-12. prints the kernels line (``sw_extend``'s launches: the timed batches
-   of the main, paired-end, FM-seeded and long-read paths, the API phase
-   and the CLI's commands), then the device line as the last line.
+13. prints the kernels line (``sw_extend``'s launches: the timed batches
+   of the main, paired-end, FM-seeded and long-read paths, the int64
+   phase's two, the API phase and the CLI's commands), then the device
+   line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
@@ -131,6 +144,8 @@ from bioseqdb_tpu_torch.api import multi_search
 from bioseqdb_tpu_torch.io.batch import pack_reads, pack_reads_from_file
 from bioseqdb_tpu_torch.io.fasta import FastaRecord, write_fasta, write_fastq
 from bioseqdb_tpu_torch.kernels import build
+from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
 from bioseqdb_tpu_torch.kernels.sw_cuda import FULL_MAX_QLEN, blocks_per_sm
 from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
                                          emit_sam_pair_columns)
@@ -312,7 +327,8 @@ def main_path(dev, card: str) -> dict:
                 res["n_ovf"])
     sam = se_sam(idx, res["cols"], batches[1])
     return dict(launches=launches, rps=rps, calls=calls, idx=idx, al=al,
-                genome=genome, sims=sims, batches=batches, sam=sam)
+                genome=genome, sims=sims, batches=batches, cols=res["cols"],
+                sam=sam)
 
 
 def with_quals(batch):
@@ -388,7 +404,8 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
                              "FM-seeded main path")
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
-    return launches
+    return dict(launches=launches, al=al, cols=res["cols"],
+                sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
 def long_path(m: dict, card: str) -> dict:
@@ -559,8 +576,100 @@ def exact_path(m: dict, dev, card: str, n_reads: int = BATCH) -> dict:
         f"({time.time() - t0:.1f} s)")
     if not same:
         raise AssertionError("exact mode on the card differs from the CPU")
-    return dict(sim=sim, sam=sam, step_rps=n_reads / step_s,
-                batch_rps=n_reads / batch_s)
+    return dict(sim=sim, batch=batch, al=al, res=res, sam=sam)
+
+
+def cols_equal(a, b) -> bool:
+    """Two batches' ``AlignColumns``, every field (the per-read results of
+    rows off the columns included), equal; the text blob by each row's
+    CIGAR and MD (the blob's unused bytes are uninitialised)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "text":
+            same = all(a.cigar(i) == b.cigar(i) and a.md(i) == b.md(i)
+                       for i in range(a.n))
+        elif f.name == "extra":
+            same = x.keys() == y.keys() and all(
+                dataclasses.asdict(x[k]) == dataclasses.asdict(y[k])
+                for k in x)
+        elif isinstance(x, np.ndarray):
+            same = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            return False
+    return True
+
+
+def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
+    """The main path's batches and the exact reads with int64 ranks forced
+    on the main path's index (the ``Aligner``s given an FMDevice built
+    with ``rank_dtype=torch.int64``, as the tests build it): the warm-up
+    batch's ``sw_extend`` launches recorded and each run again alone, the
+    timed batch kmer- and FM-seeded (counts zeroed just before each and
+    read just after), exact mode; records and SAM equal to the int32
+    phases', ``rb`` int64."""
+    idx, batch = m["idx"], m["batches"][1]
+    t0 = time.time()
+    fm64 = kfm.FMDevice.from_host(idx, dev, rank_dtype=torch.int64)
+    jump = build_r3_jump(fm64)
+    als = {name: dataclasses.replace(al, fm=fm64, jump=jump)
+           for name, al in (("kmer", m["al"]), ("fm", fmp["al"]))}
+    log(f"int64 FMDevice + jump table (depth {jump.depth}): "
+        f"{time.time() - t0:.2f} s")
+    t0 = time.time()
+    calls = []
+    n0 = build.LAUNCHES["sw_extend"]
+    with recording(calls):
+        long_leg.run_batch(als["kmer"], m["batches"][0])
+    counted = build.LAUNCHES["sw_extend"] - n0
+    log(f"int64 warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
+        f"sw_extend launches recorded, {counted} counted")
+    if not 0 < len(calls) == counted:
+        raise AssertionError("the int64 warm-up batch's sw_extend launches "
+                             "were not all recorded")
+    total = {k: 0 for k in build.KERNELS}
+    want = dict(kmer=(m["cols"], m["sam"]), fm=(fmp["cols"], fmp["sam"]))
+    for name, clocked in (("kmer", False), ("fm", True)):
+        build.reset_launches()
+        with (long_leg.stage_clock() if clocked
+              else contextlib.nullcontext()) as clock:
+            res = long_leg.run_batch(als[name], batch)
+        launches = dict(build.LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        sec = res["seconds"]
+        rps = BATCH / sum(sec.values())
+        sam = se_sam(idx, res["cols"], batch)
+        rb = res["out"]["regs"]["rb"].dtype
+        same = cols_equal(res["cols"], want[name][0]) and sam == want[name][1]
+        log(f"int64 {name}-seeded timed batch: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in sec.items()))
+        if clocked:
+            log(f"int64 {name}-seeded device step: {stage_line(clock)} "
+                f"on {card}")
+        log(f"int64 {name}-seeded main path: {rps:.1f} reads/s ({BATCH} x "
+            f"{READ_LEN} bp SE) on {card}; sw_extend launches "
+            f"{launches['sw_extend']}; rb {rb}; records and SAM equal to the "
+            f"int32 phase's: {same}")
+        if launches["sw_extend"] <= 0 or rb != np.int64 or not same:
+            raise AssertionError(f"int64 {name}-seeded batch: launches "
+                                 f"{launches['sw_extend']}, rb {rb}, equal "
+                                 f"to int32: {same}")
+    t0 = time.perf_counter()
+    res = dataclasses.replace(ex["al"], fm=fm64).align_batch(ex["batch"])
+    sec = time.perf_counter() - t0
+    b = ex["batch"]
+    sam = emit_sam(res, idx, texts(b), with_quals(b).qualities, header=False)
+    same = ([dataclasses.asdict(r) for r in res]
+            == [dataclasses.asdict(r) for r in ex["res"]] and sam == ex["sam"])
+    log(f"int64 exact align_batch ({b.n} reads): {sec:.3f} s, "
+        f"{b.n / sec:.1f} reads/s on {card}; records and SAM equal to the "
+        f"int32 exact phase's: {same}")
+    if not same:
+        raise AssertionError("int64 exact mode differs from int32")
+    main_path_launches(calls, "int64")
+    return total
 
 
 def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
@@ -811,6 +920,9 @@ def main() -> None:
     ex = exact_path(m, dev, card)
     log(f"exact phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    i64 = int64_path(m, fm, ex, dev, card)
+    log(f"int64 phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     api = api_path(m, card)
     log(f"API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -820,8 +932,8 @@ def main() -> None:
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
                     launches=sum(x["sw_extend"] for x in
-                                 (m["launches"], pe["launches"], fm, lr,
-                                  api, cl)),
+                                 (m["launches"], pe["launches"],
+                                  fm["launches"], lr, i64, api, cl)),
                     **sw)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ JAX-saved index aligns in the port's CLI); ``align --cpu`` in full mode,
 writes the same shards and manifest, and resumes. Both CLIs run in one
 process, so the ``@PG`` line's command line is the same. Also: ``align``
 without ``--cpu`` exits non-zero where there is no card, and a batch
-whose device step fails twice makes ``align`` exit 1 after one retry."""
+whose device step fails twice is retried once, skipped, and leaves the
+same exit code (0) and SAM text in both CLIs."""
 
 import dataclasses
 import json
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from bioseqdb_tpu import cli as jcli
+from bioseqdb_tpu.align.pipeline import Aligner as JAligner
 from bioseqdb_tpu.index.fmindex import FMIndex as JFMIndex
 # imported here, not inside a test: the JAX StageTimer.report binds
 # sys.stderr as a default argument when its module is first imported, and
@@ -149,18 +151,29 @@ def test_align_without_card_fails(files):
 
 
 def test_failed_batch_exits_1(files, monkeypatch, capsys):
-    calls = []
+    """A full-mode batch whose device step fails twice: both CLIs retry
+    it once, report it, skip it and exit with the same code, 0. (The name
+    predates the repair: the port's ``align`` used to exit 1 here.)"""
+    calls = {"jax": [], "port": []}
 
-    def broken(self, batch, keep_mems=False):
-        calls.append(batch.n)
-        raise RuntimeError("device fault")
+    def broken(name):
+        def device_regions(self, batch, *args, **kw):
+            calls[name].append(batch.n)
+            return {}    # a wire dict with no tables: the batch fails
+        return device_regions
 
-    monkeypatch.setattr(Aligner, "device_regions", broken)
-    assert _align(cli.main, files, "t.idx", "broken.sam") == 1
-    assert calls == [30, 30]
-    err = capsys.readouterr().err
-    assert "retrying once" in err and "failed twice" in err
-    assert "aligned 0 reads" in err
-    sam = (files / "broken.sam").read_text()
-    assert sam.startswith("@HD") and all(l.startswith("@")
-                                         for l in sam.splitlines())
+    monkeypatch.setattr(JAligner, "device_regions", broken("jax"))
+    monkeypatch.setattr(Aligner, "device_regions", broken("port"))
+    rcs, sams = {}, {}
+    for name, main, idx in (("jax", jcli.main, "j.idx"),
+                            ("port", cli.main, "t.idx")):
+        rcs[name] = _align(main, files, idx, f"broken.{name}.sam")
+        sams[name] = (files / f"broken.{name}.sam").read_text()
+        err = capsys.readouterr().err
+        assert "retrying once" in err and "failed twice" in err, name
+        assert "aligned 0 reads" in err, name
+    assert rcs["port"] == rcs["jax"] == 0
+    assert calls == {"jax": [30, 30], "port": [30, 30]}
+    assert sams["port"] == sams["jax"]
+    assert sams["port"].startswith("@HD") and all(
+        l.startswith("@") for l in sams["port"].splitlines())

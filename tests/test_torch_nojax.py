@@ -8,8 +8,9 @@ own builder and read simulator, and aligns a few reads on the CPU, then
 a few pairs through ``align_pairs_columns`` and ``align_pairs`` (one
 pair with an all-N mate, so mate rescue runs) and renders their SAM
 text: every function-level import of ``align/paired.py`` runs. Then the
-CLI (``index``, ``align --cpu`` in full and exact mode, ``import``) and
-``search`` run on the CPU. It then asserts that no ``jax`` or
+CLI (``index``, ``align --cpu`` in full and exact mode, ``import``), an
+FM-seeded step with int64 ranks forced (its regions equal the int32
+step's) and ``search`` run on the CPU. It then asserts that no ``jax`` or
 ``bioseqdb_tpu`` module was loaded."""
 
 import os
@@ -61,6 +62,16 @@ with tempfile.TemporaryDirectory() as d:
         body = [l for l in open(out) if not l.startswith("@")]
         assert len(body) >= 6 and (extra or all("\tg\t" in l for l in body))
     assert cli.main(["import", fq, "-o", os.path.join(d, "sh")]) == 0
+import dataclasses, torch
+from bioseqdb_tpu_torch.align.pipeline import Aligner
+from bioseqdb_tpu_torch.kernels import fm as kfm, seed as kseed
+al = Aligner.build(idx, device="cpu", seeder="fm")
+fm64 = kfm.FMDevice.from_host(idx, "cpu", rank_dtype=torch.int64)
+al64 = dataclasses.replace(al, fm=fm64, jump=kseed.build_r3_jump(fm64))
+batch = pack_reads(sim.reads, sim.names)
+o32, o64 = al.device_regions(batch), al64.device_regions(batch)
+assert o64["regs"]["rb"].dtype.itemsize == 8
+assert all((o32["regs"][k] == o64["regs"][k]).all() for k in o32["regs"])
 hit = search(g[300:400], [("g", g)], device="cpu")[0]
 assert (hit.ref_match_start, hit.cigar) == (300, "100M")
 loaded = [k for k, v in sys.modules.items() if v is not None and (

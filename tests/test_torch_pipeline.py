@@ -140,14 +140,15 @@ def test_align_entry_point(run):
 
 
 def test_unsupported_inputs_raise(run):
-    """What the port still refuses: indexes of 2^31 or more doubled bases
-    (int64 ranks), and a CUDA device without a card. Options the kmer
-    seeder cannot take and reads over 320 bases no longer raise
-    (tests/test_torch_fmseed.py, tests/test_torch_longread.py)."""
+    """What the port still refuses: a CUDA device without a card. Indexes
+    of 2^31 or more doubled bases no longer raise: they build with int64
+    ranks (tests/test_torch_int64.py), and neither do options the kmer
+    seeder cannot take or reads over 320 bases (tests/test_torch_fmseed.py,
+    tests/test_torch_longread.py)."""
     idx = run["idx"]
     big = dataclasses.replace(idx, seq_len=(1 << 31) - 1)
-    with pytest.raises(NotImplementedError):
-        Aligner.build(big, AlignOptions(), device="cpu")
+    assert Aligner.build(big, AlignOptions(),
+                         device="cpu").fm.rank_dtype == torch.int64
     assert Aligner.build(idx, AlignOptions(min_seed_len=15),
                          device="cpu").kmer is None
     if not torch.cuda.is_available():
