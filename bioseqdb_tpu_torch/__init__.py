@@ -2,7 +2,8 @@
 
 Runs exact mode and the single-end and paired-end full-alignment paths
 (kmer seeding, FM reseed, chaining, banded-SW extension; both mates of a
-pair batch in one device step) on a torch device, behind the same search
+pair batch in one device step) on a torch device or a mesh of them
+(data-parallel, index-sharded or both), behind the same search
 API and CLI as the JAX package; the banded SW is a hand-written CUDA
 kernel for Hopper (``csrc/sw_extend.cu``). The host half (index build,
 finalize, pairing and mate rescue, SAM, the oracle) is the port's own
@@ -25,8 +26,10 @@ Package map (mirrors ``bioseqdb_tpu``):
   (``python -m bioseqdb_tpu_torch``)
 - ``cpu``, ``sam``, ``utils``  host oracle, SAM emission, read simulator,
   ``StageTimer`` and the ``torch.profiler`` trace
-- ``tools``         the probes' microbenchmarks and the paired-end and
-  long-read legs (run on the card)
+- ``dist``          mesh setup over ``torch.distributed``, one process a
+  rank (``launch``), data-parallel batches, index sharding
+- ``tools``         the probes' microbenchmarks and the paired-end,
+  long-read, dist and past-2^31 legs (run on the card)
 """
 
 from bioseqdb_tpu_torch.align.options import AlignOptions, bwa_opts

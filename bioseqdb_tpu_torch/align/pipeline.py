@@ -28,8 +28,18 @@ Indexes of 2^31 or more doubled bases run with int64 ranks, which
 ``layout.fm_tables`` chooses by the index's size: the FM seeder (the
 kmer table holds int32 positions), the jump table at any depth and a
 candidate stack of 24 (``_step_kwargs``), and int64 reference
-coordinates through chaining, extension and the wire dict. Meshes are
-not ported.
+coordinates through chaining, extension and the wire dict.
+
+Meshes (``dist/``): ``Aligner.build(..., mesh=)`` takes a
+``torch.distributed`` device mesh, one process per rank, each given the
+same batches. A ``data`` axis splits a batch's rows (padded to a
+multiple of its size with code 4 and length 0) across ranks, each with
+the whole index on its own device (full and exact mode); an ``index``
+axis splits the FM tables by row range (``dist/shard_index.py``: full
+mode, the FM seeder). Every rank returns the global result, gathered
+over ``data``, as dense host tables (no pack cap); there is no fat retry
+under a mesh, as in the JAX package: overflowed rows go to the host
+oracle in finalize, and a pair batch takes two steps, one a mate.
 """
 
 from __future__ import annotations
@@ -271,11 +281,13 @@ class Aligner:
     kmer: dict | None        # the kmer seeder's tables; None: FM seeder
     jump: R3Jump | None      # the FM machine's round-3 jump table
     mode: str = "full"
+    mesh: object = None      # a DeviceMesh of ``data`` and/or ``index``
+    fms: object = None       # FMSharded when the mesh has an index axis
 
     @classmethod
     def build(cls, index: FMIndex, options: AlignOptions | None = None,
               device="cuda", seeder: str | None = None,
-              mode: str = "full") -> "Aligner":
+              mode: str = "full", mesh=None) -> "Aligner":
         """Upload ``index``'s tables to ``device``. A CUDA device without
         a card raises; nothing falls back to the CPU.
 
@@ -295,6 +307,13 @@ class Aligner:
         The ranks take the dtype ``layout.fm_tables`` chooses by the
         index's size (``self.fm.rank_dtype``: int64 from 2^31 doubled
         bases); there is no argument to force it, as in the JAX package.
+
+        ``mesh`` (``dist.mesh.make_mesh``, every rank calling with its own
+        ``device``, of the mesh's device type): with only a ``data``
+        axis each rank builds the tables above; with an ``index`` axis
+        it builds its shard of the FM tables (``shard_index``) instead,
+        full mode only (else ``ValueError``), FM-seeded, with no kmer or
+        jump table.
         """
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -302,10 +321,25 @@ class Aligner:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Aligner.build(device='cuda'): no CUDA device")
         opts = options or AlignOptions()
+        if mesh is not None:
+            if mesh.device_type != device.type:
+                raise ValueError(f"a {mesh.device_type} mesh with device "
+                                 f"{device}")
+            if "index" in (mesh.mesh_dim_names or ()):
+                if mode != "full":
+                    raise ValueError("index-sharded meshes support "
+                                     "mode='full'")
+                from bioseqdb_tpu_torch.dist.shard_index import shard_index
+
+                return cls(index=index, options=opts, device=device,
+                           fm=None, pac_rows=None, kmer=None, jump=None,
+                           mode=mode, mesh=mesh,
+                           fms=shard_index(index, mesh, device))
         if mode == "exact":
             return cls(index=index, options=opts, device=device,
                        fm=kfm.FMDevice.from_host(index, device),
-                       pac_rows=None, kmer=None, jump=None, mode=mode)
+                       pac_rows=None, kmer=None, jump=None, mode=mode,
+                       mesh=mesh)
         want = seeder or os.environ.get("BST_SEEDER", "auto")
         if want not in SEEDERS:
             raise ValueError(f"seeder {want!r} is not one of {SEEDERS}")
@@ -318,7 +352,8 @@ class Aligner:
         kmer = (dict(bmeta=t["bmeta"], entries=t["entries"],
                      kmer_meta=t["kmer_meta"]) if use_kmer else None)
         return cls(index=index, options=opts, device=device, fm=fm,
-                   pac_rows=t["pac_rows"], kmer=kmer, jump=build_r3_jump(fm))
+                   pac_rows=t["pac_rows"], kmer=kmer, jump=build_r3_jump(fm),
+                   mesh=mesh)
 
     def _mat(self) -> torch.Tensor:
         opt = self.options
@@ -346,12 +381,15 @@ class Aligner:
             max_chain_gap=opt.max_chain_gap,
             mask_level=opt.mask_level, chain_drop_ratio=opt.chain_drop_ratio,
             sa_interval=self.index.sa_interval, keep_mems=keep_mems,
-            kmer=self.kmer, jump=self.jump,
-            # the candidate stack grows with log4 of the genome: 24 past
-            # 2^31 doubled bases (JAX pipeline.py:611)
-            max_cand=(24 if self.index.seq_len >= (1 << 31) else 0),
+            kmer=self.kmer, jump=self.jump, max_cand=self._max_cand(),
         )
         return common, narrow
+
+    def _max_cand(self) -> int:
+        """The FM machine's candidate stack, which grows with log4 of the
+        genome: 24 past 2^31 doubled bases (JAX pipeline.py:611), else
+        0, the seeder's default."""
+        return 24 if self.index.seq_len >= (1 << 31) else 0
 
     def _wire_step(self, codes: np.ndarray, lens: np.ndarray,
                    keep_mems: bool = False) -> tuple[dict, bool]:
@@ -377,12 +415,38 @@ class Aligner:
         """Run the device pipeline on one batch (no host finalize);
         returns the host dict of the JAX ``Aligner.device_regions``:
         packed regions + n_regs + overflow + l_rep, or with ``keep_mems``
-        the dense regions plus the seed-interval tables."""
+        the dense regions plus the seed-interval tables. Under a mesh,
+        the dense regions of the batch padded to the data size."""
+        if self.mesh is not None:
+            return self._mesh_regions(batch, keep_mems)
         out, narrow = self._wire_step(np.asarray(batch.codes, np.uint8),
                                       batch.lens, keep_mems)
         if not keep_mems:
             out = pack_out(out, (5 * batch.n_padded) // 4, narrow)
         return to_host(out)
+
+    def _mesh_regions(self, batch: ReadBatch, keep_mems: bool) -> dict:
+        """``device_regions`` under the mesh: this rank's rows (all rows
+        along an index axis without data) through its step, the dense
+        host tables gathered over ``data``."""
+        from bioseqdb_tpu_torch.dist import mesh as dmesh
+
+        codes, lens = dmesh.pad_rows(np.asarray(batch.codes, np.uint8),
+                                     np.asarray(batch.lens, np.int32),
+                                     self.mesh)
+        if self.fms is not None:
+            from bioseqdb_tpu_torch.dist.shard_index import (
+                full_align_step_sharded)
+
+            return full_align_step_sharded(
+                self.fms, torch.from_numpy(codes).to(self.device),
+                torch.from_numpy(lens).to(self.device), self._mat(),
+                self.mesh, self.options, self.index.n_refs,
+                sa_interval=self.index.sa_interval, keep_mems=keep_mems,
+                max_cand=self._max_cand())
+        rows = dmesh.local_rows(codes.shape[0], self.mesh)
+        out, _ = self._wire_step(codes[rows], lens[rows], keep_mems)
+        return dmesh.gather_host(to_host(out), self.mesh)
 
     def device_regions_pair(self, batch1: ReadBatch, batch2: ReadBatch
                             ) -> tuple[dict, dict]:
@@ -393,7 +457,10 @@ class Aligner:
         like a ``device_regions`` result. One step, not two, because the
         step's caps are batch-global (``resolve_seeds`` compacts rank
         lanes over the whole batch), as in the JAX package's fused pair
-        step."""
+        step. Under a mesh, two ``device_regions`` steps (the JAX
+        package's rule)."""
+        if self.mesh is not None:
+            return self.device_regions(batch1), self.device_regions(batch2)
         c1 = np.asarray(batch1.codes, np.uint8)
         c2 = np.asarray(batch2.codes, np.uint8)
         B = c1.shape[0]
@@ -473,10 +540,11 @@ class Aligner:
         """Re-run overflow rows on the device with fat caps before the
         host oracle sees them; returns the unpacked out dict with the
         retried rows spliced in (unchanged when nothing overflowed or
-        more rows overflowed than the largest bucket)."""
+        more rows overflowed than the largest bucket, or under a mesh:
+        its overflowed rows go to the host oracle)."""
         from bioseqdb_tpu_torch.align.finalize import maybe_unpack
 
-        if "mems" in out:
+        if "mems" in out or self.mesh is not None:
             return out
         out = maybe_unpack(out)
         n = len(batch.names)
@@ -495,7 +563,7 @@ class Aligner:
         and are spliced back into each mate's unpacked tables."""
         from bioseqdb_tpu_torch.align.finalize import maybe_unpack
 
-        if "mems" in out1 or "mems" in out2:
+        if "mems" in out1 or "mems" in out2 or self.mesh is not None:
             return out1, out2
         out1, out2 = maybe_unpack(out1), maybe_unpack(out2)
         o1 = np.flatnonzero(np.asarray(out1["overflow"])[: batch1.n])
@@ -538,12 +606,20 @@ class Aligner:
             if max_hits is None:
                 max_hits = min(
                     self.options.resolve_max_occ(self.index.n_refs), 64)
+            codes = np.asarray(batch.codes, np.uint8)
+            lens = np.asarray(batch.lens, np.int32)
+            if self.mesh is not None:
+                from bioseqdb_tpu_torch.dist import mesh as dmesh
+
+                codes, lens = dmesh.pad_rows(codes, lens, self.mesh)
+                rows = dmesh.local_rows(codes.shape[0], self.mesh)
+                codes, lens = codes[rows], lens[rows]
             out = exact_align_step(
-                self.fm, torch.from_numpy(
-                    np.asarray(batch.codes, np.uint8)).to(self.device),
-                torch.from_numpy(
-                    np.asarray(batch.lens, np.int32)).to(self.device),
+                self.fm, torch.from_numpy(codes).to(self.device),
+                torch.from_numpy(lens).to(self.device),
                 max_hits, sa_interval=self.index.sa_interval)
+            if self.mesh is not None:
+                out = dmesh.gather_host(out, self.mesh)
             return self._to_results(batch, out, with_query_ids)
         out = self.absorb_overflow(batch, self.device_regions(batch))
         return finalize_batch(self.index, self.options, batch, out,

@@ -26,7 +26,7 @@ NEG = -(1 << 30)
 
 def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
                   max_occ: int, max_seeds: int, sa_interval: int = 32,
-                  compact_cap: int | None = 0) -> dict:
+                  compact_cap: int | None = 0, group=None) -> dict:
     """Expand seed intervals (mems [B, M, 5] = k, l, s, start, end, in
     the rank dtype) into located seeds, ordered by (start, end) then
     sampled rank; ``rbeg`` comes back in the rank dtype.
@@ -37,7 +37,8 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     (or ``compact_cap``), as the JAX version's static buffer holds them;
     lanes past it overflow. ``compact_cap`` None walks every rank lane:
     the buffer is a TPU static-shape cap, and the port compacts to the
-    lanes there are."""
+    lanes there are. ``group``: a sharded index's process group
+    (``kernels/fm.py``), whose ranks hold the same seeds."""
     B, M, _ = mems.shape
     S = max_seeds
     dev = mems.device
@@ -77,13 +78,14 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
         cpos = torch.cumsum(fvalid.to(i32), 0) - 1
         src = torch.nonzero(fvalid & (cpos < K))[:, 0]
         pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=dev)
-        pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src], sa_interval)
+        pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src], sa_interval,
+                                  group)
         pos = pos.reshape(B, S)
         truncated = (fvalid & (cpos >= K)).reshape(B, S)
         valid = valid & ~truncated
         overflow = overflow | truncated.any(1)
     else:
-        pos = kfm.sa_resolve(fm, ranks, sa_interval)
+        pos = kfm.sa_resolve(fm, ranks, sa_interval, group)
     pos = torch.where(isposrow, k0, pos)
     slen = end - start
 

@@ -18,6 +18,11 @@ Reference coordinates (the chains' windows, the regions' ``rb`` and
 ``re``) hold the seeds' rank dtype, int64 past 2^31 doubled bases, as
 in the JAX version; the SW kernel still takes int32 codes, fetched from
 the packed text by 64-bit positions.
+
+Under a sharded index (``group``, ``dist/shard_index.py``) the targets
+come from this rank's range of the per-base forward codes instead,
+summed to their owner over the group (``fetch_doubled``), as in the JAX
+version; a round's two windows share one owner sum.
 """
 
 from __future__ import annotations
@@ -41,6 +46,22 @@ def window_doubled(pac_rows, seq_len: int, pos: torch.Tensor) -> torch.Tensor:
     return torch.where((pos >= 0) & (pos < seq_len), code, 4).to(torch.int32)
 
 
+def fetch_doubled(pac: torch.Tensor, l_pac: int, seq_len: int,
+                  pos: torch.Tensor, group=None) -> torch.Tensor:
+    """Codes of the doubled text at ``pos`` from the forward codes
+    ``pac`` (1-D, 0..3); positions outside [0, seq_len) read 4. With
+    ``group``, ``pac`` holds this rank's range of forward positions and
+    each code is summed to its owner (``kernels/fm.py``)."""
+    pos = pos.to(torch.int64)
+    p = pos.clamp(0, seq_len - 1)
+    fwd = p < l_pac
+    base, mine = kfm._table_row(pac, torch.where(fwd, p, seq_len - 1 - p),
+                                group)
+    base = kfm._owner_sum(base, mine, group).to(torch.int32)
+    code = torch.where(fwd, base, 3 - base)
+    return torch.where((pos >= 0) & (pos < seq_len), code, 4).to(torch.int32)
+
+
 def cal_max_gap(qlen, match_score, o_del, e_del, o_ins, e_ins, bandwidth):
     f32 = lambda x: x.to(torch.float32)
     l_del = (f32(qlen * match_score - o_del) / float(e_del) + 1.0).to(torch.int32)
@@ -52,10 +73,13 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
                chains: dict, flt: dict, mat, match_score: int,
                mismatch_penalty: int, o_del: int, e_del: int, o_ins: int,
                e_ins: int, bandwidth: int, zdrop: int, pen_clip5: int,
-               pen_clip3: int, max_rounds: int = 6, max_regs: int = 8) -> dict:
+               pen_clip3: int, max_rounds: int = 6, max_regs: int = 8,
+               group=None) -> dict:
     """Run the extension stage. Returns the per-read region table
     (qb/qe/score/truesc/w/seedlen0/cchain/rid/seedcov int32[B, R], and
-    rb/re [B, R] in the seeds' rank dtype) with n_regs and overflow."""
+    rb/re [B, R] in the seeds' rank dtype) with n_regs and overflow.
+    With ``group``, ``pac_rows`` is this rank's shard of the per-base
+    forward codes (``FMSharded.pac``), not the packed doubled text."""
     B, S = seeds["rbeg"].shape
     C = chains["pos"].shape[1]
     R = max_regs
@@ -218,6 +242,19 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
             aw = aw[inv]
         return out, aw
 
+    def targets(pos_l, pos_r, act):
+        """The left and right windows' target codes (under a group, of
+        the active lanes only: the others' are never read)."""
+        if group is None:
+            return (window_doubled(pac_rows, seq_len, pos_l),
+                    window_doubled(pac_rows, seq_len, pos_r))
+        sel = torch.nonzero(act)[:, 0]
+        both = fetch_doubled(pac_rows, l_pac, seq_len,
+                             torch.cat([pos_l[sel], pos_r[sel]]), group)
+        out = torch.full((2, B, max_tlen), 4, dtype=torch.int32, device=dev)
+        out[:, sel] = both.reshape(2, -1, max_tlen)
+        return out[0], out[1]
+
     def extend_round(regs, n_regs, cursor, was_ext, act, slot):
         sq = pick_row(qbeg, slot)
         sr = pick_row(rbeg, slot)
@@ -232,7 +269,8 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
         qidx = (sq[:, None] - 1 - wcols)
         qbuf_l = torch.gather(codes, 1, qidx.clamp(0, W - 1))
         qbuf_l = torch.where(wcols < lq[:, None], qbuf_l, 4).to(i32)
-        traw_l = window_doubled(pac_rows, seq_len, sr[:, None] - 1 - tcols)
+        traw_l, traw_r = targets(sr[:, None] - 1 - tcols,
+                                 (sr + sl)[:, None] + tcols, act)
         tbuf_l = torch.where(tcols < lt[:, None], traw_l, 4).to(i32)
         has_l = act & (lq > 0)
         resL, awL = sw_with_retry(
@@ -258,7 +296,6 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
         qbuf_r = torch.where(qidx < W, torch.gather(
             codes, 1, qidx.clamp(0, W - 1)), 4)
         qbuf_r = torch.where(wcols < rq[:, None], qbuf_r, 4).to(i32)
-        traw_r = window_doubled(pac_rows, seq_len, re0[:, None] + tcols)
         tbuf_r = torch.where(tcols < rt[:, None], traw_r, 4).to(i32)
         has_r = act & (rq > 0)
         resR, awR = sw_with_retry(

@@ -12,13 +12,28 @@ unsigned word arithmetic runs in int64 masked to 32 bits (torch has no
 uint32 shifts or popcount). Out-of-range row indices are clamped, as
 XLA's gathers clamp them, so garbage lanes read what the JAX version
 reads.
+
+Sharded queries (``dist/shard_index.py``): every query takes ``group``,
+a process group whose ranks each hold one row range of the packed tables
+(``blocks``, ``sa_cnt``, ``sa_words``) and all of the small ones, where
+the JAX version takes ``axis``. A rank reads a row only where it owns it
+(``_table_row``: the global row less the shard's base, clamped to the
+shard, with a ``mine`` mask), and the masked values are summed over the
+group (``_owner_sum``: one ``all_reduce``), so each value is its
+owner's. ``group=None`` is the single-device code. Every rank of a
+group must make the same queries in the same order on the same shapes.
+``COLLECTIVES`` counts the owner sums (calls, bytes; seconds when
+``reset_collectives(timed=True)`` asks), as ``build.LAUNCHES`` counts
+kernel launches.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from bioseqdb_tpu_torch.index import layout
 from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK, FMIndex
@@ -93,12 +108,87 @@ def _clamped(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long().clamp(0, table.shape[0] - 1)]
 
 
-def _block_row(fm: FMDevice, blk: torch.Tensor) -> torch.Tensor:
-    """The 12-int32 Occ block ``blk``: octo row ``blk >> 3`` (clamped),
-    sub-block ``blk & 7``."""
+def _local_row(idx: torch.Tensor, rows: int, group=None):
+    """(row indices into a table of ``rows`` rows, clamped; mine). With
+    ``group`` the table holds this rank's row range (equal row counts a
+    shard): the index is the global row less the shard's base, and
+    ``mine`` is False off the shard, where the caller's value must go
+    through ``_owner_sum``. Without, ``mine`` is None."""
+    idx = idx.long()
+    if group is None:
+        return idx.clamp(0, rows - 1), None
+    local = idx - dist.get_rank(group) * rows
+    return local.clamp(0, rows - 1), (local >= 0) & (local < rows)
+
+
+def _table_row(table: torch.Tensor, idx: torch.Tensor, group=None):
+    """(table[idx] clamped, mine) as ``_local_row`` gives them."""
+    local, mine = _local_row(idx, table.shape[0], group)
+    return table[local], mine
+
+
+# owner sums made since ``reset_collectives``: the all_reduce calls, the
+# bytes they sum and, when the reset asked for it, their seconds, each
+# timed between two device synchronisations (a tool's clock; off, the
+# counting costs two integer adds a call)
+COLLECTIVES = dict(calls=0, bytes=0, seconds=0.0)
+_timed = False
+
+
+def reset_collectives(timed: bool = False) -> None:
+    """Zero ``COLLECTIVES``; ``timed`` clocks every owner sum from here
+    to the next reset."""
+    global _timed
+    COLLECTIVES.update(calls=0, bytes=0, seconds=0.0)
+    _timed = timed
+
+
+def _all_reduce(buf: torch.Tensor, group) -> None:
+    COLLECTIVES["calls"] += 1
+    COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
+    if not _timed:
+        dist.all_reduce(buf, group=group)
+        return
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    t0 = time.perf_counter()
+    dist.all_reduce(buf, group=group)
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    COLLECTIVES["seconds"] += time.perf_counter() - t0
+
+
+def _owner_sums(pairs, group=None) -> list[torch.Tensor]:
+    """Each (value, mine) pair's value where this rank owns it, summed
+    over ``group`` in ONE ``all_reduce`` (values of one shape, each
+    returned in its own dtype): each value is its owner's. The values
+    unchanged without a group."""
+    if group is None:
+        return [v for v, _ in pairs]
+    dt = pairs[0][0].dtype
+    for v, _ in pairs[1:]:
+        dt = torch.promote_types(dt, v.dtype)
+    parts = []
+    for v, mine in pairs:
+        while mine.ndim < v.ndim:
+            mine = mine[..., None]
+        parts.append(torch.where(mine, v.to(dt), 0))
+    buf = torch.stack(parts)
+    _all_reduce(buf, group)
+    return [b.to(v.dtype) for b, (v, _) in zip(buf, pairs)]
+
+
+def _owner_sum(val: torch.Tensor, mine, group=None) -> torch.Tensor:
+    return _owner_sums([(val, mine)], group)[0]
+
+
+def _block_row(fm: FMDevice, blk: torch.Tensor, group=None):
+    """(the 12-int32 Occ block ``blk``, mine): octo row ``blk >> 3``
+    (clamped; with ``group``, in this rank's shard), sub-block
+    ``blk & 7``."""
     blk = blk.long()
-    nrow = fm.blocks.shape[0]
-    return fm.occ_rows[(blk >> 3).clamp(0, nrow - 1) * 8 + (blk & 7)]
+    octo, mine = _local_row(blk >> 3, fm.blocks.shape[0], group)
+    return fm.occ_rows[octo * 8 + (blk & 7)], mine
 
 
 def _row_counts(row: torch.Tensor, c: torch.Tensor, r: torch.Tensor
@@ -120,52 +210,61 @@ def _occ_major_rows(fm: FMDevice, blk: torch.Tensor) -> torch.Tensor:
     return fm.occ_majors[m]                                     # (..., 4)
 
 
-def occ_stored(fm: FMDevice, c: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    """Count of code c in the stored BWT prefix [0, j)."""
+def occ_stored(fm: FMDevice, c: torch.Tensor, j: torch.Tensor, group=None
+               ) -> torch.Tensor:
+    """Count of code c in the stored BWT prefix [0, j). The major
+    checkpoint depends on the global block alone: it stays outside the
+    owner sum."""
     blk = j >> LOG2_OCC_BLOCK
     r = j & (OCC_BLOCK - 1)
-    row = _block_row(fm, blk)
+    row, mine = _block_row(fm, blk, group)
     c = c.long()
     ckpt = torch.gather(row[..., :4], -1, c[..., None])[..., 0]
     major = torch.gather(_occ_major_rows(fm, blk), -1, c[..., None])[..., 0]
-    return ckpt + _row_counts(row, c, r) + major
+    return _owner_sum(ckpt + _row_counts(row, c, r), mine, group) + major
 
 
-def occB(fm: FMDevice, c: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+def occB(fm: FMDevice, c: torch.Tensor, r: torch.Tensor, group=None
+         ) -> torch.Tensor:
     """Count of code c in the conceptual BWT prefix B[0, r) (skips $)."""
-    return occ_stored(fm, c, r - (r > fm.primary).to(r.dtype))
+    return occ_stored(fm, c, r - (r > fm.primary).to(r.dtype), group)
 
 
 def occ4_from_row(fm: FMDevice, row: torch.Tensor, blk: torch.Tensor,
-                  off: torch.Tensor) -> torch.Tensor:
+                  off: torch.Tensor, mine=None, group=None) -> torch.Tensor:
     """occ4 at a stored position from its already-fetched Occ block row
-    (blk = j >> 7, off = j & 127). Shape (..., 4)."""
+    (blk = j >> 7, off = j & 127; ``mine`` from the fetch). Shape
+    (..., 4)."""
     cs = torch.arange(4, device=row.device)
     cnt = _row_counts(row[..., None, :], cs, off[..., None])
-    return row[..., :4] + cnt + _occ_major_rows(fm, blk)
+    return (_owner_sum(row[..., :4] + cnt, mine, group)
+            + _occ_major_rows(fm, blk))
 
 
-def occ_rows_for(fm: FMDevice, r: torch.Tensor):
+def occ_rows_for(fm: FMDevice, r: torch.Tensor, group=None):
     """Fetch the Occ block rows holding the conceptual-prefix positions
-    ``r`` in one gather; returns (row12, blk, off) for ``occ4_from_row``."""
+    ``r`` in one gather; returns (row12, blk, off, mine) for
+    ``occ4_from_row``."""
     j = r - (r > fm.primary).to(r.dtype)
     blk = j >> LOG2_OCC_BLOCK
-    return _block_row(fm, blk), blk, (j & (OCC_BLOCK - 1)).to(torch.int32)
+    row, mine = _block_row(fm, blk, group)
+    return row, blk, (j & (OCC_BLOCK - 1)).to(torch.int32), mine
 
 
-def occ4B(fm: FMDevice, r: torch.Tensor) -> torch.Tensor:
-    return occ4_from_row(fm, *occ_rows_for(fm, r))
+def occ4B(fm: FMDevice, r: torch.Tensor, group=None) -> torch.Tensor:
+    return occ4_from_row(fm, *occ_rows_for(fm, r, group), group=group)
 
 
-def backward_ext(fm: FMDevice, lo, hi, c):
+def backward_ext(fm: FMDevice, lo, hi, c, group=None):
     """Extend pattern interval [lo, hi) by prepending code c."""
     C = fm.L2[c.long()] + 1
-    both = occB(fm, torch.cat([c, c]), torch.cat([lo, hi]))
+    both = occB(fm, torch.cat([c, c]), torch.cat([lo, hi]), group)
     n = lo.shape[0]
     return C + both[:n], C + both[n:]
 
 
-def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor):
+def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor,
+                    group=None):
     """Exact-match intervals of a batch of reads: codes int32 [B, W]
     (0..3 bases, >= 4 ambiguous), lens int32 [B]. Returns (lo, hi) [B]
     in the rank dtype; the empty interval (0, 0) on no match, an
@@ -181,7 +280,7 @@ def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor):
         c = torch.gather(codes, 1, idx[:, None])[:, 0]
         live = t < lens
         active = live & (lo < hi) & (c < 4)
-        nlo, nhi = backward_ext(fm, lo, hi, c.clamp(0, 3))
+        nlo, nhi = backward_ext(fm, lo, hi, c.clamp(0, 3), group)
         bad = live & (c >= 4)       # an ambiguous base kills the match
         lo = torch.where(active, nlo, torch.where(bad, 1, lo))
         hi = torch.where(active, nhi, torch.where(bad, 1, hi))
@@ -201,68 +300,88 @@ def fmd_extend_from_occ(fm: FMDevice, k, l, s, o1, o2):
     return k4.to(cnt.dtype), l4.to(cnt.dtype), cnt
 
 
-def fmd_extend_back(fm: FMDevice, k, l, s):
+def fmd_extend_back(fm: FMDevice, k, l, s, group=None):
     """FMD bi-interval backward extension for all 4 codes."""
-    both = occ4B(fm, torch.cat([k.reshape(-1), (k + s).reshape(-1)]))
+    both = occ4B(fm, torch.cat([k.reshape(-1), (k + s).reshape(-1)]), group)
     n = k.numel()
     o1 = both[:n].reshape(k.shape + (4,))
     o2 = both[n:].reshape(k.shape + (4,))
     return fmd_extend_from_occ(fm, k, l, s, o1, o2)
 
 
-def fmd_extend_fwd(fm: FMDevice, k, l, s):
+def fmd_extend_fwd(fm: FMDevice, k, l, s, group=None):
     """FMD forward extension: bi-intervals of P+c for each code c."""
-    k4, l4, s4 = fmd_extend_back(fm, l, k, s)
+    k4, l4, s4 = fmd_extend_back(fm, l, k, s, group)
     return l4.flip(-1), k4.flip(-1), s4.flip(-1)
 
 
-def _sa_marked(fm: FMDevice, r: torch.Tensor) -> torch.Tensor:
-    """Whether ranks carry a sampled SA value."""
-    word = u32(_clamped(fm.sa_words, r >> 5))
-    return ((word >> (r & 31).long()) & 1).bool()
+def _sa_mark_bit(fm: FMDevice, r: torch.Tensor, group=None):
+    """(the mark bit of each rank as int64: whether it carries a sampled
+    SA value, mine), before the owner sum."""
+    w, mine = _table_row(fm.sa_words, r >> 5, group)
+    return (u32(w) >> (r & 31).long()) & 1, mine
 
 
-def _sa_slot(fm: FMDevice, r: torch.Tensor) -> torch.Tensor:
-    """Number of marked ranks before each rank (its sa_sample slot)."""
+def _sa_slot(fm: FMDevice, r: torch.Tensor, group=None) -> torch.Tensor:
+    """Number of marked ranks before each rank (its sa_sample slot). The
+    popcount part and the count go through one owner sum; the major
+    depends on the global row alone and stays outside it."""
     r5 = (r >> 7).long()
     widx = torch.arange(4, device=r.device)
-    words = u32(_clamped(fm.sa_words, (r5 * 4)[..., None] + widx))
-    cnt = _clamped(fm.sa_cnt, r5)
+    wraw, mine_w = _table_row(fm.sa_words, (r5 * 4)[..., None] + widx, group)
+    cnt, mine_c = _table_row(fm.sa_cnt, r5, group)
     w = ((r >> 5) & 3).long()
     bits = (r & 31).long()
     nbits = torch.where(widx < w[..., None], 32,
                         torch.where(widx == w[..., None], bits[..., None], 0))
     mask = (1 << nbits) - 1            # int64: nbits = 32 is exact
-    part = popcount32(words & mask).sum(-1).to(torch.int32)
+    if mine_w is not None:
+        mask = torch.where(mine_w, mask, 0)
+    part = popcount32(u32(wraw) & mask).sum(-1).to(torch.int32)
+    if group is not None:
+        # the part is masked word by word above; the count by its row
+        part, cnt = _owner_sums([(part, torch.ones_like(mine_c)),
+                                 (cnt, mine_c)], group)
     major = _clamped(fm.sa_majors, r5 >> LOG2_MAJOR)
     return part + cnt + major
 
 
-def lf_step(fm: FMDevice, r: torch.Tensor) -> torch.Tensor:
-    """One LF step: rank of the suffix at position SA[r] - 1."""
+def _lf_value(fm: FMDevice, r: torch.Tensor, group=None):
+    """(LF of each rank, mine), before the owner sum. The major
+    checkpoint rides inside the sum: ``c`` is decoded from the row, a
+    dummy on a rank that does not own it, so a major added after the
+    sum would mix in every rank's own c (the JAX version's lf_step)."""
     j = r - (r > fm.primary).to(r.dtype)
     blk = j >> LOG2_OCC_BLOCK
     off = (j & (OCC_BLOCK - 1)).long()
-    row = _block_row(fm, blk)
+    row, mine = _block_row(fm, blk, group)
     word = u32(torch.gather(row[..., 4:], -1, (off >> 4)[..., None])[..., 0])
     c = (word >> (2 * (15 - (off & 15)))) & 3
     ckpt = torch.gather(row[..., :4], -1, c[..., None])[..., 0]
     major = torch.gather(_occ_major_rows(fm, blk), -1, c[..., None])[..., 0]
-    lf = fm.L2[c] + ckpt + _row_counts(row, c, off) + 1 + major
+    return fm.L2[c] + ckpt + _row_counts(row, c, off) + 1 + major, mine
+
+
+def lf_step(fm: FMDevice, r: torch.Tensor, group=None) -> torch.Tensor:
+    """One LF step: rank of the suffix at position SA[r] - 1."""
+    lf = _owner_sum(*_lf_value(fm, r, group), group)
     return torch.where(r == fm.primary, 0, lf).to(r.dtype)
 
 
-def sa_resolve(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32
-               ) -> torch.Tensor:
+def sa_resolve(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32,
+               group=None) -> torch.Tensor:
     """Resolve conceptual ranks to doubled-text positions: at most
-    ``sa_interval - 1`` LF steps to a marked rank."""
+    ``sa_interval - 1`` LF steps to a marked rank. Under a group a
+    step's mark test and LF share one owner sum."""
     r = ranks.to(fm.rank_dtype)
     steps = torch.zeros_like(r)
     for _ in range(sa_interval - 1):
-        done = _sa_marked(fm, r)
-        r = torch.where(done, r, lf_step(fm, r))
-        steps = torch.where(done, steps, steps + 1)
-    return _clamped(fm.sa_sample, _sa_slot(fm, r)) + steps
+        bit, lf = _owner_sums([_sa_mark_bit(fm, r, group),
+                               _lf_value(fm, r, group)], group)
+        r = torch.where(bit.bool(), r,
+                        torch.where(r == fm.primary, 0, lf).to(r.dtype))
+        steps = torch.where(bit.bool(), steps, steps + 1)
+    return _clamped(fm.sa_sample, _sa_slot(fm, r, group)) + steps
 
 
 def depos(fm: FMDevice, pos: torch.Tensor, length):

@@ -14,7 +14,9 @@ per-lane step budget ``max_iters`` still counts the extra step that
 fetch sharing spends on a lane whose two rank positions fall in
 different 1024-base octo rows, and the round-3 prefix jump (``R3Jump``)
 takes one step as on the TPU, so ``iters`` and the overflow mask equal
-the JAX machine's, with the jump or without it.
+the JAX machine's, with the jump or without it. On a sharded index the
+JAX machine runs without fetch sharing or the jump, and so does the
+port there (``group``).
 
 The round-3 jump: a round-3 pivot whose depth-J window is clean and
 inside the read starts its forward scan at depth J, its bi-interval read
@@ -144,6 +146,7 @@ def collect_seeds_device(
     entry_reseed: bool = False,
     reseed_entry: dict | None = None,
     jump: R3Jump | None = None,
+    group=None,
 ) -> dict:
     """All three seeding rounds for a batch of reads (or, with
     ``entry_reseed``, round 2 alone from preloaded round-1/3 mems:
@@ -151,16 +154,25 @@ def collect_seeds_device(
     lanes). ``max_iters`` 0 means the default per-lane budget. ``jump``
     turns the round-3 jump on where it is exact: stepwise round 3 cannot
     stop before depth ``min_seed_len``, so only for J <= min_seed_len
-    (and W > J)."""
+    (and W > J).
+
+    With ``group`` (a sharded index, ``dist/shard_index.py``) the step's
+    occ query is an owner sum over the group, and the machine is the JAX
+    machine without fetch sharing: no split-row stall steps, the budget
+    10 * W + 256, no jump. Every rank of the group holds the same reads,
+    so the live-lane compaction picks the same lanes on each."""
     B, W = codes.shape
     P, M = max_cand, max_mem
     dev = codes.device
     i32 = torch.int32
     rdt = fm.rank_dtype
+    share = group is None       # the JAX machine shares fetches unsharded
     if max_iters <= 0:
         # the JAX machine's default under fetch sharing (its split-row
-        # stalls are counted below)
-        max_iters = (40 * W + 1024) // 3
+        # stalls are counted below), and without it
+        max_iters = (40 * W + 1024) // 3 if share else 10 * W + 256
+    if not share:
+        jump = None
     primary = fm.primary
     L2 = fm.L2
 
@@ -324,22 +336,24 @@ def collect_seeds_device(
         # the JAX machine fetches one octo row per lane and stalls one
         # step when the pair (a, a + s) spans two rows: count that step
         qok = qi < 4
-        consume = ((in_fwd & (i < L) & qok) | (in_bwd & (i >= 0) & qok)
-                   | (in_r3 & (i < L) & qok))
-        jA = a - (a > primary).to(rdt)
         posB = a + s_eff
-        jB = posB - (posB > primary).to(rdt)
-        split = consume & ((jA >> 10) != (jB >> 10))
-        over2 = split & (st["iters"] >= max_iters)
-        st["overflow"] = st["overflow"] | over2
-        st["phase"] = w_(over2, PH_DONE, st["phase"])
-        st["iters"] = st["iters"] + (split & ~over2).to(i32)
-        in_fwd = in_fwd & ~over2
-        in_bwd = in_bwd & ~over2
-        in_r3 = in_r3 & ~over2
+        if share:
+            consume = ((in_fwd & (i < L) & qok) | (in_bwd & (i >= 0) & qok)
+                       | (in_r3 & (i < L) & qok))
+            jA = a - (a > primary).to(rdt)
+            jB = posB - (posB > primary).to(rdt)
+            split = consume & ((jA >> 10) != (jB >> 10))
+            over2 = split & (st["iters"] >= max_iters)
+            st["overflow"] = st["overflow"] | over2
+            st["phase"] = w_(over2, PH_DONE, st["phase"])
+            st["iters"] = st["iters"] + (split & ~over2).to(i32)
+            in_fwd = in_fwd & ~over2
+            in_bwd = in_bwd & ~over2
+            in_r3 = in_r3 & ~over2
 
-        rows, blk, off = kfm.occ_rows_for(fm, torch.cat([a, posB]))
-        occ = kfm.occ4_from_row(fm, rows, blk, off)
+        occ = kfm.occ4_from_row(
+            fm, *kfm.occ_rows_for(fm, torch.cat([a, posB]), group),
+            group=group)
         k4, l4, s4 = kfm.fmd_extend_from_occ(fm, a, b, s_eff, occ[:nB],
                                              occ[nB:])
         c_sel = w_(in_bwd, qi, 3 - qi).clamp(0, 3)[:, None]

@@ -1,6 +1,6 @@
 """The leg of the port past 2^31 doubled bases (int64 ranks) on the card.
 
-    python -m bioseqdb_tpu_torch.tools.big_leg [--genome-gb 1.1] [--index-dir DIR]
+    python -m bioseqdb_tpu_torch.tools.big_leg [--genome-gb 1.1] [--index-dir DIR] [--index-shards N]
 
 Simulates a genome of ``--genome-gb`` billion bases (default 1.1, seed
 5: 2.2 G doubled bases, past the int32 rank range; the size of the JAX
@@ -15,6 +15,18 @@ round-3 jump at depth 8 and a candidate stack of 24. Two batches of
 and 501, timed) go through ``device_regions`` -> ``absorb_overflow`` ->
 ``finalize_columns`` under ``long_leg.stage_clock``, as in
 ``tools/long_leg.py``.
+
+``--index-shards N`` (N >= 2) runs the same two batches index-sharded
+instead: N ranks (``dist/launch.py``; ``gloo`` on ``cuda:0`` when the
+host has fewer GPUs than ranks, else ``nccl``), each mapping the saved
+index and building its shard of the FM tables (``dist/shard_index.py``):
+the warm-up batch, the timed batch clocked (``tools/dist_leg.py``'s
+``summary``: the stage split and the collectives, a device sync around
+each), then the timed batch unclocked for reads/s; the sharded
+step runs the FM seeder without fetch sharing or the jump, and no
+overflow retry (overflowed rows go to the host oracle). Past 2^31 with
+int64 ranks is where a major checkpoint added outside the owner sum
+shows (the JAX package's ``tools/bigindex_sharded_check.py``).
 
 It prints JSON lines: the set-up (the genome, the build or the load, the
 save, ``Aligner.build`` with its host pack of the doubled text and the
@@ -35,6 +47,7 @@ import json
 import os
 import resource
 import time
+import types
 
 import torch
 
@@ -114,11 +127,56 @@ def run(al: Aligner, genome: str, seed: int) -> dict:
                 check_s=time.perf_counter() - t0)
 
 
+def run_sharded(idx: FMIndex, path: str, genome: str, n_shards: int
+                ) -> None:
+    """The two batches on an ``index`` mesh of ``n_shards`` ranks, each
+    loading the index saved at ``path``; one JSON line a batch."""
+    from bioseqdb_tpu_torch.kernels import build
+    from bioseqdb_tpu_torch.tools import dist_leg
+
+    build.build()
+    batches = {seed: long_leg.simulate(genome, BATCH, seed,
+                                       read_len=READ_LEN)
+               for seed in (WARM_SEED, TIMED_SEED)}
+    # the timed batch's clocked run (its stage split and collectives)
+    # comes between the warm-up and the unclocked run that gives reads/s
+    jobs = [dict(kind="columns", batch=batches[WARM_SEED][1]),
+            dict(kind="regions", batch=batches[TIMED_SEED][1], clock=True),
+            dict(kind="columns", batch=batches[TIMED_SEED][1])]
+    t0 = time.perf_counter()
+    res, backend = dist_leg.spawn_tasks(
+        [dict(cell=((n_shards,), ("index",)), idx=path, jobs=jobs)],
+        n_shards, "cuda", timeout_s=3000.0,
+        # rank 0 finalizes a batch (overflowed rows in the host oracle)
+        # while the others wait in the next batch's first collective
+        collective_timeout_s=1800.0)
+    cell = res[0]["tasks"][0]
+    emit(index_shards=n_shards, backend=backend,
+         spawn_s=time.perf_counter() - t0, aligner_build_s=cell["build_s"])
+    host = types.SimpleNamespace(index=idx, options=AlignOptions())
+    for k, seed in ((0, WARM_SEED), (2, TIMED_SEED)):
+        job = cell["jobs"][k]
+        sec = job["seconds"]
+        row = (dist_leg.summary(job, cell["jobs"][1], BATCH)
+               if seed == TIMED_SEED else
+               dict(**sec, reads_per_s=BATCH / sum(sec.values())))
+        t0 = time.perf_counter()
+        chk = long_leg.check(host, *batches[seed], job["cols"])
+        emit(batch=dict(seed=seed, warm_up=seed == WARM_SEED, **row,
+                        overflow=job["n_ovf"],
+                        sw_extend=[r["tasks"][0]["jobs"][k]["sw_extend"]
+                                   for r in res],
+                        **chk, check_s=time.perf_counter() - t0))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-gb", type=float, default=GENOME_GB)
     ap.add_argument("--index-dir", default=None,
                     help=f"default: {INDEX_DIR}/<size>")
+    ap.add_argument("--index-shards", type=int, default=1,
+                    help="ranks of an index-sharded run (default 1: one "
+                    "device, unsharded)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the big-index leg needs a CUDA device")
@@ -133,6 +191,12 @@ def main(argv=None) -> None:
     setup.update(times, doubled_bases=int(idx.seq_len),
                  past_2_31=idx.seq_len >= 2**31, index_dir=path)
     emit(setup=setup)
+    if args.index_shards > 1:
+        if "save_error" in times:
+            raise RuntimeError("the sharded run loads the saved index: "
+                               + times["save_error"])
+        run_sharded(idx, path, genome, args.index_shards)
+        return
     t0 = time.perf_counter()
     al = Aligner.build(idx, AlignOptions(), device="cuda")
     torch.cuda.synchronize()

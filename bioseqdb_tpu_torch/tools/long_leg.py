@@ -64,20 +64,24 @@ def simulate(genome: str, n: int, seed: int, read_len: int = READ_LEN
     return sim, pack_reads(sim.reads, sim.names)
 
 
-def run_batch(al: Aligner, batch: ReadBatch) -> dict:
-    """One batch through the three stages: the columns, the absorbed out
-    dict, the rows that overflowed before the retry, and each stage's
+def run_batch(al: Aligner, batch: ReadBatch, finalize: bool = True
+              ) -> dict:
+    """One batch through the three stages: the columns (None without
+    ``finalize``), the absorbed out dict, the rows that overflowed before
+    the retry (their mask ``ovf`` and count ``n_ovf``), and each stage's
     host seconds."""
     t = [time.perf_counter()]
     out = al.device_regions(batch)
     t.append(time.perf_counter())
-    n_ovf = int(np.asarray(out["overflow"])[: batch.n].sum())
+    ovf = np.asarray(out["overflow"])[: batch.n].astype(bool)
     out = al.absorb_overflow(batch, out)
     t.append(time.perf_counter())
-    cols = finalize_columns(al.index, al.options, batch, out)
+    cols = (finalize_columns(al.index, al.options, batch, out) if finalize
+            else None)
     t.append(time.perf_counter())
-    return dict(cols=cols, out=out, n_ovf=n_ovf,
-                seconds=dict(zip(STAGES, np.diff(t).tolist())))
+    stages = STAGES if finalize else STAGES[:2]
+    return dict(cols=cols, out=out, ovf=ovf, n_ovf=int(ovf.sum()),
+                seconds=dict(zip(stages, np.diff(t).tolist())))
 
 
 def check(al: Aligner, sim: SimulatedReads, batch: ReadBatch, cols) -> dict:
@@ -107,12 +111,14 @@ def check(al: Aligner, sim: SimulatedReads, batch: ReadBatch, cols) -> dict:
 
 class stage_clock:
     """Within the block, each stage of the device step (the ``CLOCKED``
-    functions of ``align/pipeline.py``) runs between two device
-    synchronisations, and ``events`` gets (name, seconds, steps) for each
-    call, in order: ``steps`` is the FM machine's slowest lane's step
-    count (``iters``), None for the other stages."""
+    functions where ``modules`` call them: ``align/pipeline.py``'s, and
+    ``dist/shard_index.py``'s for the sharded step) runs between two
+    device synchronisations, and ``events`` gets (name, seconds, steps)
+    for each call, in order: ``steps`` is the FM machine's slowest lane's
+    step count (``iters``), None for the other stages."""
 
-    def __init__(self):
+    def __init__(self, modules=(pipeline,)):
+        self.modules = modules
         self.events = []
 
     @staticmethod
@@ -133,14 +139,15 @@ class stage_clock:
         return clocked
 
     def __enter__(self):
-        self.saved = {n: getattr(pipeline, n) for n in CLOCKED}
-        for n, fn in self.saved.items():
-            setattr(pipeline, n, self._wrap(n, fn))
+        self.saved = [(m, n, getattr(m, n)) for m in self.modules
+                      for n in CLOCKED if hasattr(m, n)]
+        for m, n, fn in self.saved:
+            setattr(m, n, self._wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(pipeline, n, fn)
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
     def split(self) -> dict:
         """Seconds by stage over the block (every call summed), and the

@@ -95,7 +95,26 @@
    ``pack_reads`` of the file). Every command returns 0, and the reads
    counted in its report are the reads given; counts zeroed just before
    each command and read just after;
-12. probe path: counts zeroed, the two probe entry points
+12. dist phase (``tools/dist_leg.py``'s ``run_tasks``, one process a
+   rank through ``dist/launch.py``; ``gloo`` on ``cuda:0`` when the host
+   has fewer GPUs than ranks, else ``nccl``; the kernels built before):
+   data-parallel (``data`` 2: the kmer ``Aligner`` on the main path's
+   index, each rank half of the rows; the timed batch, and exact mode
+   on the exact phase's reads), index-sharded (``index`` 2: the FM
+   tables split in two, the timed batch) and ``data`` 2 x ``index`` 2
+   (4 ranks, its first 4,096 reads). Each cell runs its batch twice:
+   clocked (a device sync around each stage and each collective; also
+   the warm-up), then unclocked. It prints the backend, the unclocked
+   run's reads/s and device step, and the clocked run's stage split, FM
+   machine steps and ms a step and the collectives' calls, bytes and
+   share of the clocked step. Records
+   and SAM must equal the main path's (data) or the FM-seeded phase's
+   (index) on every read that overflowed in neither run (the others are
+   counted), exact mode's the exact phase's; truth >= 98% and
+   ``device_ne_oracle`` 0; every rank must launch ``sw_extend`` in both
+   runs (counts zeroed just before each job and read just after, in
+   each rank; the unclocked runs' go on the kernels line);
+13. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
    the main-path and a GRCh38-class Occ table), counts read: every probe
@@ -103,10 +122,10 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-13. prints the kernels line (``sw_extend``'s launches: the timed batches
+14. prints the kernels line (``sw_extend``'s launches: the timed batches
    of the main, paired-end, FM-seeded and long-read paths, the int64
-   phase's two, the API phase and the CLI's commands), then the device
-   line as the last line.
+   phase's two, the API phase, the CLI's commands and the dist phase's
+   unclocked runs in every rank), then the device line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
@@ -151,8 +170,9 @@ from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
                                          emit_sam_pair_columns)
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
-from bioseqdb_tpu_torch.tools import (long_leg, microbench_gather,
-                                      microbench_seed, pe_leg)
+from bioseqdb_tpu_torch.tools import (dist_leg, long_leg,
+                                      microbench_gather, microbench_seed,
+                                      pe_leg)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
@@ -177,6 +197,7 @@ PROBES = ("gather_rows", "gather_chain", "add_one")
 # exact phase: bench.py bench_exact's reads and step
 EXACT_SEED, EXACT_STEPS, EXACT_MAX_HITS = 2, 5, 4
 API_READS = 256
+DIST_GRID_READS = 4096    # the data x index cell's batch
 PROFILE_READS = 2048
 QUAL = "I"   # the base quality written to every FASTQ record
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
@@ -328,7 +349,7 @@ def main_path(dev, card: str) -> dict:
     sam = se_sam(idx, res["cols"], batches[1])
     return dict(launches=launches, rps=rps, calls=calls, idx=idx, al=al,
                 genome=genome, sims=sims, batches=batches, cols=res["cols"],
-                sam=sam)
+                ovf=res["ovf"], sam=sam)
 
 
 def with_quals(batch):
@@ -404,7 +425,7 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
                              "FM-seeded main path")
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
-    return dict(launches=launches, al=al, cols=res["cols"],
+    return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
                 sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
@@ -811,6 +832,112 @@ def cli_path(m: dict, ex: dict, pe: dict, card: str,
     return total
 
 
+def dist_records(what: str, m: dict, job: dict, want: dict, batch) -> int:
+    """A dist job's records and SAM held against ``want`` (an earlier
+    phase's ``cols``, ``ovf`` and ``sam``) on every read that overflowed
+    in neither run; returns the reads left out."""
+    n = batch.n
+    both = np.flatnonzero(~job["ovf"] & ~want["ovf"][:n])
+    diff = dist_leg.rows_differ(job["cols"], want["cols"], both)
+    got_sam = dist_leg.sam_by_read(se_sam(m["idx"], job["cols"], batch))
+    want_sam = dist_leg.sam_by_read(want["sam"])
+    sam_diff = [i for i in both.tolist()
+                if got_sam[batch.names[i]] != want_sam[batch.names[i]]]
+    log(f"  {what}: {both.size} of {n} reads overflowed in neither run "
+        f"({int(job['ovf'].sum())} here, {int(want['ovf'][:n].sum())} "
+        f"there); records differ on {len(diff)}, SAM on {len(sam_diff)}")
+    if diff or sam_diff:
+        raise AssertionError(f"{what}: records differ on reads "
+                             f"{(diff or sam_diff)[:10]}")
+    return n - both.size
+
+
+def dist_line(what: str, timed: dict, clocked: dict, n: int, backend: str,
+              ranks: int, card: str) -> None:
+    row = dist_leg.summary(timed, clocked, n)
+    co = row["collectives"]
+    fm = (f"; FM machine {row['fm_steps']} steps (slowest lane), "
+          f"{row['fm_ms_per_step']:.3f} ms a step" if "fm_steps" in row
+          else "")
+    log(f"{what} [{ranks} ranks, backend {backend}] on {card}: "
+        f"{row['reads_per_s']:.1f} reads/s ({n} reads, unclocked run); "
+        f"device step {row['device_regions']:.3f} s, finalize_columns "
+        f"{row['finalize_columns']:.3f} s. Clocked run (a device sync "
+        f"around each stage and each collective): device step "
+        f"{row['clocked_step']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in row["step_stages"].items())
+        + f"){fm}; collectives {co['calls']} ({co['bytes']} bytes, "
+        f"{co['seconds']:.3f} s, {100 * row['collective_share']:.1f}% of "
+        f"the clocked step)")
+
+
+def dist_path(m: dict, fmp: dict, ex: dict, card: str,
+              device_type: str = "cuda", grid_reads: int = DIST_GRID_READS
+              ) -> int:
+    """The dist phase: ranks spawned through ``dist/launch.py`` running
+    ``tools/dist_leg.py``'s ``run_tasks`` on the main path's index. Each
+    cell runs its batch clocked (the stage split and the collectives;
+    also the ranks' warm-up), then unclocked (reads/s, the records);
+    returns the ``sw_extend`` launches of the unclocked runs, every rank
+    summed (each rank's counts zeroed just before a job and read just
+    after)."""
+    idx, batch = m["idx"], m["batches"][1]
+    grid = dist_leg.head(batch, grid_reads)
+    runs = lambda b: [dict(kind="regions", batch=b, clock=True),
+                      dict(kind="columns", batch=b, timed=True)]
+    cells = [
+        ("data-parallel", (2,), ("data",),
+         runs(batch) + [dict(kind="align", batch=ex["batch"], mode="exact")]),
+        ("index-sharded", (2,), ("index",), runs(batch)),
+        ("data x index", (2, 2), ("data", "index"), runs(grid)),
+    ]
+    launches = 0
+    for what, shape, names, jobs in cells:
+        t0 = time.time()
+        res, backend = dist_leg.spawn_tasks(
+            [dict(cell=(shape, names), idx=idx, jobs=jobs)],
+            int(np.prod(shape)), device_type)
+        cell = res[0]["tasks"][0]
+        log(f"{what} phase: {len(res)} ranks, backend {backend}, "
+            f"{time.time() - t0:.1f} s (spawn, Aligner.build "
+            f"{json.dumps(cell['build_s'])}, batches)")
+        for k, job in enumerate(jobs[:2]):
+            per_rank = [r["tasks"][0]["jobs"][k]["sw_extend"] for r in res]
+            if min(per_rank) <= 0:
+                raise AssertionError(f"{what}: a rank did not launch "
+                                     f"sw_extend in job {k}: {per_rank}")
+            if job.get("timed"):
+                launches += sum(per_rank)
+                log(f"  sw_extend launches by rank: {per_rank}")
+        clocked, job = cell["jobs"][:2]
+        b = jobs[1]["batch"]
+        dist_line(what, job, clocked, b.n, backend, len(res), card)
+        if names == ("data",):
+            dist_records(what, m, job, m, b)
+            al = m["al"]
+            got = cell["jobs"][2]["results"]
+            eb = ex["batch"]
+            sam = emit_sam(got, idx, texts(eb), with_quals(eb).qualities,
+                           header=False)
+            same = ([dataclasses.asdict(r) for r in got]
+                    == [dataclasses.asdict(r) for r in ex["res"]]
+                    and sam == ex["sam"])
+            sec = cell["jobs"][2]["seconds"]["align_batch"]
+            log(f"  exact align_batch on the data mesh ({eb.n} reads): "
+                f"{sec:.3f} s, {eb.n / sec:.1f} reads/s; records and SAM "
+                f"equal to the exact phase's: {same}")
+            if not same:
+                raise AssertionError("exact mode on a data mesh differs")
+        else:
+            dist_records(what, m, job, fmp, b)
+            al = fmp["al"]
+        sim = m["sims"][1]
+        sim = dataclasses.replace(sim, positions=sim.positions[: b.n],
+                                  strands=sim.strands[: b.n])
+        truth_check(what, al, sim, b, job["cols"], job["n_ovf"])
+    return launches
+
+
 def chain_instructions(rows: int = 1, floor: str | None = None,
                        smem: bool = False, salt: int = 0) -> int:
     """Instructions one lane-step of the chain must issue: the floor's
@@ -928,12 +1055,15 @@ def main() -> None:
     t0 = time.time()
     cl = cli_path(m, ex, pe, card)
     log(f"CLI phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dl = dist_path(m, fm, ex, card)
+    log(f"dist phase: {time.time() - t0:.1f} s")
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
                     launches=sum(x["sw_extend"] for x in
                                  (m["launches"], pe["launches"],
-                                  fm["launches"], lr, i64, api, cl)),
+                                  fm["launches"], lr, i64, api, cl)) + dl,
                     **sw)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))

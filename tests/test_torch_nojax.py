@@ -3,7 +3,8 @@ has none) and imports nothing of the JAX package.
 
 A subprocess blocks ``jax``, ``jaxlib`` and ``bioseqdb_tpu`` before any
 import, imports every module of ``bioseqdb_tpu_torch`` (its tools
-included) and ``chip_smoke`` as a module, builds an index with the port's
+included; ``dist.mesh``, ``dist.launch``, ``dist.shard_index`` and
+``tools.dist_leg`` also by name) and ``chip_smoke`` as a module, builds an index with the port's
 own builder and read simulator, and aligns a few reads on the CPU, then
 a few pairs through ``align_pairs_columns`` and ``align_pairs`` (one
 pair with an all-N mate, so mate rescue runs) and renders their SAM
@@ -27,6 +28,8 @@ import bioseqdb_tpu_torch
 for m in pkgutil.walk_packages(bioseqdb_tpu_torch.__path__, "bioseqdb_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+from bioseqdb_tpu_torch.dist import launch, mesh, shard_index
+from bioseqdb_tpu_torch.tools import dist_leg
 from bioseqdb_tpu_torch import align, align_pairs, align_pairs_columns
 from bioseqdb_tpu_torch.index.builder import build_index
 from bioseqdb_tpu_torch.io.batch import pack_reads
