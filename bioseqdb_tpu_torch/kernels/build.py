@@ -25,8 +25,10 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = {"sw_extend": "sw_extend.cu", "probes": "probes.cu"}
+SOURCES = {"sw_extend": "sw_extend.cu", "fm_seed": "fm_seed.cu",
+           "probes": "probes.cu"}
 KERNELS = ("sw_extend",                            # sw_extend.cu
+           "fm_seed",                              # fm_seed.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,12 +1,21 @@
-"""Batched SMEM seeding: the FM-index state machine on torch tensors.
+"""Batched SMEM seeding: the FM-index state machine.
 
 The port of ``bioseqdb_tpu/kernels/seed.py`` ``collect_seeds_device``:
 each read is a lane running the three seeding rounds of bwa's
 mem_collect_intv (pivot / forward pass / backward pass / re-seed /
-LAST-like pass); every step performs one batched FMD extension for all
-live lanes. The JAX ``while_loop`` becomes a Python loop that checks for
-live lanes every ``CHUNK`` steps and runs each chunk on the live lanes
-only (lanes are independent, so compaction changes nothing).
+LAST-like pass); every step performs one FMD extension. The JAX
+``while_loop``, compiled into one TPU program, has two counterparts:
+- on the card, one launch of the hand-written kernel ``csrc/fm_seed.cu``
+  (``kernels/fm_seed_cuda.py``): a thread a read, each lane run from its
+  first step to its end;
+- the plain machine (``collect_seeds_plain``; the CPU path and the tests
+  run it, and the kernel is held against it): eager torch ops, one
+  batched step at a time, a Python loop that checks for live lanes
+  every ``CHUNK`` steps and runs each chunk on the live lanes only.
+Lanes are independent and a finished lane's step changes nothing, so
+both give the same result. ``collect_seeds_device`` picks the kernel on
+CUDA tensors and the plain machine on CPU tensors; a sharded index
+(``group``) runs the plain machine on any device.
 
 Dropped from the TPU version, with unchanged results: multi-candidate
 columns (``kcand > 1``), quad rows and the fetch sharing itself. The
@@ -41,6 +50,7 @@ import torch
 from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK
 from bioseqdb_tpu_torch.index.layout import OCT_BLOCKS
 from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.fm_seed_cuda import fm_seed_cuda
 from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row
 
 PH_PIVOT = 0   # choose the next pivot / round transition
@@ -54,7 +64,7 @@ RD_SMEM = 0    # round 1: SMEMs
 RD_RESEED = 1  # round 2: re-seed long low-occ SMEMs
 RD_LAST = 2    # round 3: LAST-like seeds
 
-CHUNK = 32     # state-machine steps between live-lane checks
+CHUNK = 32     # plain machine: steps between live-lane checks
 
 JUMP_DEPTH = 8  # r3 jump table depth (4^J keys)
 # The JAX package sizes its jump table by the TPU's gather tiers: the
@@ -132,6 +142,26 @@ def _jump_keys(codes: torch.Tensor, J: int) -> torch.Tensor:
     return torch.where(clean, key, -1).to(torch.int32)
 
 
+def _mark(seen: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor
+          ) -> None:
+    """seen[rows[keep]] = True, with no host sync: the other lanes
+    write the spare last row."""
+    seen[torch.where(keep, rows, seen.shape[0] - 1)] = True
+
+
+def _touch(fm: kfm.FMDevice, touched: dict, blk: torch.Tensor,
+           fetch: torch.Tensor) -> None:
+    """Count the lanes ``fetch`` that extend, and mark the Occ and major
+    rows of their blocks (``blk``: both ranks of every lane; clamped as
+    ``kfm.occ_rows_for`` clamps them) in ``touched``."""
+    touched["steps"] += fetch.sum()
+    blk, f2 = blk.long(), torch.cat([fetch, fetch])
+    octo = (blk >> 3).clamp(0, fm.blocks.shape[0] - 1)
+    _mark(touched["occ"], octo * 8 + (blk & 7), f2)
+    _mark(touched["major"], (blk >> kfm.LOG2_MAJOR).clamp(
+        0, fm.occ_majors.shape[0] - 1), f2)
+
+
 def collect_seeds_device(
     fm: kfm.FMDevice,
     codes: torch.Tensor,   # int[B, W] 0..3 bases, >= 4 ambiguous/padding
@@ -156,31 +186,141 @@ def collect_seeds_device(
     stop before depth ``min_seed_len``, so only for J <= min_seed_len
     (and W > J).
 
+    On CUDA tensors the machine is one launch of the hand-written kernel
+    (``csrc/fm_seed.cu`` through ``fm_seed_cuda``: a thread a read, each
+    run from its first step to its end), which raises rather than fall
+    back; on CPU tensors it is the plain machine
+    (``collect_seeds_plain``), bit-equal to the kernel.
+
     With ``group`` (a sharded index, ``dist/shard_index.py``) the step's
     occ query is an owner sum over the group, and the machine is the JAX
     machine without fetch sharing: no split-row stall steps, the budget
-    10 * W + 256, no jump. Every rank of the group holds the same reads,
-    so the live-lane compaction picks the same lanes on each."""
+    10 * W + 256, no jump. Every step's owner sum is an ``all_reduce``
+    that no single launch can hold, so a group runs the plain machine on
+    any device. Every rank of the group holds the same reads, so the
+    live-lane compaction picks the same lanes on each."""
+    kernel = codes.device.type == "cuda" and group is None
+    return _collect(kernel, fm, codes, lens, min_seed_len, split_len,
+                    split_width, max_mem_intv, max_cand, max_mem, max_iters,
+                    entry_reseed, reseed_entry, jump, group)
+
+
+def collect_seeds_plain(
+    fm: kfm.FMDevice, codes: torch.Tensor, lens: torch.Tensor,
+    min_seed_len: int, split_len: int, split_width: int, max_mem_intv: int,
+    max_cand: int = 24, max_mem: int = 48, max_iters: int = 0,
+    entry_reseed: bool = False, reseed_entry: dict | None = None,
+    jump: R3Jump | None = None, group=None, touched: dict | None = None,
+) -> dict:
+    """``collect_seeds_device``'s plain twin, on any device: the machine
+    as eager torch ops, one batched step at a time over the live lanes.
+    The CPU path and the tests run it; on the card it is what the kernel
+    is held against.
+
+    ``touched`` (unsharded only; for a bound on the kernel's work): bool
+    tensors ``occ``, ``major`` and ``jump``, each one row longer than
+    its table (occ_rows, occ_majors, the jump table), in which the run
+    sets the rows a kernel lane reads (the Occ and major rows of each
+    step that extends, the jump row of each jump step; the spare last
+    row is written and means nothing), and int64 ``steps`` [1], to which
+    it adds the steps that extend."""
+    if touched is not None and group is not None:
+        raise ValueError("touched: an unsharded machine only")
+    return _collect(False, fm, codes, lens, min_seed_len, split_len,
+                    split_width, max_mem_intv, max_cand, max_mem, max_iters,
+                    entry_reseed, reseed_entry, jump, group, touched)
+
+
+def _collect(kernel, fm, codes, lens, min_seed_len, split_len, split_width,
+             max_mem_intv, max_cand, max_mem, max_iters, entry_reseed,
+             reseed_entry, jump, group, touched=None) -> dict:
+    st, J, kw = _prepare(fm, codes, lens, min_seed_len, split_len,
+                         split_width, max_mem_intv, max_cand, max_mem,
+                         max_iters, entry_reseed, reseed_entry, jump, group)
+    if kernel:
+        fm_seed_cuda(fm, st, jump_table=jump.table if J else None, J=J, **kw)
+    else:
+        st = _plain_machine(fm, st, J=J, jump=jump, group=group,
+                            touched=touched, **kw)
+    mems5 = torch.stack([st["mem_k"], torch.zeros_like(st["mem_k"]),
+                         st["mem_s"], st["mem_b"], st["mem_e"]], 2)
+    return dict(mems=mems5, n_mem=st["n_mem"], overflow=st["overflow"],
+                iters=st["iters"], it_r1=st["it_r1"], it_r2=st["it_r2"])
+
+
+def _prepare(fm, codes, lens, min_seed_len, split_len, split_width,
+             max_mem_intv, max_cand, max_mem, max_iters, entry_reseed,
+             reseed_entry, jump, group) -> tuple[dict, int, dict]:
+    """(the set-up state, the jump depth the machine takes, both
+    machines' keyword arguments) of a ``collect_seeds_device`` call. The
+    state holds each lane's starting phase, round and mem count (with
+    ``entry_reseed``, the preloaded mems), the codes (int32) and the
+    outputs (mem_k/s/b/e, n_mem, iters, it_r1, it_r2, overflow), which
+    the kernel writes in place."""
     B, W = codes.shape
-    P, M = max_cand, max_mem
-    dev = codes.device
-    i32 = torch.int32
-    rdt = fm.rank_dtype
     share = group is None       # the JAX machine shares fetches unsharded
     if max_iters <= 0:
         # the JAX machine's default under fetch sharing (its split-row
-        # stalls are counted below), and without it
+        # stalls are counted), and without it
         max_iters = (40 * W + 1024) // 3 if share else 10 * W + 256
-    if not share:
-        jump = None
+    J = jump.depth if jump is not None and share else 0
+    if not (J > 0 and min_seed_len >= J and W > J):
+        J = 0
+    M = max_mem
+    dev = codes.device
+    i32 = torch.int32
+    rdt = fm.rank_dtype
+    z = lambda *s: torch.zeros(*s, dtype=i32, device=dev)
+    zr = lambda *s: torch.zeros(*s, dtype=rdt, device=dev)
+    st = dict(
+        phase=torch.where(lens > 0, PH_PIVOT, PH_DONE).to(i32),
+        round=z(B),
+        mem_k=zr(B, M), mem_s=zr(B, M), mem_b=zr(B, M), mem_e=zr(B, M),
+        n_mem=z(B), n_mem_r1=z(B),
+        iters=z(B), it_r1=z(B), it_r2=z(B),
+        overflow=torch.zeros(B, dtype=torch.bool, device=dev),
+        codes=codes.to(i32), lens=lens.to(i32),
+    )
+    if entry_reseed:
+        pre = reseed_entry
+        M0 = pre["mem_s"].shape[1]
+        # copies: the kernel writes the mems and n_mem in place
+        ld = lambda a: torch.nn.functional.pad(a.to(rdt, copy=True),
+                                               (0, M - M0))
+        st["mem_s"] = ld(pre["mem_s"])
+        st["mem_b"] = ld(pre["mem_b"])
+        st["mem_e"] = ld(pre["mem_e"])
+        st["n_mem"] = pre["n_mem"].to(i32, copy=True)
+        st["n_mem_r1"] = pre["n_mem"].to(i32)
+        st["round"] = torch.full((B,), RD_RESEED, dtype=i32, device=dev)
+        st["phase"] = torch.where(pre["active"] & (lens > 0),
+                                  PH_PIVOT, PH_DONE).to(i32)
+    return st, J, dict(min_seed_len=min_seed_len, split_len=split_len,
+                       split_width=split_width, max_mem_intv=max_mem_intv,
+                       max_cand=max_cand, max_iters=max_iters)
+
+
+def _plain_machine(fm: kfm.FMDevice, st: dict, *, J: int,
+                   jump: R3Jump | None, group, touched: dict | None,
+                   min_seed_len: int, split_len: int, split_width: int,
+                   max_mem_intv: int, max_cand: int, max_iters: int) -> dict:
+    """The machine as eager torch ops from ``_prepare``'s state: a batched
+    step over the live lanes, CHUNK steps between live-lane checks.
+    Returns the final state."""
+    B, W = st["codes"].shape
+    P, M = max_cand, st["mem_k"].shape[1]
+    dev = st["codes"].device
+    i32 = torch.int32
+    rdt = fm.rank_dtype
+    share = group is None
+    use_jump = J > 0
     primary = fm.primary
     L2 = fm.L2
 
     z = lambda *s: torch.zeros(*s, dtype=i32, device=dev)
     zr = lambda *s: torch.zeros(*s, dtype=rdt, device=dev)
     st = dict(
-        phase=torch.where(lens > 0, PH_PIVOT, PH_DONE).to(i32),
-        round=z(B), x=z(B), i=z(B),
+        st, codes=st["codes"].to(torch.int64), x=z(B), i=z(B),
         ik=zr(B, 3),                     # current bi-interval (k, l, s)
         ik_end=z(B),
         cand=zr(B, P, 3), n_cand=z(B),   # candidates (k, s, end)
@@ -189,30 +329,12 @@ def collect_seeds_device(
         j=z(B), ret=z(B),
         rev1=torch.zeros(B, dtype=torch.bool, device=dev),
         min_intv=torch.ones(B, dtype=rdt, device=dev),
-        mem_k=zr(B, M), mem_s=zr(B, M), mem_b=zr(B, M), mem_e=zr(B, M),
-        n_mem=z(B), n_mem_r1=z(B), r2i=z(B),
+        r2i=z(B),
         last_start=torch.full((B,), W + 1, dtype=i32, device=dev),
-        iters=z(B), it_r1=z(B), it_r2=z(B),
-        overflow=torch.zeros(B, dtype=torch.bool, device=dev),
-        codes=codes.to(torch.int64), lens=lens.to(i32),
     )
-    J = jump.depth if jump is not None else 0
-    use_jump = J > 0 and min_seed_len >= J and W > J
     if use_jump:
         st["jkey"] = _jump_keys(st["codes"], J)
         st["jkey_pend"] = z(B)      # the key latched at the pivot
-    if entry_reseed:
-        pre = reseed_entry
-        M0 = pre["mem_s"].shape[1]
-        ld = lambda a: torch.nn.functional.pad(a.to(rdt), (0, M - M0))
-        st["mem_s"] = ld(pre["mem_s"])
-        st["mem_b"] = ld(pre["mem_b"])
-        st["mem_e"] = ld(pre["mem_e"])
-        st["n_mem"] = pre["n_mem"].to(i32)
-        st["n_mem_r1"] = pre["n_mem"].to(i32)
-        st["round"] = torch.full((B,), RD_RESEED, dtype=i32, device=dev)
-        st["phase"] = torch.where(pre["active"] & (lens > 0),
-                                  PH_PIVOT, PH_DONE).to(i32)
 
     def qat(s, pos):
         """Code at per-lane column ``pos`` (clamped): 0..3 base, >= 4
@@ -351,9 +473,10 @@ def collect_seeds_device(
             in_bwd = in_bwd & ~over2
             in_r3 = in_r3 & ~over2
 
-        occ = kfm.occ4_from_row(
-            fm, *kfm.occ_rows_for(fm, torch.cat([a, posB]), group),
-            group=group)
+        rows = kfm.occ_rows_for(fm, torch.cat([a, posB]), group)
+        occ = kfm.occ4_from_row(fm, *rows, group=group)
+        if touched is not None:
+            _touch(fm, touched, rows[1], consume & ~over2)
         k4, l4, s4 = kfm.fmd_extend_from_occ(fm, a, b, s_eff, occ[:nB],
                                              occ[nB:])
         c_sel = w_(in_bwd, qi, 3 - qi).clamp(0, 3)[:, None]
@@ -366,6 +489,8 @@ def collect_seeds_device(
         # ---- PH_R3J: one step, then the forward scan at depth J ----
         if use_jump:
             in_r3j = phase == PH_R3J
+            if touched is not None:
+                _mark(touched["jump"], st["jkey_pend"].long(), in_r3j)
             new["ik"] = w_(in_r3j[:, None],
                            jump.table[st["jkey_pend"].long()], new["ik"])
             new["i"] = w_(in_r3j, x + J, new["i"])
@@ -476,7 +601,4 @@ def collect_seeds_device(
         for k, v in sub.items():
             st[k][live] = v
 
-    mems5 = torch.stack([st["mem_k"], torch.zeros_like(st["mem_k"]),
-                         st["mem_s"], st["mem_b"], st["mem_e"]], 2)
-    return dict(mems=mems5, n_mem=st["n_mem"], overflow=st["overflow"],
-                iters=st["iters"], it_r1=st["it_r1"], it_r2=st["it_r2"])
+    return st

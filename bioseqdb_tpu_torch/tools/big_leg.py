@@ -14,7 +14,11 @@ round-3 jump at depth 8 and a candidate stack of 24. Two batches of
 16,384 150 bp reads at 1% substitutions (read seeds 500, the warm-up,
 and 501, timed) go through ``device_regions`` -> ``absorb_overflow`` ->
 ``finalize_columns`` under ``long_leg.stage_clock``, as in
-``tools/long_leg.py``.
+``tools/long_leg.py``. Each FM machine call of the warm-up batch is
+recorded (``tools/fm_machine.py``) and then made again on the
+``fm_seed`` kernel and on its plain twin: bit-equal on all six outputs,
+with the largest mem rank (past 2^31 on this index), both times and the
+steps.
 
 ``--index-shards N`` (N >= 2) runs the same two batches index-sharded
 instead: N ranks (``dist/launch.py``; ``gloo`` on ``cuda:0`` when the
@@ -43,6 +47,7 @@ raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import resource
@@ -55,7 +60,7 @@ from bioseqdb_tpu_torch.align.options import AlignOptions
 from bioseqdb_tpu_torch.align.pipeline import Aligner
 from bioseqdb_tpu_torch.index.builder import build_index
 from bioseqdb_tpu_torch.index.fmindex import FMIndex
-from bioseqdb_tpu_torch.tools import long_leg
+from bioseqdb_tpu_torch.tools import fm_machine, long_leg
 from bioseqdb_tpu_torch.tools.shapes import card_line
 from bioseqdb_tpu_torch.utils.sim import simulate_genome
 
@@ -110,12 +115,16 @@ def choices(al: Aligner) -> dict:
                 max_cand=al._step_kwargs(READ_LEN)[0]["max_cand"])
 
 
-def run(al: Aligner, genome: str, seed: int) -> dict:
-    """One batch of the leg, clocked and checked."""
+def run(al: Aligner, genome: str, seed: int, record: list | None = None
+        ) -> dict:
+    """One batch of the leg, clocked and checked; with ``record``, its
+    FM machine calls are recorded there."""
     t0 = time.perf_counter()
     sim, batch = long_leg.simulate(genome, BATCH, seed, read_len=READ_LEN)
     sim_s = time.perf_counter() - t0
-    with long_leg.stage_clock() as clock:
+    rec = (fm_machine.recording(record) if record is not None
+           else contextlib.nullcontext())
+    with long_leg.stage_clock() as clock, rec:
         res = long_leg.run_batch(al, batch)
     total = sum(res["seconds"].values())
     t0 = time.perf_counter()
@@ -125,6 +134,32 @@ def run(al: Aligner, genome: str, seed: int) -> dict:
                 overflow=res["n_ovf"], stages=clock.split(),
                 events=clock.events, **chk,
                 check_s=time.perf_counter() - t0)
+
+
+def machine_check(calls: list) -> list[dict]:
+    """``fm_seed`` against its plain twin at each recorded machine call:
+    bit-equal on all six outputs (raises if not); the kernel's time (CUDA
+    events, median of 3), the plain twin's, the slowest lane's and the
+    summed steps, and the largest mem rank (k)."""
+    rows = []
+    for call in calls:
+        got = call.run()
+        torch.cuda.synchronize()
+        plain_ms, want, touched = call.plain_ms()
+        err = fm_machine.max_abs_err(got, want)
+        n = got["n_mem"].clamp(min=0, max=got["mems"].shape[1])
+        held = (torch.arange(got["mems"].shape[1], device=n.device)[None]
+                < n[:, None])
+        rows.append(dict(
+            shape=call.shape, max_abs_err=err, ms=call.kernel_ms(),
+            plain_ms=plain_ms, slowest_steps=int(got["iters"].max()),
+            summed_steps=int(got["iters"].sum()),
+            extending_steps=touched["steps"],
+            max_mem_k=int(got["mems"][..., 0][held].max())
+            if held.any() else 0))
+        if err != 0:
+            raise AssertionError(f"fm_seed disagrees with plain: {rows[-1]}")
+    return rows
 
 
 def run_sharded(idx: FMIndex, path: str, genome: str, n_shards: int
@@ -207,8 +242,11 @@ def main(argv=None) -> None:
     want = dict(rank_dtype="int64", seeder="fm", jump_depth=8, max_cand=24)
     if idx.seq_len >= 2**31 and any(chosen[k] != v for k, v in want.items()):
         raise AssertionError(f"choices past 2^31: {chosen}, not {want}")
+    calls = []
     for seed in (WARM_SEED, TIMED_SEED):
-        emit(batch=run(al, genome, seed))
+        emit(batch=run(al, genome, seed,
+                       record=calls if seed == WARM_SEED else None))
+    emit(fm_seed_vs_plain=machine_check(calls))
 
 
 if __name__ == "__main__":

@@ -114,11 +114,12 @@ def _cell(rank: int, device_type: str, shape, names, idx, jobs: list
         else:
             r = _job(als[key], job, rank)
         r.update(sw_extend=build.LAUNCHES["sw_extend"],
+                 fm_seed=build.LAUNCHES["fm_seed"],
                  collectives=dict(kfm.COLLECTIVES))
         kfm.reset_collectives()
         rows.append(r if rank == 0 else dict(
-            sw_extend=r["sw_extend"], stages=r.get("stages"),
-            collectives=r.get("collectives")))
+            sw_extend=r["sw_extend"], fm_seed=r["fm_seed"],
+            stages=r.get("stages"), collectives=r.get("collectives")))
     return dict(jobs=rows, build_s=built)
 
 
@@ -310,6 +311,7 @@ def main(argv=None) -> None:
             build_s=cell["build_s"],
             sw_extend=sum(r["tasks"][0]["jobs"][1]["sw_extend"]
                           for r in res),
+            fm_seed=sum(r["tasks"][0]["jobs"][1]["fm_seed"] for r in res),
             **summary(job, clocked, n), overflow=int(job["n_ovf"]),
             compared=int(both.size), rows_differ=len(diff),
             **long_leg.check(al, sim_b, b, job["cols"]))), flush=True)

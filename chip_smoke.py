@@ -5,7 +5,11 @@
 1. prints the card's name and power limit (nvidia-smi); no CUDA device
    -> exits non-zero before any result;
 2. builds the hand-written CUDA kernels from ``bioseqdb_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+   (one ``nvcc`` per source, all at once): ``sw_extend``, ``fm_seed`` and
+   the probes. Every phase that runs the full pipeline on one device (main
+   path, PE, FM-seeded, long reads, int64, API, the CLI's full-mode
+   ``align`` commands) must launch both ``sw_extend`` and ``fm_seed`` in
+   its counted window;
 3. SW kernel phase: ``sw_extend`` against its plain PyTorch version on
    the card, bit-equal on every case set of ``tools/sw_sets.py``: small
    ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
@@ -31,7 +35,9 @@
    each recorded launch is then run again alone: active lanes, DP cells,
    rows, time, bound and share, bit-equal to plain. The timed batch's
    SAM text is rendered with ``emit_sam_columns`` outside the timed
-   window (for the CLI phase);
+   window (for the CLI phase). The FM machine's calls of this warm-up
+   batch, and of the FM-seeded and long-read ones, are recorded
+   (``tools/fm_machine.py``) for phase 7b;
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -62,6 +68,18 @@
    launch ``sw_extend`` at Wq > 320 (its launches' widths are recorded).
    Reads/s, bases/s, the stage split, truth >= 98% and every read off
    truth equal to the host oracle;
+7b. FM machine phase: ``fm_seed`` against its plain twin
+   (``seed.collect_seeds_plain``) on the card, bit-equal on all six
+   outputs (mems, n_mem, overflow, iters, it_r1, it_r2) at the recorded
+   inputs: the main path's reseed entry, the FM-seeded batch (jump depth
+   8), the long-read warm-up (W 1,504, max_mem 142), both short ones with
+   int64 ranks, the FM-seeded batch's first 4,096 reads at the fat
+   retry's caps, the FM-seeded batch under a 300-step budget (it must
+   overflow lanes), 2,048 ragged reads (lengths 0-150, Ns, junk, all-N,
+   empty; read seed 900) and any fat retry of the short warm-ups. Each:
+   the kernel's time (CUDA events, median of 3 launches), the plain
+   twin's, the slowest lane's steps and the summed steps, the distinct
+   table rows the lanes read (counted by the plain twin), the bound;
 8. exact phase (``bench.py bench_exact``'s workload): the main path's
    genome, 16,384 150 bp reads with no edits (read seed 2), an ``Aligner``
    built with ``mode="exact"``; one warm-up and five timed calls of
@@ -112,8 +130,10 @@
    (index) on every read that overflowed in neither run (the others are
    counted), exact mode's the exact phase's; truth >= 98% and
    ``device_ne_oracle`` 0; every rank must launch ``sw_extend`` in both
-   runs (counts zeroed just before each job and read just after, in
-   each rank; the unclocked runs' go on the kernels line);
+   runs, ``fm_seed`` too on the data mesh and never on an index mesh
+   (its machine stays plain) (counts zeroed just before each job and
+   read just after, in each rank; the unclocked runs' go on the kernels
+   line);
 13. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
@@ -122,16 +142,19 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-14. prints the kernels line (``sw_extend``'s launches: the timed batches
-   of the main, paired-end, FM-seeded and long-read paths, the int64
-   phase's two, the API phase, the CLI's commands and the dist phase's
-   unclocked runs in every rank), then the device line as the last line.
+14. prints the kernels line (``sw_extend``'s and ``fm_seed``'s launches:
+   the timed batches of the main, paired-end, FM-seeded and long-read
+   paths, the int64 phase's two, the API phase, the CLI's commands and
+   the dist phase's unclocked runs in every rank; ``fm_seed``'s times and
+   bound are the FM-seeded batch's), then the device line as the last
+   line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
 library calls: 20), so that the host's enqueue time does not count;
-``gather_chain``: CUDA events around one call. Plain versions are timed
-eagerly with CUDA events. ``bound_ms`` is the larger
+``gather_chain``: CUDA events around one call; ``fm_seed``: CUDA events
+around one launch, the median of 3. Plain versions are timed eagerly
+with CUDA events. ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and the instructions
 it must issue over the card's issue rate (132 SMs x 4 schedulers x 32
 lanes x 1.98 GHz), each fused instruction (a multiply-add, a three-input
@@ -170,7 +193,7 @@ from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
                                          emit_sam_pair_columns)
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
-from bioseqdb_tpu_torch.tools import (dist_leg, long_leg,
+from bioseqdb_tpu_torch.tools import (dist_leg, fm_machine, long_leg,
                                       microbench_gather, microbench_seed,
                                       pe_leg)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
@@ -194,6 +217,15 @@ ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 # do two cells an instruction, since main-path scores fit int16
 SW_INSTR_PER_CELL = 9 / 2
 PROBES = ("gather_rows", "gather_chain", "add_one")
+# the FM machine: a step that extends reads two Occ block rows of 48 bytes
+# and their two major rows; it issues at least the counts of four codes in
+# the live words of both rows (an XOR and shift-OR, a masked popcount and
+# an add each, ~4 live words a row on average) and ~30 compares and
+# selects
+OCC_ROW_BYTES = 48
+FM_INSTR_PER_STEP = 2 * 4 * 4 * 3 + 30
+FAT_READS = 4096               # the fat-retry-caps input's lanes
+RAGGED_READS, RAGGED_SEED = 2048, 900
 # exact phase: bench.py bench_exact's reads and step
 EXACT_SEED, EXACT_STEPS, EXACT_MAX_HITS = 2, 5, 4
 API_READS = 256
@@ -314,6 +346,106 @@ def main_path_launches(calls: list, path: str = "main-path") -> list[dict]:
     return rows
 
 
+def must_launch(path: str, launches: dict) -> None:
+    """``path`` ran the full pipeline: both kernels of its device step
+    must have launched."""
+    for name in ("sw_extend", "fm_seed"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path}")
+
+
+def fm_bound(call: "fm_machine.MachineCall", out: dict, touched: dict
+             ) -> tuple[float, str]:
+    """The FM machine's bound on ``call``'s inputs, from what its plain
+    twin counted there (``MachineCall.plain_ms``): each distinct Occ row,
+    major row and jump row the lanes read, read once (the lanes' millions
+    of fetches re-read a table of a few MB, which stays in L2; split-row
+    stall steps fetch nothing); the codes (int32), lens and a reseed
+    entry's mems read once, the mems and the five per-lane outputs
+    written once; FM_INSTR_PER_STEP instructions a step that extends."""
+    a = call.args
+    B, W = a["codes"].shape
+    rb = a["fm"].occ_majors.element_size()
+    io = 4 * B * W + 4 * B + rb * out["mems"].numel() + 17 * B
+    if a["entry_reseed"]:
+        io += 5 * B + rb * sum(a["reseed_entry"][k].numel()
+                               for k in ("mem_s", "mem_b", "mem_e"))
+    tables = (OCC_ROW_BYTES * touched["occ"] + 4 * rb * touched["major"]
+              + 3 * rb * touched["jump"])
+    return bound(tables + io, touched["steps"] * FM_INSTR_PER_STEP)
+
+
+def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
+    """``fm_seed`` against its plain twin on the card, bit-equal on all
+    six outputs, at the inputs the pipeline gave it (recorded in the
+    warm-up batches): the main path's reseed entry, the FM-seeded batch
+    (jump depth 8), the long-read warm-up (W 1,504, max_mem 142), both
+    short ones with int64 ranks, the FM-seeded batch's first FAT_READS
+    reads at the fat retry's caps, the FM-seeded batch under a 300-step
+    budget, a ragged batch, and every fat retry the short warm-ups made.
+    Each: the kernel's time (CUDA events, median of 3), the plain twin's,
+    the slowest lane's steps and the lanes' summed steps, the bound.
+    Returns the kernels line's entry (the FM-seeded batch's numbers)."""
+    reseed, fmc, long_ = (m["fm_calls"][0], fmp["fm_calls"][0],
+                          lr["fm_calls"][0])
+    if (not reseed.args["entry_reseed"] or reseed.args["max_mem_intv"]
+            or fmc.args["jump"].depth != 8
+            or long_.args["codes"].shape[1] != 1504
+            or long_.args["max_mem"] != 142):
+        raise AssertionError("the recorded machine calls are not the "
+                             "pipeline's: " + "; ".join(
+                                 c.shape for c in (reseed, fmc, long_)))
+    fm64 = kfm.FMDevice.from_host(m["idx"], dev, rank_dtype=torch.int64)
+    W = fmc.args["codes"].shape[1]
+    codes, lens = fm_machine.ragged_batch(m["genome"], RAGGED_READS,
+                                          RAGGED_SEED)
+    inputs = [
+        ("reseed entry", reseed),
+        ("FM-seeded", fmc),
+        ("long-read warm-up", long_),
+        ("int64 reseed entry", reseed.replace(fm=fm64)),
+        ("int64 FM-seeded", fmc.replace(fm=fm64, jump=build_r3_jump(fm64))),
+        ("fat-retry caps", fmc.lanes(slice(0, FAT_READS)).replace(
+            max_cand=32, max_mem=32, max_iters=3 * (10 * W + 256))),
+        ("max_iters 300", fmc.replace(max_iters=300)),
+        ("ragged, Ns, empty, junk", fmc.replace(codes=codes.to(dev),
+                                                lens=lens.to(dev))),
+    ] + [(f"recorded fat retry {k}", c) for k, c in
+         enumerate(m["fm_calls"][1:] + fmp["fm_calls"][1:])]
+    rows = {}
+    for name, call in inputs:
+        got = call.run()
+        torch.cuda.synchronize()
+        plain_ms, want, touched = call.plain_ms()
+        err = fm_machine.max_abs_err(got, want)
+        ms = call.kernel_ms()
+        it = got["iters"]
+        steps, slow = int(it.sum()), int(it.max())
+        bound_ms, bound_by = fm_bound(call, got, touched)
+        ovf = int(got["overflow"].sum())
+        log(f"fm_seed [{name}] {call.shape}: cuda {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms; slowest lane {slow} steps (a chain of "
+            f"dependent Occ fetches: {1e3 * ms / max(slow, 1):.3f} us a "
+            f"step), summed steps {steps} ({touched['steps']} extending; "
+            f"distinct rows read: Occ {touched['occ']}, major "
+            f"{touched['major']}, jump {touched['jump']}); {ovf} lanes "
+            f"overflowed; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+            f"{100 * bound_ms / ms:.2f}% of it; max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"fm_seed disagrees with plain on {name}")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, ovf=ovf,
+                          shape=f"{name}: {call.shape}, {slow} steps "
+                                f"slowest lane, {steps} summed")
+    if rows["max_iters 300"]["ovf"] == 0:
+        raise AssertionError("the 300-step budget overflowed no lane")
+    e = rows["FM-seeded"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+                bound_by=e["bound_by"], library_ms=None, shape=e["shape"])
+
+
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
     idx, al, sims, batches, genome = main_path_setup(dev)
@@ -321,9 +453,9 @@ def main_path(dev, card: str) -> dict:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    calls = []
+    calls, fm_calls = [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls):
+    with recording(calls), fm_machine.recording(fm_calls):
         long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
@@ -340,16 +472,14 @@ def main_path(dev, card: str) -> dict:
     log("timed batch: " + ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
         + f", total {total:.3f} s")
     log(f"main path: {rps:.1f} reads/s ({BATCH} x {READ_LEN} bp SE, "
-        f"{GENOME_LEN} b genome) on {card}")
-    if launches["sw_extend"] <= 0:
-        raise AssertionError("kernel sw_extend was not launched on the "
-                             "main path")
+        f"{GENOME_LEN} b genome) on {card}; launches {launches}")
+    must_launch("main path", launches)
     truth_check("main path", al, sims[1], batches[1], res["cols"],
                 res["n_ovf"])
     sam = se_sam(idx, res["cols"], batches[1])
-    return dict(launches=launches, rps=rps, calls=calls, idx=idx, al=al,
-                genome=genome, sims=sims, batches=batches, cols=res["cols"],
-                ovf=res["ovf"], sam=sam)
+    return dict(launches=launches, rps=rps, calls=calls, fm_calls=fm_calls,
+                idx=idx, al=al, genome=genome, sims=sims, batches=batches,
+                cols=res["cols"], ovf=res["ovf"], sam=sam)
 
 
 def with_quals(batch):
@@ -406,7 +536,9 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     log(f"FM-seeded Aligner.build (jump depth {al.jump.depth}): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    long_leg.run_batch(al, m["batches"][0])
+    fm_calls = []
+    with fm_machine.recording(fm_calls):
+        long_leg.run_batch(al, m["batches"][0])
     log(f"FM-seeded warm-up batch: {time.time() - t0:.1f} s")
     build.reset_launches()
     with long_leg.stage_clock() as clock:
@@ -418,14 +550,13 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
         f"{k} {v:.3f} s" for k, v in sec.items()) + f", total {total:.3f} s")
     log(f"FM-seeded device step: {stage_line(clock)}")
     log(f"FM-seeded main path: {BATCH / total:.1f} reads/s ({BATCH} x "
-        f"{READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; sw_extend "
-        f"launches {launches['sw_extend']}")
-    if launches["sw_extend"] <= 0:
-        raise AssertionError("kernel sw_extend was not launched on the "
-                             "FM-seeded main path")
+        f"{READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; launches "
+        f"{launches}")
+    must_launch("FM-seeded main path", launches)
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
     return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
+                fm_calls=fm_calls,
                 sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
@@ -438,9 +569,9 @@ def long_path(m: dict, card: str) -> dict:
                     (long_leg.TIMED_READS, long_leg.TIMED_SEED)))
     log(f"long reads simulated: {time.time() - t0:.1f} s")
     t0 = time.time()
-    calls = []
+    calls, fm_calls = [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls):
+    with recording(calls), fm_machine.recording(fm_calls):
         long_leg.run_batch(al, warm[1])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
@@ -465,15 +596,16 @@ def long_path(m: dict, card: str) -> dict:
     log(f"long-read path: {n / total:.1f} reads/s, "
         f"{n * long_leg.READ_LEN / total:.0f} bases/s ({n} x "
         f"{long_leg.READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; "
-        f"sw_extend launches {launches['sw_extend']}, at Wq > "
-        f"{FULL_MAX_QLEN}: {len(wide)} (Wq {sorted(set(wide))})")
+        f"launches {launches}; sw_extend at Wq > {FULL_MAX_QLEN}: "
+        f"{len(wide)} (Wq {sorted(set(wide))})")
     if launches["sw_extend"] != len(widths) or not wide:
         raise AssertionError("the long-read batch did not launch sw_extend "
                              f"at Wq > {FULL_MAX_QLEN}")
+    must_launch("long-read path", launches)
     truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
     main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
                        "long-read")
-    return launches
+    return dict(launches=launches, fm_calls=fm_calls)
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -498,15 +630,13 @@ def pe_path(m: dict, card: str) -> dict:
     build.reset_launches()
     res = pe_leg.run_batch(al, timed)
     launches = dict(build.LAUNCHES)
-    if launches["sw_extend"] <= 0:
-        raise AssertionError("kernel sw_extend was not launched on the PE "
-                             "path")
+    must_launch("PE path", launches)
     sec = res["seconds"]
     total = sum(sec.values())
     log("PE timed batch: " + ", ".join(f"{k} {v:.3f} s" for k, v in
                                        sec.items())
         + f", total {total:.3f} s; rows overflowing before the retry "
-        f"{res['n_ovf']}; sw_extend launches {launches['sw_extend']}")
+        f"{res['n_ovf']}; launches {launches}")
     log(f"PE path: {2 * pe_leg.PAIRS / total:.1f} reads/s "
         f"({pe_leg.PAIRS} pairs x 2 x {pe_leg.READ_LEN} bp, {GENOME_LEN} b "
         f"genome) on {card}")
@@ -670,13 +800,12 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
             log(f"int64 {name}-seeded device step: {stage_line(clock)} "
                 f"on {card}")
         log(f"int64 {name}-seeded main path: {rps:.1f} reads/s ({BATCH} x "
-            f"{READ_LEN} bp SE) on {card}; sw_extend launches "
-            f"{launches['sw_extend']}; rb {rb}; records and SAM equal to the "
-            f"int32 phase's: {same}")
-        if launches["sw_extend"] <= 0 or rb != np.int64 or not same:
-            raise AssertionError(f"int64 {name}-seeded batch: launches "
-                                 f"{launches['sw_extend']}, rb {rb}, equal "
-                                 f"to int32: {same}")
+            f"{READ_LEN} bp SE) on {card}; launches {launches}; rb {rb}; "
+            f"records and SAM equal to the int32 phase's: {same}")
+        must_launch(f"int64 {name}-seeded batch", launches)
+        if rb != np.int64 or not same:
+            raise AssertionError(f"int64 {name}-seeded batch: rb {rb}, "
+                                 f"equal to int32: {same}")
     t0 = time.perf_counter()
     res = dataclasses.replace(ex["al"], fm=fm64).align_batch(ex["batch"])
     sec = time.perf_counter() - t0
@@ -710,11 +839,12 @@ def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
             == [dataclasses.asdict(r) for r in want])
     log(f"API multi_search ({n_reads} reads): {dt:.3f} s on {card}, "
         f"{len(got)} results over {len({r.query_id for r in got})} queries; "
-        f"sw_extend launches {launches['sw_extend']}; equal to the CPU "
-        f"Aligner's: {same} ({time.time() - t0:.1f} s)")
-    if not same or launches["sw_extend"] <= 0:
+        f"launches {launches}; equal to the CPU Aligner's: {same} "
+        f"({time.time() - t0:.1f} s)")
+    must_launch("API phase", launches)
+    if not same:
         raise AssertionError("API phase: the card's SearchResults differ "
-                             "from the CPU's, or sw_extend did not run")
+                             "from the CPU's")
     return launches
 
 
@@ -798,10 +928,12 @@ def cli_path(m: dict, ex: dict, pe: dict, card: str,
                 total[k] += launches[k]
             rps = f", {n / sec:.1f} reads/s" if n else ""
             log(f"CLI {what}: exit {rc}, {sec:.2f} s{rps} on {card}; "
-                f"sw_extend launches {launches['sw_extend']}")
+                f"launches {launches}")
             if rc != 0:
                 raise AssertionError(f"CLI {what} exited {rc}:\n"
                                      f"{err[-2000:]}")
+            if stage in ("finalize", "align_pe"):   # full-mode alignment
+                must_launch(f"CLI {what}", launches)
             if stage:
                 check_report(what, err, stage, n)
         checks = {
@@ -873,14 +1005,16 @@ def dist_line(what: str, timed: dict, clocked: dict, n: int, backend: str,
 
 def dist_path(m: dict, fmp: dict, ex: dict, card: str,
               device_type: str = "cuda", grid_reads: int = DIST_GRID_READS
-              ) -> int:
+              ) -> dict:
     """The dist phase: ranks spawned through ``dist/launch.py`` running
     ``tools/dist_leg.py``'s ``run_tasks`` on the main path's index. Each
     cell runs its batch clocked (the stage split and the collectives;
     also the ranks' warm-up), then unclocked (reads/s, the records);
-    returns the ``sw_extend`` launches of the unclocked runs, every rank
-    summed (each rank's counts zeroed just before a job and read just
-    after)."""
+    returns the ``sw_extend`` and ``fm_seed`` launches of the unclocked
+    runs, every rank summed (each rank's counts zeroed just before a job
+    and read just after). Every rank launches ``sw_extend`` in both runs;
+    ``fm_seed`` too on a data mesh (the unsharded reseed), and never on
+    an index mesh (its machine's owner sums keep it plain)."""
     idx, batch = m["idx"], m["batches"][1]
     grid = dist_leg.head(batch, grid_reads)
     runs = lambda b: [dict(kind="regions", batch=b, clock=True),
@@ -891,7 +1025,7 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         ("index-sharded", (2,), ("index",), runs(batch)),
         ("data x index", (2, 2), ("data", "index"), runs(grid)),
     ]
-    launches = 0
+    launches = dict(sw_extend=0, fm_seed=0)
     for what, shape, names, jobs in cells:
         t0 = time.time()
         res, backend = dist_leg.spawn_tasks(
@@ -902,13 +1036,17 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
             f"{time.time() - t0:.1f} s (spawn, Aligner.build "
             f"{json.dumps(cell['build_s'])}, batches)")
         for k, job in enumerate(jobs[:2]):
-            per_rank = [r["tasks"][0]["jobs"][k]["sw_extend"] for r in res]
-            if min(per_rank) <= 0:
-                raise AssertionError(f"{what}: a rank did not launch "
-                                     f"sw_extend in job {k}: {per_rank}")
+            per_rank = {n: [r["tasks"][0]["jobs"][k][n] for r in res]
+                        for n in launches}
+            fm_ok = (min(per_rank["fm_seed"]) > 0 if names == ("data",)
+                     else max(per_rank["fm_seed"]) == 0)
+            if min(per_rank["sw_extend"]) <= 0 or not fm_ok:
+                raise AssertionError(f"{what}: launches by rank in job {k}: "
+                                     f"{per_rank}")
             if job.get("timed"):
-                launches += sum(per_rank)
-                log(f"  sw_extend launches by rank: {per_rank}")
+                for n in launches:
+                    launches[n] += sum(per_rank[n])
+                log(f"  launches by rank: {per_rank}")
         clocked, job = cell["jobs"][:2]
         b = jobs[1]["batch"]
         dist_line(what, job, clocked, b.n, backend, len(res), card)
@@ -1044,6 +1182,9 @@ def main() -> None:
     lr = long_path(m, card)
     log(f"long-read phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    fms = fm_machine_phase(m, fm, lr, dev)
+    log(f"FM machine phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     ex = exact_path(m, dev, card)
     log(f"exact phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1058,13 +1199,16 @@ def main() -> None:
     t0 = time.time()
     dl = dist_path(m, fm, ex, card)
     log(f"dist phase: {time.time() - t0:.1f} s")
+    runs = (m["launches"], pe["launches"], fm["launches"], lr["launches"],
+            i64, api, cl, dl)
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
-                    launches=sum(x["sw_extend"] for x in
-                                 (m["launches"], pe["launches"],
-                                  fm["launches"], lr, i64, api, cl)) + dl,
-                    **sw)]
+                    launches=sum(x["sw_extend"] for x in runs), **sw),
+               dict(name="fm_seed", route="cuda",
+                    source="bioseqdb_tpu_torch/csrc/fm_seed.cu",
+                    replaces="bioseqdb_tpu/kernels/seed.py:278",
+                    launches=sum(x["fm_seed"] for x in runs), **fms)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

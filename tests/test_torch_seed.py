@@ -3,7 +3,8 @@ kernels exactly, on reads that exercise every round and fallback.
 
 The genome carries exact and diverged repeats (round-2 reseeds, capped
 buckets, multi-occurrence seeds); the reads mix simulated reads,
-ambiguous bases, junk, chimeras and short reads. Both FM-machine entries
+ambiguous bases, junk, chimeras, short and empty reads
+(``tools/fm_machine.py``'s edge-case batch). Both FM-machine entries
 are compared field by field, ``iters`` included: the port counts the
 JAX machine's fetch-sharing stalls and takes its round-3 jump in one
 step as the JAX machine does (on a ``build_seed_table``-extended index,
@@ -18,69 +19,28 @@ import jax.numpy as jnp
 import torch
 
 from bioseqdb_tpu.index.builder import build_index
-from bioseqdb_tpu.io.batch import pack_reads
 from bioseqdb_tpu.kernels import fm as jfm
 from bioseqdb_tpu.kernels import kmer as jkm
 from bioseqdb_tpu.kernels import seed as jseed
 from bioseqdb_tpu.kernels.seed import collect_seeds_device as jseeds
-from bioseqdb_tpu.utils.sim import simulate_genome, simulate_reads
 from bioseqdb_tpu_torch.index import layout
 from bioseqdb_tpu_torch.kernels import fm as tfm
 from bioseqdb_tpu_torch.kernels.kmer import collect_seeds_kmer
 from bioseqdb_tpu_torch.kernels import seed as tseed
 from bioseqdb_tpu_torch.kernels.seed import collect_seeds_device as tseeds
+from bioseqdb_tpu_torch.tools import fm_machine as fmm
 
-MSL, SPLIT_LEN, SPLIT_W, MAX_INTV = 19, 28, 10, 20
-W = 152
-
-
-def _mutate(s, rng, rate):
-    b = np.frombuffer(s.encode(), np.uint8).copy()
-    m = rng.random(b.size) < rate
-    b[m] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, m.sum())]
-    return b.tobytes().decode()
+MSL, SPLIT_LEN, SPLIT_W, MAX_INTV = (fmm.MSL, fmm.SPLIT_LEN, fmm.SPLIT_W,
+                                     fmm.MAX_INTV)
+W = fmm.EDGE_W
 
 
 @pytest.fixture(scope="module")
 def setup():
-    rng = np.random.default_rng(31)
-    core = simulate_genome(60_000, seed=31)
-    # a 24-base segment repeated once: a round-2 reseed between the
-    # round-3 checkpoints (the kmer seeder's needs_r2 lanes)
-    core = core[:50000] + core[20000:20024] + core[50024:]
-    rep = simulate_genome(700, seed=32)
-    g = (core[:15000] + rep + core[15000:30000] + _mutate(rep, rng, 0.03)
-         + core[30000:45000] + rep + core[45000:])
-    idx = build_index([("g", g)])
-    sim = simulate_reads(g, 40, read_len=150, sub_rate=0.02, seed=33)
-    reads = list(sim.reads)
-    seg = g.find(core[20000:20024])
-    for k in range(4):   # reads holding the short repeat mid-read
-        p = g.find(core[20000:20024], seg + 1 if k % 2 else 0) - 62 - 4 * k
-        reads.append(g[p : p + 150])
-    for k in range(6):   # reads across the repeat copies
-        p = 15000 - 40 + 250 * k
-        reads.append(g[p : p + 150])
-    for k in range(4):   # ambiguous bases
-        r = list(reads[k])
-        for j in rng.integers(0, 150, 3 + k):
-            r[j] = "N"
-        reads.append("".join(r))
-    reads += ["".join("ACGT"[c] for c in rng.integers(0, 4, 150))
-              for _ in range(3)]                                  # junk
-    reads += [g[5000:5075] + g[40000:40075], g[100:130], "ACGTN" * 30]
-    # Ns a few bases into round-3 windows: the depth-J jump must not
-    # take a window that holds one
-    r = list(sim.reads[5])
-    for j in range(3, 150, 23):
-        r[j] = "N"
-    reads.append("".join(r))
-    batch = pack_reads(reads, [f"r{i}" for i in range(len(reads))])
-    codes = np.full((batch.codes.shape[0], W), 4, np.int32)
-    n = min(W, batch.codes.shape[1])
-    codes[:, :n] = batch.codes[:, :n]
-    lens = np.asarray(batch.lens, np.int32)
-    return idx, codes, lens
+    # the port's edge-case batch (tools/fm_machine.py) on the JAX index
+    g, reads, _ = fmm.edge_case_reads()
+    codes, lens = fmm.edge_case_codes(reads, W)
+    return build_index([("g", g)]), codes, lens
 
 
 def _kmer_both(idx, codes, lens):
