@@ -7,7 +7,12 @@ through the sampled suffix array; ``chain_seeds`` grows chains with the
 closest-chain test; ``filter_chains`` weighs chains and applies the
 shadowing filter; ``l_rep_device`` is the repetitive-coverage length.
 The per-seed and per-chain loops stay sequential in the seed or chain
-index (their steps depend on each other) and vectorized over reads.
+index (their steps depend on each other). On CUDA tensors ``chain_seeds``
+and ``filter_chains`` are one launch each of ``csrc/chain.cu``'s kernels
+(``kernels/chain_cuda.py``: a thread a read runs every trip), which raise
+rather than fall back; on CPU tensors they run their plain twins,
+``chain_seeds_plain`` and ``filter_chains_plain``, the loops as eager
+torch ops vectorized over reads, bit-equal to the kernels.
 Reference positions (``rbeg``, a chain's ``pos``, ``f_rbeg`` and
 ``l_rbeg``, the filter's reference ends) hold the index's rank dtype,
 int64 past 2^31 doubled bases, as in the JAX version; query positions,
@@ -19,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.chain_cuda import (chain_seeds_cuda,
+                                                   filter_chains_cuda)
 from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row, take
 
 NEG = -(1 << 30)
@@ -130,7 +137,19 @@ def chain_seeds(fm: kfm.FMDevice, seeds: dict, max_chains: int,
                 bandwidth: int, max_chain_gap: int) -> dict:
     """Grow chains over located seeds (mem_chain's insertion loop);
     returns the chain tables and a seed -> chain assignment (-1 dropped,
-    -2 contained)."""
+    -2 contained). On CUDA tensors one launch of the hand-written kernel
+    (``chain_cuda.chain_seeds_cuda``), on CPU tensors the plain twin
+    ``chain_seeds_plain``; only ``fm.l_pac`` is read."""
+    if seeds["rbeg"].device.type == "cuda":
+        return chain_seeds_cuda(seeds, fm.l_pac, max_chains, bandwidth,
+                                max_chain_gap)
+    return chain_seeds_plain(fm, seeds, max_chains, bandwidth, max_chain_gap)
+
+
+def chain_seeds_plain(fm: kfm.FMDevice, seeds: dict, max_chains: int,
+                      bandwidth: int, max_chain_gap: int) -> dict:
+    """``chain_seeds``' plain twin, on any device: a trip a seed slot,
+    each a few dozen torch ops over every read."""
     B, S = seeds["rbeg"].shape
     C = max_chains
     dev = seeds["rbeg"].device
@@ -198,7 +217,22 @@ def filter_chains(chains: dict, seeds: dict, mask_level: float,
                   min_seed_len: int, max_chain_gap: int) -> dict:
     """Chain weights + the shadowing filter (mem_chain_flt). Returns
     weight, kept (0 dropped / 1 promoted shadow / 2 overlapped / 3
-    primary), order (weight-descending slots), beg, end: int32[B, C]."""
+    primary), order (weight-descending slots), beg, end: int32[B, C].
+    On CUDA tensors one launch of the hand-written kernel
+    (``chain_cuda.filter_chains_cuda``), on CPU tensors the plain twin
+    ``filter_chains_plain``."""
+    fn = (filter_chains_cuda if seeds["rbeg"].device.type == "cuda"
+          else filter_chains_plain)
+    return fn(chains, seeds, mask_level, chain_drop_ratio, min_chain_weight,
+              min_seed_len, max_chain_gap)
+
+
+def filter_chains_plain(chains: dict, seeds: dict, mask_level: float,
+                        chain_drop_ratio: float, min_chain_weight: int,
+                        min_seed_len: int, max_chain_gap: int) -> dict:
+    """``filter_chains``' plain twin, on any device: the weight loop a
+    trip a seed slot, the shadow and promotion loops a trip a chain, each
+    trip torch ops over every read."""
     B, S = seeds["rbeg"].shape
     C = chains["pos"].shape[1]
     dev = seeds["rbeg"].device

@@ -113,13 +113,12 @@ def _cell(rank: int, device_type: str, shape, names, idx, jobs: list
             r["stages"] = sc.split()
         else:
             r = _job(als[key], job, rank)
-        r.update(sw_extend=build.LAUNCHES["sw_extend"],
-                 fm_seed=build.LAUNCHES["fm_seed"],
+        r.update(**{k: build.LAUNCHES[k] for k in build.STEP_KERNELS},
                  collectives=dict(kfm.COLLECTIVES))
         kfm.reset_collectives()
         rows.append(r if rank == 0 else dict(
-            sw_extend=r["sw_extend"], fm_seed=r["fm_seed"],
-            stages=r.get("stages"), collectives=r.get("collectives")))
+            {k: r[k] for k in build.STEP_KERNELS}, stages=r.get("stages"),
+            collectives=r.get("collectives")))
     return dict(jobs=rows, build_s=built)
 
 
@@ -157,10 +156,11 @@ def run_tasks(rank: int, world_size: int, device_type: str, tasks: list
       (``align_batch``), ``pairs`` (``align_pairs`` of a batch pair) or
       ``columns`` (``long_leg.run_batch``, finalized on rank 0); with
       ``job["clock"]`` under ``long_leg.stage_clock`` and with the owner
-      sums timed. Rank 0 returns the jobs' results; every rank its
-      ``sw_extend`` launches and ``kernels/fm.py``'s ``COLLECTIVES`` a
-      job (counts zeroed just before the job and read just after), the
-      stage split of a clocked job and the build seconds.
+      sums timed. Rank 0 returns the jobs' results; every rank the
+      launches of each ``build.STEP_KERNELS`` kernel and
+      ``kernels/fm.py``'s ``COLLECTIVES`` a job (counts zeroed just
+      before the job and read just after), the stage split of a clocked
+      job and the build seconds.
     - ``dict(queries=dict(idx=..., codes=, lens=, ranks=, rank_dtype=,
       sa_interval=))``: an ``index`` mesh of every rank, this rank's
       shard of ``idx`` (its tables as numpy), ``backward_search_sharded``
@@ -309,9 +309,8 @@ def main(argv=None) -> None:
             cell=name, backend=backend, ranks=len(res),
             spawn_s=time.perf_counter() - t0,
             build_s=cell["build_s"],
-            sw_extend=sum(r["tasks"][0]["jobs"][1]["sw_extend"]
-                          for r in res),
-            fm_seed=sum(r["tasks"][0]["jobs"][1]["fm_seed"] for r in res),
+            **{k: sum(r["tasks"][0]["jobs"][1][k] for r in res)
+               for k in build.STEP_KERNELS},
             **summary(job, clocked, n), overflow=int(job["n_ovf"]),
             compared=int(both.size), rows_differ=len(diff),
             **long_leg.check(al, sim_b, b, job["cols"]))), flush=True)

@@ -5,11 +5,11 @@
 1. prints the card's name and power limit (nvidia-smi); no CUDA device
    -> exits non-zero before any result;
 2. builds the hand-written CUDA kernels from ``bioseqdb_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once): ``sw_extend``, ``fm_seed`` and
-   the probes. Every phase that runs the full pipeline on one device (main
-   path, PE, FM-seeded, long reads, int64, API, the CLI's full-mode
-   ``align`` commands) must launch both ``sw_extend`` and ``fm_seed`` in
-   its counted window;
+   (one ``nvcc`` per source, all at once): ``sw_extend``, ``fm_seed``,
+   ``chain_seeds`` and ``filter_chains`` (``chain.cu``) and the probes.
+   Every phase that runs the full pipeline on one device (main path, PE,
+   FM-seeded, long reads, int64, API, the CLI's full-mode ``align``
+   commands) must launch all four step kernels in its counted window;
 3. SW kernel phase: ``sw_extend`` against its plain PyTorch version on
    the card, bit-equal on every case set of ``tools/sw_sets.py``: small
    ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
@@ -28,7 +28,8 @@
    ``finalize_columns``; the second batch is timed. Reads at their
    simulated origin are counted, and every read off it must equal the
    host oracle. Launch counts are zeroed just before the timed batch and
-   read just after: ``sw_extend`` must have run. The warm-up batch
+   read just after: ``sw_extend`` must have run; then the timed batch
+   runs again under the stage clock for its stage split. The warm-up batch
    records the inputs of every ``sw_extend`` launch the extension stage
    makes (the wrapper ``kernels/extend.py`` calls is wrapped for that
    batch only, and the recorded calls must match the launches counted);
@@ -37,7 +38,9 @@
    SAM text is rendered with ``emit_sam_columns`` outside the timed
    window (for the CLI phase). The FM machine's calls of this warm-up
    batch, and of the FM-seeded and long-read ones, are recorded
-   (``tools/fm_machine.py``) for phase 7b;
+   (``tools/fm_machine.py``) for phase 7b; the chaining calls of this
+   warm-up batch, and of the PE, FM-seeded, long-read and int64 ones
+   (``tools/chain_calls.py``), for phase 9b;
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -99,6 +102,19 @@
    one's records (every ``AlignColumns`` field, or the exact
    ``ReadResult``s) and SAM text must equal the int32 phase's, and the
    regions' ``rb`` must be int64;
+9b. chain phase: ``chain_seeds`` and ``filter_chains`` against their
+   plain twins (``chain.chain_seeds_plain``, ``chain.filter_chains_plain``)
+   on the card, bit-equal on every output (the chain tables, n, assign,
+   overflow; weight, kept, order, beg, end) at the recorded inputs: the
+   main path's (B 16,384, S 64, C 16), the PE step's (16,384 rows), the
+   FM-seeded one's, the long-read warm-up's (1,024 reads, S 189, C 32),
+   the int64 one's and any fat retry of them (S 128, C 32), and at
+   ``edge_seeds`` with int32 and int64 ranks. Each: the kernel's time (a
+   launch in a CUDA graph), the plain twin's, the bound (each input the
+   function needs read once: the valid mask, the fields of the valid or
+   assigned seed slots, the live chains' pos; each output written once;
+   the instructions of the valid seeds, the live chains they scan and the
+   chain pairs the filter compares) and the share;
 10. API phase: ``multi_search`` of the first 256 reads of the main path's
    timed batch against the main path's ``Aligner``, counts zeroed just
    before and read just after (``sw_extend`` must have run); the
@@ -129,11 +145,11 @@
    and SAM must equal the main path's (data) or the FM-seeded phase's
    (index) on every read that overflowed in neither run (the others are
    counted), exact mode's the exact phase's; truth >= 98% and
-   ``device_ne_oracle`` 0; every rank must launch ``sw_extend`` in both
-   runs, ``fm_seed`` too on the data mesh and never on an index mesh
-   (its machine stays plain) (counts zeroed just before each job and
-   read just after, in each rank; the unclocked runs' go on the kernels
-   line);
+   ``device_ne_oracle`` 0; every rank must launch ``sw_extend``,
+   ``chain_seeds`` and ``filter_chains`` in both runs, ``fm_seed`` too on
+   the data mesh and never on an index mesh (its machine stays plain)
+   (counts zeroed just before each job and read just after, in each
+   rank; the unclocked runs' go on the kernels line);
 13. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
@@ -142,19 +158,19 @@
    ``gather_chain`` (every variant) and ``add_one`` bit-equal to their
    plain versions and time both; this adds each one's bound at the
    main-path table;
-14. prints the kernels line (``sw_extend``'s and ``fm_seed``'s launches:
-   the timed batches of the main, paired-end, FM-seeded and long-read
-   paths, the int64 phase's two, the API phase, the CLI's commands and
-   the dist phase's unclocked runs in every rank; ``fm_seed``'s times and
-   bound are the FM-seeded batch's), then the device line as the last
-   line.
+14. prints the kernels line (the step kernels' launches: the timed
+   batches of the main, paired-end, FM-seeded and long-read paths, the
+   int64 phase's two, the API phase, the CLI's commands and the dist
+   phase's unclocked runs in every rank; ``fm_seed``'s times and bound
+   are the FM-seeded batch's, ``chain_seeds``' and ``filter_chains``'
+   the main path's), then the device line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
-(``sw_extend``: 5 launches; ``gather_rows``, ``add_one`` and their
-library calls: 20), so that the host's enqueue time does not count;
-``gather_chain``: CUDA events around one call; ``fm_seed``: CUDA events
-around one launch, the median of 3. Plain versions are timed eagerly
-with CUDA events. ``bound_ms`` is the larger
+(``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``chain_seeds``,
+``filter_chains`` and the library calls: 20), so that the host's enqueue
+time does not count; ``gather_chain``: CUDA events around one call;
+``fm_seed``: CUDA events around one launch, the median of 3. Plain
+versions are timed eagerly with CUDA events. ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and the instructions
 it must issue over the card's issue rate (132 SMs x 4 schedulers x 32
 lanes x 1.98 GHz), each fused instruction (a multiply-add, a three-input
@@ -193,9 +209,9 @@ from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
                                          emit_sam_pair_columns)
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
-from bioseqdb_tpu_torch.tools import (dist_leg, fm_machine, long_leg,
-                                      microbench_gather, microbench_seed,
-                                      pe_leg)
+from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, fm_machine,
+                                      long_leg, microbench_gather,
+                                      microbench_seed, pe_leg)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
@@ -232,6 +248,17 @@ API_READS = 256
 DIST_GRID_READS = 4096    # the data x index cell's batch
 PROFILE_READS = 2048
 QUAL = "I"   # the base quality written to every FASTQ record
+# chaining: a valid seed's trip issues at least its five loads, the
+# chosen chain's fields, the contained / strand / grow tests and the
+# assign store (~24); each live chain its closest-chain test scans a load,
+# two compares and two selects (5); an invalid slot a load and a store.
+# The filter: an assigned seed's six chain-field updates (~20); a pair of
+# live chains the shadow loop compares, the overlap, the mask-level and
+# drop tests (~12, float products included); a chain slot its weight,
+# order and five stores (~10)
+CHAIN_KERNELS = ("chain_seeds", "filter_chains")
+CHAIN_INSTR = dict(trips=24, scans=5, invalid=2)
+FILTER_INSTR = dict(trips=20, pairs=12, slots=10)
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
                 add_one="tools/microbench_pallas_gather.py:110")
@@ -347,9 +374,9 @@ def main_path_launches(calls: list, path: str = "main-path") -> list[dict]:
 
 
 def must_launch(path: str, launches: dict) -> None:
-    """``path`` ran the full pipeline: both kernels of its device step
+    """``path`` ran the full pipeline: every kernel of its device step
     must have launched."""
-    for name in ("sw_extend", "fm_seed"):
+    for name in build.STEP_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{path}")
@@ -446,6 +473,83 @@ def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
                 bound_by=e["bound_by"], library_ms=None, shape=e["shape"])
 
 
+def chain_bound(call: "chain_calls.ChainCall", out: dict
+                ) -> tuple[float, str, dict]:
+    """A chaining kernel's bound on ``call``'s inputs, from its outputs
+    ``out`` (``ChainCall.counts``): each input the function needs read
+    once (the seed fields of valid or assigned slots only, the pos of
+    live chains only), each output written once; CHAIN_INSTR /
+    FILTER_INSTR instructions a trip. Returns
+    (ms, what sets it, the counts)."""
+    n = call.counts(out)
+    if call.kind == "chain_seeds":
+        instr = (CHAIN_INSTR["trips"] * n["trips"]
+                 + CHAIN_INSTR["scans"] * n["scans"]
+                 + CHAIN_INSTR["invalid"] * (n["slots"] - n["trips"]))
+    else:
+        instr = sum(FILTER_INSTR[k] * n[k] for k in FILTER_INSTR)
+    return (*bound(n["read"] + n["written"], instr), n)
+
+
+def chain_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
+                ) -> dict:
+    """``chain_seeds`` and ``filter_chains`` against their plain twins on
+    the card, bit-equal on every output, at the inputs the pipeline gave
+    them (recorded in the warm-up batches: the main path's, the PE
+    step's, the FM-seeded one's, the long-read one's, the int64 one's,
+    and any fat retry of them) and at ``tools/chain_calls.py``'s edge
+    seeds with int32 and int64 ranks. Each: the kernel's time (a launch
+    in a CUDA graph), the plain twin's, the bound and the share. Returns
+    the kernels line's entries (the main path's numbers)."""
+    recorded = {}
+    for path, d in (("main path", m), ("PE", pe), ("FM-seeded", fmp),
+                    ("long-read", lr), ("int64", i64)):
+        for k, pair in enumerate(chain_calls.pairs(d["ch_calls"])):
+            recorded[path if k == 0 else f"{path} fat retry {k}"] = pair
+    want = {"main path": (BATCH, 64, 16, torch.int32),
+            "long-read": (long_leg.WARM_READS, 189, 32, torch.int32),
+            "int64": (BATCH, 64, 16, torch.int64)}
+    for path, (B, S, C, rdt) in want.items():
+        cs = recorded[path][0]
+        if cs.dims != (B, S, C) or cs.seeds["rbeg"].dtype != rdt:
+            raise AssertionError(f"the recorded {path} chain call is not the "
+                                 f"pipeline's: {cs.shape}")
+    inputs = list(recorded.items())
+    for rdt in (torch.int32, torch.int64):
+        cs, fc, _ = chain_calls.edge_calls(rdt, device=dev)
+        inputs.append((f"edge seeds {str(rdt).removeprefix('torch.')}",
+                       (cs, fc)))
+    rows = {k: {} for k in CHAIN_KERNELS}
+    for name, calls in inputs:
+        for call in calls:
+            got = call.run()
+            torch.cuda.synchronize()
+            plain_ms, ref = call.plain_ms()
+            err = chain_calls.max_abs_err(got, ref, call.kind)
+            ms = call.kernel_ms()
+            bound_ms, bound_by, n = chain_bound(call, got)
+            work = ", ".join(f"{k} {v}" for k, v in n.items())
+            log(f"{call.kind} [{name}] {call.shape}: cuda {ms:.4f} ms a "
+                f"launch in a CUDA graph; plain {plain_ms:.1f} ms "
+                f"({plain_ms / ms:.0f}x);"
+                f" {work}; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+                f"{100 * bound_ms / ms:.2f}% of it; max_abs_err={err}")
+            if err != 0:
+                raise AssertionError(f"{call.kind} disagrees with plain on "
+                                     f"{name}")
+            rows[call.kind][name] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=f"{name}: {call.shape}")
+    out = {}
+    for kind, r in rows.items():
+        e = r["main path"]
+        out[kind] = dict(max_abs_err=max(x["max_abs_err"] for x in r.values()),
+                         ms=e["ms"], plain_ms=e["plain_ms"],
+                         bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+                         library_ms=None, shape=e["shape"])
+    return out
+
+
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
     idx, al, sims, batches, genome = main_path_setup(dev)
@@ -453,9 +557,10 @@ def main_path(dev, card: str) -> dict:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    calls, fm_calls = [], []
+    calls, fm_calls, ch_calls = [], [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls), fm_machine.recording(fm_calls):
+    with (recording(calls), fm_machine.recording(fm_calls),
+          chain_calls.recording(ch_calls)):
         long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
@@ -477,7 +582,12 @@ def main_path(dev, card: str) -> dict:
     truth_check("main path", al, sims[1], batches[1], res["cols"],
                 res["n_ovf"])
     sam = se_sam(idx, res["cols"], batches[1])
+    with long_leg.stage_clock() as clock:
+        long_leg.run_batch(al, batches[1])
+    log(f"main path device step (the timed batch again, clocked): "
+        f"{stage_line(clock)}")
     return dict(launches=launches, rps=rps, calls=calls, fm_calls=fm_calls,
+                ch_calls=ch_calls,
                 idx=idx, al=al, genome=genome, sims=sims, batches=batches,
                 cols=res["cols"], ovf=res["ovf"], sam=sam)
 
@@ -520,7 +630,7 @@ def stage_line(clock: "long_leg.stage_clock") -> str:
     """The device step's stage split of a clocked batch, and the FM
     machine's slowest lane's steps and seconds a step."""
     sp = clock.split()
-    text = ", ".join(f"{k} {sp[k]:.3f} s" for k in long_leg.CLOCKED
+    text = ", ".join(f"{k} {sp[k]:.4f} s" for k in long_leg.CLOCKED
                      if k in sp)
     if "fm_machine_steps" in sp:
         text += (f"; FM machine {sp['fm_machine_s']:.3f} s for its slowest "
@@ -536,8 +646,8 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     log(f"FM-seeded Aligner.build (jump depth {al.jump.depth}): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    fm_calls = []
-    with fm_machine.recording(fm_calls):
+    fm_calls, ch_calls = [], []
+    with fm_machine.recording(fm_calls), chain_calls.recording(ch_calls):
         long_leg.run_batch(al, m["batches"][0])
     log(f"FM-seeded warm-up batch: {time.time() - t0:.1f} s")
     build.reset_launches()
@@ -556,7 +666,7 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
     return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
-                fm_calls=fm_calls,
+                fm_calls=fm_calls, ch_calls=ch_calls,
                 sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
@@ -569,9 +679,10 @@ def long_path(m: dict, card: str) -> dict:
                     (long_leg.TIMED_READS, long_leg.TIMED_SEED)))
     log(f"long reads simulated: {time.time() - t0:.1f} s")
     t0 = time.time()
-    calls, fm_calls = [], []
+    calls, fm_calls, ch_calls = [], [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls), fm_machine.recording(fm_calls):
+    with (recording(calls), fm_machine.recording(fm_calls),
+          chain_calls.recording(ch_calls)):
         long_leg.run_batch(al, warm[1])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
@@ -605,7 +716,7 @@ def long_path(m: dict, card: str) -> dict:
     truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
     main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
                        "long-read")
-    return dict(launches=launches, fm_calls=fm_calls)
+    return dict(launches=launches, fm_calls=fm_calls, ch_calls=ch_calls)
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -617,9 +728,9 @@ def pe_path(m: dict, card: str) -> dict:
     log(f"two batches of {pe_leg.PAIRS} pairs simulated: "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    calls = []
+    calls, ch_calls = [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls):
+    with recording(calls), chain_calls.recording(ch_calls):
         pe_leg.run_batch(al, warm)
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"PE warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -652,7 +763,7 @@ def pe_path(m: dict, card: str) -> dict:
         raise AssertionError("PE path disagrees with the host")
     sam = pe_sam(idx, res["cols"], timed)
     main_path_launches(calls, "PE")
-    return dict(launches=launches, timed=timed, sam=sam)
+    return dict(launches=launches, timed=timed, sam=sam, ch_calls=ch_calls)
 
 
 def pe_sam(idx, cols, pb) -> str:
@@ -769,9 +880,9 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     log(f"int64 FMDevice + jump table (depth {jump.depth}): "
         f"{time.time() - t0:.2f} s")
     t0 = time.time()
-    calls = []
+    calls, ch_calls = [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls):
+    with recording(calls), chain_calls.recording(ch_calls):
         long_leg.run_batch(als["kmer"], m["batches"][0])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"int64 warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -819,7 +930,7 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     if not same:
         raise AssertionError("int64 exact mode differs from int32")
     main_path_launches(calls, "int64")
-    return total
+    return dict(launches=total, ch_calls=ch_calls)
 
 
 def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
@@ -1010,11 +1121,12 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
     ``tools/dist_leg.py``'s ``run_tasks`` on the main path's index. Each
     cell runs its batch clocked (the stage split and the collectives;
     also the ranks' warm-up), then unclocked (reads/s, the records);
-    returns the ``sw_extend`` and ``fm_seed`` launches of the unclocked
-    runs, every rank summed (each rank's counts zeroed just before a job
-    and read just after). Every rank launches ``sw_extend`` in both runs;
-    ``fm_seed`` too on a data mesh (the unsharded reseed), and never on
-    an index mesh (its machine's owner sums keep it plain)."""
+    returns the step kernels' launches of the unclocked runs, every rank
+    summed (each rank's counts zeroed just before a job and read just
+    after). Every rank launches ``sw_extend``, ``chain_seeds`` and
+    ``filter_chains`` in both runs; ``fm_seed`` too on a data mesh (the
+    unsharded reseed), and never on an index mesh (its machine's owner
+    sums keep it plain)."""
     idx, batch = m["idx"], m["batches"][1]
     grid = dist_leg.head(batch, grid_reads)
     runs = lambda b: [dict(kind="regions", batch=b, clock=True),
@@ -1025,7 +1137,7 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         ("index-sharded", (2,), ("index",), runs(batch)),
         ("data x index", (2, 2), ("data", "index"), runs(grid)),
     ]
-    launches = dict(sw_extend=0, fm_seed=0)
+    launches = {k: 0 for k in build.STEP_KERNELS}
     for what, shape, names, jobs in cells:
         t0 = time.time()
         res, backend = dist_leg.spawn_tasks(
@@ -1040,7 +1152,8 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
                         for n in launches}
             fm_ok = (min(per_rank["fm_seed"]) > 0 if names == ("data",)
                      else max(per_rank["fm_seed"]) == 0)
-            if min(per_rank["sw_extend"]) <= 0 or not fm_ok:
+            if not fm_ok or min(min(per_rank[n]) for n in
+                                ("sw_extend", *CHAIN_KERNELS)) <= 0:
                 raise AssertionError(f"{what}: launches by rank in job {k}: "
                                      f"{per_rank}")
             if job.get("timed"):
@@ -1191,6 +1304,9 @@ def main() -> None:
     i64 = int64_path(m, fm, ex, dev, card)
     log(f"int64 phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    chs = chain_phase(m, pe, fm, lr, i64, dev)
+    log(f"chain phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     api = api_path(m, card)
     log(f"API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1200,7 +1316,7 @@ def main() -> None:
     dl = dist_path(m, fm, ex, card)
     log(f"dist phase: {time.time() - t0:.1f} s")
     runs = (m["launches"], pe["launches"], fm["launches"], lr["launches"],
-            i64, api, cl, dl)
+            i64["launches"], api, cl, dl)
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
@@ -1209,6 +1325,11 @@ def main() -> None:
                     source="bioseqdb_tpu_torch/csrc/fm_seed.cu",
                     replaces="bioseqdb_tpu/kernels/seed.py:278",
                     launches=sum(x["fm_seed"] for x in runs), **fms)]
+    kernels += [dict(name=name, route="cuda",
+                     source="bioseqdb_tpu_torch/csrc/chain.cu",
+                     replaces=f"bioseqdb_tpu/kernels/chain.py:{line}",
+                     launches=sum(x[name] for x in runs), **chs[name])
+                for name, line in zip(CHAIN_KERNELS, (287, 351))]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
