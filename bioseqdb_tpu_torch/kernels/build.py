@@ -26,13 +26,17 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = {"sw_extend": "sw_extend.cu", "fm_seed": "fm_seed.cu",
-           "chain": "chain.cu", "probes": "probes.cu"}
+           "chain": "chain.cu", "extend": "extend.cu", "probes": "probes.cu"}
+EXTEND_KERNELS = ("extend_scan", "extend_windows", "extend_merge",
+                  "extend_seedcov")
 KERNELS = ("sw_extend",                            # sw_extend.cu
            "fm_seed",                              # fm_seed.cu
            "chain_seeds", "filter_chains",         # chain.cu
+           *EXTEND_KERNELS,                        # extend.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
 # the kernels a full-pipeline device step launches
-STEP_KERNELS = ("sw_extend", "fm_seed", "chain_seeds", "filter_chains")
+STEP_KERNELS = ("sw_extend", "fm_seed", "chain_seeds", "filter_chains",
+                *EXTEND_KERNELS)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

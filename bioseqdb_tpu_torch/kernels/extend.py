@@ -7,12 +7,26 @@ filter's where it ran, else length x match); each is skipped when an
 accumulated region covers it (with the overlap-rescue test) or extended
 left and right by the banded SW, with bwa's band-doubling retry. The
 per-read sequential loop becomes global rounds: every lane scans to its
-next seed to extend, then one batched SW call serves all active lanes.
+next seed to extend, then one batched SW call a side serves all active
+lanes.
 
-``sw_one`` launches the hand-written CUDA kernel (``sw_cuda.py``) for
-tensors on a CUDA device, and the plain ``sw.sw_extend_batch`` only for
-tensors on the CPU. The SW lanes are sorted by expected DP row count
-before the kernel (a permutation: results are identical).
+A round is four stages around the SW launches, each a function with a
+plain twin (eager torch ops) here and a hand-written CUDA kernel in
+``csrc/extend.cu`` (``extend_cuda.py``):
+- ``extend_scan``: the containment scan (every trip of every lane), the
+  round's overflow and active lanes, and the SW sort keys of both sides;
+- ``extend_windows``: both sides' query and target buffers, written in
+  the SW lanes' sorted order (``perm``, a library argsort of the keys);
+- ``extend_merge``: after the left SW, the left result and the right
+  side's h0; after the right SW, the new region row, ``n_regs``,
+  ``was_ext`` and the cursor; each reads the sorted SW results through
+  the inverse permutation;
+- ``extend_seedcov``: after the rounds, each region's seedcov.
+On CUDA tensors each stage launches its kernel (and raises if it cannot);
+on CPU tensors it runs the plain twin. The SW is ``sw_cuda.py``'s kernel
+on the card and the plain ``sw.sw_extend_batch`` on the CPU. The host
+waits on the card only where the JAX program branches (``lax.cond``):
+whether a round has an active lane, and whether a side retries.
 
 Reference coordinates (the chains' windows, the regions' ``rb`` and
 ``re``) hold the seeds' rank dtype, int64 past 2^31 doubled bases, as
@@ -22,20 +36,24 @@ the packed text by 64-bit positions.
 Under a sharded index (``group``, ``dist/shard_index.py``) the targets
 come from this rank's range of the per-base forward codes instead,
 summed to their owner over the group (``fetch_doubled``), as in the JAX
-version; a round's two windows share one owner sum.
+version; a round's two windows share one owner sum. No single launch
+holds that sum, so there ``extend_windows`` takes its plain twin by an
+explicit branch; scan, merge and seedcov still launch their kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bioseqdb_tpu_torch.kernels import extend_cuda as ecu
 from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.extend_cuda import REG_FIELDS
 from bioseqdb_tpu_torch.kernels.kmer import doubled_codes
 from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row
-from bioseqdb_tpu_torch.kernels.sw import sw_extend_batch
+from bioseqdb_tpu_torch.kernels.sw import FIELDS, sw_extend_batch
 from bioseqdb_tpu_torch.kernels.sw_cuda import sw_extend_cuda
 
-SCAN_CHUNK = 8   # containment-scan steps between live-lane checks
+SCAN_CHUNK = 8   # the plain scan's trips between live-lane checks
 
 
 def window_doubled(pac_rows, seq_len: int, pos: torch.Tensor) -> torch.Tensor:
@@ -63,10 +81,266 @@ def fetch_doubled(pac: torch.Tensor, l_pac: int, seq_len: int,
 
 
 def cal_max_gap(qlen, match_score, o_del, e_del, o_ins, e_ins, bandwidth):
+    """bwa's cal_max_gap in float32, as the JAX version computes it: each
+    quotient a true float32 division (the divisor a tensor on ``qlen``'s
+    device: CUDA multiplies by the reciprocal of a Python-scalar divisor),
+    truncated to int32."""
     f32 = lambda x: x.to(torch.float32)
-    l_del = (f32(qlen * match_score - o_del) / float(e_del) + 1.0).to(torch.int32)
-    l_ins = (f32(qlen * match_score - o_ins) / float(e_ins) + 1.0).to(torch.int32)
+    div = lambda x, e: f32(x) / torch.full((), float(e), dtype=torch.float32,
+                                           device=qlen.device)
+    l_del = (div(qlen * match_score - o_del, e_del) + 1.0).to(torch.int32)
+    l_ins = (div(qlen * match_score - o_ins, e_ins) + 1.0).to(torch.int32)
     return torch.maximum(l_del, l_ins).clamp(min=1).clamp(max=bandwidth << 1)
+
+
+def _gap(p: dict):
+    return lambda x: cal_max_gap(x, p["match_score"], p["o_del"], p["e_del"],
+                                 p["o_ins"], p["e_ins"], p["bandwidth"])
+
+
+def _lanes(tab: dict, slot: torch.Tensor) -> tuple:
+    """The seed at each lane's ``slot`` and its chain's window: (sq, sr,
+    sl, c, r0, r1)."""
+    c = pick_row(tab["cis"], slot)
+    return (pick_row(tab["qbeg"], slot), pick_row(tab["rbeg"], slot),
+            pick_row(tab["len"], slot), c, pick_row(tab["rmax0"], c),
+            pick_row(tab["rmax1"], c))
+
+
+def _sides(tab: dict, act: torch.Tensor, slot: torch.Tensor) -> tuple:
+    """Both sides' (has [2, B], query length [2, B] int32, target length
+    [2, B] in the rank dtype): left, the reversed query prefix against
+    the reversed target before the seed; right, the suffixes after it."""
+    sq, sr, sl, _, r0, r1 = _lanes(tab, slot)
+    qn = torch.stack([sq, tab["lens"] - (sq + sl)])
+    tn = torch.stack([sr - r0, r1 - (sr + sl)])
+    return act[None, :] & (qn > 0), qn, tn
+
+
+def extend_scan_plain(tab: dict, st: dict, p: dict) -> dict:
+    """The containment scan: each lane advances its cursor over ``order``
+    past the seeds an accumulated region covers (and no overlap rescue
+    claims) until it reaches a seed to extend or ``n_usable``. Returns
+    the new ``cursor`` and ``overflow`` (int32 / bool [B]), the lane's
+    ``slot`` (int32 [B]), ``act`` (bool [B]: a seed to extend and room
+    for its region) and ``work`` (int32 [2, B]: the SW sort key of each
+    side, rows until the band empties ~ min(tlen, qlen + band), -1 for
+    an idle lane)."""
+    order, n_usable = tab["order"], tab["n_usable"]
+    qbeg, rbeg, slen, cis = tab["qbeg"], tab["rbeg"], tab["len"], tab["cis"]
+    regs, n_regs, was_ext = st["regs"], st["n_regs"], st["was_ext"]
+    lens = tab["lens"]
+    B, S = order.shape
+    R = regs["rb"].shape[1]
+    rr = torch.arange(R, device=order.device)[None, :]
+    gap = _gap(p)
+
+    def body(cursor, decided):
+        slot = pick_row(order, cursor.clamp(0, S - 1))
+        active = (cursor < n_usable) & ~decided
+        sq = pick_row(qbeg, slot)[:, None]
+        sr = pick_row(rbeg, slot)[:, None]
+        sl = pick_row(slen, slot)[:, None]
+        inside = ((rr < n_regs[:, None])
+                  & (sr >= regs["rb"]) & (sr + sl <= regs["re"])
+                  & (sq >= regs["qb"]) & (sq + sl <= regs["qe"])
+                  & ((sl - regs["seedlen0"]) <= (lens[:, None] // 10)))
+        qd = sq - regs["qb"]
+        rd = sr - regs["rb"]
+        wlim = torch.minimum(gap(torch.minimum(qd, rd)), regs["w"])
+        near1 = ((qd - rd) < wlim) & ((rd - qd) < wlim)
+        qd2 = regs["qe"] - (sq + sl)
+        rd2 = regs["re"] - (sr + sl)
+        wlim2 = torch.minimum(gap(torch.minimum(qd2, rd2)), regs["w"])
+        near2 = ((qd2 - rd2) < wlim2) & ((rd2 - qd2) < wlim2)
+        covered = (inside & (near1 | near2)).any(1)
+        # overlap rescue: an extended same-chain seed of similar length
+        # on a different diagonal
+        cand = was_ext & (cis == pick_row(cis, slot)[:, None]) & tab["valid"]
+        c1 = ((sq <= qbeg) & ((sq + sl - qbeg) >= (sl >> 2))
+              & ((qbeg - sq) != (rbeg - sr)))
+        c2 = ((qbeg <= sq) & ((qbeg + slen - sq) >= (sl >> 2))
+              & ((sq - qbeg) != (sr - rbeg)))
+        simlen = slen >= (sl * 19 + 19) // 20
+        need = (cand & simlen & (c1 | c2)).any(1)
+        skip = active & covered & ~need
+        cursor = torch.where(skip, cursor + 1, cursor)
+        decided = decided | (active & ~skip) | (cursor >= n_usable)
+        return cursor, decided
+
+    cursor = st["cursor"]
+    decided = torch.zeros(B, dtype=torch.bool, device=order.device)
+    while not bool(decided.all()):
+        for _ in range(SCAN_CHUNK):
+            cursor, decided = body(cursor, decided)
+    slot = pick_row(order, cursor.clamp(0, S - 1))
+    todo = cursor < n_usable
+    ovf_now = todo & (n_regs >= R)
+    act = todo & ~ovf_now
+    has, qn, tn = _sides(tab, act, slot)
+    qn = torch.where(has, qn, 0).to(torch.int32)
+    tn = torch.where(has, tn, 0).to(torch.int32)
+    work = torch.where(qn > 0, torch.minimum(tn, qn + p["bandwidth"]), -1)
+    return dict(cursor=cursor, overflow=st["overflow"] | ovf_now, slot=slot,
+                act=act, work=work.to(torch.int32))
+
+
+def extend_windows_plain(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
+                         p: dict, group=None) -> dict:
+    """Both sides' SW inputs for the round, in the sorted lane order
+    ``perm`` (int64 [2, B]: row i of side k is lane perm[k, i]): ``qbuf``
+    int32 [2, B, W] (left: the query prefix reversed; right: the suffix),
+    ``tbuf`` int32 [2, B, W + 4 * band + 64] (left: the doubled text
+    before the seed, reversed; right: after it), 4 past each length and
+    in every row of a lane that has no side to extend; ``qn``, ``tn``
+    int32 [2, B] (0 there), ``active`` bool [2, B], the left side's
+    ``h0`` int32 [B] (seed length x match) and ``inv`` int32 [2, B]
+    (lane b is row inv[k, b]). ``pac`` is the packed doubled text, or
+    under ``group`` this rank's forward codes (owner-summed)."""
+    codes, lens = tab["codes"], tab["lens"]
+    B, W = codes.shape
+    T = W + 4 * p["bandwidth"] + 64
+    dev = codes.device
+    slot, act = scan["slot"], scan["act"]
+    sq, sr, sl, _, _, _ = _lanes(tab, slot)
+    has, qn, tn = _sides(tab, act, slot)
+    wcols = torch.arange(W, device=dev)
+    tcols = torch.arange(T, device=dev)
+    qidx = torch.stack([sq[:, None] - 1 - wcols, (sq + sl)[:, None] + wcols])
+    q = torch.gather(codes.expand(2, B, W), 2, qidx.clamp(0, W - 1).long())
+    q = torch.where(has[:, :, None] & (wcols < qn[:, :, None]) & (qidx < W),
+                    q, 4)
+    pos = torch.stack([sr[:, None] - 1 - tcols, (sr + sl)[:, None] + tcols])
+    if group is None:
+        t = window_doubled(pac, fm.seq_len, pos)
+    else:   # the lanes of the round only: the others' windows read 4
+        sel = torch.nonzero(act)[:, 0]
+        t = torch.full((2, B, T), 4, dtype=torch.int32, device=dev)
+        t[:, sel] = fetch_doubled(pac, fm.l_pac, fm.seq_len,
+                                  pos[:, sel].reshape(-1), group
+                                  ).reshape(2, -1, T)
+    t = torch.where(has[:, :, None] & (tcols < tn[:, :, None]), t, 4)
+    rows = lambda x: torch.gather(x, 1, perm[..., None].expand(x.shape))
+    inv = torch.empty_like(perm).scatter_(
+        1, perm, torch.arange(B, device=dev).expand(2, B))
+    return dict(qbuf=rows(q.to(torch.int32)), tbuf=rows(t),
+                qn=torch.gather(torch.where(has, qn, 0).to(torch.int32), 1,
+                                perm),
+                tn=torch.gather(torch.where(has, tn, 0).to(torch.int32), 1,
+                                perm),
+                active=torch.gather(has, 1, perm),
+                h0=(sl * p["match_score"]).to(torch.int32)[perm[0]],
+                inv=inv.to(torch.int32))
+
+
+def _unsort(win: dict, k: int, r1: dict, r2: dict, retry, bw: int):
+    """Side ``k``'s SW result and band by lane: the retry's where it
+    retried (bwa keeps the wider band's result), read through the
+    inverse permutation."""
+    inv = win["inv"][k].long()
+    res = {f: torch.where(retry, r2[f], r1[f])[inv] for f in FIELDS}
+    return res, torch.where(retry, 2 * bw, bw).to(torch.int32)[inv]
+
+
+def extend_merge_plain(side: int, tab: dict, st: dict, scan: dict,
+                       win: dict, r1: dict, r2: dict, retry: torch.Tensor,
+                       p: dict, left: dict | None = None) -> dict:
+    """Fold side ``side``'s SW results (``r1``, and ``r2`` where the
+    sorted mask ``retry`` is set; dicts of int32 [B] in sorted order)
+    into the lanes of the round. Left (0): the left result by lane,
+    ``extend_cuda.LEFT_FIELDS`` (``rb`` in the rank dtype, the others
+    int32 [B]), and ``h0``, the right side's h0 (and previous score) in
+    its sorted order. Right (1, ``left`` the left merge's output): the
+    new state, the region table with each active lane's region put at
+    row ``n_regs`` (clamped to R - 1), ``n_regs``, ``was_ext`` and
+    ``cursor``."""
+    bw = p["bandwidth"]
+    slot, act = scan["slot"], scan["act"]
+    sq, sr, sl, c, _, _ = _lanes(tab, slot)
+    res, aw = _unsort(win, side, r1, r2, retry, bw)
+    seed_sc = sl * p["match_score"]
+    if side == 0:
+        has = act & (sq > 0)
+        local = ((res["gscore"] <= 0)
+                 | (res["gscore"] <= res["score"] - p["pen_clip5"]))
+        score = torch.where(has, res["score"], seed_sc)
+        h0 = torch.empty_like(score).scatter_(0, win["inv"][1].long(), score)
+        return dict(
+            qb=torch.where(has & local, sq - res["qle"], 0),
+            rb=torch.where(has, torch.where(local, sr - res["tle"],
+                                            sr - res["gtle"]), sr),
+            score=score,
+            truesc=torch.where(has, torch.where(local, res["score"],
+                                                res["gscore"]), seed_sc),
+            aw=torch.where(has, aw, bw), h0=h0)
+    lens = tab["lens"]
+    qe0, re0 = sq + sl, sr + sl
+    has = act & (lens - qe0 > 0)
+    local = ((res["gscore"] <= 0)
+             | (res["gscore"] <= res["score"] - p["pen_clip3"]))
+    new = dict(
+        rb=left["rb"], qb=left["qb"], seedlen0=sl, cchain=c,
+        re=torch.where(has, torch.where(local, re0 + res["tle"],
+                                        re0 + res["gtle"]), re0),
+        qe=torch.where(has, torch.where(local, qe0 + res["qle"], lens), qe0),
+        score=torch.where(has, res["score"], left["score"]),
+        truesc=left["truesc"] + torch.where(
+            has, torch.where(local, res["score"], res["gscore"])
+            - left["score"], 0),
+        w=torch.maximum(left["aw"], torch.where(has, aw, bw)),
+        rid=pick_row(tab["crid"], c))
+    n_regs = st["n_regs"]
+    R = st["regs"]["rb"].shape[1]
+    slot_r = n_regs.clamp(max=R - 1)
+    regs = {k: put_row(st["regs"][k], slot_r, new[k], act)
+            for k in REG_FIELDS}
+    sidx = torch.arange(st["was_ext"].shape[1], device=act.device)[None, :]
+    return dict(regs=regs, n_regs=n_regs + act.to(torch.int32),
+                was_ext=st["was_ext"] | ((sidx == slot[:, None])
+                                         & act[:, None]),
+                cursor=torch.where(act, st["cursor"] + 1, st["cursor"]))
+
+
+def extend_seedcov_plain(tab: dict, regs: dict) -> torch.Tensor:
+    """seedcov int32 [B, R]: the lengths of the region's chain's seeds
+    (valid, in a chain) fully inside the region, summed."""
+    q3, r3, l3 = (tab[k][:, :, None] for k in ("qbeg", "rbeg", "len"))
+    okc = tab["ok"][:, :, None] & (tab["cis"][:, :, None]
+                                   == regs["cchain"][:, None, :])
+    inside = (okc & (q3 >= regs["qb"][:, None]) & (q3 + l3 <= regs["qe"][:, None])
+              & (r3 >= regs["rb"][:, None]) & (r3 + l3 <= regs["re"][:, None]))
+    return torch.where(inside, l3, 0).sum(1, dtype=torch.int32)
+
+
+def extend_scan(tab: dict, st: dict, p: dict) -> dict:
+    """``extend_scan_plain``: the kernel on CUDA tensors, else the twin."""
+    fn = ecu.extend_scan_cuda if tab["order"].is_cuda else extend_scan_plain
+    return fn(tab, st, p)
+
+
+def extend_windows(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
+                   p: dict, group=None) -> dict:
+    """``extend_windows_plain``: the kernel on CUDA tensors with no
+    ``group``, else the twin (the owner sum of an index mesh's targets
+    is a collective no launch holds)."""
+    if tab["order"].is_cuda and group is None:
+        return ecu.extend_windows_cuda(tab, fm.seq_len, pac, scan, perm, p)
+    return extend_windows_plain(tab, fm, pac, scan, perm, p, group)
+
+
+def extend_merge(side: int, tab: dict, st: dict, scan: dict, win: dict,
+                 r1: dict, r2: dict, retry: torch.Tensor, p: dict,
+                 left: dict | None = None) -> dict:
+    """``extend_merge_plain``: the kernel on CUDA tensors, else the twin."""
+    fn = ecu.extend_merge_cuda if tab["order"].is_cuda else extend_merge_plain
+    return fn(side, tab, st, scan, win, r1, r2, retry, p, left)
+
+
+def extend_seedcov(tab: dict, regs: dict) -> torch.Tensor:
+    """``extend_seedcov_plain``: the kernel on CUDA tensors, else the twin."""
+    fn = (ecu.extend_seedcov_cuda if tab["order"].is_cuda
+          else extend_seedcov_plain)
+    return fn(tab, regs)
 
 
 def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
@@ -87,12 +361,12 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
     i32 = torch.int32
     rdt = seeds["rbeg"].dtype
     W = codes.shape[1]
-    max_qlen = W
-    # a window spans the read plus the band-bounded gap on both sides
-    max_tlen = W + 4 * bandwidth + 64
     seq_len, l_pac = fm.seq_len, fm.l_pac
     codes = codes.to(i32)
     lens = lens.to(i32)
+    p = dict(match_score=match_score, o_del=o_del, e_del=e_del, o_ins=o_ins,
+             e_ins=e_ins, bandwidth=bandwidth, pen_clip5=pen_clip5,
+             pen_clip3=pen_clip3)
     slen = seeds["len"]
 
     # ---- the global seed processing order ----
@@ -114,17 +388,14 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
            + (S - 1 - sidx))
     key = torch.where(usable, key, 0x7FFFFFF0)
     order = torch.argsort(key, dim=1, stable=True)
-    n_usable = usable.sum(1, dtype=i32)
 
     # ---- per-chain rmax windows ----
     qbeg, rbeg = seeds["qbeg"], seeds["rbeg"]
     qlen_rem = lens[:, None] - qbeg - slen
-    gap_l = cal_max_gap(qbeg, match_score, o_del, e_del, o_ins, e_ins, bandwidth)
-    gap_r = cal_max_gap(qlen_rem, match_score, o_del, e_del, o_ins, e_ins,
-                        bandwidth)
+    gap = _gap(p)
     big = torch.iinfo(rdt).max // 2
-    b_all = torch.where(in_chain, rbeg - (qbeg + gap_l), big)
-    e_all = torch.where(in_chain, rbeg + slen + qlen_rem + gap_r, 0)
+    b_all = torch.where(in_chain, rbeg - (qbeg + gap(qbeg)), big)
+    e_all = torch.where(in_chain, rbeg + slen + qlen_rem + gap(qlen_rem), 0)
     rmax0 = torch.full((B, C), big, dtype=rdt, device=dev).scatter_reduce(
         1, cis.long(), b_all.to(rdt), "amin")
     rmax1 = torch.zeros(B, C, dtype=rdt, device=dev).scatter_reduce(
@@ -145,60 +416,23 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
     rmax1 = torch.minimum(rmax1, torch.where(
         mid_rev, seq_len - roff, roff + rlen_ref))
 
+    tab = dict(order=order.to(i32), n_usable=usable.sum(1, dtype=i32),
+               qbeg=qbeg.to(i32), rbeg=rbeg, len=slen.to(i32),
+               cis=cis.to(i32), valid=seeds["valid"],
+               ok=seeds["valid"] & in_chain, lens=lens, codes=codes,
+               rmax0=rmax0, rmax1=rmax1,
+               crid=chains["rid"].to(i32))
+    tab = {k: v.contiguous() for k, v in tab.items()}
+
     # ---- extension rounds ----
     zr = lambda v=0, dt=i32: torch.full((B, R), v, dtype=dt, device=dev)
-    regs = dict(rb=zr(0, rdt), re=zr(0, rdt), qb=zr(), qe=zr(), score=zr(),
-                truesc=zr(), w=zr(), seedlen0=zr(), cchain=zr(-1),
-                rid=zr(-1))
-    n_regs = torch.zeros(B, dtype=i32, device=dev)
-    cursor = torch.zeros(B, dtype=i32, device=dev)
-    was_ext = torch.zeros(B, S, dtype=torch.bool, device=dev)
-    overflow = torch.zeros(B, dtype=torch.bool, device=dev)
-    wcols = torch.arange(max_qlen, device=dev)[None, :]
-    tcols = torch.arange(max_tlen, device=dev)[None, :]
-    rr = torch.arange(R, device=dev)[None, :]
-    gap = lambda x: cal_max_gap(x, match_score, o_del, e_del, o_ins, e_ins,
-                                bandwidth)
-
-    def scan_body(cursor, decided):
-        slot = pick_row(order, cursor.clamp(0, S - 1))
-        active = (cursor < n_usable) & ~decided
-        sq = pick_row(qbeg, slot)[:, None]
-        sr = pick_row(rbeg, slot)[:, None]
-        sl = pick_row(slen, slot)[:, None]
-        inside = ((rr < n_regs[:, None])
-                  & (sr >= regs["rb"]) & (sr + sl <= regs["re"])
-                  & (sq >= regs["qb"]) & (sq + sl <= regs["qe"])
-                  & ((sl - regs["seedlen0"]) <= (lens[:, None] // 10)))
-        qd = sq - regs["qb"]
-        rd = sr - regs["rb"]
-        wlim = torch.minimum(gap(torch.minimum(qd, rd)), regs["w"])
-        near1 = ((qd - rd) < wlim) & ((rd - qd) < wlim)
-        qd2 = regs["qe"] - (sq + sl)
-        rd2 = regs["re"] - (sr + sl)
-        wlim2 = torch.minimum(gap(torch.minimum(qd2, rd2)), regs["w"])
-        near2 = ((qd2 - rd2) < wlim2) & ((rd2 - qd2) < wlim2)
-        covered = (inside & (near1 | near2)).any(1)
-        # overlap rescue: an extended same-chain seed of similar length
-        # on a different diagonal
-        cand = was_ext & (cis == pick_row(cis, slot)[:, None]) & seeds["valid"]
-        c1 = ((sq <= qbeg) & ((sq + sl - qbeg) >= (sl >> 2))
-              & ((qbeg - sq) != (rbeg - sr)))
-        c2 = ((qbeg <= sq) & ((qbeg + slen - sq) >= (sl >> 2))
-              & ((sq - qbeg) != (sr - rbeg)))
-        simlen = slen >= (sl * 19 + 19) // 20
-        need = (cand & simlen & (c1 | c2)).any(1)
-        skip = active & covered & ~need
-        cursor = torch.where(skip, cursor + 1, cursor)
-        decided = decided | (active & ~skip) | (cursor >= n_usable)
-        return cursor, decided
-
-    def containment_scan(cursor):
-        decided = torch.zeros(B, dtype=torch.bool, device=dev)
-        while not bool(decided.all()):
-            for _ in range(SCAN_CHUNK):
-                cursor, decided = scan_body(cursor, decided)
-        return cursor, pick_row(order, cursor.clamp(0, S - 1)), cursor < n_usable
+    st = dict(regs=dict(rb=zr(0, rdt), re=zr(0, rdt), qb=zr(), qe=zr(),
+                        score=zr(), truesc=zr(), w=zr(), seedlen0=zr(),
+                        cchain=zr(-1), rid=zr(-1)),
+              n_regs=torch.zeros(B, dtype=i32, device=dev),
+              cursor=torch.zeros(B, dtype=i32, device=dev),
+              was_ext=torch.zeros(B, S, dtype=torch.bool, device=dev),
+              overflow=torch.zeros(B, dtype=torch.bool, device=dev))
 
     def sw_one(qbuf, qn, tbuf, tn, w, bonus, h0, max_w):
         if qbuf.is_cuda:
@@ -208,139 +442,36 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
                 o_ins=o_ins, e_ins=e_ins, end_bonus=bonus, zdrop=zdrop,
                 max_w=max_w)
         return sw_extend_batch(qbuf, qn, tbuf, tn, mat, o_del, e_del, o_ins,
-                               e_ins, w, bonus, zdrop, h0, max_qlen)
+                               e_ins, w, bonus, zdrop, h0, W)
 
-    def sw_with_retry(qbuf, qn, tbuf, tn, h0, bonus, active, prev_sc):
-        """One ksw_extend with bwa's band doubling: retry at twice the
-        band iff the score moved and the max offset filled the band."""
-        qn_a = torch.where(active, qn, 0).to(i32)
+    def sw_side(win, k, h0, bonus, prev):
+        """Side ``k``'s ksw_extend on the sorted lanes, with bwa's band
+        doubling: retry at twice the band iff the score moved and the max
+        offset filled the band. Returns (r1, r2, retry), r2 = r1 when no
+        lane retried."""
+        qbuf, tbuf, qn, tn = (win[f][k] for f in ("qbuf", "tbuf", "qn", "tn"))
         w1 = torch.full((B,), bandwidth, dtype=i32, device=dev)
-        perm = None
-        if qbuf.is_cuda:
-            # rows until the band empties ~ min(tlen, qlen + band); idle
-            # lanes last
-            work = torch.where(qn_a > 0, torch.minimum(tn, qn_a + bandwidth),
-                               -1)
-            perm = torch.argsort(-work, stable=True)
-            qbuf, qn_a, tbuf, tn, h0, prev_sc, active = (
-                x[perm].contiguous() for x in
-                (qbuf, qn_a, tbuf, tn, h0, prev_sc, active))
-        r1 = sw_one(qbuf, qn_a, tbuf, tn, w1, bonus, h0, bandwidth)
-        retry = (active & (r1["score"] != prev_sc)
-                 & (r1["max_off"] >= ((w1 >> 1) + (w1 >> 2))))
-        out = r1
-        aw = w1
-        if bool(retry.any()):
-            w2 = w1 * 2
-            r2 = sw_one(qbuf, torch.where(retry, qn_a, 0).to(i32), tbuf, tn,
-                        w2, bonus, h0, 2 * bandwidth)
-            out = {k: torch.where(retry, r2[k], r1[k]) for k in r1}
-            aw = torch.where(retry, w2, w1)
-        if perm is not None:
-            inv = torch.argsort(perm)
-            out = {k: v[inv] for k, v in out.items()}
-            aw = aw[inv]
-        return out, aw
-
-    def targets(pos_l, pos_r, act):
-        """The left and right windows' target codes (under a group, of
-        the active lanes only: the others' are never read)."""
-        if group is None:
-            return (window_doubled(pac_rows, seq_len, pos_l),
-                    window_doubled(pac_rows, seq_len, pos_r))
-        sel = torch.nonzero(act)[:, 0]
-        both = fetch_doubled(pac_rows, l_pac, seq_len,
-                             torch.cat([pos_l[sel], pos_r[sel]]), group)
-        out = torch.full((2, B, max_tlen), 4, dtype=torch.int32, device=dev)
-        out[:, sel] = both.reshape(2, -1, max_tlen)
-        return out[0], out[1]
-
-    def extend_round(regs, n_regs, cursor, was_ext, act, slot):
-        sq = pick_row(qbeg, slot)
-        sr = pick_row(rbeg, slot)
-        sl = pick_row(slen, slot)
-        c = pick_row(cis, slot)
-        r0 = pick_row(rmax0, c)
-        r1_ = pick_row(rmax1, c)
-
-        # ---- left extension: reversed query prefix vs reversed target ----
-        lq = sq
-        lt = sr - r0
-        qidx = (sq[:, None] - 1 - wcols)
-        qbuf_l = torch.gather(codes, 1, qidx.clamp(0, W - 1))
-        qbuf_l = torch.where(wcols < lq[:, None], qbuf_l, 4).to(i32)
-        traw_l, traw_r = targets(sr[:, None] - 1 - tcols,
-                                 (sr + sl)[:, None] + tcols, act)
-        tbuf_l = torch.where(tcols < lt[:, None], traw_l, 4).to(i32)
-        has_l = act & (lq > 0)
-        resL, awL = sw_with_retry(
-            qbuf_l, lq, tbuf_l, torch.where(has_l, lt, 0).to(i32),
-            (sl * match_score).to(i32), pen_clip5, has_l,
-            torch.full((B,), -1, dtype=i32, device=dev))
-        local_l = ((resL["gscore"] <= 0)
-                   | (resL["gscore"] <= resL["score"] - pen_clip5))
-        qb = torch.where(has_l & local_l, sq - resL["qle"], 0)
-        rb = torch.where(has_l, torch.where(local_l, sr - resL["tle"],
-                                            sr - resL["gtle"]), sr)
-        score_l = torch.where(has_l, resL["score"], sl * match_score)
-        truesc_l = torch.where(
-            has_l, torch.where(local_l, resL["score"], resL["gscore"]),
-            sl * match_score)
-
-        # ---- right extension ----
-        qe0 = sq + sl
-        rq = lens - qe0
-        re0 = sr + sl
-        rt = r1_ - re0
-        qidx = qe0[:, None] + wcols
-        qbuf_r = torch.where(qidx < W, torch.gather(
-            codes, 1, qidx.clamp(0, W - 1)), 4)
-        qbuf_r = torch.where(wcols < rq[:, None], qbuf_r, 4).to(i32)
-        tbuf_r = torch.where(tcols < rt[:, None], traw_r, 4).to(i32)
-        has_r = act & (rq > 0)
-        resR, awR = sw_with_retry(
-            qbuf_r, rq, tbuf_r, torch.where(has_r, rt, 0).to(i32),
-            score_l.to(i32), pen_clip3, has_r, score_l.to(i32))
-        local_r = ((resR["gscore"] <= 0)
-                   | (resR["gscore"] <= resR["score"] - pen_clip3))
-        qe = torch.where(has_r, torch.where(local_r, qe0 + resR["qle"], lens),
-                         qe0)
-        re = torch.where(has_r, torch.where(local_r, re0 + resR["tle"],
-                                            re0 + resR["gtle"]), re0)
-        score = torch.where(has_r, resR["score"], score_l)
-        truesc = truesc_l + torch.where(
-            has_r, torch.where(local_r, resR["score"], resR["gscore"])
-            - score_l, 0)
-        aw = torch.maximum(torch.where(has_l, awL, bandwidth),
-                           torch.where(has_r, awR, bandwidth))
-
-        slot_r = n_regs.clamp(max=R - 1)
-        regs = dict(regs)
-        for name, v in (("rb", rb), ("re", re), ("qb", qb), ("qe", qe),
-                        ("score", score), ("truesc", truesc), ("w", aw),
-                        ("seedlen0", sl), ("cchain", c),
-                        ("rid", pick_row(chains["rid"], c))):
-            regs[name] = put_row(regs[name], slot_r, v, act)
-        n_regs = n_regs + act.to(i32)
-        was_ext = was_ext | ((sidx == slot[:, None]) & act[:, None])
-        cursor = torch.where(act, cursor + 1, cursor)
-        return regs, n_regs, cursor, was_ext
+        r1 = sw_one(qbuf, qn, tbuf, tn, w1, bonus, h0, bandwidth)
+        retry = (win["active"][k] & (r1["score"] != prev)
+                 & (r1["max_off"] >= (bandwidth >> 1) + (bandwidth >> 2)))
+        if not bool(retry.any()):
+            return r1, r1, retry
+        r2 = sw_one(qbuf, torch.where(retry, qn, 0).to(i32), tbuf, tn,
+                    w1 * 2, bonus, h0, 2 * bandwidth)
+        return r1, r2, retry
 
     for _ in range(max_rounds):
-        cursor, slot, todo = containment_scan(cursor)
-        ovf_now = todo & (n_regs >= R)
-        overflow = overflow | ovf_now
-        act = todo & ~ovf_now
-        if bool(act.any()):
-            regs, n_regs, cursor, was_ext = extend_round(
-                regs, n_regs, cursor, was_ext, act, slot)
-    overflow = overflow | (cursor < n_usable)
-
-    # seedcov per region: seeds of the region's chain fully inside it
-    okc = ((seeds["valid"] & in_chain)[:, :, None]
-           & (cis[:, :, None] == regs["cchain"][:, None, :]))
-    q3, r3, l3 = qbeg[:, :, None], rbeg[:, :, None], slen[:, :, None]
-    inside = (okc & (q3 >= regs["qb"][:, None]) & (q3 + l3 <= regs["qe"][:, None])
-              & (r3 >= regs["rb"][:, None]) & (r3 + l3 <= regs["re"][:, None]))
-    regs["seedcov"] = torch.where(inside, l3, 0).sum(1, dtype=i32)
-    return dict(regs=regs, n_regs=n_regs, overflow=overflow)
+        scan = extend_scan(tab, st, p)
+        st.update(cursor=scan["cursor"], overflow=scan["overflow"])
+        if not bool(scan["act"].any()):
+            continue
+        perm = torch.argsort(-scan["work"], dim=1, stable=True)
+        win = extend_windows(tab, fm, pac_rows, scan, perm, p, group)
+        left = extend_merge(0, tab, st, scan, win,
+                            *sw_side(win, 0, win["h0"], pen_clip5, -1), p)
+        st.update(extend_merge(
+            1, tab, st, scan, win,
+            *sw_side(win, 1, left["h0"], pen_clip3, left["h0"]), p, left))
+    regs = dict(st["regs"], seedcov=extend_seedcov(tab, st["regs"]))
+    return dict(regs=regs, n_regs=st["n_regs"],
+                overflow=st["overflow"] | (st["cursor"] < tab["n_usable"]))

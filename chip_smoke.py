@@ -6,10 +6,12 @@
    -> exits non-zero before any result;
 2. builds the hand-written CUDA kernels from ``bioseqdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once): ``sw_extend``, ``fm_seed``,
-   ``chain_seeds`` and ``filter_chains`` (``chain.cu``) and the probes.
-   Every phase that runs the full pipeline on one device (main path, PE,
-   FM-seeded, long reads, int64, API, the CLI's full-mode ``align``
-   commands) must launch all four step kernels in its counted window;
+   ``chain_seeds`` and ``filter_chains`` (``chain.cu``), ``extend_scan``,
+   ``extend_windows``, ``extend_merge`` and ``extend_seedcov``
+   (``extend.cu``) and the probes. Every phase that runs the full
+   pipeline on one device (main path, PE, FM-seeded, long reads, int64,
+   API, the CLI's full-mode ``align`` commands) must launch all eight
+   step kernels in its counted window;
 3. SW kernel phase: ``sw_extend`` against its plain PyTorch version on
    the card, bit-equal on every case set of ``tools/sw_sets.py``: small
    ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
@@ -40,7 +42,8 @@
    batch, and of the FM-seeded and long-read ones, are recorded
    (``tools/fm_machine.py``) for phase 7b; the chaining calls of this
    warm-up batch, and of the PE, FM-seeded, long-read and int64 ones
-   (``tools/chain_calls.py``), for phase 9b;
+   (``tools/chain_calls.py``), for phase 9b, and their ``extend_all``
+   calls (``tools/extend_calls.py``) for phase 9c;
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -115,6 +118,25 @@
    assigned seed slots, the live chains' pos; each output written once;
    the instructions of the valid seeds, the live chains they scan and the
    chain pairs the filter compares) and the share;
+9c. extend phase: ``extend_scan``, ``extend_windows``, ``extend_merge``
+   (both entries) and ``extend_seedcov`` against their plain twins
+   (``extend.extend_*_plain``) on the card, bit-equal on every output at
+   every stage call of the recorded ``extend_all`` calls (the main
+   path's: B 16,384, S 64, R 8; the PE step's and its fat retry's, the
+   FM-seeded one's, the long-read warm-up's: 1,024 reads, W 1,504, S 189;
+   the int64 one's), of ``extend_calls.edge_calls`` (covered seeds with
+   and without the overlap rescue, band doubling at bandwidth 8, overflow
+   at max_regs 1, windows at the strand boundary and reference ends, the
+   edge batch's fat retry; int32 and int64, int64 also shifted past
+   2^31) and of its random stage inputs (seeds 5-7, both dtypes); each
+   ``extend_all`` call with the kernels equal to it with the plain
+   twins. For each recorded call, each kernel's launches summed: time
+   (each a launch in a CUDA graph), plain twins' time, bound (the bytes
+   of the seed slots the stage reads, the region table, the window codes
+   and the outputs; the instructions of its trips) and share. For the
+   main path's call: the host's waits on the card with the kernels and
+   with the plain twins, and its clocked split (scan, windows, SW, merge,
+   seedcov, the rest) both ways, in turns;
 10. API phase: ``multi_search`` of the first 256 reads of the main path's
    timed batch against the main path's ``Aligner``, counts zeroed just
    before and read just after (``sw_extend`` must have run); the
@@ -146,8 +168,10 @@
    (index) on every read that overflowed in neither run (the others are
    counted), exact mode's the exact phase's; truth >= 98% and
    ``device_ne_oracle`` 0; every rank must launch ``sw_extend``,
-   ``chain_seeds`` and ``filter_chains`` in both runs, ``fm_seed`` too on
-   the data mesh and never on an index mesh (its machine stays plain)
+   ``chain_seeds``, ``filter_chains``, ``extend_scan``, ``extend_merge``
+   and ``extend_seedcov`` in both runs, ``fm_seed`` and
+   ``extend_windows`` too on the data mesh and never on an index mesh
+   (the FM machine and the windows stay plain there)
    (counts zeroed just before each job and read just after, in each
    rank; the unclocked runs' go on the kernels line);
 13. probe path: counts zeroed, the two probe entry points
@@ -163,7 +187,9 @@
    int64 phase's two, the API phase, the CLI's commands and the dist
    phase's unclocked runs in every rank; ``fm_seed``'s times and bound
    are the FM-seeded batch's, ``chain_seeds``' and ``filter_chains``'
-   the main path's), then the device line as the last line.
+   the main path's, the extension kernels' the main path's call with
+   each kernel's launches summed), then the device line as the last
+   line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``chain_seeds``,
@@ -209,9 +235,10 @@ from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
                                          emit_sam_pair_columns)
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
-from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, fm_machine,
-                                      long_leg, microbench_gather,
-                                      microbench_seed, pe_leg)
+from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
+                                      fm_machine, long_leg,
+                                      microbench_gather, microbench_seed,
+                                      pe_leg)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
@@ -259,6 +286,12 @@ QUAL = "I"   # the base quality written to every FASTQ record
 CHAIN_KERNELS = ("chain_seeds", "filter_chains")
 CHAIN_INSTR = dict(trips=24, scans=5, invalid=2)
 FILTER_INSTR = dict(trips=20, pairs=12, slots=10)
+# the extension kernels: the JAX extend_all lines each replaces (the
+# containment scan's chunked_while, the round's window fetch, its region
+# append, seedcov's fori_loop)
+EXTEND_LINES = dict(extend_scan=341, extend_windows=462, extend_merge=520,
+                    extend_seedcov=567)
+RANDOM_SEEDS = (5, 6, 7)   # extend_calls.random_calls' inputs
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
                 add_one="tools/microbench_pallas_gather.py:110")
@@ -550,6 +583,127 @@ def chain_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
     return out
 
 
+def extend_bound(stage: "extend_calls.StageCall", out
+                 ) -> tuple[float, float, dict]:
+    """An extension kernel's bound on ``stage``'s inputs, from its outputs
+    ``out`` (``StageCall.counts``: each input the function needs read
+    once, each output written once, the instructions of its trips):
+    (the bytes' ms, the instructions' ms, the counts)."""
+    n = stage.counts(out)
+    return ((n["read"] + n["written"]) / HBM_BYTES_PER_S * 1e3,
+            n["instr"] / ISSUE_PER_S * 1e3, n)
+
+
+def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
+                 ) -> dict:
+    """``extend_scan``, ``extend_windows``, ``extend_merge`` and
+    ``extend_seedcov`` against their plain twins on the card, bit-equal on
+    every output, at every stage call of the ``extend_all`` calls the
+    pipeline made (recorded in the warm-up batches: the main path's, the
+    PE step's, the FM-seeded one's, the long-read one's, the int64 one's
+    and any fat retry of them), of ``extend_calls.edge_calls`` (int32 and
+    int64, with the edge batch's fat retry; int64 also past 2^31) and of
+    its random stage inputs; each ``extend_all`` call with the kernels
+    equal to it with the plain twins. For the recorded calls, each
+    kernel's launches summed over the call: the time (each a launch in a
+    CUDA graph), the plain twins', the bound and the share. For the main
+    path's call: the host's waits on the card and a clocked run's split
+    (scan, windows, SW, merge, seedcov), with the kernels and with the
+    plain twins (the eager loops the port ran before). Returns the
+    kernels line's entries (the main path's call)."""
+    recorded = {}
+    for path, d in (("main path", m), ("PE", pe), ("FM-seeded", fmp),
+                    ("long-read", lr), ("int64", i64)):
+        for k, call in enumerate(d["ext_calls"]):
+            recorded[path if k == 0 else f"{path} fat retry {k}"] = call
+    want = {"main path": (BATCH, 64, 8, torch.int32),
+            "long-read": (long_leg.WARM_READS, 189, 8, torch.int32),
+            "int64": (BATCH, 64, 8, torch.int64)}
+    for path, (B, S, R, rdt) in want.items():
+        c = recorded[path]
+        if c.dims != (B, S, R) or c.args["seeds"]["rbeg"].dtype != rdt:
+            raise AssertionError(f"the recorded {path} extend_all call is "
+                                 f"not the pipeline's: {c.shape}")
+    main = recorded["main path"]
+    waits = {way: main.syncs(plain=way == "plain") for way in ("kernels",
+                                                               "plain")}
+    log(f"extend_all [main path] {main.shape}: the host waits on the card "
+        f"{waits['kernels']} times with the kernels, {waits['plain']} with "
+        f"the plain twins (the eager loops)")
+    for way in ("plain", "kernels", "kernels", "plain"):
+        sp = main.clocked(plain=way == "plain")
+        log(f"extend_all [main path] clocked with the {way}: total "
+            f"{sp['total']:.4f} s = " + ", ".join(
+                f"{k} {sp[k]:.4f}" for k in (*extend_calls.PARTS, "rest")))
+    inputs = list(recorded.items())
+    for rdt in (torch.int32, torch.int64):
+        edge, _ = extend_calls.edge_calls(rdt, device=dev, retry=True)
+        dt = str(rdt).removeprefix("torch.")
+        inputs += [(f"edge {dt} {name}", call) for name, call in edge]
+    rows = {k: {} for k in build.EXTEND_KERNELS}
+    for name, call in inputs:
+        timed = name in recorded
+        out, stages = call.stages()
+        err = extend_calls.max_abs_err(out, call.run(plain=True))
+        if err != 0:
+            raise AssertionError(f"extend_all with the kernels disagrees "
+                                 f"with the plain twins on {name}")
+        if name.startswith("edge int64"):
+            stages += [st.shifted() for st in stages
+                       if st.kind != "extend_windows"]
+        sums = {}
+        for st in stages:
+            got = st.run()
+            torch.cuda.synchronize()
+            plain_ms, ref = (st.plain_ms() if timed
+                             else (0.0, st.run(plain=True)))
+            e = extend_calls.max_abs_err(got, ref)
+            if e != 0:
+                raise AssertionError(f"{st.name} disagrees with plain on "
+                                     f"{name}: {e}")
+            if not timed:
+                continue
+            t_bytes, t_ops, n = extend_bound(st, got)
+            r = sums.setdefault(st.kind, dict(
+                launches=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+                t_ops=0.0, shape=f"{name}: {st.shape}"))
+            r["launches"] += 1
+            r["ms"] += st.kernel_ms()
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += max(t_bytes, t_ops)
+            r["t_bytes"] += t_bytes
+            r["t_ops"] += t_ops
+        log(f"extend_all [{name}] {call.shape}: kernels equal to the plain "
+            f"twins at {len(stages)} stage calls, and end to end")
+        for kind, r in sums.items():
+            by = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
+            log(f"  {kind} [{name}]: {r['launches']} launches, cuda "
+                f"{r['ms']:.4f} ms together (each a launch in a CUDA graph); "
+                f"plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.5f} ms "
+                f"({by}), kernels at {100 * r['bound_ms'] / r['ms']:.2f}% of "
+                f"it; max_abs_err=0")
+            rows[kind][name] = dict(
+                max_abs_err=0, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=by, library_ms=None,
+                shape=f"{r['shape']}, {r['launches']} launches summed")
+    for rdt in (torch.int32, torch.int64):
+        n = 0
+        for seed in RANDOM_SEEDS:
+            calls = extend_calls.random_calls(rdt, seed=seed, device=dev)
+            if rdt == torch.int64:
+                calls += [c.shifted() for c in calls
+                          if c.kind != "extend_windows"]
+            for st in calls:
+                if extend_calls.max_abs_err(st.run(), st.run(plain=True)):
+                    raise AssertionError(f"{st.name} disagrees with plain on "
+                                         f"random inputs (seed {seed})")
+                n += 1
+        log(f"extend kernels on random stage inputs "
+            f"({str(rdt).removeprefix('torch.')}, seeds {RANDOM_SEEDS}): "
+            f"{n} calls, max_abs_err=0")
+    return {k: r["main path"] for k, r in rows.items()}
+
+
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
     idx, al, sims, batches, genome = main_path_setup(dev)
@@ -557,10 +711,11 @@ def main_path(dev, card: str) -> dict:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    calls, fm_calls, ch_calls = [], [], []
+    calls, fm_calls, ch_calls, ext_calls = [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), fm_machine.recording(fm_calls),
-          chain_calls.recording(ch_calls)):
+          chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls)):
         long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
@@ -587,7 +742,7 @@ def main_path(dev, card: str) -> dict:
     log(f"main path device step (the timed batch again, clocked): "
         f"{stage_line(clock)}")
     return dict(launches=launches, rps=rps, calls=calls, fm_calls=fm_calls,
-                ch_calls=ch_calls,
+                ch_calls=ch_calls, ext_calls=ext_calls,
                 idx=idx, al=al, genome=genome, sims=sims, batches=batches,
                 cols=res["cols"], ovf=res["ovf"], sam=sam)
 
@@ -646,8 +801,9 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     log(f"FM-seeded Aligner.build (jump depth {al.jump.depth}): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    fm_calls, ch_calls = [], []
-    with fm_machine.recording(fm_calls), chain_calls.recording(ch_calls):
+    fm_calls, ch_calls, ext_calls = [], [], []
+    with (fm_machine.recording(fm_calls), chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls)):
         long_leg.run_batch(al, m["batches"][0])
     log(f"FM-seeded warm-up batch: {time.time() - t0:.1f} s")
     build.reset_launches()
@@ -666,7 +822,7 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
     return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
-                fm_calls=fm_calls, ch_calls=ch_calls,
+                fm_calls=fm_calls, ch_calls=ch_calls, ext_calls=ext_calls,
                 sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
@@ -679,10 +835,11 @@ def long_path(m: dict, card: str) -> dict:
                     (long_leg.TIMED_READS, long_leg.TIMED_SEED)))
     log(f"long reads simulated: {time.time() - t0:.1f} s")
     t0 = time.time()
-    calls, fm_calls, ch_calls = [], [], []
+    calls, fm_calls, ch_calls, ext_calls = [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), fm_machine.recording(fm_calls),
-          chain_calls.recording(ch_calls)):
+          chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls)):
         long_leg.run_batch(al, warm[1])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
@@ -716,7 +873,8 @@ def long_path(m: dict, card: str) -> dict:
     truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
     main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
                        "long-read")
-    return dict(launches=launches, fm_calls=fm_calls, ch_calls=ch_calls)
+    return dict(launches=launches, fm_calls=fm_calls, ch_calls=ch_calls,
+                ext_calls=ext_calls)
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -728,9 +886,10 @@ def pe_path(m: dict, card: str) -> dict:
     log(f"two batches of {pe_leg.PAIRS} pairs simulated: "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    calls, ch_calls = [], []
+    calls, ch_calls, ext_calls = [], [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls), chain_calls.recording(ch_calls):
+    with (recording(calls), chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls)):
         pe_leg.run_batch(al, warm)
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"PE warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -763,7 +922,8 @@ def pe_path(m: dict, card: str) -> dict:
         raise AssertionError("PE path disagrees with the host")
     sam = pe_sam(idx, res["cols"], timed)
     main_path_launches(calls, "PE")
-    return dict(launches=launches, timed=timed, sam=sam, ch_calls=ch_calls)
+    return dict(launches=launches, timed=timed, sam=sam, ch_calls=ch_calls,
+                ext_calls=ext_calls)
 
 
 def pe_sam(idx, cols, pb) -> str:
@@ -880,9 +1040,10 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     log(f"int64 FMDevice + jump table (depth {jump.depth}): "
         f"{time.time() - t0:.2f} s")
     t0 = time.time()
-    calls, ch_calls = [], []
+    calls, ch_calls, ext_calls = [], [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with recording(calls), chain_calls.recording(ch_calls):
+    with (recording(calls), chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls)):
         long_leg.run_batch(als["kmer"], m["batches"][0])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"int64 warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -930,7 +1091,7 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     if not same:
         raise AssertionError("int64 exact mode differs from int32")
     main_path_launches(calls, "int64")
-    return dict(launches=total, ch_calls=ch_calls)
+    return dict(launches=total, ch_calls=ch_calls, ext_calls=ext_calls)
 
 
 def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
@@ -1123,10 +1284,11 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
     also the ranks' warm-up), then unclocked (reads/s, the records);
     returns the step kernels' launches of the unclocked runs, every rank
     summed (each rank's counts zeroed just before a job and read just
-    after). Every rank launches ``sw_extend``, ``chain_seeds`` and
-    ``filter_chains`` in both runs; ``fm_seed`` too on a data mesh (the
-    unsharded reseed), and never on an index mesh (its machine's owner
-    sums keep it plain)."""
+    after). Every rank launches ``sw_extend``, ``chain_seeds``,
+    ``filter_chains``, ``extend_scan``, ``extend_merge`` and
+    ``extend_seedcov`` in both runs; ``fm_seed`` and ``extend_windows``
+    too on a data mesh, and never on an index mesh (their owner sums keep
+    the FM machine and the windows plain)."""
     idx, batch = m["idx"], m["batches"][1]
     grid = dist_leg.head(batch, grid_reads)
     runs = lambda b: [dict(kind="regions", batch=b, clock=True),
@@ -1150,10 +1312,13 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         for k, job in enumerate(jobs[:2]):
             per_rank = {n: [r["tasks"][0]["jobs"][k][n] for r in res]
                         for n in launches}
-            fm_ok = (min(per_rank["fm_seed"]) > 0 if names == ("data",)
-                     else max(per_rank["fm_seed"]) == 0)
-            if not fm_ok or min(min(per_rank[n]) for n in
-                                ("sw_extend", *CHAIN_KERNELS)) <= 0:
+            # the FM machine and the windows stay plain on an index mesh
+            # (each owner sum is a collective no launch holds)
+            mesh_plain = ("fm_seed", "extend_windows")
+            plain_ok = all(min(per_rank[n]) > 0 if names == ("data",)
+                           else max(per_rank[n]) == 0 for n in mesh_plain)
+            if not plain_ok or min(min(per_rank[n]) for n in launches
+                                   if n not in mesh_plain) <= 0:
                 raise AssertionError(f"{what}: launches by rank in job {k}: "
                                      f"{per_rank}")
             if job.get("timed"):
@@ -1307,6 +1472,9 @@ def main() -> None:
     chs = chain_phase(m, pe, fm, lr, i64, dev)
     log(f"chain phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    ext = extend_phase(m, pe, fm, lr, i64, dev)
+    log(f"extend phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     api = api_path(m, card)
     log(f"API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1330,6 +1498,11 @@ def main() -> None:
                      replaces=f"bioseqdb_tpu/kernels/chain.py:{line}",
                      launches=sum(x[name] for x in runs), **chs[name])
                 for name, line in zip(CHAIN_KERNELS, (287, 351))]
+    kernels += [dict(name=name, route="cuda",
+                     source="bioseqdb_tpu_torch/csrc/extend.cu",
+                     replaces=f"bioseqdb_tpu/kernels/extend.py:{line}",
+                     launches=sum(x[name] for x in runs), **ext[name])
+                for name, line in EXTEND_LINES.items()]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
 """Seed extension: the port's ``extend_all`` region tables equal the JAX
 ``extend_all`` exactly, from the same seeds, chains and chain filter.
+On the CPU the port runs its stages' plain twins (``extend_scan_plain``,
+``extend_windows_plain``, ``extend_merge_plain``,
+``extend_seedcov_plain``; the CUDA kernels of ``csrc/extend.cu`` are
+held to them in ``tests/test_torch_extend_machine.py``).
 
 Reads carry substitutions, indels and clips, repeats and chimeras; a
-narrow band forces bwa's band-doubling retries and a small region cap
-forces overflow."""
+narrow band forces bwa's band-doubling retries, a small region cap
+forces overflow, and the fat retry's 16 regions a read run too."""
 
 import numpy as np
 import pytest
@@ -63,7 +67,8 @@ def setup():
     return idx, al, t_codes, t_lens, seeds, chains, flt
 
 
-@pytest.mark.parametrize("bandwidth,max_regs", [(100, 8), (8, 8), (100, 1)])
+@pytest.mark.parametrize("bandwidth,max_regs",
+                         [(100, 8), (8, 8), (100, 1), (100, 16), (8, 2)])
 def test_extend_all_equal(setup, bandwidth, max_regs):
     idx, al, codes, lens, seeds, chains, flt = setup
     opt = AlignOptions(bandwidth=bandwidth)
