@@ -49,14 +49,7 @@
 //   the same bodies over every read, so the lane logic can be held
 //   against the plain versions on a machine without a card.
 
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define CHAIN_HD __host__ __device__
-#else
-#define CHAIN_HD
-#endif
+#include "lanes.cuh"
 
 namespace {
 
@@ -102,38 +95,34 @@ struct FilterParams {
   long long min_chain_weight, min_seed_len, max_chain_gap, B, S, C;
 };
 
-template <typename T>
-CHAIN_HD inline T max_(T a, T b) { return a > b ? a : b; }
-template <typename T>
-CHAIN_HD inline T min_(T a, T b) { return a < b ? a : b; }
 
 // int32 arithmetic that wraps, as torch's and XLA's int32 tensors do
-CHAIN_HD inline int32_t wrap32(long long v) {
+LANE_HD inline int32_t wrap32(long long v) {
   return static_cast<int32_t>(static_cast<uint32_t>(v));
 }
 
 // sums and differences in the operands' type (int32 or the rank type) that
 // wrap as the tensors' do: signed overflow is undefined in C++, so every
 // sum the plain versions make goes through these
-CHAIN_HD inline int32_t add_(int32_t a, int32_t b) {
+LANE_HD inline int32_t add_(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
 }
-CHAIN_HD inline int32_t sub_(int32_t a, int32_t b) {
+LANE_HD inline int32_t sub_(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) -
                               static_cast<uint32_t>(b));
 }
-CHAIN_HD inline long long add_(long long a, long long b) {
+LANE_HD inline long long add_(long long a, long long b) {
   return static_cast<long long>(static_cast<unsigned long long>(a) +
                                 static_cast<unsigned long long>(b));
 }
-CHAIN_HD inline long long sub_(long long a, long long b) {
+LANE_HD inline long long sub_(long long a, long long b) {
   return static_cast<long long>(static_cast<unsigned long long>(a) -
                                 static_cast<unsigned long long>(b));
 }
 
 // a float32 product rounded once (no contraction into a later op)
-CHAIN_HD inline float mul_f32(float a, float b) {
+LANE_HD inline float mul_f32(float a, float b) {
 #ifdef __CUDA_ARCH__
   return __fmul_rn(a, b);
 #else
@@ -143,7 +132,7 @@ CHAIN_HD inline float mul_f32(float a, float b) {
 
 // mem_chain's insertion loop for read b (chain_seeds_plain, one lane)
 template <typename R>
-CHAIN_HD void chain_seeds_lane(const ChainParams& p, long long b) {
+LANE_HD void chain_seeds_lane(const ChainParams& p, long long b) {
   R pos[kMaxChains], f_rbeg[kMaxChains], l_rbeg[kMaxChains];
   int32_t rid[kMaxChains], f_qbeg[kMaxChains], l_qbeg[kMaxChains],
       l_len[kMaxChains];
@@ -241,7 +230,7 @@ CHAIN_HD void chain_seeds_lane(const ChainParams& p, long long b) {
 
 // mem_chain_flt for read b (filter_chains_plain, one lane)
 template <typename R>
-CHAIN_HD void filter_chains_lane(const FilterParams& p, long long b) {
+LANE_HD void filter_chains_lane(const FilterParams& p, long long b) {
   int32_t wq[kMaxChains], endq[kMaxChains], wr[kMaxChains], beg[kMaxChains],
       end[kMaxChains], weight[kMaxChains], kept[kMaxChains],
       first[kMaxChains], rank_of[kMaxChains], order[kMaxChains],
@@ -393,24 +382,17 @@ bool refused(long long rank_bytes, long long B, long long C) {
 
 }  // namespace
 
-#ifdef __CUDACC__
-#define CHAIN_ENTRY(name) name##_launch
-#define CHAIN_STREAM , cudaStream_t stream
-#else
-#define CHAIN_ENTRY(name) name##_host
-#define CHAIN_STREAM
-#endif
 
 // chain_seeds_launch (nvcc; on `stream`) or chain_seeds_host (a host
 // compiler; every read in turn): 0, or a CUDA error code (kRefused for a
 // refused shape)
-extern "C" int CHAIN_ENTRY(chain_seeds)(
+extern "C" int LANE_ENTRY(chain_seeds)(
     long long rank_bytes, const void* rbeg, const int32_t* qbeg,
     const int32_t* len, const int32_t* rid, const uint8_t* valid, void* pos,
     int32_t* crid, int32_t* f_qbeg, void* f_rbeg, int32_t* l_qbeg,
     void* l_rbeg, int32_t* l_len, int32_t* n, int32_t* assign,
     uint8_t* overflow, long long l_pac, long long B, long long S,
-    long long C, long long bandwidth, long long max_chain_gap CHAIN_STREAM) {
+    long long C, long long bandwidth, long long max_chain_gap LANE_STREAM) {
   if (refused(rank_bytes, B, C)) return kRefused;
   const ChainParams p{rbeg,   qbeg,     len,   rid,    valid,  pos,
                       crid,   f_qbeg,   f_rbeg, l_qbeg, l_rbeg, l_len,
@@ -435,14 +417,14 @@ extern "C" int CHAIN_ENTRY(chain_seeds)(
 }
 
 // filter_chains_launch / filter_chains_host, as above
-extern "C" int CHAIN_ENTRY(filter_chains)(
+extern "C" int LANE_ENTRY(filter_chains)(
     long long rank_bytes, const int32_t* assign, const int32_t* n,
     const void* pos, const void* rbeg, const int32_t* qbeg,
     const int32_t* len, int32_t* weight, int32_t* kept, int32_t* order,
     int32_t* beg, int32_t* end, double mask_level, double chain_drop_ratio,
     long long min_chain_weight, long long min_seed_len,
     long long max_chain_gap, long long B, long long S,
-    long long C CHAIN_STREAM) {
+    long long C LANE_STREAM) {
   if (refused(rank_bytes, B, C)) return kRefused;
   const FilterParams p{assign, n, pos, rbeg, qbeg, len, weight, kept, order,
                        beg, end, static_cast<float>(mask_level),

@@ -56,14 +56,7 @@
 //   (pointers, then sizes and options, in the order kernels/extend_cuda.py
 //   documents) and refuses a count that differs.
 
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define EXT_HD __host__ __device__
-#else
-#define EXT_HD
-#endif
+#include "lanes.cuh"
 
 namespace {
 
@@ -74,70 +67,66 @@ constexpr int kNoCode = 4;      // the code past a buffer's length
 constexpr int kRefused = 1;     // cudaErrorInvalidValue
 constexpr int kFields = 6;      // an SW result (sw.FIELDS), max_off last
 
-template <typename T>
-EXT_HD inline T max_(T a, T b) { return a > b ? a : b; }
-template <typename T>
-EXT_HD inline T min_(T a, T b) { return a < b ? a : b; }
 
 // sums, differences and products that wrap in the operands' type, as
 // torch's int32 and int64 tensors do (signed overflow is undefined in C++)
-EXT_HD inline int32_t wrap32(long long v) {
+LANE_HD inline int32_t wrap32(long long v) {
   return static_cast<int32_t>(static_cast<uint32_t>(v));
 }
-EXT_HD inline int32_t add_(int32_t a, int32_t b) {
+LANE_HD inline int32_t add_(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
 }
-EXT_HD inline int32_t sub_(int32_t a, int32_t b) {
+LANE_HD inline int32_t sub_(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) -
                               static_cast<uint32_t>(b));
 }
-EXT_HD inline int32_t mul_(int32_t a, int32_t b) {
+LANE_HD inline int32_t mul_(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) *
                               static_cast<uint32_t>(b));
 }
-EXT_HD inline long long add_(long long a, long long b) {
+LANE_HD inline long long add_(long long a, long long b) {
   return static_cast<long long>(static_cast<unsigned long long>(a) +
                                 static_cast<unsigned long long>(b));
 }
-EXT_HD inline long long sub_(long long a, long long b) {
+LANE_HD inline long long sub_(long long a, long long b) {
   return static_cast<long long>(static_cast<unsigned long long>(a) -
                                 static_cast<unsigned long long>(b));
 }
-EXT_HD inline long long mul_(long long a, long long b) {
+LANE_HD inline long long mul_(long long a, long long b) {
   return static_cast<long long>(static_cast<unsigned long long>(a) *
                                 static_cast<unsigned long long>(b));
 }
 
 // torch's // on int32: the quotient rounded toward minus infinity
-EXT_HD inline int32_t floordiv(int32_t a, int32_t d) {
+LANE_HD inline int32_t floordiv(int32_t a, int32_t d) {
   const int32_t q = a / d;
   return (a % d != 0 && ((a < 0) != (d < 0))) ? q - 1 : q;
 }
 
 // float32 steps rounded once each (no contraction), as torch computes them
-EXT_HD inline float to_f32(int32_t v) {
+LANE_HD inline float to_f32(int32_t v) {
 #ifdef __CUDA_ARCH__
   return __int2float_rn(v);
 #else
   return static_cast<float>(v);
 #endif
 }
-EXT_HD inline float to_f32(long long v) {
+LANE_HD inline float to_f32(long long v) {
 #ifdef __CUDA_ARCH__
   return __ll2float_rn(v);
 #else
   return static_cast<float>(v);
 #endif
 }
-EXT_HD inline float div_f32(float a, float b) {
+LANE_HD inline float div_f32(float a, float b) {
 #ifdef __CUDA_ARCH__
   return __fdiv_rn(a, b);
 #else
   return a / b;
 #endif
 }
-EXT_HD inline float add_f32(float a, float b) {
+LANE_HD inline float add_f32(float a, float b) {
 #ifdef __CUDA_ARCH__
   return __fadd_rn(a, b);
 #else
@@ -146,7 +135,7 @@ EXT_HD inline float add_f32(float a, float b) {
 }
 // float32 -> int32 toward zero, saturating as the card converts (the host
 // build spells it out: a C++ cast out of range is undefined)
-EXT_HD inline int32_t f2i(float v) {
+LANE_HD inline int32_t f2i(float v) {
 #ifdef __CUDA_ARCH__
   return __float2int_rz(v);
 #else
@@ -163,7 +152,7 @@ struct Opts {
 
 // bwa's cal_max_gap (extend.py cal_max_gap) on x in its type T
 template <typename T>
-EXT_HD int32_t max_gap(T x, const Opts& o) {
+LANE_HD int32_t max_gap(T x, const Opts& o) {
   const T m = mul_(x, static_cast<T>(o.match));
   const int32_t l_del = f2i(add_f32(
       div_f32(to_f32(sub_(m, static_cast<T>(o.o_del))),
@@ -278,7 +267,7 @@ template <typename R>
 struct Seed {
   int32_t q, l, c;
   R r;
-  EXT_HD Seed(const Seeds& sd, long long at)
+  LANE_HD Seed(const Seeds& sd, long long at)
       : q(sd.qbeg[at]), l(sd.len[at]), c(sd.cis[at]),
         r(static_cast<const R*>(sd.rbeg)[at]) {}
 };
@@ -286,7 +275,7 @@ struct Seed {
 // is the seed covered by one of the read's regions (near one of its ends,
 // within the band the gap allows)?
 template <typename R>
-EXT_HD bool covered(const Seed<R>& s, int live, const R* rb, const R* re,
+LANE_HD bool covered(const Seed<R>& s, int live, const R* rb, const R* re,
                     const int32_t* qb, const int32_t* qe, const int32_t* w,
                     const int32_t* sl0, int32_t lim, const Opts& o) {
   const int32_t qend = add_(s.q, s.l);
@@ -310,7 +299,7 @@ EXT_HD bool covered(const Seed<R>& s, int live, const R* rb, const R* re,
 // the overlap rescue: an extended seed of the same chain, of similar
 // length, overlapping it on another diagonal
 template <typename R>
-EXT_HD bool rescued(const Seed<R>& s, const Seeds& sd, const uint8_t* valid,
+LANE_HD bool rescued(const Seed<R>& s, const Seeds& sd, const uint8_t* valid,
                     const uint8_t* was_ext, long long row, long long S) {
   const int32_t quarter = s.l >> 2;
   const int32_t sim = floordiv(add_(mul_(s.l, 19), 19), 20);
@@ -330,7 +319,7 @@ EXT_HD bool rescued(const Seed<R>& s, const Seeds& sd, const uint8_t* valid,
 
 // the containment scan of read b (extend_scan_plain, one lane)
 template <typename R>
-EXT_HD void scan_lane(const ScanParams& p, long long b) {
+LANE_HD void scan_lane(const ScanParams& p, long long b) {
   const long long row = b * p.S;
   const int32_t* order = p.order + row;
   const int32_t n_usable = p.n_usable[b];
@@ -385,7 +374,7 @@ EXT_HD void scan_lane(const ScanParams& p, long long b) {
 // row `row` of the sorted SW order (side row / B), columns lane, lane +
 // step, ... (extend_windows_plain, one row)
 template <typename R>
-EXT_HD void windows_row(const WinParams& p, long long row, int lane,
+LANE_HD void windows_row(const WinParams& p, long long row, int lane,
                         int step) {
   const int k = row >= p.B;
   const long long i = row - k * p.B;
@@ -417,9 +406,7 @@ EXT_HD void windows_row(const WinParams& p, long long row, int lane,
     int32_t v = kNoCode;
     const long long pos = t0 + qdir * j;
     if (has && j < static_cast<long long>(tn) && pos >= 0 && pos < p.seq_len) {
-      const long long word = min_(pos >> 4, p.n_words - 1);
-      v = static_cast<int32_t>(
-          (static_cast<uint32_t>(p.pac[word]) >> (2 * (15 - (pos & 15)))) & 3);
+      v = packed_code(p.pac, p.n_words, pos);
     }
     t[j] = v;
   }
@@ -438,7 +425,7 @@ struct Result {
   int32_t score, qle, tle, gtle, gscore, aw;
 };
 
-EXT_HD inline Result result(const MergeParams& p, int k, long long b) {
+LANE_HD inline Result result(const MergeParams& p, int k, long long b) {
   const long long i = p.inv[k * p.B + b];
   const bool again = p.retry[i];
   const int32_t* const* f = again ? p.r2 : p.r1;
@@ -448,7 +435,7 @@ EXT_HD inline Result result(const MergeParams& p, int k, long long b) {
 
 // the left side's result folded into lane b (extend_merge_plain side 0)
 template <typename R>
-EXT_HD void merge_left_lane(const MergeParams& p, long long b) {
+LANE_HD void merge_left_lane(const MergeParams& p, long long b) {
   const Seed<R> s(p.sd, b * p.S + p.slot[b]);
   const Result x = result(p, 0, b);
   const bool has = p.act[b] && s.q > 0;
@@ -467,7 +454,7 @@ EXT_HD void merge_left_lane(const MergeParams& p, long long b) {
 // the right side's result and the new region row of lane b, the state
 // copied with it (extend_merge_plain side 1)
 template <typename R>
-EXT_HD void merge_right_lane(const MergeParams& p, long long b) {
+LANE_HD void merge_right_lane(const MergeParams& p, long long b) {
   const int32_t slot = p.slot[b];
   const Seed<R> s(p.sd, b * p.S + slot);
   const Result x = result(p, 1, b);
@@ -515,7 +502,7 @@ EXT_HD void merge_right_lane(const MergeParams& p, long long b) {
 
 // read b's seedcov (extend_seedcov_plain, one lane)
 template <typename R>
-EXT_HD void seedcov_lane(const CovParams& p, long long b) {
+LANE_HD void seedcov_lane(const CovParams& p, long long b) {
   R rb[kMaxRegs], re[kMaxRegs];
   int32_t qb[kMaxRegs], qe[kMaxRegs], cc[kMaxRegs], acc[kMaxRegs];
   const int Rg = static_cast<int>(p.Rg);
@@ -621,8 +608,6 @@ bool bad_rank(long long rank_bytes) {
 }  // namespace
 
 #ifdef __CUDACC__
-#define EXT_ENTRY(name) name##_launch
-#define EXT_STREAM , cudaStream_t stream
 // launch kernel<R>, R from rank_bytes, on `stream`; the launch's error code
 #define EXT_RUN(kernel, grid, p, ...)                                        \
   do {                                                                       \
@@ -632,9 +617,6 @@ bool bad_rank(long long rank_bytes) {
       kernel<int32_t __VA_ARGS__><<<(grid), kThreads, 0, stream>>>(p);       \
     return static_cast<int>(cudaGetLastError());                             \
   } while (0)
-#else
-#define EXT_ENTRY(name) name##_host
-#define EXT_STREAM
 #endif
 
 // Each entry: extend_*_launch (nvcc; on `stream`) or extend_*_host (a host
@@ -642,8 +624,8 @@ bool bad_rank(long long rank_bytes) {
 // values (kernels/extend_cuda.py lists them) and returns 0, or a CUDA
 // error code (kRefused for a refused count, rank size or shape).
 
-extern "C" int EXT_ENTRY(extend_scan)(const long long* a,
-                                      long long n EXT_STREAM) {
+extern "C" int LANE_ENTRY(extend_scan)(const long long* a,
+                                      long long n LANE_STREAM) {
   Args g{a, n, 0};
   const long long rank_bytes = g.num();
   ScanParams p;
@@ -690,8 +672,8 @@ extern "C" int EXT_ENTRY(extend_scan)(const long long* a,
 #endif
 }
 
-extern "C" int EXT_ENTRY(extend_windows)(const long long* a,
-                                         long long n EXT_STREAM) {
+extern "C" int LANE_ENTRY(extend_windows)(const long long* a,
+                                         long long n LANE_STREAM) {
   Args g{a, n, 0};
   const long long rank_bytes = g.num();
   WinParams p;
@@ -769,8 +751,8 @@ static bool merge_refused(const Args& g, long long n, long long rank_bytes,
          p.C < 1 || p.Rg < 1;
 }
 
-extern "C" int EXT_ENTRY(extend_merge_left)(const long long* a,
-                                            long long n EXT_STREAM) {
+extern "C" int LANE_ENTRY(extend_merge_left)(const long long* a,
+                                            long long n LANE_STREAM) {
   Args g{a, n, 0};
   const long long rank_bytes = g.num();
   MergeParams p = {};
@@ -791,8 +773,8 @@ extern "C" int EXT_ENTRY(extend_merge_left)(const long long* a,
 #endif
 }
 
-extern "C" int EXT_ENTRY(extend_merge_right)(const long long* a,
-                                             long long n EXT_STREAM) {
+extern "C" int LANE_ENTRY(extend_merge_right)(const long long* a,
+                                             long long n LANE_STREAM) {
   Args g{a, n, 0};
   const long long rank_bytes = g.num();
   MergeParams p = {};
@@ -821,8 +803,8 @@ extern "C" int EXT_ENTRY(extend_merge_right)(const long long* a,
 #endif
 }
 
-extern "C" int EXT_ENTRY(extend_seedcov)(const long long* a,
-                                         long long n EXT_STREAM) {
+extern "C" int LANE_ENTRY(extend_seedcov)(const long long* a,
+                                         long long n LANE_STREAM) {
   Args g{a, n, 0};
   const long long rank_bytes = g.num();
   CovParams p;

@@ -3,9 +3,9 @@
 Each source in ``bioseqdb_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C entry point, loaded with
 ``ctypes``. Builds happen at first use into ``bioseqdb_tpu_torch/_build``
-(listed in ``.gitignore``), named by a hash of the source so an edited
-source never loads a stale library. ``build`` starts one ``nvcc`` per
-source, all at once.
+(listed in ``.gitignore``), named by a hash of the source and the shared
+headers (``csrc/*.cuh``), so an edited source or header never loads a
+stale library. ``build`` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel, so a run can show that it went through the
@@ -26,17 +26,21 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = {"sw_extend": "sw_extend.cu", "fm_seed": "fm_seed.cu",
-           "chain": "chain.cu", "extend": "extend.cu", "probes": "probes.cu"}
+           "kmer": "kmer.cu", "seedsw": "seedsw.cu", "chain": "chain.cu",
+           "extend": "extend.cu", "probes": "probes.cu"}
 EXTEND_KERNELS = ("extend_scan", "extend_windows", "extend_merge",
                   "extend_seedcov")
 KERNELS = ("sw_extend",                            # sw_extend.cu
            "fm_seed",                              # fm_seed.cu
+           "kmer_seed",                            # kmer.cu
+           "seed_sw",                              # seedsw.cu
            "chain_seeds", "filter_chains",         # chain.cu
            *EXTEND_KERNELS,                        # extend.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
-# the kernels a full-pipeline device step launches
-STEP_KERNELS = ("sw_extend", "fm_seed", "chain_seeds", "filter_chains",
-                *EXTEND_KERNELS)
+# the kernels a full-pipeline device step launches: kmer_seed on the kmer
+# seeder's batches (W <= 320), seed_sw on long reads only
+STEP_KERNELS = ("sw_extend", "fm_seed", "kmer_seed", "seed_sw",
+                "chain_seeds", "filter_chains", *EXTEND_KERNELS)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -60,7 +64,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library of source ``name``, named by a hash of the source and
+    of the headers it may include (``csrc/*.cuh``)."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -9,10 +9,15 @@ statistics. Round 2 is proven empty or flagged ``needs_r2`` for the FM
 machine's reseed entry; anything the fast path cannot hold exact is
 flagged ``overflow``.
 
-The TPU version compares the read against the text as packed 2-bit
-words to avoid element gathers; here the text codes are gathered
-directly, which gives the same match mask. The host table builders are
-in ``bioseqdb_tpu_torch/index/layout.py``.
+On CUDA tensors ``collect_seeds_kmer`` is one launch of the
+hand-written kernel (``kernels/kmer_cuda.py``: a thread a read runs the
+whole program), which raises rather than falls back; on CPU tensors it
+runs the plain twin ``collect_seeds_kmer_plain``, the stages as eager
+torch ops vectorized over reads, bit-equal to the kernel. The TPU
+version compares the read against the text as packed 2-bit words to
+avoid element gathers; the plain twin gathers the text codes directly,
+which gives the same match mask. The host table builders are in
+``bioseqdb_tpu_torch/index/layout.py``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from bioseqdb_tpu_torch.index.layout import K, WIN
 from bioseqdb_tpu_torch.kernels.fm import M32, u32
+from bioseqdb_tpu_torch.kernels.kmer_cuda import kmer_seed_cuda
 
 _BIG = 0x7FFFFFFF
 _UMAX = M32
@@ -90,45 +96,59 @@ def match_reach(pac_rows, seq_len: int, codes, amb, diags, dvalid):
     return reach.clamp(max=W).to(torch.int32)
 
 
-def collect_seeds_kmer(
-    bmeta: torch.Tensor,      # int32[2^bb]
-    entries: torch.Tensor,    # int32[nrows0 + nrows1, 32]
-    pac_rows: torch.Tensor,   # packed doubled rows (layout.pack_doubled_rows)
-    seq_len: int,             # doubled text length
-    codes: torch.Tensor,      # int[B, W] 0..3 bases, >= 4 ambiguous/padding
-    lens: torch.Tensor,       # int32[B]
-    bb: int,
-    min_seed_len: int,
-    split_len: int,
-    split_width: int,
-    max_mem_intv: int,
-    smax: int = 12,
-    dmax: int = 24,
-    nmz: int = 64,
-    max_mem: int = 16,
-) -> dict:
-    """Rounds 1 and 3 of BWA-MEM seeding from the minimizer table.
+def too_short(W: int) -> bool:
+    """A batch of width ``W`` holds no >= 19 bp seed (no minimizer window)."""
+    return W - K + 1 < 1 or W - K - WIN + 2 < 1
 
-    Returns dict with mem_pos (doubled-text position of each s == 1
-    seed), mem_s / mem_b / mem_e (occurrence count, query span), all
-    int32[B, M]; n_mem int32[B]; needs_r2 (run the FM reseed entry),
-    overflow (fall back to the FM seeder) and why (fallback-cause bits)."""
+
+def _empty(B: int, M: int, dev) -> dict:
+    """``collect_seeds_kmer``'s result for a batch too narrow to seed."""
+    zm = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    zb = torch.zeros(B, dtype=torch.bool, device=dev)
+    return dict(mem_pos=zm, mem_s=zm.clone(), mem_b=zm.clone(),
+                mem_e=zm.clone(), n_mem=torch.zeros(B, dtype=torch.int32,
+                                                    device=dev),
+                needs_r2=zb, overflow=zb.clone())
+
+
+def collect_seeds_kmer(bmeta, entries, pac_rows, seq_len: int, codes, lens,
+                       bb: int, min_seed_len: int, split_len: int,
+                       split_width: int, max_mem_intv: int, smax: int = 12,
+                       dmax: int = 24, nmz: int = 64, max_mem: int = 16
+                       ) -> dict:
+    """Rounds 1 and 3 of BWA-MEM seeding from the minimizer table (see
+    ``collect_seeds_kmer_plain``). On CUDA tensors one launch of the
+    hand-written kernel (``kmer_cuda.kmer_seed_cuda``), on CPU tensors
+    the plain twin."""
+    B, W = codes.shape
+    if too_short(W):
+        return _empty(B, max_mem, codes.device)
+    kw = dict(bb=bb, min_seed_len=min_seed_len, split_len=split_len,
+              split_width=split_width, max_mem_intv=max_mem_intv, smax=smax,
+              dmax=dmax, nmz=nmz, max_mem=max_mem)
+    if not codes.is_cuda:
+        return collect_seeds_kmer_plain(bmeta, entries, pac_rows, seq_len,
+                                        codes, lens, **kw)
+    return kmer_seed_cuda(bmeta, entries, pac_rows, seq_len,
+                          codes.to(torch.int32).contiguous(),
+                          lens.to(torch.int32).contiguous(), **kw)
+
+
+def kmer_diagonals(bmeta, entries, codes, lens, bb: int, smax: int,
+                   dmax: int, nmz: int) -> dict:
+    """The plain twin's first stages on ``codes`` (int64 [B, W], W >= 19)
+    and ``lens`` (int32 [B]): the read's k-mers, their minimizers
+    compacted to ``min(nmz, NP)`` slots, the table lookups and the
+    ``min(dmax, nmz_c * smax)`` smallest distinct diagonals. Returns
+    mz_overflow, capped, d_overflow, diags (int32, ascending, _BIG past
+    the last), dvalid, and what the lookups touched: mzok (the valid
+    minimizers) and cnt (each one's bucket count)."""
     B, W = codes.shape
     dev = codes.device
     i32, i64 = torch.int32, torch.int64
-    M = max_mem
-    msl = min_seed_len
-    codes = codes.to(i64)
-    lens = lens.to(i32)
     zb = torch.zeros(B, dtype=torch.bool, device=dev)
-    zm = torch.zeros(B, M, dtype=i32, device=dev)
     NP = W - K + 1
     NW = NP - WIN + 1
-    if NP < 1 or NW < 1:  # reads too short for any >= 19 bp seed
-        return dict(mem_pos=zm, mem_s=zm.clone(), mem_b=zm.clone(),
-                    mem_e=zm.clone(), n_mem=torch.zeros(B, dtype=i32,
-                                                        device=dev),
-                    needs_r2=zb, overflow=zb.clone())
 
     # ---- read k-mers + minimizer selection ----
     valid = codes < 4
@@ -189,6 +209,49 @@ def collect_seeds_kmer(
     diags = torch.stack(dlist, 1)
     dvalid = diags < _BIG
     d_overflow = torch.where(flat > cur[:, None], flat, _BIG).amin(1) < _BIG
+    return dict(mz_overflow=mz_overflow, capped=capped,
+                d_overflow=d_overflow, diags=diags, dvalid=dvalid, mzok=mzok,
+                cnt=cnt)
+
+
+def collect_seeds_kmer_plain(
+    bmeta: torch.Tensor,      # int32[2^bb]
+    entries: torch.Tensor,    # int32[nrows0 + nrows1, 32]
+    pac_rows: torch.Tensor,   # packed doubled rows (layout.pack_doubled_rows)
+    seq_len: int,             # doubled text length
+    codes: torch.Tensor,      # int[B, W] 0..3 bases, >= 4 ambiguous/padding
+    lens: torch.Tensor,       # int32[B]
+    bb: int,
+    min_seed_len: int,
+    split_len: int,
+    split_width: int,
+    max_mem_intv: int,
+    smax: int = 12,
+    dmax: int = 24,
+    nmz: int = 64,
+    max_mem: int = 16,
+) -> dict:
+    """Rounds 1 and 3 of BWA-MEM seeding from the minimizer table.
+
+    Returns dict with mem_pos (doubled-text position of each s == 1
+    seed), mem_s / mem_b / mem_e (occurrence count, query span), all
+    int32[B, M]; n_mem int32[B]; needs_r2 (run the FM reseed entry),
+    overflow (fall back to the FM seeder) and why (fallback-cause bits)."""
+    B, W = codes.shape
+    dev = codes.device
+    i32, i64 = torch.int32, torch.int64
+    M = max_mem
+    msl = min_seed_len
+    codes = codes.to(i64)
+    lens = lens.to(i32)
+    zb = torch.zeros(B, dtype=torch.bool, device=dev)
+    if too_short(W):  # reads too short for any >= 19 bp seed
+        return _empty(B, M, dev)
+
+    dg = kmer_diagonals(bmeta, entries, codes, lens, bb, smax, dmax, nmz)
+    mz_overflow, capped, d_overflow = (dg["mz_overflow"], dg["capped"],
+                                       dg["d_overflow"])
+    diags, dvalid, DC = dg["diags"], dg["dvalid"], dg["diags"].shape[1]
 
     # ---- per-diagonal reach -> top-2 statistics over diagonals ----
     amb = codes >= 4

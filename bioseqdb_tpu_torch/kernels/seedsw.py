@@ -6,9 +6,16 @@ that chain weights stop being selective (~>= 720 bp at the defaults),
 every short seed (< 200 bp) is re-scored with a local affine-gap
 Smith-Waterman over a +-50-base window and dropped below the min-HSP
 score. Each seed's window is one 200-wide lane; the DP is the lazy-F
-prefix-max local SW, 200 rows of plain torch ops over all the seeds
-that need it at once (the stage runs once a batch). The JAX version's
-barrel-shift window extract and one-hot picks become gathers.
+prefix-max local SW. ``seed_sw_filter`` computes the windows and the
+need mask as eager torch ops (``seed_sw_windows``), then scores the
+lanes: on CUDA tensors in one launch of the hand-written kernel
+(``kernels/seedsw_cuda.py``: a warp a lane, over every lane with the
+need mask; it raises rather than falls back), on CPU tensors with the
+plain twin ``seed_sw_scores_plain`` (the window gathers and
+``local_sw_batch``: 200 rows of plain torch ops over all the seeds that
+need it at once). ``seed_sw_filter_plain`` is the whole filter with the
+plain twin. The JAX version's barrel-shift window extract and one-hot
+picks become gathers.
 
 Statically absent for short-read batches: ``possibly_active`` is False
 whenever no read of the batch width can trigger the filter.
@@ -22,6 +29,7 @@ import torch
 
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.extend import window_doubled
+from bioseqdb_tpu_torch.kernels.seedsw_cuda import seed_sw_cuda
 
 # the oracle's constants (cpu/oracle.py, bwa's macros)
 MEM_SHORT_EXT = 50
@@ -84,20 +92,16 @@ def local_sw_batch(q: torch.Tensor, t: torch.Tensor, tlen: torch.Tensor,
     return best
 
 
-def seed_sw_filter(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
-                   match_score: int, mismatch_penalty: int, o_del: int,
-                   e_del: int, o_ins: int, e_ins: int,
-                   min_chain_weight: int) -> dict:
-    """Re-score the short seeds of long reads and drop the sub-HSP ones.
-
-    Returns the seeds dict with ``valid`` pruned and a ``score`` column
-    added (bwa's s->score: the SW score where checked, len * a
-    otherwise), which ``extend_all`` orders seeds by. Reads below the
-    length threshold keep every seed, scored len * a."""
+def seed_sw_windows(fm: kfm.FMDevice, lens, seeds: dict, match_score: int,
+                    min_chain_weight: int) -> dict:
+    """Each seed lane's query window [qb, qe) (int32 [N]), reference window
+    [rb, re) ([N], the rank dtype), ``need`` (bool [N]: the lanes the SW
+    re-scores) and ``min_hsp`` (int32 [N]), N = B * S, as the oracle's
+    mem_seed_sw and seed_sw_filter_active bound them."""
     B, S = seeds["rbeg"].shape
     N = B * S
     i32 = torch.int32
-    dev = codes.device
+    dev = lens.device
     seq_len, l_pac = fm.seq_len, fm.l_pac
     slen = seeds["len"].reshape(N)
     qbeg = seeds["qbeg"].reshape(N)
@@ -141,24 +145,82 @@ def seed_sw_filter(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
     need = (active & valid & (slen < MEM_SHORT_LEN)
             & ((qe - qb) < MEM_SHORT_LEN) & ((re - rb) < MEM_SHORT_LEN)
             & (re > rb) & (qe > qb))
+    return dict(qb=qb.to(i32), qe=qe.to(i32), rb=rb, re=re, need=need,
+                min_hsp=min_hsp)
 
-    # the SW runs on the lanes that need it only (the others' scores are
-    # never read)
+
+def seed_sw_scores_plain(pac_rows, seq_len: int, codes, win: dict,
+                         match_score: int, mismatch_penalty: int, o_del: int,
+                         e_del: int, o_ins: int, e_ins: int) -> torch.Tensor:
+    """The best local SW score of each lane of ``win`` (``seed_sw_windows``)
+    that needs it, 0 elsewhere (int32 [N]): the query window's codes of
+    read lane // S against the doubled text's window, by
+    ``local_sw_batch`` on the lanes that need it only."""
+    qb, qe, rb, re, need = (win[k] for k in ("qb", "qe", "rb", "re", "need"))
+    N = need.shape[0]
+    B, W = codes.shape
+    S = N // B if B else 1
+    dev = codes.device
     lane = torch.nonzero(need)[:, 0]
-    W = codes.shape[1]
     cols = torch.arange(_W, device=dev)[None, :]
     qcol = qb[lane].long()[:, None] + cols
     qseg = codes.reshape(-1)[(lane // S)[:, None] * W + qcol.clamp(max=W - 1)]
     qseg = torch.where((qcol < W) & (cols < (qe - qb)[lane][:, None]),
-                       qseg, 4).to(i32)
+                       qseg, 4).to(torch.int32)
     tseg = window_doubled(pac_rows, seq_len, rb[lane].long()[:, None] + cols)
-    score = torch.zeros(N, dtype=i32, device=dev)
-    score[lane] = local_sw_batch(qseg, tseg, (re - rb)[lane].to(i32),
+    score = torch.zeros(N, dtype=torch.int32, device=dev)
+    score[lane] = local_sw_batch(qseg, tseg, (re - rb)[lane].to(torch.int32),
                                  match_score, mismatch_penalty, o_del, e_del,
                                  o_ins, e_ins)
-    keep = ~need | (score >= min_hsp)
+    return score
+
+
+def seed_sw_filter(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
+                   match_score: int, mismatch_penalty: int, o_del: int,
+                   e_del: int, o_ins: int, e_ins: int,
+                   min_chain_weight: int) -> dict:
+    """Re-score the short seeds of long reads and drop the sub-HSP ones
+    (see ``seed_sw_filter_plain``): on CUDA tensors the scores are one
+    launch of the hand-written kernel (``seedsw_cuda.seed_sw_cuda``), on
+    CPU tensors the plain twin's."""
+    return _filter(fm, pac_rows, codes, lens, seeds, match_score,
+                   mismatch_penalty, o_del, e_del, o_ins, e_ins,
+                   min_chain_weight, plain=not codes.is_cuda)
+
+
+def seed_sw_filter_plain(fm: kfm.FMDevice, pac_rows, codes, lens,
+                         seeds: dict, match_score: int, mismatch_penalty: int,
+                         o_del: int, e_del: int, o_ins: int, e_ins: int,
+                         min_chain_weight: int) -> dict:
+    """Re-score the short seeds of long reads and drop the sub-HSP ones.
+
+    Returns the seeds dict with ``valid`` pruned and a ``score`` column
+    added (bwa's s->score: the SW score where checked, len * a
+    otherwise), which ``extend_all`` orders seeds by. Reads below the
+    length threshold keep every seed, scored len * a."""
+    return _filter(fm, pac_rows, codes, lens, seeds, match_score,
+                   mismatch_penalty, o_del, e_del, o_ins, e_ins,
+                   min_chain_weight, plain=True)
+
+
+def _filter(fm, pac_rows, codes, lens, seeds, match_score, mismatch_penalty,
+            o_del, e_del, o_ins, e_ins, min_chain_weight, plain: bool
+            ) -> dict:
+    B, S = seeds["rbeg"].shape
+    win = seed_sw_windows(fm, lens, seeds, match_score, min_chain_weight)
+    scoring = (match_score, mismatch_penalty, o_del, e_del, o_ins, e_ins)
+    if plain:
+        score = seed_sw_scores_plain(pac_rows, fm.seq_len, codes, win,
+                                     *scoring)
+    else:
+        score = seed_sw_cuda(pac_rows, fm.seq_len,
+                             codes.to(torch.int32).contiguous(), win,
+                             *scoring)
+    need = win["need"]
+    keep = ~need | (score >= win["min_hsp"])
+    slen = seeds["len"].reshape(B * S)
     out = dict(seeds)
-    out["valid"] = (valid & keep).reshape(B, S)
+    out["valid"] = (seeds["valid"].reshape(B * S) & keep).reshape(B, S)
     out["score"] = torch.where(need, score, slen * match_score
-                               ).reshape(B, S).to(i32)
+                               ).reshape(B, S).to(torch.int32)
     return out

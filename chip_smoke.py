@@ -6,12 +6,15 @@
    -> exits non-zero before any result;
 2. builds the hand-written CUDA kernels from ``bioseqdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once): ``sw_extend``, ``fm_seed``,
+   ``kmer_seed`` (``kmer.cu``), ``seed_sw`` (``seedsw.cu``),
    ``chain_seeds`` and ``filter_chains`` (``chain.cu``), ``extend_scan``,
    ``extend_windows``, ``extend_merge`` and ``extend_seedcov``
    (``extend.cu``) and the probes. Every phase that runs the full
    pipeline on one device (main path, PE, FM-seeded, long reads, int64,
-   API, the CLI's full-mode ``align`` commands) must launch all eight
-   step kernels in its counted window;
+   API, the CLI's full-mode ``align`` commands) must launch every step
+   kernel of its path in its counted window: ``kmer_seed`` on the kmer
+   seeder's paths and never on the FM-seeded or long-read ones,
+   ``seed_sw`` on long reads only;
 3. SW kernel phase: ``sw_extend`` against its plain PyTorch version on
    the card, bit-equal on every case set of ``tools/sw_sets.py``: small
    ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
@@ -42,8 +45,10 @@
    batch, and of the FM-seeded and long-read ones, are recorded
    (``tools/fm_machine.py``) for phase 7b; the chaining calls of this
    warm-up batch, and of the PE, FM-seeded, long-read and int64 ones
-   (``tools/chain_calls.py``), for phase 9b, and their ``extend_all``
-   calls (``tools/extend_calls.py``) for phase 9c;
+   (``tools/chain_calls.py``), for phase 9b, their ``extend_all``
+   calls (``tools/extend_calls.py``) for phase 9c, and the kmer seeder's
+   calls of this warm-up batch, the PE one and the int64 one
+   (``tools/kmer_calls.py``) for phase 9d;
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -73,7 +78,8 @@
    clock with counts zeroed just before and read just after, and must
    launch ``sw_extend`` at Wq > 320 (its launches' widths are recorded).
    Reads/s, bases/s, the stage split, truth >= 98% and every read off
-   truth equal to the host oracle;
+   truth equal to the host oracle. The seed-SW filter's calls of both
+   batches are recorded (``tools/seedsw_calls.py``) for phase 9e;
 7b. FM machine phase: ``fm_seed`` against its plain twin
    (``seed.collect_seeds_plain``) on the card, bit-equal on all six
    outputs (mems, n_mem, overflow, iters, it_r1, it_r2) at the recorded
@@ -137,6 +143,37 @@
    main path's call: the host's waits on the card with the kernels and
    with the plain twins, and its clocked split (scan, windows, SW, merge,
    seedcov, the rest) both ways, in turns;
+9d. kmer phase: ``kmer_seed`` against its plain twin
+   (``kmer.collect_seeds_kmer_plain``) on the card, bit-equal on every
+   output (mem_pos, mem_s, mem_b, mem_e, n_mem, needs_r2, overflow, why)
+   at the recorded calls (the main path's: B 16,384, W 160; the PE
+   step's 16,384 rows; the int64 phase's), at ``kmer_calls.edge_calls``
+   (every fallback bit, needs_r2, round 3 off, W 320 at nmz 104 and dmax
+   40, tandem repeats, reads before the text's start and across the
+   strand boundary) and at its random calls (seeds 1-3: random bucket
+   words and entries). Each recorded call: the kernel's time (a launch in
+   a CUDA graph), the plain twin's (CUDA events), the bound (the codes,
+   the bucket words and entries of the valid minimizers and the text
+   words under the valid diagonals read once, every output written once;
+   the instructions of the positions, the reach compares and the
+   entries) and the share; then the main path's timed batch clocked
+   with the kernel and with the plain twin, in turns (plain, kernel,
+   kernel, plain);
+9e. seed-SW phase: ``seed_sw_filter`` with ``seed_sw`` against
+   ``seed_sw_filter_plain`` on the card, bit-equal on ``valid`` and
+   ``score``, at the long-read batches' recorded calls (the warm-up's
+   1,024 and the timed 4,096 reads, S 189) and at
+   ``seedsw_calls.edge_calls`` (activation length, min_hsp, windows at
+   l_pac and reference ends, asymmetric gaps) with int32 and int64
+   ranks; the kernel's scores equal the plain twin's on
+   ``seedsw_calls.edge_score_calls`` (tlen and qlen 0-199, windows
+   outside the read and the text), int32, int64 and int64 past 2^31.
+   Each recorded call: the kernel's time (a launch in a CUDA graph), the
+   plain twin's scoring (CUDA events), the bound (the DP cells the
+   needed lanes' windows span, tlen x qlen; the bytes of their windows)
+   and the share; then
+   the long-read timed batch clocked with the kernel and with the plain
+   twin, in turns;
 10. API phase: ``multi_search`` of the first 256 reads of the main path's
    timed batch against the main path's ``Aligner``, counts zeroed just
    before and read just after (``sw_extend`` must have run); the
@@ -169,9 +206,10 @@
    counted), exact mode's the exact phase's; truth >= 98% and
    ``device_ne_oracle`` 0; every rank must launch ``sw_extend``,
    ``chain_seeds``, ``filter_chains``, ``extend_scan``, ``extend_merge``
-   and ``extend_seedcov`` in both runs, ``fm_seed`` and
-   ``extend_windows`` too on the data mesh and never on an index mesh
-   (the FM machine and the windows stay plain there)
+   and ``extend_seedcov`` in both runs, ``fm_seed``, ``extend_windows``
+   and ``kmer_seed`` too on the data mesh and never on an index mesh (the
+   FM machine and the windows stay plain there, and its FM seeder has no
+   kmer stage), ``seed_sw`` on no rank (short reads)
    (counts zeroed just before each job and read just after, in each
    rank; the unclocked runs' go on the kernels line);
 13. probe path: counts zeroed, the two probe entry points
@@ -186,14 +224,15 @@
    batches of the main, paired-end, FM-seeded and long-read paths, the
    int64 phase's two, the API phase, the CLI's commands and the dist
    phase's unclocked runs in every rank; ``fm_seed``'s times and bound
-   are the FM-seeded batch's, ``chain_seeds``' and ``filter_chains``'
-   the main path's, the extension kernels' the main path's call with
-   each kernel's launches summed), then the device line as the last
-   line.
+   are the FM-seeded batch's, ``kmer_seed``'s, ``chain_seeds``' and
+   ``filter_chains``' the main path's, ``seed_sw``'s the long-read timed
+   batch's, the extension kernels' the main path's call with each
+   kernel's launches summed), then the device line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
-(``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``chain_seeds``,
-``filter_chains`` and the library calls: 20), so that the host's enqueue
+(``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``kmer_seed``,
+``seed_sw``, ``chain_seeds``, ``filter_chains`` and the library calls:
+20), so that the host's enqueue
 time does not count; ``gather_chain``: CUDA events around one call;
 ``fm_seed``: CUDA events around one launch, the median of 3. Plain
 versions are timed eagerly with CUDA events. ``bound_ms`` is the larger
@@ -236,9 +275,9 @@ from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
 from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
-                                      fm_machine, long_leg,
+                                      fm_machine, kmer_calls, long_leg,
                                       microbench_gather, microbench_seed,
-                                      pe_leg)
+                                      pe_leg, seedsw_calls)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
@@ -292,6 +331,7 @@ FILTER_INSTR = dict(trips=20, pairs=12, slots=10)
 EXTEND_LINES = dict(extend_scan=341, extend_windows=462, extend_merge=520,
                     extend_seedcov=567)
 RANDOM_SEEDS = (5, 6, 7)   # extend_calls.random_calls' inputs
+KMER_RANDOM_SEEDS = (1, 2, 3)   # kmer_calls.random_calls' inputs
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
                 add_one="tools/microbench_pallas_gather.py:110")
@@ -406,13 +446,17 @@ def main_path_launches(calls: list, path: str = "main-path") -> list[dict]:
     return rows
 
 
-def must_launch(path: str, launches: dict) -> None:
+def must_launch(path: str, launches: dict, kmer: bool = True,
+                long_reads: bool = False) -> None:
     """``path`` ran the full pipeline: every kernel of its device step
-    must have launched."""
+    must have launched, and none it does not run: ``kmer_seed`` runs on
+    the kmer seeder's paths (``kmer``) only, ``seed_sw`` on long reads
+    only."""
+    runs = dict(kmer_seed=kmer, seed_sw=long_reads)
     for name in build.STEP_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"{path}")
+        if (launches[name] > 0) != runs.get(name, True):
+            raise AssertionError(f"kernel {name}: {launches[name]} launches "
+                                 f"on the {path}")
 
 
 def fm_bound(call: "fm_machine.MachineCall", out: dict, touched: dict
@@ -704,6 +748,140 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
     return {k: r["main path"] for k, r in rows.items()}
 
 
+def kmer_phase(m: dict, pe: dict, i64: dict, dev) -> dict:
+    """``kmer_seed`` against its plain twin on the card, bit-equal on every
+    output, at the calls the pipeline made (recorded in the warm-up
+    batches: the main path's, the PE step's, the int64 phase's), at
+    ``kmer_calls.edge_calls`` and at its random calls. Each recorded
+    call: the kernel's time (a launch in a CUDA graph), the plain twin's,
+    the bound and the share. Returns the kernels line's entry (the main
+    path's numbers)."""
+    recorded = {}
+    for path, d in (("main path", m), ("PE", pe), ("int64", i64)):
+        for k, call in enumerate(d["km_calls"]):
+            recorded[path if k == 0 else f"{path} call {k}"] = call
+    for path, B in (("main path", BATCH), ("PE", 2 * pe_leg.PAIRS),
+                    ("int64", BATCH)):
+        call = recorded[path]
+        if call.args["codes"].shape[0] != B:
+            raise AssertionError(f"the recorded {path} kmer call is not the "
+                                 f"pipeline's: {call.shape}")
+    inputs = list(recorded.items())
+    inputs += [(f"edge {name}", call)
+               for name, call in kmer_calls.edge_calls(dev)]
+    inputs += [(f"random {seed}.{k}", call) for seed in KMER_RANDOM_SEEDS
+               for k, call in enumerate(kmer_calls.random_calls(seed, dev))]
+    rows = {}
+    for name, call in inputs:
+        n0 = build.LAUNCHES["kmer_seed"]
+        got = call.run()
+        torch.cuda.synchronize()
+        if build.LAUNCHES["kmer_seed"] != n0 + 1:
+            raise AssertionError(f"kmer_seed [{name}]: not one launch")
+        if name == "main path":   # the run's first plain call: warm it up
+            call.run(plain=True)
+        plain_ms, ref = call.plain_ms()
+        err = kmer_calls.max_abs_err(got, ref)
+        why = got["why"]
+        bits = [int(((why >> k) & 1).sum()) for k in range(7)]
+        text = (f"kmer_seed [{name}] {call.shape}: fallback bits {bits}, "
+                f"needs_r2 {int(got['needs_r2'].sum())}, seeds "
+                f"{int(got['n_mem'].sum())}")
+        if name in recorded:
+            ms = call.kernel_ms()
+            n = call.counts()
+            bound_ms, bound_by = bound(n["read"] + n["written"], n["instr"])
+            text += (f"; cuda {ms:.4f} ms a launch in a CUDA graph, plain "
+                     f"{plain_ms:.1f} ms ({plain_ms / ms:.0f}x); lookups "
+                     f"{n['lookups']}, entries {n['entries']}, valid "
+                     f"diagonals {n['diags']}, text words {n['text_words']}; "
+                     f"bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+                     f"{100 * bound_ms / ms:.2f}% of it")
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None, shape=f"{name}: {call.shape}")
+        log(f"{text}; max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"kmer_seed disagrees with plain on {name}")
+    for way in ("plain", "kernel", "kernel", "plain"):
+        with (kmer_calls.plain_seeder() if way == "plain"
+              else contextlib.nullcontext()), long_leg.stage_clock() as clock:
+            res = long_leg.run_batch(m["al"], m["batches"][1])
+        log(f"main path clocked with the {way} seeder: {stage_line(clock)}; "
+            f"the batch {sum(res['seconds'].values()):.4f} s")
+    return dict(rows["main path"], max_abs_err=0)
+
+
+def seedsw_phase(m: dict, lr: dict, dev) -> dict:
+    """``seed_sw_filter`` with ``seed_sw`` against ``seed_sw_filter_plain``
+    on the card, bit-equal on ``valid`` and ``score``, at the long-read
+    batches' recorded calls and at ``seedsw_calls.edge_calls`` with int32
+    and int64 ranks; the kernel's scores against the plain twin's at
+    ``seedsw_calls.edge_score_calls`` (int64 also past 2^31). Each
+    recorded call's scoring: the kernel's time (a launch in a CUDA graph),
+    the plain twin's, the bound and the share. Then the long-read timed
+    batch clocked with the kernel and with the plain twin, in turns.
+    Returns the kernels line's entry (the timed batch's numbers)."""
+    recorded = {}
+    for batch, calls, B in (("warm-up", lr["sw_calls"][0],
+                             long_leg.WARM_READS),
+                            ("timed", lr["sw_calls"][1],
+                             long_leg.TIMED_READS)):
+        if calls[0].args["codes"].shape[0] != B:
+            raise AssertionError(f"the recorded long-read filter call is not "
+                                 f"the pipeline's: {calls[0].shape}")
+        for k, call in enumerate(calls):
+            recorded[f"long-read {batch}" + (f" call {k}" if k else "")] = call
+    inputs = list(recorded.items())
+    for rdt in (torch.int32, torch.int64):
+        dt = str(rdt).removeprefix("torch.")
+        inputs += [(f"edge {dt} {name}", call)
+                   for name, call in seedsw_calls.edge_calls(rdt, dev)]
+        for name, call in seedsw_calls.edge_score_calls(rdt, dev):
+            inputs.append((f"edge {dt} {name}", call))
+            if rdt == torch.int64:
+                inputs.append((f"edge {dt} {name}, past 2^31",
+                               call.shifted()))
+    rows = {}
+    for name, call in inputs:
+        n0 = build.LAUNCHES["seed_sw"]
+        got = call.run()
+        torch.cuda.synchronize()
+        if build.LAUNCHES["seed_sw"] != n0 + 1:
+            raise AssertionError(f"seed_sw [{name}]: not one launch")
+        err = seedsw_calls.max_abs_err(got, call.run(plain=True))
+        st = call.stage() if isinstance(call, seedsw_calls.FilterCall) \
+            else call
+        text = f"seed_sw [{name}] {st.shape}"
+        if isinstance(got, dict):
+            dropped = int((call.args["seeds"]["valid"] & ~got["valid"]).sum())
+            text += f": seeds dropped {dropped}"
+        if name in recorded:
+            ms = st.kernel_ms()
+            plain_ms, _ = st.plain_ms()
+            n = st.counts()
+            bound_ms, bound_by = bound(n["read"] + n["written"], n["instr"])
+            text += (f"; scoring: cuda {ms:.4f} ms a launch in a CUDA graph, "
+                     f"plain {plain_ms:.1f} ms ({plain_ms / ms:.0f}x); "
+                     f"{n['lanes']} lanes need it, {n['cells']} DP cells; "
+                     f"bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+                     f"{100 * bound_ms / ms:.2f}% of it")
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None, shape=f"{name}: {st.shape}")
+        log(f"{text}; max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"seed_sw disagrees with plain on {name}")
+    for way in ("plain", "kernel", "kernel", "plain"):
+        with (seedsw_calls.plain_filter() if way == "plain"
+              else contextlib.nullcontext()), long_leg.stage_clock() as clock:
+            res = long_leg.run_batch(m["al"], lr["batch"])
+        log(f"long-read batch clocked with the {way} filter: "
+            f"{stage_line(clock)}; the batch "
+            f"{sum(res['seconds'].values()):.4f} s")
+    return dict(rows["long-read timed"], max_abs_err=0)
+
+
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
     idx, al, sims, batches, genome = main_path_setup(dev)
@@ -711,11 +889,11 @@ def main_path(dev, card: str) -> dict:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    calls, fm_calls, ch_calls, ext_calls = [], [], [], []
+    calls, fm_calls, ch_calls, ext_calls, km_calls = [], [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), fm_machine.recording(fm_calls),
           chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls)):
+          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls)):
         long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
@@ -742,7 +920,7 @@ def main_path(dev, card: str) -> dict:
     log(f"main path device step (the timed batch again, clocked): "
         f"{stage_line(clock)}")
     return dict(launches=launches, rps=rps, calls=calls, fm_calls=fm_calls,
-                ch_calls=ch_calls, ext_calls=ext_calls,
+                ch_calls=ch_calls, ext_calls=ext_calls, km_calls=km_calls,
                 idx=idx, al=al, genome=genome, sims=sims, batches=batches,
                 cols=res["cols"], ovf=res["ovf"], sam=sam)
 
@@ -818,7 +996,7 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     log(f"FM-seeded main path: {BATCH / total:.1f} reads/s ({BATCH} x "
         f"{READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; launches "
         f"{launches}")
-    must_launch("FM-seeded main path", launches)
+    must_launch("FM-seeded main path", launches, kmer=False)
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
     return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
@@ -836,10 +1014,12 @@ def long_path(m: dict, card: str) -> dict:
     log(f"long reads simulated: {time.time() - t0:.1f} s")
     t0 = time.time()
     calls, fm_calls, ch_calls, ext_calls = [], [], [], []
+    sw_calls = ([], [])   # the warm-up's seed-SW filter calls, the timed's
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), fm_machine.recording(fm_calls),
           chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls)):
+          extend_calls.recording(ext_calls),
+          seedsw_calls.recording(sw_calls[0])):
         long_leg.run_batch(al, warm[1])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
@@ -850,7 +1030,8 @@ def long_path(m: dict, card: str) -> dict:
                              "launches were not all recorded")
     build.reset_launches()
     widths = []
-    with long_leg.stage_clock() as clock, recording(widths, copy=False):
+    with (long_leg.stage_clock() as clock, recording(widths, copy=False),
+          seedsw_calls.recording(sw_calls[1])):
         res = long_leg.run_batch(al, timed[1])
     launches = dict(build.LAUNCHES)
     wide = [c.args[0].shape[1] for c in widths
@@ -869,12 +1050,12 @@ def long_path(m: dict, card: str) -> dict:
     if launches["sw_extend"] != len(widths) or not wide:
         raise AssertionError("the long-read batch did not launch sw_extend "
                              f"at Wq > {FULL_MAX_QLEN}")
-    must_launch("long-read path", launches)
+    must_launch("long-read path", launches, kmer=False, long_reads=True)
     truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
     main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
                        "long-read")
     return dict(launches=launches, fm_calls=fm_calls, ch_calls=ch_calls,
-                ext_calls=ext_calls)
+                ext_calls=ext_calls, sw_calls=sw_calls, batch=timed[1])
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -886,10 +1067,10 @@ def pe_path(m: dict, card: str) -> dict:
     log(f"two batches of {pe_leg.PAIRS} pairs simulated: "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    calls, ch_calls, ext_calls = [], [], []
+    calls, ch_calls, ext_calls, km_calls = [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls)):
+          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls)):
         pe_leg.run_batch(al, warm)
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"PE warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -923,7 +1104,7 @@ def pe_path(m: dict, card: str) -> dict:
     sam = pe_sam(idx, res["cols"], timed)
     main_path_launches(calls, "PE")
     return dict(launches=launches, timed=timed, sam=sam, ch_calls=ch_calls,
-                ext_calls=ext_calls)
+                ext_calls=ext_calls, km_calls=km_calls)
 
 
 def pe_sam(idx, cols, pb) -> str:
@@ -1040,10 +1221,10 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     log(f"int64 FMDevice + jump table (depth {jump.depth}): "
         f"{time.time() - t0:.2f} s")
     t0 = time.time()
-    calls, ch_calls, ext_calls = [], [], []
+    calls, ch_calls, ext_calls, km_calls = [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls)):
+          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls)):
         long_leg.run_batch(als["kmer"], m["batches"][0])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"int64 warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -1074,7 +1255,8 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
         log(f"int64 {name}-seeded main path: {rps:.1f} reads/s ({BATCH} x "
             f"{READ_LEN} bp SE) on {card}; launches {launches}; rb {rb}; "
             f"records and SAM equal to the int32 phase's: {same}")
-        must_launch(f"int64 {name}-seeded batch", launches)
+        must_launch(f"int64 {name}-seeded batch", launches,
+                    kmer=name == "kmer")
         if rb != np.int64 or not same:
             raise AssertionError(f"int64 {name}-seeded batch: rb {rb}, "
                                  f"equal to int32: {same}")
@@ -1091,7 +1273,8 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     if not same:
         raise AssertionError("int64 exact mode differs from int32")
     main_path_launches(calls, "int64")
-    return dict(launches=total, ch_calls=ch_calls, ext_calls=ext_calls)
+    return dict(launches=total, ch_calls=ch_calls, ext_calls=ext_calls,
+                km_calls=km_calls)
 
 
 def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
@@ -1286,9 +1469,11 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
     summed (each rank's counts zeroed just before a job and read just
     after). Every rank launches ``sw_extend``, ``chain_seeds``,
     ``filter_chains``, ``extend_scan``, ``extend_merge`` and
-    ``extend_seedcov`` in both runs; ``fm_seed`` and ``extend_windows``
-    too on a data mesh, and never on an index mesh (their owner sums keep
-    the FM machine and the windows plain)."""
+    ``extend_seedcov`` in both runs; ``fm_seed``, ``extend_windows`` and
+    ``kmer_seed`` too on a data mesh, and never on an index mesh (their
+    owner sums keep the FM machine and the windows plain, and the mesh's
+    FM seeder has no kmer stage); ``seed_sw`` on no rank (short
+    reads)."""
     idx, batch = m["idx"], m["batches"][1]
     grid = dist_leg.head(batch, grid_reads)
     runs = lambda b: [dict(kind="regions", batch=b, clock=True),
@@ -1313,12 +1498,14 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
             per_rank = {n: [r["tasks"][0]["jobs"][k][n] for r in res]
                         for n in launches}
             # the FM machine and the windows stay plain on an index mesh
-            # (each owner sum is a collective no launch holds)
-            mesh_plain = ("fm_seed", "extend_windows")
+            # (each owner sum is a collective no launch holds), whose FM
+            # seeder has no kmer stage; no short read runs the seed-SW
+            mesh_plain = ("fm_seed", "extend_windows", "kmer_seed")
             plain_ok = all(min(per_rank[n]) > 0 if names == ("data",)
                            else max(per_rank[n]) == 0 for n in mesh_plain)
-            if not plain_ok or min(min(per_rank[n]) for n in launches
-                                   if n not in mesh_plain) <= 0:
+            if (not plain_ok or max(per_rank["seed_sw"]) > 0
+                    or min(min(per_rank[n]) for n in launches
+                           if n not in (*mesh_plain, "seed_sw")) <= 0):
                 raise AssertionError(f"{what}: launches by rank in job {k}: "
                                      f"{per_rank}")
             if job.get("timed"):
@@ -1475,6 +1662,12 @@ def main() -> None:
     ext = extend_phase(m, pe, fm, lr, i64, dev)
     log(f"extend phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    kms = kmer_phase(m, pe, i64, dev)
+    log(f"kmer phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sws = seedsw_phase(m, lr, dev)
+    log(f"seed-SW phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     api = api_path(m, card)
     log(f"API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1492,7 +1685,15 @@ def main() -> None:
                dict(name="fm_seed", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/fm_seed.cu",
                     replaces="bioseqdb_tpu/kernels/seed.py:278",
-                    launches=sum(x["fm_seed"] for x in runs), **fms)]
+                    launches=sum(x["fm_seed"] for x in runs), **fms),
+               dict(name="kmer_seed", route="cuda",
+                    source="bioseqdb_tpu_torch/csrc/kmer.cu",
+                    replaces="bioseqdb_tpu/kernels/kmer.py:340",
+                    launches=sum(x["kmer_seed"] for x in runs), **kms),
+               dict(name="seed_sw", route="cuda",
+                    source="bioseqdb_tpu_torch/csrc/seedsw.cu",
+                    replaces="bioseqdb_tpu/kernels/seedsw.py:56",
+                    launches=sum(x["seed_sw"] for x in runs), **sws)]
     kernels += [dict(name=name, route="cuda",
                      source="bioseqdb_tpu_torch/csrc/chain.cu",
                      replaces=f"bioseqdb_tpu/kernels/chain.py:{line}",

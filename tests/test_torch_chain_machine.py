@@ -225,7 +225,7 @@ def test_kernel_constants_equal_the_modules():
     assert consts["kPosFill"] == 0x7FFFFFFF and "0x7FFFFFFF)" in plain
     for k in ("chain_seeds", "filter_chains"):
         assert k in build.KERNELS and k in build.LAUNCHES
-        assert f"CHAIN_ENTRY({k})" in src
+        assert f"LANE_ENTRY({k})" in src
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,17 @@ from bioseqdb_tpu_torch.tools import extend_calls as ec
 DTYPES = {"int32": torch.int32, "int64": torch.int64}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the plain twins' tensors are small, so one
+    thread runs them faster than many, and far faster when test workers
+    share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def edge():
     return {name: ec.edge_calls(dt)[0] for name, dt in DTYPES.items()}
@@ -184,7 +195,7 @@ def test_kernel_constants_equal_the_modules():
     assert consts["kNoCode"] == 4 and consts["kFields"] == 6
     for k in ("extend_scan", "extend_windows", "extend_merge_left",
               "extend_merge_right", "extend_seedcov"):
-        assert f"EXT_ENTRY({k})" in src
+        assert f"LANE_ENTRY({k})" in src
     for k in build.EXTEND_KERNELS:
         assert k in build.KERNELS and k in build.STEP_KERNELS
         assert k in build.LAUNCHES
