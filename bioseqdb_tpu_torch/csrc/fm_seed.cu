@@ -14,36 +14,51 @@
 // 150 bp, ~9,800 at 1,500 bp), each an FMD extension whose two Occ block
 // rows (48 bytes each, at ranks anywhere in the index) are addressed by
 // the step before. So a launch lasts about as long as its slowest lane's
-// chain of steps, each a dependent random read from device memory or L2
-// (~0.5-1 us) plus its integer work: latency, not the card's memory rate
-// (a 4.6 Mb genome's Occ table is ~3.5 MB and stays in L2) or its issue
-// rate.
+// chain of steps, each a dependent read from L2 (a 4.6 Mb genome's Occ
+// table is ~3.5 MB) plus its integer work: latency, not the card's memory
+// rate or its issue rate. The first version (a thread a read, its three
+// candidate stacks in local memory, copied whole at every turn and every
+// backward row) took 1.25 us a step at the reseed entry and ~2.4 us on an
+// FM-seeded batch: about ten L2 round trips a step.
 //
-// Design:
-// - One thread a read, 128 threads a block; each thread runs its lane
-//   from the set-up state to PH_DONE with no synchronisation. Lanes are
-//   independent and a PH_DONE lane's step is a no-op in the plain
-//   version, so this equals its chunked loop with live-lane compaction.
-// - A step is the plain version's body in its order: the budget check
-//   and iters += 1; the pivot (which may move the lane to PH_FWD, PH_R3
-//   or PH_R3J and extend it in the same step); the split-row stall; the
-//   two Occ fetches; one of the PH_R3J / PH_FWD / PH_BWD / PH_R3
-//   branches, chosen by the phase after the pivot. Updates that read the
-//   state from before the step (ret, r2i, n_curr, curr, n_prev) read it
-//   before it is written.
-// - Scalars live in registers. The three candidate stacks (cand, prev,
-//   curr: up to kMaxCand rows of (k, s, end)) are per-thread arrays in
-//   local memory, copied whole where the plain version copies them. The
-//   mems are read and written in the output tables.
+// Design, the machine kept step for step (iters, it_r1, it_r2, the
+// budget and the stall steps are outputs, counted as before):
+// - A quad (4 threads) a read, 8 reads a block of one warp, so that a
+//   1,024-read call spreads over 128 SMs. A quad's threads run the
+//   machine's scalar state together (uniform code, lanes.cuh); what they
+//   split is the Occ work: for a forward or round-3 step each thread
+//   counts one code in both rows (its checkpoint word, the row's two
+//   16-byte word loads, shared by the quad, and its major entry), and the
+//   extension takes o1[c], o2[c] and the sum over the codes above c by
+//   shuffles. A warp then serialises 8 reads' branches, not 32. (Counting
+//   all four codes from three popcounts a word, two words a thread, was
+//   tried: ~5% on the FM-seeded batch, none elsewhere; not kept.)
+// - The stacks in shared memory, sized by the call's P and rank type
+//   (Stacks). Two buffers suffice for the plain version's three: cand
+//   lives only in the forward pass and curr only in the backward one,
+//   and "prev = cand" / "prev = curr" become a swap of roles (pb), with
+//   no copy. Equivalent because no row at or past a stack's count is ever
+//   read: every turn into PH_BWD pushes a candidate first, or the stack is
+//   full, so n_prev >= 1 and the row index jr stays below n_prev (a row
+//   turns only with n_curr >= 1); ret reads the row just pushed; last_s is
+//   read only when n_curr > 0. A P = 1 edge call holds this.
+// - Each backward row's Occ fetches issued together at the row's first
+//   step: the row's code q[i] and every prev row's (k, s) are known there,
+//   so the quad's threads take the candidates in turn (t, t + 4, ...)
+//   and fetch both rows of each, the loads independent; the extensions
+//   (k, s) go to shared memory, and each backward step takes its own
+//   (rev1's order) with its budget check, stall count, emit and curr push
+//   as before. A budget that runs out in the middle of a row leaves the
+//   rest unread.
 // - Ranks and rank-valued state take the template type R (int32 or
 //   int64, the index's rank dtype); positions, counts and phases int32.
 //   Table rows are clamped where XLA's gathers clamp them.
-// - An Occ row is three 16-byte loads; its counts are four popcounts of
-//   eight words against the first-v-bases mask (kernels/fm.py
-//   _row_counts).
+// - The quad syncs at every step (group_sync), so no thread rewrites a
+//   stack row that another still reads. Compiled by a host compiler, the
+//   same body runs every read through 4 emulated threads (lanes.cuh),
+//   which the CPU tests hold against the plain version.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lanes.cuh"
 
 namespace {
 
@@ -58,11 +73,13 @@ constexpr int RD_SMEM = 0;
 constexpr int RD_RESEED = 1;
 constexpr int RD_LAST = 2;
 
-constexpr int kThreads = 128;    // a block: one read a thread
+constexpr int kQuad = 4;         // threads a read: one a code
+constexpr int kReads = 8;        // reads a block (one warp)
 constexpr int kMaxCand = 32;     // candidate stack rows (the wrapper raises above)
 constexpr int kLog2OccBlock = 7;   // 128 bases an Occ block (fmindex.OCC_BLOCK)
 constexpr int kLog2Major = 15;     // blocks a major checkpoint (fmindex.MAJOR_BLOCKS)
 constexpr int kLog2FetchRow = 10;  // the JAX machine's fetch row: 1,024 bases
+constexpr int kRefused = 1;        // cudaErrorInvalidValue
 
 struct Params {
   const int32_t* codes;     // [B, W]
@@ -89,20 +106,19 @@ struct Params {
 };
 
 template <typename T>
-__device__ __forceinline__ T clampv(T v, T lo, T hi) {
+LANE_HD inline T clampv(T v, T lo, T hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
 // _MASK_TABLE[v]: the first v bases (2 bits each, big-endian) of a word
-__device__ __forceinline__ uint32_t first_bases(int v) {
+LANE_HD inline uint32_t first_bases(int v) {
   return v == 0 ? 0u : (0x55555555u << (2 * (16 - v)));
 }
 
 // the jump key of the depth-J window at column pos (sum_t q[pos + t] << 2t;
 // seed.py _jump_keys), or -1 when the window holds a code >= 4 or runs
 // past W
-__device__ __forceinline__ int jump_key(const int32_t* q, int pos, int W,
-                                        int J) {
+LANE_HD inline int jump_key(const int32_t* q, int pos, int W, int J) {
   int key = 0;
   for (int t = 0; t < J; ++t) {
     const int c = pos + t < W ? q[pos + t] : 4;
@@ -112,58 +128,97 @@ __device__ __forceinline__ int jump_key(const int32_t* q, int pos, int W,
   return key;
 }
 
-// occ4 at conceptual-prefix rank r (kernels/fm.py occ_rows_for +
-// occ4_from_row): the Occ block row's checkpoint, the counts of each code
-// in the row's first (j & 127) bases, and the major checkpoint
+// a read's stacks in shared memory: two buffers of P rows (k, s, end),
+// prev and the other (cand in the forward pass, curr in the backward one),
+// and the backward row's fetched extensions (k, s) a candidate
 template <typename R>
-__device__ __forceinline__ void occ4(const Params& p, const R* majors, R r,
-                                     R primary, R out[4]) {
+struct Stacks {
+  R* k[2];
+  R* s[2];
+  int32_t* e[2];
+  R* fk;
+  R* fs;
+};
+
+template <typename R>
+LANE_HD inline int stack_bytes(int P) {
+  return P * static_cast<int>(6 * sizeof(R) + 2 * sizeof(int32_t));
+}
+
+template <typename R>
+LANE_HD inline Stacks<R> stacks_at(unsigned char* base, int P) {
+  R* r = reinterpret_cast<R*>(base);
+  int32_t* e = reinterpret_cast<int32_t*>(r + 6 * P);
+  return Stacks<R>{{r, r + P}, {r + 2 * P, r + 3 * P}, {e, e + P},
+                   r + 4 * P, r + 5 * P};
+}
+
+// occ(c, r): the count of code c before conceptual-prefix rank r
+// (kernels/fm.py occ_rows_for + occ4_from_row for one code): the Occ block
+// row's checkpoint of c, the c bases in the row's first (jr & 127) bases,
+// and the major checkpoint of c
+template <typename R>
+GROUP_FN inline R occ_code(const Params& p, const R* majors, R r, R primary,
+                           int c) {
   const R jr = r - static_cast<R>(r > primary);
   const R blk = jr >> kLog2OccBlock;
   const long long octo =
       clampv<long long>(static_cast<long long>(blk >> 3), 0, p.n_octo - 1);
   const long long row = octo * 8 + static_cast<long long>(blk & 7);
-  const int4* src = reinterpret_cast<const int4*>(p.occ_rows + row * 12);
-  const int4 c = __ldg(src);
-  const int4 wa = __ldg(src + 1);
-  const int4 wb = __ldg(src + 2);
+  const int32_t* src = p.occ_rows + row * 12;
+  const int ck = __ldg(src + c);
+  const int4 wa = __ldg(reinterpret_cast<const int4*>(src) + 1);
+  const int4 wb = __ldg(reinterpret_cast<const int4*>(src) + 2);
   const long long m = clampv<long long>(
       static_cast<long long>(blk >> kLog2Major), 0, p.n_major - 1);
-  const R* mj = majors + m * 4;
+  const R mj = __ldg(majors + m * 4 + c);
   const int off = static_cast<int>(jr & 127);
   const uint32_t words[8] = {
       static_cast<uint32_t>(wa.x), static_cast<uint32_t>(wa.y),
       static_cast<uint32_t>(wa.z), static_cast<uint32_t>(wa.w),
       static_cast<uint32_t>(wb.x), static_cast<uint32_t>(wb.y),
       static_cast<uint32_t>(wb.z), static_cast<uint32_t>(wb.w)};
-  int cnt[4] = {0, 0, 0, 0};
+  const uint32_t pat = static_cast<uint32_t>(c) * 0x55555555u;
+  int cnt = 0;
 #pragma unroll
   for (int w = 0; w < 8; ++w) {
-    const uint32_t mask = first_bases(clampv(off - 16 * w, 0, 16));
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t x = words[w] ^ (static_cast<uint32_t>(k) * 0x55555555u);
-      const uint32_t y = ~(x | (x >> 1)) & 0x55555555u;
-      cnt[k] += __popc(y & mask);
-    }
+    const uint32_t x = words[w] ^ pat;
+    const uint32_t y = ~(x | (x >> 1)) & 0x55555555u;
+    cnt += popc32(y & first_bases(clampv(off - 16 * w, 0, 16)));
   }
-  const int ck[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    out[k] = static_cast<R>(ck[k] + cnt[k]) + mj[k];
+  return static_cast<R>(ck + cnt) + mj;
 }
 
+// the backward row's extensions by code c of every prev row (k, s), the
+// quad's threads taking the rows in turn: k = L2[c] + 1 + occ(c, k),
+// s = occ(c, k + max(s, 0)) - occ(c, k)
 template <typename R>
-__global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= p.B) return;
+GROUP_FN void fetch_row(const Params& p, const R* majors, const Stacks<R>& sk,
+                        int pb, int n_prev, int c, R primary, R base) {
+  FOR_LANES(kQuad, t) {
+#pragma unroll 2
+    for (int jj = t; jj < n_prev; jj += kQuad) {
+      const R a = sk.k[pb][jj];
+      const R s = sk.s[pb][jj];
+      const R o1 = occ_code<R>(p, majors, a, primary, c);
+      const R o2 = occ_code<R>(p, majors, a + (s < 0 ? 0 : s), primary, c);
+      sk.fk[jj] = base + o1;
+      sk.fs[jj] = o2 - o1;
+    }
+  }
+  group_sync<kQuad>();
+}
+
+// the machine for read b (kernels/seed.py _plain_machine's lane), by a
+// quad over its stacks in shared memory sm
+template <typename R>
+GROUP_FN void fm_seed_read(const Params& p, int b, unsigned char* sm) {
+  constexpr auto G = kQuad;
   const int W = p.W, M = p.M, P = p.P, J = p.J;
   const int32_t* q = p.codes + static_cast<long long>(b) * W;
   const R* majors = static_cast<const R*>(p.occ_majors);
   const R* jump = static_cast<const R*>(p.jump);
-  R L2[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) L2[c] = static_cast<const R*>(p.L2)[c];
+  const R* L2 = static_cast<const R*>(p.L2);
   const R primary = static_cast<R>(p.primary);
   const long long mo = static_cast<long long>(b) * M;
   R* mem_k = static_cast<R*>(p.mem_k) + mo;
@@ -171,17 +226,16 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
   R* mem_b = static_cast<R*>(p.mem_b) + mo;
   R* mem_e = static_cast<R*>(p.mem_e) + mo;
   const int L = p.lens[b];
+  const Stacks<R> sk = stacks_at<R>(sm, P);
 
   int phase = p.phase0[b], rnd = p.round0[b];
   int n_mem = p.n_mem[b], n_mem_r1 = p.n_mem_r1[b];
   int x = 0, i = 0, ik_end = 0, n_cand = 0, n_prev = 0, n_curr = 0, j = 0;
   int ret = 0, r2i = 0, last_start = W + 1, iters = 0, it_r1 = 0, it_r2 = 0;
   int jkey_pend = 0;
+  int pb = 0;   // the buffer that holds prev; the other holds cand / curr
   bool rev1 = false, overflow = false;
   R ik_k = 0, ik_l = 0, ik_s = 0, min_intv = 1;
-  R cand[kMaxCand][3], prev[kMaxCand][3], curr[kMaxCand][3];
-  for (int t = 0; t < P; ++t)
-    for (int e = 0; e < 3; ++e) cand[t][e] = prev[t][e] = curr[t][e] = 0;
 
   // code at column pos, clamped: 0..3 a base, >= 4 ambiguous
   auto qat = [&](int pos) { return q[clampv(pos, 0, W - 1)]; };
@@ -204,6 +258,7 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
   };
 
   while (phase != PH_DONE) {
+    group_sync<G>();   // the last step's reads are done
     if (iters >= p.max_iters) {   // the budget: no step left
       overflow = true;
       break;
@@ -296,7 +351,12 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
     const bool in_r3 = phase == PH_R3;
     const int j_eff = rev1 ? n_prev - 1 - j : j;
     const int jr = clampv(j_eff, 0, P - 1);
-    const R bwd_k = prev[jr][0], bwd_s = prev[jr][1], bwd_end = prev[jr][2];
+    R bwd_k = 0, bwd_s = 0, bwd_end = 0;
+    if (in_bwd) {
+      bwd_k = sk.k[pb][jr];
+      bwd_s = sk.s[pb][jr];
+      bwd_end = sk.e[pb][jr];
+    }
     const R a = in_bwd ? bwd_k : ik_l;
     const R bb = in_bwd ? static_cast<R>(0) : ik_k;
     const R src_s = in_bwd ? bwd_s : ik_s;
@@ -317,20 +377,30 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
         }
         ++iters;
       }
-      R o1[4], o2[4];
-      occ4<R>(p, majors, a, primary, o1);
-      occ4<R>(p, majors, posB, primary, o2);
-      // FMD backward extension (kernels/fm.py fmd_extend_from_occ); the
-      // forward one swaps k and l and reads code 3 - q
-      const int c = clampv(in_bwd ? qi : 3 - qi, 0, 3);
-      const R dollar = static_cast<R>(a <= primary && primary < a + s_eff);
-      R suffix = 0;
-      for (int t = 3; t > c; --t) suffix += o2[t] - o1[t];
-      const R k4 = L2[c] + 1 + o1[c];
-      const R l4 = bb + dollar + suffix;
-      ok_s = o2[c] - o1[c];
-      ok_k = in_bwd ? k4 : l4;
-      ok_l = in_bwd ? l4 : k4;
+      if (in_bwd) {   // FMD backward extension by q[i], fetched at the row's start
+        if (j == 0) {
+          const int c = clampv(qi, 0, 3);
+          fetch_row<R>(p, majors, sk, pb, n_prev, c, primary, L2[c] + 1);
+        }
+        ok_k = sk.fk[jr];
+        ok_s = sk.fs[jr];
+      } else {        // the forward one (kernels/fm.py fmd_extend_from_occ,
+                      // k and l swapped, code 3 - q): a thread a code
+        const int c = clampv(3 - qi, 0, 3);
+        Lanes<R, G> o1, d;
+        FOR_LANES(G, t) {
+          o1[t] = occ_code<R>(p, majors, a, primary, t);
+          d[t] = occ_code<R>(p, majors, posB, primary, t) - o1[t];
+        }
+        const R o1c = shfl(o1, c);
+        ok_s = shfl(d, c);
+        FOR_LANES(G, t) {
+          if (t <= c) d[t] = 0;
+        }
+        const R dollar = static_cast<R>(a <= primary && primary < a + s_eff);
+        ok_k = bb + dollar + group_sum(d);   // l4: the codes above c
+        ok_l = L2[c] + 1 + o1c;              // k4
+      }
     }
 
     if (phase == PH_R3J) {   // the jump: depth J in one step
@@ -348,9 +418,9 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
         if (n_cand >= P) {
           overflow = true;
         } else {
-          cand[n_cand][0] = ik_k;
-          cand[n_cand][1] = ik_s;
-          cand[n_cand][2] = static_cast<R>(ik_end);
+          sk.k[1 - pb][n_cand] = ik_k;
+          sk.s[1 - pb][n_cand] = ik_s;
+          sk.e[1 - pb][n_cand] = ik_end;
           ++n_cand;
         }
       }
@@ -362,12 +432,11 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
         ik_end = i + 1;
         i = i + 1;
       }
-      if (fwd_end || fwd_amb || drop_below) {
-        for (int t = 0; t < P; ++t)
-          for (int e = 0; e < 3; ++e) prev[t][e] = cand[t][e];
+      if (fwd_end || fwd_amb || drop_below) {   // cand becomes prev
+        pb = 1 - pb;
         n_prev = n_cand;
         rev1 = true;
-        ret = static_cast<int>(cand[clampv(n_cand - 1, 0, P - 1)][2]);
+        ret = sk.e[pb][clampv(n_cand - 1, 0, P - 1)];
         i = x - 1;
         j = 0;
         n_curr = 0;
@@ -378,7 +447,7 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
       const int bw_i = i;
       const bool c_ok = bw_i >= 0 && qok;
       const int ncr = n_curr;
-      const R last_s = curr[clampv(ncr - 1, 0, P - 1)][1];
+      const R last_s = ncr > 0 ? sk.s[1 - pb][ncr - 1] : static_cast<R>(0);
       const bool fail = !c_ok || ok_s < min_intv;
       const bool emit = fail && ncr == 0 && bw_i + 1 < last_start
                         && (bwd_end - static_cast<R>(bw_i + 1)) >= p.min_seed_len;
@@ -391,9 +460,9 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
         if (ncr >= P) {
           overflow = true;
         } else {
-          curr[ncr][0] = ok_k;
-          curr[ncr][1] = ok_s;
-          curr[ncr][2] = bwd_end;
+          sk.k[1 - pb][ncr] = ok_k;
+          sk.s[1 - pb][ncr] = ok_s;
+          sk.e[1 - pb][ncr] = static_cast<int32_t>(bwd_end);
           ++n_curr;
         }
       }
@@ -405,9 +474,8 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
         phase = PH_PIVOT;
         if (rnd == RD_SMEM) x = ret;
         if (rnd == RD_RESEED) ++r2i;
-      } else if (row_done) {                  // the next row
-        for (int t = 0; t < P; ++t)
-          for (int e = 0; e < 3; ++e) prev[t][e] = curr[t][e];
+      } else if (row_done) {                  // the next row: curr becomes prev
+        pb = 1 - pb;
         n_prev = n_curr;
         rev1 = false;
         n_curr = 0;
@@ -441,11 +509,24 @@ __global__ void __launch_bounds__(kThreads) fm_seed_kernel(const Params p) {
   p.overflow[b] = overflow ? 1 : 0;
 }
 
+#ifdef __CUDACC__
+template <typename R>
+__global__ void __launch_bounds__(kQuad * kReads) fm_seed_kernel(
+    const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slot = threadIdx.x / kQuad;
+  const int b = blockIdx.x * kReads + slot;
+  if (b < p.B) fm_seed_read<R>(p, b, smem + slot * stack_bytes<R>(p.P));
+}
+#endif
+
 }  // namespace
 
-// Runs the machine for B reads on `stream`; rank_bytes 4 or 8 picks the
-// rank type. Returns the launch's CUDA error code (0: launched).
-extern "C" int fm_seed_launch(
+// fm_seed_launch (nvcc): runs the machine for B reads on `stream`;
+// fm_seed_host (a host compiler): every read in turn. rank_bytes 4 or 8
+// picks the rank type. Returns 0, or a CUDA error code (kRefused for a
+// refused shape).
+extern "C" int LANE_ENTRY(fm_seed)(
     int rank_bytes, const int32_t* codes, const int32_t* lens,
     const int32_t* phase0, const int32_t* round0, const int32_t* n_mem_r1,
     const int32_t* occ_rows, long long n_octo,
@@ -454,17 +535,33 @@ extern "C" int fm_seed_launch(
     void* mem_b, void* mem_e, int32_t* n_mem, int32_t* iters, int32_t* it_r1,
     int32_t* it_r2, uint8_t* overflow, int B, int W, int M, int P, int J,
     int max_iters, int min_seed_len, int split_len, int split_width,
-    int max_mem_intv, cudaStream_t stream) {
+    int max_mem_intv LANE_STREAM) {
   if (P < 1 || P > kMaxCand || (rank_bytes != 4 && rank_bytes != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return kRefused;
   Params p{codes, lens, phase0, round0, n_mem_r1, occ_rows, occ_majors,
            L2, jump, mem_k, mem_s, mem_b, mem_e, n_mem, iters, it_r1, it_r2,
            overflow, n_octo, n_major, primary, B, W, M, P, J, max_iters,
            min_seed_len, split_len, split_width, max_mem_intv};
-  const int grid = (B + kThreads - 1) / kThreads;
+#ifdef __CUDACC__
+  // <= 14,336 bytes a block (int64, P 32): no opt-in above 48 KB needed
+  const int grid = (B + kReads - 1) / kReads;
   if (rank_bytes == 8)
-    fm_seed_kernel<long long><<<grid, kThreads, 0, stream>>>(p);
+    fm_seed_kernel<long long><<<grid, kQuad * kReads,
+                                kReads * stack_bytes<long long>(P),
+                                stream>>>(p);
   else
-    fm_seed_kernel<int><<<grid, kThreads, 0, stream>>>(p);
+    fm_seed_kernel<int><<<grid, kQuad * kReads, kReads * stack_bytes<int>(P),
+                          stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+#else
+  unsigned char* sm = new unsigned char[stack_bytes<long long>(P)];
+  for (int b = 0; b < B; ++b) {
+    if (rank_bytes == 8)
+      fm_seed_read<long long>(p, b, sm);
+    else
+      fm_seed_read<int>(p, b, sm);
+  }
+  delete[] sm;
+  return 0;
+#endif
 }

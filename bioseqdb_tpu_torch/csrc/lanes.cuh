@@ -1,6 +1,7 @@
 // What the port's kernels with host-buildable lane bodies share (chain.cu,
-// extend.cu, kmer.cu, seedsw.cu): the lane-body qualifier, the entry
-// names, min/max and the packed doubled text's decode.
+// extend.cu, fm_seed.cu, kmer.cu, seedsw.cu): the lane-body qualifier, the
+// entry names, min/max, the packed doubled text's decode, and the group
+// exchanges of a kernel that runs several threads a read.
 //
 // Compiled by nvcc, a source's lane bodies are __host__ __device__ and its
 // entries are NAME_launch(..., stream); compiled by a host compiler (g++ -x
@@ -38,3 +39,116 @@ LANE_HD inline int32_t packed_code(const int32_t* text, long long n_words,
   return static_cast<int32_t>(
       (static_cast<uint32_t>(text[w]) >> (2 * (15 - (t & 15)))) & 3u);
 }
+
+// ---- groups: G threads (a warp, or a quad of a warp) run one read ----
+//
+// A group body is written once for the card and the host. Code outside
+// FOR_LANES is uniform: every thread of the group runs it on the same
+// values (on the host it runs once). FOR_LANES(G, t) { ... } is the part
+// each thread runs as lane t of its group: on the card one pass, t the
+// thread's lane; on the host G passes in turn, t = 0 .. G - 1 (so a body
+// may `continue`, never `break` or `return`). A value that crosses from
+// the lanes to an exchange lives in a Lanes<T, G>: a register on the card,
+// an array of G on the host. The exchanges (ballot, shfl, the reductions)
+// are called from uniform code, all of the group's threads together; a
+// lane reads what another lane wrote to shared memory only after
+// group_sync<G>(). Bit t of a ballot is lane t's. A group body is a
+// GROUP_FN: device code on the card (it uses the exchanges), host code in
+// a host build.
+
+#ifdef __CUDACC__
+#define GROUP_FN __device__
+template <typename T, int G>
+struct Lanes {
+  T v;
+  __device__ __forceinline__ T& operator[](int) { return v; }
+  __device__ __forceinline__ const T& operator[](int) const { return v; }
+};
+#define FOR_LANES(G, t) \
+  for (int t = static_cast<int>(threadIdx.x) % (G), t##_pass = 0; \
+       t##_pass < 1; ++t##_pass)
+
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  return G == 32 ? 0xFFFFFFFFu
+                 : ((1u << G) - 1u) << (threadIdx.x % 32 / G * G);
+}
+template <int G>
+__device__ __forceinline__ void group_sync() { __syncwarp(group_mask<G>()); }
+template <int G>
+__device__ __forceinline__ uint32_t ballot(const Lanes<bool, G>& p) {
+  const uint32_t m = __ballot_sync(group_mask<G>(), p.v);
+  return G == 32 ? m : (m >> (threadIdx.x % 32 / G * G)) & ((1u << G) - 1u);
+}
+template <int G, typename T>
+__device__ __forceinline__ T shfl(const Lanes<T, G>& x, int src) {
+  return __shfl_sync(group_mask<G>(), x.v, src, G);
+}
+template <int G, typename T>
+__device__ __forceinline__ T group_sum(const Lanes<T, G>& x) {
+  T v = x.v;
+  for (int o = G / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(group_mask<G>(), v, o, G);
+  return v;
+}
+template <int G, typename T>
+__device__ __forceinline__ T group_min(const Lanes<T, G>& x) {
+  T v = x.v;
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = min_(v, __shfl_xor_sync(group_mask<G>(), v, o, G));
+  return v;
+}
+// uniform code's stores to device memory: lane 0 of the group
+template <int G>
+__device__ __forceinline__ bool group_leader() {
+  return threadIdx.x % G == 0;
+}
+__device__ __forceinline__ int popc32(uint32_t x) { return __popc(x); }
+// the lowest / highest set bit of x != 0
+__device__ __forceinline__ int low_bit(uint32_t x) { return __ffs(x) - 1; }
+__device__ __forceinline__ int high_bit(uint32_t x) { return 31 - __clz(x); }
+#else
+#define GROUP_FN
+template <typename T, int G>
+struct Lanes {
+  T v[G];
+  T& operator[](int t) { return v[t]; }
+  const T& operator[](int t) const { return v[t]; }
+};
+#define FOR_LANES(G, t) for (int t = 0; t < (G); ++t)
+
+template <int G>
+inline void group_sync() {}
+template <int G>
+inline uint32_t ballot(const Lanes<bool, G>& p) {
+  uint32_t m = 0;
+  for (int t = 0; t < G; ++t) m |= static_cast<uint32_t>(p[t]) << t;
+  return m;
+}
+template <int G, typename T>
+inline T shfl(const Lanes<T, G>& x, int src) { return x[src % G]; }
+template <int G, typename T>
+inline T group_sum(const Lanes<T, G>& x) {
+  T v = 0;
+  for (int t = 0; t < G; ++t) v += x[t];
+  return v;
+}
+template <int G, typename T>
+inline T group_min(const Lanes<T, G>& x) {
+  T v = x[0];
+  for (int t = 1; t < G; ++t) v = min_(v, x[t]);
+  return v;
+}
+template <int G>
+inline bool group_leader() { return true; }
+inline int popc32(uint32_t x) { return __builtin_popcount(x); }
+inline int low_bit(uint32_t x) { return __builtin_ctz(x); }
+inline int high_bit(uint32_t x) { return 31 - __builtin_clz(x); }
+
+// host stand-ins for the card's types and intrinsics the bodies use
+struct int4 {
+  int x, y, z, w;
+};
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+#endif

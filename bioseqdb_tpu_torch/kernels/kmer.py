@@ -10,7 +10,7 @@ machine's reseed entry; anything the fast path cannot hold exact is
 flagged ``overflow``.
 
 On CUDA tensors ``collect_seeds_kmer`` is one launch of the
-hand-written kernel (``kernels/kmer_cuda.py``: a thread a read runs the
+hand-written kernel (``kernels/kmer_cuda.py``: a warp a read runs the
 whole program), which raises rather than falls back; on CPU tensors it
 runs the plain twin ``collect_seeds_kmer_plain``, the stages as eager
 torch ops vectorized over reads, bit-equal to the kernel. The TPU
@@ -142,7 +142,8 @@ def kmer_diagonals(bmeta, entries, codes, lens, bb: int, smax: int,
     ``min(dmax, nmz_c * smax)`` smallest distinct diagonals. Returns
     mz_overflow, capped, d_overflow, diags (int32, ascending, _BIG past
     the last), dvalid, and what the lookups touched: mzok (the valid
-    minimizers) and cnt (each one's bucket count)."""
+    minimizers), cnt (each one's bucket count) and hits (a read's
+    candidate diagonals before the dedup)."""
     B, W = codes.shape
     dev = codes.device
     i32, i64 = torch.int32, torch.int64
@@ -211,7 +212,7 @@ def kmer_diagonals(bmeta, entries, codes, lens, bb: int, smax: int,
     d_overflow = torch.where(flat > cur[:, None], flat, _BIG).amin(1) < _BIG
     return dict(mz_overflow=mz_overflow, capped=capped,
                 d_overflow=d_overflow, diags=diags, dvalid=dvalid, mzok=mzok,
-                cnt=cnt)
+                cnt=cnt, hits=hit.sum((1, 2)))
 
 
 def collect_seeds_kmer_plain(

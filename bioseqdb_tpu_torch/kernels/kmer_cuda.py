@@ -3,16 +3,18 @@
 The Hopper counterpart of the JAX package's ``collect_seeds_kmer``
 (``bioseqdb_tpu/kernels/kmer.py``): one launch runs every read's
 k-mers, minimizers, table lookups, diagonal dedup, reaches, round 1,
-the round-2 certificate and the round-3 chase, a thread a read. The
+the round-2 certificate and the round-3 chase, a warp a read. The
 plain version is ``kmer.collect_seeds_kmer_plain``;
 ``kmer.collect_seeds_kmer`` calls this on CUDA tensors. It launches on
 PyTorch's current stream, allocates only its outputs, and does not
 synchronise.
 
-The per-read state is per-thread arrays sized by static limits, so a
-batch wider than ``MAX_WIDTH`` or caps above ``MAX_NMZ``, ``MAX_DMAX``,
-``MAX_SMAX`` or ``MAX_MEM`` are refused (ValueError): the pipeline's
-kmer seeder takes W <= 320 (wider batches take the FM seeder), nmz <=
+The per-read state is in shared memory sized by the call, but the
+kernel keeps static limits (a lane owns at most ``MAX_WIDTH / 32``
+positions; the diagonal list holds ``MAX_DMAX + 1``), so a batch wider
+than ``MAX_WIDTH`` or caps above ``MAX_NMZ``, ``MAX_DMAX``, ``MAX_SMAX``
+or ``MAX_MEM`` are refused (ValueError): the pipeline's kmer seeder takes
+W <= 320 (wider batches take the FM seeder), nmz <=
 ``layout.nmz_for(320)``, dmax <= 40, smax <= 14. Nothing falls back to
 the plain version.
 

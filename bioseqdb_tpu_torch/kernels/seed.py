@@ -6,8 +6,8 @@ mem_collect_intv (pivot / forward pass / backward pass / re-seed /
 LAST-like pass); every step performs one FMD extension. The JAX
 ``while_loop``, compiled into one TPU program, has two counterparts:
 - on the card, one launch of the hand-written kernel ``csrc/fm_seed.cu``
-  (``kernels/fm_seed_cuda.py``): a thread a read, each lane run from its
-  first step to its end;
+  (``kernels/fm_seed_cuda.py``): a quad of threads a read, each lane run
+  from its first step to its end;
 - the plain machine (``collect_seeds_plain``; the CPU path and the tests
   run it, and the kernel is held against it): eager torch ops, one
   batched step at a time, a Python loop that checks for live lanes
@@ -187,8 +187,8 @@ def collect_seeds_device(
     (and W > J).
 
     On CUDA tensors the machine is one launch of the hand-written kernel
-    (``csrc/fm_seed.cu`` through ``fm_seed_cuda``: a thread a read, each
-    run from its first step to its end), which raises rather than fall
+    (``csrc/fm_seed.cu`` through ``fm_seed_cuda``: a quad of threads a
+    read, each run from its first step to its end), which raises rather than fall
     back; on CPU tensors it is the plain machine
     (``collect_seeds_plain``), bit-equal to the kernel.
 
@@ -223,7 +223,8 @@ def collect_seeds_plain(
     sets the rows a kernel lane reads (the Occ and major rows of each
     step that extends, the jump row of each jump step; the spare last
     row is written and means nothing), and int64 ``steps`` [1], to which
-    it adds the steps that extend."""
+    it adds the steps that extend (and, if it holds one, int64 ``bwd``
+    [1]: the backward-pass steps among them)."""
     if touched is not None and group is not None:
         raise ValueError("touched: an unsharded machine only")
     return _collect(False, fm, codes, lens, min_seed_len, split_len,
@@ -242,6 +243,11 @@ def _collect(kernel, fm, codes, lens, min_seed_len, split_len, split_width,
     else:
         st = _plain_machine(fm, st, J=J, jump=jump, group=group,
                             touched=touched, **kw)
+    return _result(st)
+
+
+def _result(st: dict) -> dict:
+    """A finished machine state's outputs, in the JAX layout."""
     mems5 = torch.stack([st["mem_k"], torch.zeros_like(st["mem_k"]),
                          st["mem_s"], st["mem_b"], st["mem_e"]], 2)
     return dict(mems=mems5, n_mem=st["n_mem"], overflow=st["overflow"],
@@ -477,6 +483,8 @@ def _plain_machine(fm: kfm.FMDevice, st: dict, *, J: int,
         occ = kfm.occ4_from_row(fm, *rows, group=group)
         if touched is not None:
             _touch(fm, touched, rows[1], consume & ~over2)
+            if "bwd" in touched:
+                touched["bwd"] += (consume & in_bwd).sum()
         k4, l4, s4 = kfm.fmd_extend_from_occ(fm, a, b, s_eff, occ[:nB],
                                              occ[nB:])
         c_sel = w_(in_bwd, qi, 3 - qi).clamp(0, 3)[:, None]

@@ -17,7 +17,15 @@ the pipeline gives it.
   ``edge_call`` a machine call on it and ``edge_reseed_entry`` the kmer
   seeder's reseed entry for it;
 - ``ragged_batch``: reads of every length from 0 to ``read_len`` on a
-  genome, with Ns, junk, all-N and empty reads.
+  genome, with Ns, junk, all-N and empty reads;
+- ``edge_calls``: the named machine calls on the edge-case batch that
+  the kernel's tests and ``chip_smoke.py`` hold against the plain twin
+  (the jump, the reseed entry, a 300-step budget, a budget that runs out
+  in the middle of a backward row, one candidate row, 32 at the fat
+  caps);
+- ``host_library``: ``csrc/fm_seed.cu`` built for the host with g++;
+  ``MachineCall.host`` runs a call on it (the kernel's body through
+  emulated quads, every read in turn).
 
 ``chip_smoke.py``'s FM-machine phase and the seeding tests use it.
 """
@@ -25,8 +33,12 @@ the pipeline gives it.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import inspect
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -35,7 +47,8 @@ from bioseqdb_tpu_torch.align import pipeline
 from bioseqdb_tpu_torch.index import layout
 from bioseqdb_tpu_torch.index.builder import build_index
 from bioseqdb_tpu_torch.io.batch import pack_reads
-from bioseqdb_tpu_torch.kernels import seed
+from bioseqdb_tpu_torch.kernels import build, seed
+from bioseqdb_tpu_torch.kernels import fm_seed_cuda as fsc
 from bioseqdb_tpu_torch.kernels.fm_seed_cuda import fm_seed_cuda
 from bioseqdb_tpu_torch.kernels.kmer import collect_seeds_kmer
 from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
@@ -94,6 +107,18 @@ class MachineCall:
         fn = seed.collect_seeds_plain if plain else seed.collect_seeds_device
         return fn(**self.args)
 
+    def host(self, lib: ctypes.CDLL) -> dict:
+        """The call on the host build ``lib`` of csrc/fm_seed.cu (CPU
+        tensors): the kernel's body, every read in turn."""
+        a = self.args
+        st, J, kw = seed._prepare(**a)
+        args, _ = fsc.fm_seed_args(
+            a["fm"], st, jump_table=a["jump"].table if J else None, J=J, **kw)
+        rc = fsc.bind(lib, "fm_seed_host", stream=False)(*args)
+        if rc != 0:
+            raise RuntimeError(f"fm_seed_host refused its arguments ({rc})")
+        return seed._result(st)
+
     def kernel_ms(self, reps: int = 3) -> float:
         """The median over ``reps`` launches of the kernel alone (CUDA
         events), each on a fresh set-up state."""
@@ -114,10 +139,10 @@ class MachineCall:
     def plain_ms(self) -> tuple[float, dict, dict]:
         """The plain twin's milliseconds (CUDA events), outputs, and
         what a kernel lane reads: the distinct Occ, major and jump rows,
-        and the steps that extend (``collect_seeds_plain``'s ``touched``,
-        whose counting is timed with it: about ten ops a step of about
-        200, with no host sync)."""
-        touched = self.touched()
+        the steps that extend and the backward ones among them
+        (``collect_seeds_plain``'s ``touched``, whose counting is timed
+        with it: about ten ops a step of about 200, with no host sync)."""
+        touched = self.touched(bwd=True)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
@@ -126,23 +151,30 @@ class MachineCall:
         torch.cuda.synchronize()
         return ev[0].elapsed_time(ev[1]), out, counts(touched)
 
-    def touched(self) -> dict:
-        """An empty ``collect_seeds_plain`` ``touched`` for this call."""
+    def touched(self, bwd: bool = False) -> dict:
+        """An empty ``collect_seeds_plain`` ``touched`` for this call
+        (with ``bwd``, one that also counts the backward steps)."""
         a = self.args
         fm, dev = a["fm"], a["codes"].device
         nb = lambda n: torch.zeros(n + 1, dtype=torch.bool, device=dev)
-        return dict(occ=nb(fm.occ_rows.shape[0]),
-                    major=nb(fm.occ_majors.shape[0]),
-                    jump=nb(a["jump"].table.shape[0] if a["jump"] else 0),
-                    steps=torch.zeros(1, dtype=torch.int64, device=dev))
+        n0 = lambda: torch.zeros(1, dtype=torch.int64, device=dev)
+        t = dict(occ=nb(fm.occ_rows.shape[0]),
+                 major=nb(fm.occ_majors.shape[0]),
+                 jump=nb(a["jump"].table.shape[0] if a["jump"] else 0),
+                 steps=n0())
+        if bwd:
+            t["bwd"] = n0()
+        return t
+
+
+_SUMS = ("steps", "bwd")
 
 
 def counts(touched: dict) -> dict:
-    """The extending steps and the distinct rows of each table that a
-    filled ``touched`` holds."""
-    return dict(steps=int(touched["steps"]),
-                **{k: int(v[:-1].sum()) for k, v in touched.items()
-                   if k != "steps"})
+    """The extending steps (and backward ones), and the distinct rows of
+    each table that a filled ``touched`` holds."""
+    return {k: int(v) if k in _SUMS else int(v[:-1].sum())
+            for k, v in touched.items()}
 
 
 def max_abs_err(got: dict, want: dict) -> int:
@@ -303,3 +335,47 @@ def ragged_batch(genome: str, n: int, seed_: int, read_len: int = 150):
     batch = pack_reads(reads, [f"g{i}" for i in range(n)])
     return (torch.from_numpy(np.asarray(batch.codes, np.int32)),
             torch.from_numpy(np.asarray(batch.lens, np.int32)))
+
+
+# a budget that stops lanes of the edge-case batch in the middle of a
+# backward row (tests/test_torch_fmseed_machine.py checks that it does)
+MID_ROW_BUDGET = 60
+EDGE_NAMES = ("jump", "reseed entry", "budget 300", "budget mid-row", "P 1",
+              "P 32")
+
+
+def edge_calls(idx, fm, codes, lens) -> dict:
+    """{name: machine call} on the edge-case batch (``edge_case_setup``'s
+    index, codes and lens; ``fm`` in either rank dtype): the round-3 jump
+    (depth 8); the reseed entry; a 300-step budget; a budget that runs
+    out in the middle of a backward row; one candidate row (P 1, every
+    stack full at its first push; a 300-step budget); and the fat
+    retry's caps (P 32, 32 mems, its budget, the jump)."""
+    jump = seed.build_r3_jump(fm)
+    W = codes.shape[1]
+    return {
+        "jump": edge_call(fm, codes, lens, jump=jump),
+        "reseed entry": edge_call(
+            fm, codes, lens, max_mem_intv=0, max_mem=24, entry_reseed=True,
+            reseed_entry=edge_reseed_entry(idx, codes, lens)),
+        "budget 300": edge_call(fm, codes, lens, max_iters=300),
+        "budget mid-row": edge_call(fm, codes, lens, jump=jump,
+                                    max_iters=MID_ROW_BUDGET),
+        "P 1": edge_call(fm, codes, lens, jump=jump, max_cand=1,
+                         max_iters=300),
+        "P 32": edge_call(fm, codes, lens, jump=jump, max_cand=32,
+                          max_mem=32, max_iters=3 * (10 * W + 256)),
+    }
+
+
+def host_library(out_dir) -> ctypes.CDLL:
+    """csrc/fm_seed.cu built for the host with g++ (its host entry) in
+    ``out_dir``, loaded; raises without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    so = Path(out_dir) / "libfm_seed_host.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-o", str(so), str(build.CSRC / build.SOURCES["fm_seed"])],
+                   check=True)
+    return ctypes.CDLL(str(so))

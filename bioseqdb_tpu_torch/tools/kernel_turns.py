@@ -1,0 +1,161 @@
+"""Another tree's ``kmer_seed`` and ``fm_seed`` against this tree's, in
+turns on one card, at the calls the pipeline gives them.
+
+    python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT
+
+Run from this tree's root. Builds OTHER_ROOT's ``csrc/kmer.cu`` and
+``csrc/fm_seed.cu`` (nvcc, the package's flags, into
+``_build/other``) and this tree's, and prints each build's
+``-Xptxas -v`` lines (registers, stack frame, spills). Runs
+``chip_smoke.py``'s main, PE, FM-seeded and long-read paths once on this
+tree's kernels, recording their calls: the main path's and the PE
+step's kmer calls, and the machine calls of the main path's reseed
+entry, the FM-seeded batch and the long-read warm-up. Each call is
+checked bit-equal to the plain twin on both trees' kernels (the C entry
+points take the same arguments), then timed on them in turns: other,
+this, this, other (``KmerCall.kernel_ms``: a launch in a CUDA graph;
+``MachineCall.kernel_ms``: CUDA events, median of 3). A line a call:
+both trees' times, the bound (``chip_smoke.bound`` / ``fm_bound``) and
+each share of it; for the machine also its slowest lane's steps (so us a
+step) and the backward share of the summed steps. Unpack the other tree
+with ``git archive`` into a directory that ``.gitignore`` lists. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import subprocess
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from bioseqdb_tpu_torch.kernels import build
+from bioseqdb_tpu_torch.tools import fm_machine, kmer_calls
+from bioseqdb_tpu_torch.tools.shapes import card_line
+
+SOURCES = ("kmer", "fm_seed")
+ORDER = ("other", "this", "this", "other")
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of a build's log that say what a kernel
+    uses."""
+    keys = ("Compiling entry", "registers", "stack frame")
+    return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keys)]
+
+
+def build_other(root: Path) -> dict:
+    """{source name: (CDLL, nvcc log)} of ``root``'s kmer.cu and
+    fm_seed.cu, built concurrently."""
+    out = build.BUILD_DIR / "other"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        src = root / "bioseqdb_tpu_torch" / "csrc" / build.SOURCES[name]
+        so = out / f"lib{name}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {root}'s {name}:\n{log}")
+        libs[name] = (ctypes.CDLL(str(so)), log)
+    return libs
+
+
+@contextlib.contextmanager
+def loading(libs: dict | None):
+    """Within the block the wrappers launch from ``libs`` ({source name:
+    CDLL}) in place of this tree's libraries (None: this tree's)."""
+    saved = build.library
+    if libs is not None:
+        build.library = lambda name: libs.get(name) or saved(name)
+    try:
+        yield
+    finally:
+        build.library = saved
+
+
+def in_turns(call, other: dict) -> dict:
+    """{tree: [ms, ms]} of ``call`` timed in ORDER, each tree's kernel
+    first held bit-equal to the plain twin."""
+    err = fm_machine.max_abs_err if isinstance(
+        call, fm_machine.MachineCall) else kmer_calls.max_abs_err
+    want = call.run(plain=True)
+    times = {"other": [], "this": []}
+    for tree in ("other", "this"):
+        with loading(other if tree == "other" else None):
+            got = call.run()
+            torch.cuda.synchronize()
+        if err(got, want) != 0:
+            raise AssertionError(f"{tree} tree's kernel disagrees with the "
+                                 f"plain twin on {call.shape}")
+    for tree in ORDER:
+        with loading(other if tree == "other" else None):
+            times[tree].append(call.kernel_ms())
+    return times
+
+
+def turn_line(kernel: str, name: str, call, times: dict, bound_ms: float,
+              bound_by: str) -> str:
+    fmt = lambda t: " / ".join(f"{x:.4f}" for x in t)
+    share = lambda t: " / ".join(f"{100 * bound_ms / x:.2f}%" for x in t)
+    return (f"{kernel} [{name}] {call.shape}: other {fmt(times['other'])} "
+            f"ms, this {fmt(times['this'])} ms (in turns: other, this, "
+            f"this, other); bound {bound_ms:.5f} ms ({bound_by}): other "
+            f"{share(times['other'])}, this {share(times['this'])}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_turns needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    cs.log(card)
+    logs = build.build(SOURCES)
+    other = build_other(args.other)
+    for name in SOURCES:
+        for tree, log in (("other", other[name][1]),
+                          ("this", logs.get(name, ""))):
+            for line in ptxas_lines(log):
+                cs.log(f"ptxas {name} [{tree}]: {line}")
+    other = {name: lib for name, (lib, _) in other.items()}
+    build.build()
+    m = cs.main_path(dev, card)
+    pe = cs.pe_path(m, card)
+    fmp = cs.fm_main_path(m, dev, card)
+    lr = cs.long_path(m, card)
+    for name, call in (("main path", m["km_calls"][0]),
+                       ("PE", pe["km_calls"][0])):
+        times = in_turns(call, other)
+        n = call.counts()
+        cs.log(turn_line("kmer_seed", name, call, times,
+                         *cs.bound(n["read"] + n["written"], n["instr"])))
+    for name, call in (("reseed entry", m["fm_calls"][0]),
+                       ("FM-seeded", fmp["fm_calls"][0]),
+                       ("long-read warm-up", lr["fm_calls"][0])):
+        times = in_turns(call, other)
+        _, out, touched = call.plain_ms()
+        steps = out["iters"]
+        slow, summed = int(steps.max()), int(steps.sum())
+        us = lambda t: " / ".join(f"{1e3 * x / slow:.3f}" for x in t)
+        cs.log(turn_line("fm_seed", name, call, times,
+                         *cs.fm_bound(call, out, touched))
+               + f"; slowest lane {slow} steps: us a step other "
+                 f"{us(times['other'])}, this {us(times['this'])}; backward "
+                 f"steps {touched['bwd']} of {summed} summed "
+                 f"({100 * touched['bwd'] / max(summed, 1):.1f}%)")
+
+
+if __name__ == "__main__":
+    main()

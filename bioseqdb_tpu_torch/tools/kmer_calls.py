@@ -19,7 +19,8 @@ pipeline gives it.
   runs out of steps), reads that start before the text or cross the
   strand boundary (negative diagonals and diagonals at l_pac), reads
   across the repeats (occurrences >= 2, capped buckets, more distinct
-  diagonals than dmax), W 320 at nmz 104 and dmax 40, round 3 off;
+  diagonals than dmax), W 150, 160, 161 and 320 (nmz 104 and dmax 40:
+  more than 32 distinct diagonals a read), round 3 off;
 - ``random_calls(seed)``: a random genome's table with random bucket
   words and entries (second row set, capped buckets, stray hits) and
   random reads at random caps.
@@ -283,9 +284,10 @@ def _edge_reads(refs) -> tuple[list[str], list[str]]:
                    for _ in range(3)])
     # exact reads of 150 and 151 bp with the 24-base segment at read
     # position 50-52: the round-2 certificate's last repeat lands at, just
-    # past and just before pivot - min_seed_len
+    # past and just before pivot - min_seed_len; at 75 its run of repeat
+    # positions starts at the pivot itself
     add("certificate", [a[9_600 - s: 9_600 - s + n] for n in (150, 151)
-                        for s in (50, 51, 52)])
+                        for s in (50, 51, 52, 75)])
     # an N every 5 bases over the first 5m: the chase needs about m + 1
     # steps, around its budget of W // 20 + 18
     add("chase_budget", ["".join("N" if i % 5 == 4 and i < 5 * m else ch
@@ -329,11 +331,15 @@ def call_on(tables: dict, seq_len: int, codes, lens, width: int = 320,
                        seq_len, codes[:, :width].contiguous(), lens, **opts)
 
 
-# the edge calls: the pipeline's options at W 160 (the main path's width)
-# and W 320 (dmax and nmz at their caps), round 3 off, and caps small
-# enough to overflow the minimizer, diagonal and seed slots
+# the edge calls: the pipeline's options at W 160 (the main path's width),
+# W 150 and 161 (a warp's last chunk of positions part-full) and W 320
+# (dmax and nmz at their caps: more distinct diagonals than a warp's
+# lanes), round 3 off, and caps small enough to overflow the minimizer,
+# diagonal and seed slots
 EDGE_CAPS = {
     "W 160": dict(width=160, max_mem=16),
+    "W 150": dict(width=150, max_mem=16),
+    "W 161": dict(width=161, max_mem=16),
     "W 320, nmz 104, dmax 40": dict(width=320, nmz=104, dmax=40, max_mem=64),
     "round 3 off": dict(width=320, max_mem_intv=0, smax=14),
     "small caps": dict(width=320, nmz=40, dmax=8, max_mem=4, smax=6),

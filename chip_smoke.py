@@ -88,10 +88,13 @@
    int64 ranks, the FM-seeded batch's first 4,096 reads at the fat
    retry's caps, the FM-seeded batch under a 300-step budget (it must
    overflow lanes), 2,048 ragged reads (lengths 0-150, Ns, junk, all-N,
-   empty; read seed 900) and any fat retry of the short warm-ups. Each:
-   the kernel's time (CUDA events, median of 3 launches), the plain
-   twin's, the slowest lane's steps and the summed steps, the distinct
-   table rows the lanes read (counted by the plain twin), the bound;
+   empty; read seed 900), any fat retry of the short warm-ups and
+   ``fm_machine.edge_calls`` at int32 and int64 (a budget that runs out
+   in the middle of a backward row, P 1, P 32). Each: the kernel's time
+   (CUDA events, median of 3 launches), the plain twin's, the slowest
+   lane's steps, the summed steps and the backward share of them, the
+   distinct table rows the lanes read (counted by the plain twin), the
+   bound;
 8. exact phase (``bench.py bench_exact``'s workload): the main path's
    genome, 16,384 150 bp reads with no edits (read seed 2), an ``Aligner``
    built with ``mode="exact"``; one warm-up and five timed calls of
@@ -148,9 +151,9 @@
    output (mem_pos, mem_s, mem_b, mem_e, n_mem, needs_r2, overflow, why)
    at the recorded calls (the main path's: B 16,384, W 160; the PE
    step's 16,384 rows; the int64 phase's), at ``kmer_calls.edge_calls``
-   (every fallback bit, needs_r2, round 3 off, W 320 at nmz 104 and dmax
-   40, tandem repeats, reads before the text's start and across the
-   strand boundary) and at its random calls (seeds 1-3: random bucket
+   (every fallback bit, needs_r2, round 3 off, W 150, 160, 161 and 320
+   at nmz 104 and dmax 40, tandem repeats, reads before the text's start
+   and across the strand boundary) and at its random calls (seeds 1-3: random bucket
    words and entries). Each recorded call: the kernel's time (a launch in
    a CUDA graph), the plain twin's (CUDA events), the bound (the codes,
    the bucket words and entries of the valid minimizers and the text
@@ -487,9 +490,11 @@ def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
     (jump depth 8), the long-read warm-up (W 1,504, max_mem 142), both
     short ones with int64 ranks, the FM-seeded batch's first FAT_READS
     reads at the fat retry's caps, the FM-seeded batch under a 300-step
-    budget, a ragged batch, and every fat retry the short warm-ups made.
+    budget, a ragged batch, every fat retry the short warm-ups made, and
+    the edge calls (``fm_machine.edge_calls``) at both rank dtypes.
     Each: the kernel's time (CUDA events, median of 3), the plain twin's,
-    the slowest lane's steps and the lanes' summed steps, the bound.
+    the slowest lane's steps, the lanes' summed steps and the backward
+    share of them, the bound.
     Returns the kernels line's entry (the FM-seeded batch's numbers)."""
     reseed, fmc, long_ = (m["fm_calls"][0], fmp["fm_calls"][0],
                           lr["fm_calls"][0])
@@ -517,6 +522,13 @@ def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
                                                 lens=lens.to(dev))),
     ] + [(f"recorded fat retry {k}", c) for k, c in
          enumerate(m["fm_calls"][1:] + fmp["fm_calls"][1:])]
+    eidx, ecodes, elens, _ = fm_machine.edge_case_setup()
+    ecodes, elens = ecodes.to(dev), elens.to(dev)
+    for rdt in (torch.int32, torch.int64):
+        efm = kfm.FMDevice.from_host(eidx, dev, rank_dtype=rdt)
+        inputs += [(f"edge {name}, {str(rdt).removeprefix('torch.')}", c)
+                   for name, c in fm_machine.edge_calls(
+                       eidx, efm, ecodes, elens).items()]
     rows = {}
     for name, call in inputs:
         got = call.run()
@@ -531,8 +543,10 @@ def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
         log(f"fm_seed [{name}] {call.shape}: cuda {ms:.4f} ms, plain "
             f"{plain_ms:.1f} ms; slowest lane {slow} steps (a chain of "
             f"dependent Occ fetches: {1e3 * ms / max(slow, 1):.3f} us a "
-            f"step), summed steps {steps} ({touched['steps']} extending; "
-            f"distinct rows read: Occ {touched['occ']}, major "
+            f"step), summed steps {steps} ({touched['steps']} extending, "
+            f"{touched['bwd']} of them backward: "
+            f"{100 * touched['bwd'] / max(steps, 1):.1f}% of the summed "
+            f"steps; distinct rows read: Occ {touched['occ']}, major "
             f"{touched['major']}, jump {touched['jump']}); {ovf} lanes "
             f"overflowed; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
             f"{100 * bound_ms / ms:.2f}% of it; max_abs_err={err}")

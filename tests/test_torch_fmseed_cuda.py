@@ -3,8 +3,9 @@ plain twin on the card, all six outputs exactly: on the edge-case batch
 of ``tools/fm_machine.py`` over a small index with repeats, with int32
 and int64 ranks, the round-3 jump on (depth 8 and 6) and off, the
 default budget and a 300-step one, from the reseed entry and at the fat
-retry's caps; each ``collect_seeds_device`` call on CUDA tensors is one
-launch. Skips without a CUDA device. Imports no jax, so it runs on a
+retry's caps, and on ``fm_machine.edge_calls`` (a budget that runs out
+in the middle of a backward row, one candidate row, 32 at int64); each
+``collect_seeds_device`` call on CUDA tensors is one launch. Skips without a CUDA device. Imports no jax, so it runs on a
 card machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fmseed_cuda.py``."""
 
@@ -62,3 +63,11 @@ def test_kernel_equals_plain_reseed_and_fat_caps(setup, rank_dtype):
     _check(fmm.edge_call(fm, codes, lens, jump=seed.build_r3_jump(fm),
                          max_cand=32, max_mem=32,
                          max_iters=3 * (10 * W + 256)))
+
+
+@pytest.mark.parametrize("rank_dtype", [torch.int32, torch.int64])
+def test_kernel_equals_plain_on_edge_calls(setup, rank_dtype):
+    idx, codes, lens = setup
+    fm = kfm.FMDevice.from_host(idx, "cuda", rank_dtype=rank_dtype)
+    for name, call in fmm.edge_calls(idx, fm, codes, lens).items():
+        _check(call)

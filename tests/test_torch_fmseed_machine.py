@@ -2,6 +2,14 @@
 on the CPU (the kernel itself runs only on the card:
 ``tests/test_torch_fmseed_cuda.py``).
 
+- The kernel's body, compiled for the host with g++ (the source's host
+  entry: every read through an emulated quad), equals the plain twin on
+  all six outputs, at int32 and int64 ranks, on ``tools/fm_machine.py``'s
+  edge calls: the round-3 jump, the reseed entry, a 300-step budget, a
+  budget that runs out in the middle of a backward row (the row's
+  extensions fetched ahead and left unread), one candidate row (P 1:
+  the two-buffer stacks at their edge) and the fat retry's 32; skipped
+  without g++. The plain twin runs on one intra-op thread.
 - Lane independence, the premise of the kernel's one thread a read: the
   plain machine on the edge-case batch run in reverse lane order, as two
   halves and lane by lane (an ambiguous, a junk, a short and an
@@ -28,6 +36,20 @@ from bioseqdb_tpu_torch.kernels import seed
 from bioseqdb_tpu_torch.tools import fm_machine as fmm
 
 
+RANKS = {"int32": torch.int32, "int64": torch.int64}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the plain twin's tensors are small, so one
+    thread runs them faster than many, and far faster when test workers
+    share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     idx, codes, lens, kinds = fmm.edge_case_setup()
@@ -39,7 +61,43 @@ def setup():
                                 entry_reseed=True, reseed_entry=entry),
         "budget300": fmm.edge_call(fm, codes, lens, max_iters=300),
     }
-    return dict(fm=fm, kinds=kinds, calls=calls)
+    edge = {r: fmm.edge_calls(idx, kfm.FMDevice.from_host(idx, "cpu",
+                                                          rank_dtype=dt),
+                              codes, lens)
+            for r, dt in RANKS.items()}
+    return dict(fm=fm, kinds=kinds, calls=calls, edge=edge)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    try:
+        return fmm.host_library(tmp_path_factory.mktemp("fm_host"))
+    except RuntimeError as e:
+        pytest.skip(f"needs g++ to build the kernel's body for the host: {e}")
+
+
+@pytest.mark.parametrize("rank", list(RANKS))
+@pytest.mark.parametrize("name", fmm.EDGE_NAMES)
+def test_host_build_equals_plain_on_edge_calls(host_lib, setup, rank, name):
+    call = setup["edge"][rank][name]
+    want = call.run(plain=True)
+    assert fmm.max_abs_err(call.host(host_lib), want) == 0
+    if name == "P 1":   # every lane that pushes twice overflows
+        assert want["overflow"].sum() > 20
+
+
+def test_edge_calls_cut_backward_rows_and_reach_the_caps(setup):
+    """The mid-row budget stops lanes with a backward row part-way done
+    (j > 0 at the end); P 32 and P 1 hold the stacks' two ends."""
+    call = setup["edge"]["int32"]["budget mid-row"]
+    a = call.args
+    st, J, kw = seed._prepare(**a)
+    st = seed._plain_machine(a["fm"], st, J=J, jump=a["jump"], group=None,
+                             touched=None, **kw)
+    assert ((st["j"] > 0) & st["overflow"]).sum() >= 5
+    assert kw["max_iters"] == fmm.MID_ROW_BUDGET
+    for name, P in (("P 1", 1), ("P 32", fsc.MAX_CAND)):
+        assert setup["edge"]["int64"][name].args["max_cand"] == P
 
 
 def _rows(out: dict, idx) -> dict:

@@ -170,6 +170,20 @@ def test_edge_calls_reach_every_case(edge):
     start = torch.from_numpy(kinds == "text_start")
     assert ((w160["mem_pos"][start] < 20) & (w160["mem_b"][start] >= 20)
             ).any()
+    # the warp's shapes: reads with no valid diagonal (D = 0) beside ones
+    # with more candidate diagonals than the warp has lanes; chases that
+    # use their whole budget T at W 150 and 161 too
+    for name in ("W 150", "W 161", "W 320, nmz 104, dmax 40"):
+        a = calls[name].args
+        dg = kmer.kmer_diagonals(a["bmeta"], a["entries"],
+                                 a["codes"].long(), a["lens"], a["bb"],
+                                 a["smax"], a["dmax"], a["nmz"])
+        D = dg["dvalid"].sum(1)
+        assert ((D == 0) & (a["lens"] >= kc.MSL)).any(), name
+        if name.startswith("W 320"):
+            assert (dg["hits"] > 32).any() and (D > 8).any()
+        else:
+            assert bits[name][6] > 0, name
 
 
 def _jax(call: kc.KmerCall) -> dict:
