@@ -21,19 +21,47 @@
 // compares a seed the scan passes, R regions a seed for seedcov. So the
 // card's memory rate bounds them, and the windows kernel, which writes
 // two [B, W] and two [B, W + 4 * band + 64] int32 buffers (the SW
-// kernel's interface), moves the most. The scan and seedcov are a thread
-// a read walking a chain of dependent trips, latency bound as chain.cu's
-// loops are.
+// kernel's interface), moves the most. What a launch of the others costs
+// is each read's chain of dependent loads (its slot, then its seed, then
+// its regions or results) and the instructions its threads issue.
 //
 // Design:
-// - extend_scan, extend_merge (two entries, after the left and after the
-//   right SW) and extend_seedcov: one thread a read, 128 a block. Reads
-//   are independent (the plain twins act on each read's row alone), so a
-//   lane runs its read's trips in order with no synchronisation. The
-//   scan keeps the read's live regions (at most kMaxRegs, the wrapper
-//   refuses more) in local arrays and streams the seed slots from device
-//   memory, so S and C are unbounded. It loops until its own lane is
-//   decided: the host no longer checks every 8 trips whether all are.
+// - extend_scan: a warp a read (kScanGroup threads), 4 a block. Reads
+//   are independent (the plain twins act on each read's row alone), and
+//   within a read each trip's verdict is independent of the trips before
+//   it: the region table, was_ext and valid change only in the merge,
+//   which writes new tensors. So the scan is a find-first over the
+//   ordered seeds from the cursor on: the first seed an accumulated
+//   region does not cover, or that an extended seed rescues. The warp
+//   puts the live regions (at most kMaxRegs, the wrapper refuses more) in
+//   shared memory once, then takes 32 cursors a pass, a lane each: each
+//   lane tests its seed against the regions, and the lanes that are
+//   covered and lie before the first uncovered one test the rescue
+//   against the read's extended and valid seeds only. Those are
+//   collected in slot order by ballots over chunks of 32 slots, 32 a
+//   batch, one a lane, and broadcast by shuffles; a read with more than
+//   32 streams further batches, so S and C stay unbounded. A ballot of
+//   the stopping lanes and its lowest bit give the new cursor, the
+//   stopping lane's seed goes to the others by shuffles; no stop moves
+//   the warp on 32 cursors. A read at n_usable loads nothing; a read with
+//   no live region stops at its cursor without a pass; cal_max_gap's
+//   divisions run only for a diagonal gap between the band's bounds
+//   (near). kScanMinBlocks caps the registers at 48, so that more warps
+//   fit an SM (PERF.md row 10 has the launch with and without the cap,
+//   and with half a warp a read).
+// - extend_merge_right: a group of kMergeGroup threads a read,
+//   kMergeReads a block, so the main path's 16,384 reads fit the card in
+//   one wave of blocks (PERF.md row 10: 16 a block). It copies the read's
+//   region table field by field with the group's threads on
+//   neighbouring elements, so a warp's store to a [B, R] field is one
+//   contiguous run, the new row's fields chosen per element; its was_ext
+//   row is copied 8 bytes a thread where source and destination share
+//   their alignment (bytes for the head and tail), the slot just
+//   extended set in the word that holds it.
+// - extend_merge_left and extend_seedcov: one thread a read, 128 a
+//   block. The left merge is a gather through inv, a few selects and a
+//   scatter a read: on a group of 8, its leader working, it ran the same
+//   chain in 8 times the warps and was slower on the card.
 // - extend_windows: a warp a row of the sorted SW order (perm, from a
 //   library argsort of the scan's work keys), both sides in one launch;
 //   the warp's threads write consecutive columns, the target codes read
@@ -60,12 +88,19 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // a block: one read a thread (windows: 4 rows)
-constexpr int kWarp = 32;
+constexpr int kThreads = 128;   // a windows, seedcov or left merge block
+constexpr int kWarp = 32;       // a windows row's threads
+constexpr int kScanGroup = 32;  // the scan's threads a read
+constexpr int kScanThreads = 128;   // a scan block
+constexpr int kScanMinBlocks = 10;  // scan blocks an SM holds (<= 48 regs)
+constexpr int kMergeGroup = 8;  // the right merge's threads a read
+constexpr int kMergeReads = 64; // a right merge block's reads
 constexpr int kMaxRegs = 16;    // regions a read (the wrapper raises above)
 constexpr int kNoCode = 4;      // the code past a buffer's length
 constexpr int kRefused = 1;     // cudaErrorInvalidValue
 constexpr int kFields = 6;      // an SW result (sw.FIELDS), max_off last
+static_assert(kScanGroup >= kMaxRegs && kScanGroup <= kWarp,
+              "a read's group loads region r on its lane r");
 
 
 // sums, differences and products that wrap in the operands' type, as
@@ -267,108 +302,254 @@ template <typename R>
 struct Seed {
   int32_t q, l, c;
   R r;
+  Seed() = default;
   LANE_HD Seed(const Seeds& sd, long long at)
       : q(sd.qbeg[at]), l(sd.len[at]), c(sd.cis[at]),
         r(static_cast<const R*>(sd.rbeg)[at]) {}
 };
 
-// is the seed covered by one of the read's regions (near one of its ends,
-// within the band the gap allows)?
+// a region's fields the scan tests a seed against
 template <typename R>
-LANE_HD bool covered(const Seed<R>& s, int live, const R* rb, const R* re,
-                    const int32_t* qb, const int32_t* qe, const int32_t* w,
-                    const int32_t* sl0, int32_t lim, const Opts& o) {
+struct Region {
+  R rb, re;
+  int32_t qb, qe, w, sl0;
+};
+
+// is the gap between diagonals qd and rd inside the band the region
+// allows: sub_(qd, rd) and sub_(rd, qd) below min(max_gap(min(qd, rd)), w)?
+// max_gap lies in [min(1, 2 * bandwidth), 2 * bandwidth], so its float
+// divisions are needed only for a gap between those bounds (clamped by w)
+template <typename R>
+LANE_HD bool near(R qd, R rd, int32_t w, const Opts& o) {
+  const R a = sub_(qd, rd), b = sub_(rd, qd);
+  const R gap = max_(a, b);
+  const int32_t band2 = o.bandwidth * 2;
+  if (gap < static_cast<R>(min_(min_(1, band2), w))) return true;
+  if (gap >= static_cast<R>(min_(band2, w))) return false;
+  const R wlim = static_cast<R>(min_(max_gap<R>(min_(qd, rd), o), w));
+  return a < wlim && b < wlim;
+}
+
+// does region g cover seed s (inside it, near one of its ends)?
+template <typename R>
+LANE_HD bool covers(const Region<R>& g, const Seed<R>& s, int32_t lim,
+                    const Opts& o) {
   const int32_t qend = add_(s.q, s.l);
   const R rend = add_(s.r, static_cast<R>(s.l));
-  for (int r = 0; r < live; ++r) {
-    if (!(s.r >= rb[r] && rend <= re[r] && s.q >= qb[r] && qend <= qe[r] &&
-          sub_(s.l, sl0[r]) <= lim))
-      continue;
-    const R qd = static_cast<R>(sub_(s.q, qb[r]));
-    const R rd = sub_(s.r, rb[r]);
-    const R wlim = static_cast<R>(min_(max_gap<R>(min_(qd, rd), o), w[r]));
-    if (sub_(qd, rd) < wlim && sub_(rd, qd) < wlim) return true;
-    const R qd2 = static_cast<R>(sub_(qe[r], qend));
-    const R rd2 = sub_(re[r], rend);
-    const R wlim2 = static_cast<R>(min_(max_gap<R>(min_(qd2, rd2), o), w[r]));
-    if (sub_(qd2, rd2) < wlim2 && sub_(rd2, qd2) < wlim2) return true;
-  }
-  return false;
+  if (!(s.r >= g.rb && rend <= g.re && s.q >= g.qb && qend <= g.qe &&
+        sub_(s.l, g.sl0) <= lim))
+    return false;
+  return near<R>(static_cast<R>(sub_(s.q, g.qb)), sub_(s.r, g.rb), g.w, o) ||
+         near<R>(static_cast<R>(sub_(g.qe, qend)), sub_(g.re, rend), g.w, o);
 }
 
-// the overlap rescue: an extended seed of the same chain, of similar
-// length, overlapping it on another diagonal
+// the overlap rescue: does u, an extended and valid seed, rescue seed s
+// (the same chain, of similar length, overlapping it on another
+// diagonal)?
 template <typename R>
-LANE_HD bool rescued(const Seed<R>& s, const Seeds& sd, const uint8_t* valid,
-                    const uint8_t* was_ext, long long row, long long S) {
+LANE_HD bool rescues(const Seed<R>& s, const Seed<R>& u) {
   const int32_t quarter = s.l >> 2;
   const int32_t sim = floordiv(add_(mul_(s.l, 19), 19), 20);
-  for (long long t = 0; t < S; ++t) {
-    if (!was_ext[row + t] || !valid[row + t] || sd.cis[row + t] != s.c)
-      continue;
-    const Seed<R> u(sd, row + t);
-    if (u.l < sim) continue;
-    const bool c1 = s.q <= u.q && sub_(add_(s.q, s.l), u.q) >= quarter &&
-                    static_cast<R>(sub_(u.q, s.q)) != sub_(u.r, s.r);
-    const bool c2 = u.q <= s.q && sub_(add_(u.q, u.l), s.q) >= quarter &&
-                    static_cast<R>(sub_(s.q, u.q)) != sub_(s.r, u.r);
-    if (c1 || c2) return true;
-  }
-  return false;
+  if (u.c != s.c || u.l < sim) return false;
+  const bool c1 = s.q <= u.q && sub_(add_(s.q, s.l), u.q) >= quarter &&
+                  static_cast<R>(sub_(u.q, s.q)) != sub_(u.r, s.r);
+  const bool c2 = u.q <= s.q && sub_(add_(u.q, u.l), s.q) >= quarter &&
+                  static_cast<R>(sub_(s.q, u.q)) != sub_(s.r, u.r);
+  return c1 || c2;
 }
 
-// the containment scan of read b (extend_scan_plain, one lane)
+// a scan group's shared memory: its read's live regions and the slots of
+// a batch of its extended seeds
 template <typename R>
-LANE_HD void scan_lane(const ScanParams& p, long long b) {
+struct ScanSmem {
+  Region<R> reg[kMaxRegs];
+  int32_t ext[kScanGroup];
+};
+
+// a batch of a read's extended and valid seeds, seed j on lane j
+template <typename R>
+struct ExtBatch {
+  Lanes<int32_t, kScanGroup> q, l, c;
+  Lanes<R, kScanGroup> r;
+  int n;            // seeds in the batch
+  long long next;   // the slot the next batch starts from (>= S: none)
+};
+
+// the batch of read `row`'s extended and valid seeds that starts at slot
+// `from`: up to a group's width of them in slot order, compacted by
+// ballots over chunks of that many slots
+template <typename R>
+GROUP_FN void collect(const ScanParams& p, long long row, long long from,
+                      ScanSmem<R>& sm, ExtBatch<R>& e) {
+  constexpr auto G = kScanGroup;
+  int n = 0;
+  long long pos = from;
+  while (pos < p.S && n < G) {
+    Lanes<bool, G> f, past;
+    FOR_LANES(G, t) {
+      const long long at = pos + t;
+      f[t] = at < p.S && p.was_ext[row + at] && p.valid[row + at];
+    }
+    const uint32_t m = ballot(f);
+    FOR_LANES(G, t) {
+      const int idx = n + popc32(m & ((1u << t) - 1u));
+      past[t] = f[t] && idx == G;   // the first seed the batch has no room for
+      if (f[t] && idx < G) sm.ext[idx] = static_cast<int32_t>(pos + t);
+    }
+    const uint32_t over = ballot(past);
+    if (over != 0) {
+      pos += low_bit(over);
+      n = G;
+    } else {
+      n += popc32(m);
+      pos += G;
+    }
+  }
+  group_sync<G>();
+  FOR_LANES(G, t) {
+    if (t >= n) continue;
+    const Seed<R> u(p.sd, row + sm.ext[t]);
+    e.q[t] = u.q;
+    e.l[t] = u.l;
+    e.c[t] = u.c;
+    e.r[t] = u.r;
+  }
+  group_sync<G>();   // sm.ext is free for the next batch
+  e.n = n;
+  e.next = pos;
+}
+
+// the lanes of mask `need` whose seed a seed of batch e rescues
+template <typename R>
+GROUP_FN void rescue(const ExtBatch<R>& e, uint32_t need,
+                     const Lanes<Seed<R>, kScanGroup>& s,
+                     Lanes<bool, kScanGroup>& resc) {
+  constexpr auto G = kScanGroup;
+  for (int j = 0; j < e.n; ++j) {
+    Seed<R> u;
+    u.q = shfl(e.q, j);
+    u.l = shfl(e.l, j);
+    u.c = shfl(e.c, j);
+    u.r = shfl(e.r, j);
+    FOR_LANES(G, t) {
+      if ((need >> t) & 1u && !resc[t] && rescues<R>(s[t], u))
+        resc[t] = true;
+    }
+  }
+}
+
+// the containment scan of read b (extend_scan_plain, one read) by a group
+// of kScanGroup threads
+template <typename R>
+GROUP_FN void scan_group(const ScanParams& p, long long b, ScanSmem<R>& sm) {
+  constexpr auto G = kScanGroup;
   const long long row = b * p.S;
   const int32_t* order = p.order + row;
   const int32_t n_usable = p.n_usable[b];
   const int32_t nr = p.n_regs[b];
-  const int live = static_cast<int>(min_<long long>(max_(nr, 0), p.Rg));
-  R rb[kMaxRegs], re[kMaxRegs];
-  int32_t qb[kMaxRegs], qe[kMaxRegs], w[kMaxRegs], sl0[kMaxRegs];
-  const long long reg = b * p.Rg;
-  for (int r = 0; r < live; ++r) {
-    rb[r] = static_cast<const R*>(p.rb)[reg + r];
-    re[r] = static_cast<const R*>(p.re)[reg + r];
-    qb[r] = p.qb[reg + r];
-    qe[r] = p.qe[reg + r];
-    w[r] = p.w[reg + r];
-    sl0[r] = p.seedlen0[reg + r];
-  }
-  const int32_t lens = p.lens[b];
-  const int32_t lim = floordiv(lens, 10);
   const long long last = p.S - 1;
-  int32_t cursor = p.cursor[b];
-  while (cursor < n_usable) {
-    const Seed<R> s(p.sd, row + order[min_<long long>(max_(cursor, 0), last)]);
-    if (!covered<R>(s, live, rb, re, qb, qe, w, sl0, lim, p.o) ||
-        rescued<R>(s, p.sd, p.valid, p.was_ext, row, p.S))
-      break;
-    cursor = add_(cursor, 1);
+  const int32_t start = p.cursor[b];
+  const int live = static_cast<int>(min_<long long>(max_(nr, 0), p.Rg));
+  // where the sequential scan ends when no seed stops it
+  int32_t cursor = start < n_usable ? n_usable : start;
+  bool stopped = false;
+  int32_t slot = 0;   // the stopping seed's slot and fields
+  Seed<R> ss{};
+  // with no live region nothing is covered: the cursor's seed stops it
+  if (start < n_usable && live > 0) {
+    const long long reg = b * p.Rg;
+    FOR_LANES(G, t) {
+      if (t >= live) continue;
+      sm.reg[t] = Region<R>{static_cast<const R*>(p.rb)[reg + t],
+                            static_cast<const R*>(p.re)[reg + t],
+                            p.qb[reg + t], p.qe[reg + t], p.w[reg + t],
+                            p.seedlen0[reg + t]};
+    }
+    group_sync<G>();
+    const int32_t lim = floordiv(p.lens[b], 10);
+    for (long long k = 0; start + k < n_usable; k += G) {
+      Lanes<Seed<R>, G> s;
+      Lanes<int32_t, G> at;
+      Lanes<bool, G> in, cov, resc;
+      FOR_LANES(G, t) {
+        const long long c = start + k + t;
+        in[t] = c < n_usable;
+        cov[t] = resc[t] = false;
+        if (!in[t]) continue;
+        at[t] = order[min_(max_(c, 0LL), last)];
+        s[t] = Seed<R>(p.sd, row + at[t]);
+      }
+      for (int r = 0; r < live; ++r) {
+        const Region<R> g = sm.reg[r];
+        FOR_LANES(G, t) {
+          if (in[t] && !cov[t] && covers<R>(g, s[t], lim, p.o)) cov[t] = true;
+        }
+      }
+      Lanes<bool, G> bare;   // in range and not covered
+      FOR_LANES(G, t) bare[t] = in[t] && !cov[t];
+      const uint32_t mc = ballot(cov), mb = ballot(bare);
+      // only covered lanes before the first bare one can stop the scan
+      const uint32_t need = mb != 0 ? mc & ((1u << low_bit(mb)) - 1u) : mc;
+      // the extended seeds, a batch of G at a time
+      for (long long from = 0; need != 0 && from < p.S;) {
+        ExtBatch<R> e;
+        collect<R>(p, row, from, sm, e);
+        rescue<R>(e, need, s, resc);
+        from = e.next;
+      }
+      Lanes<bool, G> stop;
+      FOR_LANES(G, t) stop[t] = bare[t] || resc[t];
+      const uint32_t ms = ballot(stop);
+      if (ms != 0) {   // the first stopping lane's seed, by shuffles
+        const int first_stop = low_bit(ms);
+        Lanes<int32_t, G> q, l, c;
+        Lanes<R, G> r;
+        FOR_LANES(G, t) {
+          q[t] = s[t].q;
+          l[t] = s[t].l;
+          c[t] = s[t].c;
+          r[t] = s[t].r;
+        }
+        cursor = add_(start, static_cast<int32_t>(k + first_stop));
+        slot = shfl(at, first_stop);
+        ss.q = shfl(q, first_stop);
+        ss.l = shfl(l, first_stop);
+        ss.c = shfl(c, first_stop);
+        ss.r = shfl(r, first_stop);
+        stopped = true;
+        break;
+      }
+    }
   }
-  const int32_t slot = order[min_<long long>(max_(cursor, 0), last)];
+  if (start < n_usable && live == 0) cursor = start;
+  if (!stopped) {
+    slot = order[min_<long long>(max_(cursor, 0), last)];
+    if (cursor < n_usable) ss = Seed<R>(p.sd, row + slot);
+  }
   const bool todo = cursor < n_usable;
   const bool ovf_now = todo && nr >= p.Rg;
   const bool act = todo && !ovf_now;
   int32_t work[2] = {-1, -1};
   if (act) {
-    const Seed<R> s(p.sd, row + slot);
-    const long long ch = b * p.C + s.c;
+    const long long ch = b * p.C + ss.c;
     const R r0 = static_cast<const R*>(p.rmax0)[ch];
     const R r1 = static_cast<const R*>(p.rmax1)[ch];
-    const int32_t qn[2] = {s.q, sub_(lens, add_(s.q, s.l))};
-    const R tn[2] = {sub_(s.r, r0), sub_(r1, add_(s.r, static_cast<R>(s.l)))};
+    const int32_t lens = p.lens[b];
+    const int32_t qn[2] = {ss.q, sub_(lens, add_(ss.q, ss.l))};
+    const R tn[2] = {sub_(ss.r, r0),
+                     sub_(r1, add_(ss.r, static_cast<R>(ss.l)))};
     for (int k = 0; k < 2; ++k)
       if (qn[k] > 0)
         work[k] = min_(wrap32(tn[k]), add_(qn[k], p.o.bandwidth));
   }
-  p.cursor_out[b] = cursor;
-  p.overflow_out[b] = p.overflow[b] || ovf_now;
-  p.slot[b] = slot;
-  p.act[b] = act;
-  p.work[b] = work[0];
-  p.work[p.B + b] = work[1];
+  if (group_leader<G>()) {
+    p.cursor_out[b] = cursor;
+    p.overflow_out[b] = p.overflow[b] || ovf_now;
+    p.slot[b] = slot;
+    p.act[b] = act;
+    p.work[b] = work[0];
+    p.work[p.B + b] = work[1];
+  }
 }
 
 // row `row` of the sorted SW order (side row / B), columns lane, lane +
@@ -451,10 +632,12 @@ LANE_HD void merge_left_lane(const MergeParams& p, long long b) {
   p.h0[p.inv[p.B + b]] = score;
 }
 
-// the right side's result and the new region row of lane b, the state
-// copied with it (extend_merge_plain side 1)
+// the right side's result and the new region row of read b, the state
+// copied with it (extend_merge_plain side 1), by a group of kMergeGroup
+// threads
 template <typename R>
-LANE_HD void merge_right_lane(const MergeParams& p, long long b) {
+GROUP_FN void merge_right_group(const MergeParams& p, long long b) {
+  constexpr auto G = kMergeGroup;
   const int32_t slot = p.slot[b];
   const Seed<R> s(p.sd, b * p.S + slot);
   const Result x = result(p, 1, b);
@@ -481,23 +664,51 @@ LANE_HD void merge_right_lane(const MergeParams& p, long long b) {
   const int32_t nr = p.n_regs[b];
   const long long at = min_<long long>(nr, p.Rg - 1);
   const long long reg = b * p.Rg;
-  for (long long r = 0; r < p.Rg; ++r) {
-    const bool put = act && r == at;
-    const long long e = reg + r;
-    static_cast<R*>(p.regs_out[0])[e] =
-        put ? rb : static_cast<const R*>(p.regs[0])[e];
-    static_cast<R*>(p.regs_out[1])[e] =
-        put ? re : static_cast<const R*>(p.regs[1])[e];
-    for (int f = 0; f < 8; ++f)
-      static_cast<int32_t*>(p.regs_out[2 + f])[e] =
-          put ? vals[f] : static_cast<const int32_t*>(p.regs[2 + f])[e];
+  // the table, field by field: the group's threads on neighbouring rows
+  FOR_LANES(G, t) {
+    for (long long r = t; r < p.Rg; r += G) {
+      const bool put = act && r == at;
+      const long long e = reg + r;
+      static_cast<R*>(p.regs_out[0])[e] =
+          put ? rb : static_cast<const R*>(p.regs[0])[e];
+      static_cast<R*>(p.regs_out[1])[e] =
+          put ? re : static_cast<const R*>(p.regs[1])[e];
+      for (int f = 0; f < 8; ++f)
+        static_cast<int32_t*>(p.regs_out[2 + f])[e] =
+            put ? vals[f] : static_cast<const int32_t*>(p.regs[2 + f])[e];
+    }
   }
-  p.n_regs_out[b] = add_(nr, static_cast<int32_t>(act));
+  // was_ext: 8-byte words between a head and a tail of bytes, where the
+  // row's source and destination share their alignment (else bytes)
   const long long row = b * p.S;
-  for (long long t = 0; t < p.S; ++t)
-    p.was_ext_out[row + t] = p.was_ext[row + t] || (act && t == slot);
-  const int32_t cursor = p.cursor[b];
-  p.cursor_out[b] = act ? add_(cursor, 1) : cursor;
+  const uint8_t* src = p.was_ext + row;
+  uint8_t* dst = p.was_ext_out + row;
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t da = reinterpret_cast<uintptr_t>(dst);
+  const long long head =
+      ((sa ^ da) & 7u) == 0 ? min_<long long>((8 - (da & 7u)) & 7u, p.S)
+                            : p.S;
+  const long long words = (p.S - head) / 8;
+  const long long tail = head + 8 * words;
+  const long long mark = act ? slot : -1;   // the slot just extended
+  FOR_LANES(G, t) {
+    for (long long i = t; i < head; i += G) dst[i] = src[i] || i == mark;
+    const uint64_t* sw = reinterpret_cast<const uint64_t*>(src + head);
+    uint64_t* dw = reinterpret_cast<uint64_t*>(dst + head);
+    for (long long k = t; k < words; k += G) {
+      uint64_t v = sw[k];
+      const long long in = mark - head - 8 * k;   // the mark's byte in it
+      if (in >= 0 && in < 8) v |= 1ull << (8 * in);
+      dw[k] = v;
+    }
+    for (long long i = tail + t; i < p.S; i += G)
+      dst[i] = src[i] || i == mark;
+  }
+  if (group_leader<G>()) {
+    p.n_regs_out[b] = add_(nr, static_cast<int32_t>(act));
+    const int32_t cursor = p.cursor[b];
+    p.cursor_out[b] = act ? add_(cursor, 1) : cursor;
+  }
 }
 
 // read b's seedcov (extend_seedcov_plain, one lane)
@@ -531,10 +742,13 @@ LANE_HD void seedcov_lane(const CovParams& p, long long b) {
 
 #ifdef __CUDACC__
 template <typename R>
-__global__ void __launch_bounds__(kThreads) extend_scan(const ScanParams p) {
-  const long long b = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (b < p.B) scan_lane<R>(p, b);
+__global__ void __launch_bounds__(kScanThreads, kScanMinBlocks)
+    extend_scan(const ScanParams p) {
+  __shared__ ScanSmem<R> sm[kScanThreads / kScanGroup];
+  const int g = threadIdx.x / kScanGroup;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * (kScanThreads / kScanGroup) + g;
+  if (b < p.B) scan_group<R>(p, b, sm[g]);
 }
 
 template <typename R>
@@ -545,16 +759,20 @@ __global__ void __launch_bounds__(kThreads)
   if (row < 2 * p.B) windows_row<R>(p, row, threadIdx.x % kWarp, kWarp);
 }
 
-template <typename R, int kSide>
+template <typename R>
 __global__ void __launch_bounds__(kThreads)
-    extend_merge(const MergeParams p) {
+    extend_merge_left(const MergeParams p) {
   const long long b = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (b >= p.B) return;
-  if (kSide == 0)
-    merge_left_lane<R>(p, b);
-  else
-    merge_right_lane<R>(p, b);
+  if (b < p.B) merge_left_lane<R>(p, b);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kMergeReads * kMergeGroup)
+    extend_merge_right(const MergeParams p) {
+  const long long b = static_cast<long long>(blockIdx.x) * kMergeReads +
+                      threadIdx.x / kMergeGroup;
+  if (b < p.B) merge_right_group<R>(p, b);
 }
 
 template <typename R>
@@ -608,13 +826,15 @@ bool bad_rank(long long rank_bytes) {
 }  // namespace
 
 #ifdef __CUDACC__
-// launch kernel<R>, R from rank_bytes, on `stream`; the launch's error code
-#define EXT_RUN(kernel, grid, p, ...)                                        \
+// launch kernel<R>, R from rank_bytes, on `stream` in blocks of `block`
+// threads, `per` rows a block; the launch's error code
+#define EXT_RUN(kernel, rows, per, block, p)                                 \
   do {                                                                       \
+    const unsigned grid = blocks(rows, per);                                 \
     if (rank_bytes == 8)                                                     \
-      kernel<long long __VA_ARGS__><<<(grid), kThreads, 0, stream>>>(p);     \
+      kernel<long long><<<grid, (block), 0, stream>>>(p);                    \
     else                                                                     \
-      kernel<int32_t __VA_ARGS__><<<(grid), kThreads, 0, stream>>>(p);       \
+      kernel<int32_t><<<grid, (block), 0, stream>>>(p);                      \
     return static_cast<int>(cudaGetLastError());                             \
   } while (0)
 #endif
@@ -660,13 +880,15 @@ extern "C" int LANE_ENTRY(extend_scan)(const long long* a,
       p.Rg < 1 || p.Rg > kMaxRegs)
     return kRefused;
 #ifdef __CUDACC__
-  EXT_RUN(extend_scan, blocks(p.B, kThreads), p);
+  EXT_RUN(extend_scan, p.B, kScanThreads / kScanGroup, kScanThreads, p);
 #else
+  ScanSmem<long long> sm64;
+  ScanSmem<int32_t> sm32;
   for (long long b = 0; b < p.B; ++b) {
     if (rank_bytes == 8)
-      scan_lane<long long>(p, b);
+      scan_group<long long>(p, b, sm64);
     else
-      scan_lane<int32_t>(p, b);
+      scan_group<int32_t>(p, b, sm32);
   }
   return 0;
 #endif
@@ -705,7 +927,7 @@ extern "C" int LANE_ENTRY(extend_windows)(const long long* a,
       p.W < 1 || p.T < 1 || p.n_words < 1)
     return kRefused;
 #ifdef __CUDACC__
-  EXT_RUN(extend_windows, blocks(2 * p.B, kThreads / kWarp), p);
+  EXT_RUN(extend_windows, 2 * p.B, kThreads / kWarp, kThreads, p);
 #else
   for (long long row = 0; row < 2 * p.B; ++row) {
     if (rank_bytes == 8)
@@ -761,7 +983,7 @@ extern "C" int LANE_ENTRY(extend_merge_left)(const long long* a,
   merge_sizes(g, p);
   if (merge_refused(g, n, rank_bytes, p)) return kRefused;
 #ifdef __CUDACC__
-  EXT_RUN(extend_merge, blocks(p.B, kThreads), p, , 0);
+  EXT_RUN(extend_merge_left, p.B, kThreads, kThreads, p);
 #else
   for (long long b = 0; b < p.B; ++b) {
     if (rank_bytes == 8)
@@ -791,13 +1013,13 @@ extern "C" int LANE_ENTRY(extend_merge_right)(const long long* a,
   merge_sizes(g, p);
   if (merge_refused(g, n, rank_bytes, p)) return kRefused;
 #ifdef __CUDACC__
-  EXT_RUN(extend_merge, blocks(p.B, kThreads), p, , 1);
+  EXT_RUN(extend_merge_right, p.B, kMergeReads, kMergeReads * kMergeGroup, p);
 #else
   for (long long b = 0; b < p.B; ++b) {
     if (rank_bytes == 8)
-      merge_right_lane<long long>(p, b);
+      merge_right_group<long long>(p, b);
     else
-      merge_right_lane<int32_t>(p, b);
+      merge_right_group<int32_t>(p, b);
   }
   return 0;
 #endif
@@ -823,7 +1045,7 @@ extern "C" int LANE_ENTRY(extend_seedcov)(const long long* a,
       p.Rg > kMaxRegs)
     return kRefused;
 #ifdef __CUDACC__
-  EXT_RUN(extend_seedcov, blocks(p.B, kThreads), p);
+  EXT_RUN(extend_seedcov, p.B, kThreads, kThreads, p);
 #else
   for (long long b = 0; b < p.B; ++b) {
     if (rank_bytes == 8)

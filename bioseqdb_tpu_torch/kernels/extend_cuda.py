@@ -6,18 +6,22 @@ package's ``extend_all`` (``bioseqdb_tpu/kernels/extend.py``): one launch
 of ``extend_scan`` runs every trip of a round's containment scan, one of
 ``extend_windows`` writes both sides' SW buffers in the sorted lane order,
 ``extend_merge`` (two entries, one a side) folds a side's SW results into
-the lanes, and ``extend_seedcov`` sums each region's seeds; a thread a
-read (a warp a row for the windows). The plain versions are
+the lanes, and ``extend_seedcov`` sums each region's seeds. The scan runs
+a warp a read (32 cursors a pass, the first that stops taken by a
+ballot), the right merge a group of 8 threads a read (its region-table
+and was_ext copies coalesced), the windows a warp a sorted row, and the
+left merge and seedcov a thread a read. The plain versions are
 ``extend.extend_scan_plain``, ``extend_windows_plain``,
 ``extend_merge_plain`` and ``extend_seedcov_plain``, with the same
 arguments and outputs; ``kernels/extend.py`` calls these on CUDA
 tensors. They launch on PyTorch's current stream, allocate only their
 outputs, and do not synchronise.
 
-A read's regions live in per-thread arrays of ``MAX_REGS`` slots, so a
-region table wider than that is refused (ValueError): the port's paths
-take 8, or 16 in the fat retry. Seeds (S) and chains (C) stream from
-device memory. Nothing falls back to the plain versions.
+A read's regions live in ``MAX_REGS`` slots (the scan's in shared
+memory, seedcov's in per-thread arrays), so a region table wider than
+that is refused (ValueError): the port's paths take 8, or 16 in the fat
+retry. Seeds (S) and chains (C) stream from device memory. Nothing falls
+back to the plain versions.
 
 Each ``*_args`` function checks the tensors, allocates the outputs on
 their device and gives the entry's argument array: the rank dtype's size

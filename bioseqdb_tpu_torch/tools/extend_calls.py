@@ -21,7 +21,12 @@ the pipeline gives them.
   on a small two-reference genome with a repeat and aligned on the CPU:
   covered seeds skipped with and without the overlap rescue, band-doubling
   retries at bandwidth 8, overflow at max_regs 1, windows at the strand
-  boundary and at each reference's ends.
+  boundary and at each reference's ends;
+- ``random_calls``: every stage on narrow random inputs;
+- ``lane_cases(rank_dtype)``: the boundaries of the kernels' thread
+  layout: the scan's first stop on each edge lane of a pass, n_usable off
+  a multiple of 32, more extended seeds than a warp, 0 and 16 live
+  regions; the right merge at R 1 and 16 and at S 40 and 70.
 
 ``chip_smoke.py``'s extend phase and the extension tests use it.
 """
@@ -654,3 +659,156 @@ def random_calls(rank_dtype: torch.dtype = torch.int32, seed: int = 5,
                                         flag(0.3, B), p, left)),
              StageCall("extend_seedcov", (tab, regs))]
     return [StageCall(c.kind, _to(c.args, device)) for c in calls]
+
+
+# ---- the lane cases: the warp scan's and the group merge's boundaries ----
+
+LANE_CASES = ("scan stops at lanes 0, 31, 32", "scan n_usable off 32",
+              "scan with every slot extended", "scan with no live regions",
+              "scan with 16 live regions", "R 1", "R 16", "S 40", "S 70",
+              "S 70 was_ext at an odd address")
+_GEOMETRY = dict(lens=1000, qe=900, bare_q=950, rescue_dq=5, rescue_dr=55)
+
+
+def _scan_stops(specs: list, S: int, live: int = 1, all_ext: bool = False,
+                rank_dtype: torch.dtype = torch.int32, seed: int = 0,
+                rescuers: tuple = (), invalid: tuple = ()
+                ) -> tuple[StageCall, torch.Tensor]:
+    """(a scan call of one read a spec, the cursor each read must end at).
+    A spec is (cursor, n_usable, stop, how): every seed the read scans
+    lies on diagonal 0 inside its last live region (covered), but the one
+    ``stop`` positions past the cursor (None: none), which is uncovered
+    (``how`` "bare") or covered and rescued (``how`` "rescued") by an
+    extended seed of its chain on another diagonal. That rescuer is the
+    slot at scanned position S - 1 (n_usable stays below it): slot
+    ``rescuers[b % len(rescuers)]`` for read b, S - 1 if none are given.
+    Scanned position j < S - 1 holds another slot, its seed at query 10 +
+    7j mod 800 and chain j mod 16, so seeds of one chain lie 112 bases
+    apart and rescue none before the stop. ``all_ext`` marks every slot
+    extended; the slots ``invalid`` are not valid (so no rescuer)."""
+    rng = np.random.default_rng(seed)
+    B, C, R = len(specs), 16, max(live, 8)
+    g = _GEOMETRY
+    order = np.zeros((B, S), np.int64)
+    q = np.zeros((B, S), np.int64)
+    c = np.zeros((B, S), np.int64)
+    was_ext = np.full((B, S), all_ext)
+    want = np.zeros(B, np.int64)
+    cursors, n_usable = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    valid = torch.ones(B, S, dtype=torch.bool)
+    valid[:, list(invalid)] = False
+    xs = np.array([rescuers[b % len(rescuers)] if rescuers else S - 1
+                   for b in range(B)])
+    for b, (cur, nu, stop, how) in enumerate(specs):
+        x = xs[b]
+        order[b, : S - 1] = rng.permutation(np.delete(np.arange(S), x))
+        order[b, S - 1] = x
+        j = np.arange(S - 1)
+        q[b, order[b, : S - 1]] = 10 + (7 * j) % 800
+        c[b, order[b, : S - 1]] = j % C
+        cursors[b], n_usable[b] = cur, nu
+        end = nu if cur < nu else cur
+        if live == 0 and cur < nu:
+            end = cur
+        elif stop is not None and 0 <= stop and cur + stop < nu:
+            end = cur + stop
+            at = order[b, end]
+            if how == "bare":
+                q[b, at] = g["bare_q"]
+            else:
+                q[b, x] = q[b, at] + g["rescue_dq"]
+                c[b, x] = c[b, at]
+                was_ext[b, x] = True
+        want[b] = end
+    r = q.copy()   # diagonal 0, but a rescuer's (its query start > 0)
+    rows = np.arange(B)
+    r[rows, xs] += np.where(q[rows, xs] > 0, g["rescue_dr"] - g["rescue_dq"],
+                            0)
+    i32 = lambda a: torch.from_numpy(np.asarray(a)).to(torch.int32)
+    rk = lambda a: torch.from_numpy(np.asarray(a)).to(rank_dtype)
+    full = lambda v, dt=torch.int32: torch.full((B, R), v, dtype=dt)
+    tab = dict(order=i32(order), n_usable=i32(n_usable), qbeg=i32(q),
+               rbeg=rk(r), len=torch.full((B, S), 20, dtype=torch.int32),
+               cis=i32(c), valid=valid,
+               lens=torch.full((B,), g["lens"], dtype=torch.int32),
+               rmax0=torch.zeros(B, C, dtype=rank_dtype),
+               rmax1=torch.full((B, C), 2000, dtype=rank_dtype),
+               codes=torch.zeros(B, 1, dtype=torch.int32))
+    # the last live region covers; the others lie past every seed
+    far = 1_000_000 + 1000 * torch.arange(R)[None, :].expand(B, R)
+    rb = far.clone()
+    re = far + 100
+    if live:
+        rb[:, live - 1], re[:, live - 1] = 0, 100_000
+    regs = dict(rb=rb.to(rank_dtype), re=re.to(rank_dtype), qb=full(0),
+                qe=full(g["qe"]), score=full(0), truesc=full(0), w=full(100),
+                seedlen0=full(1000), cchain=full(0), rid=full(0))
+    st = dict(regs=regs, n_regs=torch.full((B,), live, dtype=torch.int32),
+              cursor=i32(cursors), was_ext=torch.from_numpy(was_ext),
+              overflow=torch.zeros(B, dtype=torch.bool))
+    opts = AlignOptions()
+    p = dict(match_score=opts.match_score, o_del=opts.o_del,
+             e_del=opts.e_del, o_ins=opts.o_ins, e_ins=opts.e_ins,
+             bandwidth=opts.bandwidth, pen_clip5=opts.pen_clip5,
+             pen_clip3=opts.pen_clip3)
+    return StageCall("extend_scan", (tab, st, p)), torch.from_numpy(want)
+
+
+def lane_cases(rank_dtype: torch.dtype = torch.int32, device="cpu"
+               ) -> dict[str, tuple[list[StageCall], torch.Tensor | None]]:
+    """{case (LANE_CASES): (its stage calls, the cursor each read of a
+    scan case must end at, or None)}: the boundaries of the kernels'
+    thread layout. The scan cases (``_scan_stops``): a first stop on
+    lane 0, 1, 31, 32, 33, 63 and 64 of a pass, bare and rescued, from
+    cursors 0 and 5; n_usable of 1, 31, 33, 45, 63, 65 and 79, ending
+    there or stopping on its last lane; every slot extended (70, slot 5
+    not valid, so the batches of 32 are slots 0-32, 33-64 and 65-69,
+    split inside a chunk: the rescuer at 32, 33, 64, 65 or 69); no live
+    regions; 16. The others
+    are ``random_calls`` (every stage, 256 reads) at R 1 and 16 (the
+    right merge's table under and over the group's 8 threads) and at S 40
+    and 70 (its was_ext rows in 8-byte words, 70 with a byte head and
+    tail; and once more with the right merge's was_ext one byte past an
+    aligned address, so its rows copy byte by byte)."""
+    lanes = [(cur, 99, stop, how) for cur in (0, 5)
+             for stop in (0, 1, 31, 32, 33, 63, 64, None)
+             for how in ("bare", "rescued")]
+    usable = [(cur, nu, stop, how) for nu in (1, 31, 33, 45, 63, 65, 79)
+              for cur in sorted({0, min(2, nu), nu - 1, nu})
+              for stop, how in ((None, "bare"), (nu - 1 - cur, "bare"),
+                                (nu - 1 - cur, "rescued"))]
+    every = [(cur, 69, stop, how) for cur in (0, 3)
+             for stop in (0, 31, 32, 40, None) for how in ("bare", "rescued")]
+    few = [(cur, 39, stop, "bare") for cur in (0, 5, 38, 39)
+           for stop in (0, 7, None)]
+    cases = {
+        LANE_CASES[0]: _scan_stops(lanes, 100, rank_dtype=rank_dtype),
+        LANE_CASES[1]: _scan_stops(usable, 80, rank_dtype=rank_dtype, seed=1),
+        LANE_CASES[2]: _scan_stops(every, 70, all_ext=True,
+                                   rank_dtype=rank_dtype, seed=2,
+                                   rescuers=(32, 33, 64, 65, 69),
+                                   invalid=(5,)),
+        LANE_CASES[3]: _scan_stops(few, 40, live=0, rank_dtype=rank_dtype,
+                                   seed=3),
+        LANE_CASES[4]: _scan_stops(lanes, 100, live=16,
+                                   rank_dtype=rank_dtype, seed=4)}
+    out = {k: ([StageCall(s.kind, _to(s.args, device))], want)
+           for k, (s, want) in cases.items()}
+    for name, seed, S, R in (("R 1", 11, 24, 1), ("R 16", 12, 24, 16),
+                             ("S 40", 13, 40, 8), ("S 70", 14, 70, 8)):
+        out[name] = (random_calls(rank_dtype, seed=seed, B=256, S=S, R=R,
+                                  device=device), None)
+    right = out["S 70"][0][3]
+    st = dict(right.args[2], was_ext=_at_odd_address(right.args[2]["was_ext"]))
+    out[LANE_CASES[-1]] = ([StageCall(right.kind, (
+        *right.args[:2], st, *right.args[3:]))], None)
+    return out
+
+
+def _at_odd_address(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past the start
+    of its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out

@@ -1,25 +1,32 @@
-"""Another tree's ``kmer_seed`` and ``fm_seed`` against this tree's, in
-turns on one card, at the calls the pipeline gives them.
+"""Another tree's ``kmer_seed``, ``fm_seed``, ``extend_scan`` and
+``extend_merge`` against this tree's, in turns on one card, at the calls
+the pipeline gives them.
 
     python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT
 
-Run from this tree's root. Builds OTHER_ROOT's ``csrc/kmer.cu`` and
-``csrc/fm_seed.cu`` (nvcc, the package's flags, into
-``_build/other``) and this tree's, and prints each build's
+Run from this tree's root. Builds OTHER_ROOT's ``csrc/kmer.cu``,
+``csrc/fm_seed.cu`` and ``csrc/extend.cu`` (nvcc, the package's flags,
+into ``_build/other``) and this tree's, and prints each build's
 ``-Xptxas -v`` lines (registers, stack frame, spills). Runs
 ``chip_smoke.py``'s main, PE, FM-seeded and long-read paths once on this
-tree's kernels, recording their calls: the main path's and the PE
-step's kmer calls, and the machine calls of the main path's reseed
-entry, the FM-seeded batch and the long-read warm-up. Each call is
-checked bit-equal to the plain twin on both trees' kernels (the C entry
-points take the same arguments), then timed on them in turns: other,
-this, this, other (``KmerCall.kernel_ms``: a launch in a CUDA graph;
+tree's kernels, recording their calls, and the int64 warm-up batch (the
+main path's first batch with int64 ranks forced): the main path's and
+the PE step's kmer calls; the machine calls of the main path's reseed
+entry, the FM-seeded batch and the long-read warm-up; and the stage
+calls of the main path's, the PE step's, the FM-seeded, the long-read
+warm-up's and the int64 ``extend_all`` calls (``ExtendCall.stages``).
+Each call is checked bit-equal to the plain twin on both trees' kernels
+(the C entry points take the same arguments), then timed on them in
+turns: other, this, this, other (``KmerCall.kernel_ms`` and
+``StageCall.kernel_ms``: a launch in a CUDA graph;
 ``MachineCall.kernel_ms``: CUDA events, median of 3). A line a call:
-both trees' times, the bound (``chip_smoke.bound`` / ``fm_bound``) and
-each share of it; for the machine also its slowest lane's steps (so us a
-step) and the backward share of the summed steps. Unpack the other tree
-with ``git archive`` into a directory that ``.gitignore`` lists. Needs a
-CUDA device.
+both trees' times, the bound (``chip_smoke.bound`` / ``fm_bound`` /
+``extend_bound``) and each share of it; for the machine also its slowest
+lane's steps (so us a step) and the backward share of the summed steps;
+for the extension kernels, ``extend_scan``, ``extend_merge left`` and
+``extend_merge right`` each summed over the call's launches. Unpack the
+other tree with ``git archive`` into a directory that ``.gitignore``
+lists. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import subprocess
 from pathlib import Path
 
@@ -34,10 +42,15 @@ import torch
 
 import chip_smoke as cs
 from bioseqdb_tpu_torch.kernels import build
-from bioseqdb_tpu_torch.tools import fm_machine, kmer_calls
+from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
+from bioseqdb_tpu_torch.tools import (extend_calls, fm_machine, kmer_calls,
+                                      long_leg)
 from bioseqdb_tpu_torch.tools.shapes import card_line
 
-SOURCES = ("kmer", "fm_seed")
+SOURCES = ("kmer", "fm_seed", "extend")
+# the extension kernels timed in turns (the others are another tree's too)
+EXTEND_TIMED = ("extend_scan", "extend_merge")
 ORDER = ("other", "this", "this", "other")
 
 
@@ -49,8 +62,8 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def build_other(root: Path) -> dict:
-    """{source name: (CDLL, nvcc log)} of ``root``'s kmer.cu and
-    fm_seed.cu, built concurrently."""
+    """{source name: (CDLL, nvcc log)} of ``root``'s SOURCES, built
+    concurrently."""
     out = build.BUILD_DIR / "other"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -86,8 +99,11 @@ def loading(libs: dict | None):
 def in_turns(call, other: dict) -> dict:
     """{tree: [ms, ms]} of ``call`` timed in ORDER, each tree's kernel
     first held bit-equal to the plain twin."""
-    err = fm_machine.max_abs_err if isinstance(
-        call, fm_machine.MachineCall) else kmer_calls.max_abs_err
+    err = (fm_machine.max_abs_err
+           if isinstance(call, fm_machine.MachineCall)
+           else extend_calls.max_abs_err
+           if isinstance(call, extend_calls.StageCall)
+           else kmer_calls.max_abs_err)
     want = call.run(plain=True)
     times = {"other": [], "this": []}
     for tree in ("other", "this"):
@@ -101,6 +117,41 @@ def in_turns(call, other: dict) -> dict:
         with loading(other if tree == "other" else None):
             times[tree].append(call.kernel_ms())
     return times
+
+
+def int64_call(m: dict, dev) -> "extend_calls.ExtendCall":
+    """The ``extend_all`` call of the main path's warm-up batch with int64
+    ranks forced (``chip_smoke.int64_path``'s Aligner)."""
+    fm64 = kfm.FMDevice.from_host(m["idx"], dev, rank_dtype=torch.int64)
+    al = dataclasses.replace(m["al"], fm=fm64, jump=build_r3_jump(fm64))
+    calls = []
+    with extend_calls.recording(calls):
+        long_leg.run_batch(al, m["batches"][0])
+    return calls[0]
+
+
+def extend_turns(name: str, call: "extend_calls.ExtendCall", other: dict
+                 ) -> None:
+    """Log EXTEND_TIMED's launches in ``call`` (each entry of
+    ``extend_merge`` apart), summed over the call, in turns."""
+    _, stages = call.stages()
+    sums = {}
+    for st in stages:
+        if st.kind not in EXTEND_TIMED:
+            continue
+        times = in_turns(st, other)
+        t_bytes, t_ops, _ = cs.extend_bound(st, st.run())
+        r = sums.setdefault(st.name, dict(
+            n=0, other=[0.0, 0.0], this=[0.0, 0.0], t_bytes=0.0, t_ops=0.0))
+        r["n"] += 1
+        for tree in ("other", "this"):
+            r[tree] = [a + b for a, b in zip(r[tree], times[tree])]
+        r["t_bytes"] += t_bytes
+        r["t_ops"] += t_ops
+    for kernel, r in sums.items():
+        by = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
+        cs.log(turn_line(kernel, name, call, r, max(r["t_bytes"], r["t_ops"]),
+                         by) + f"; {r['n']} launches summed")
 
 
 def turn_line(kernel: str, name: str, call, times: dict, bound_ms: float,
@@ -155,6 +206,12 @@ def main(argv=None) -> None:
                  f"{us(times['other'])}, this {us(times['this'])}; backward "
                  f"steps {touched['bwd']} of {summed} summed "
                  f"({100 * touched['bwd'] / max(summed, 1):.1f}%)")
+    for name, call in (("main path", m["ext_calls"][0]),
+                       ("PE", pe["ext_calls"][0]),
+                       ("FM-seeded", fmp["ext_calls"][0]),
+                       ("long-read warm-up", lr["ext_calls"][0]),
+                       ("int64", int64_call(m, dev))):
+        extend_turns(name, call, other)
 
 
 if __name__ == "__main__":

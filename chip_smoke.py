@@ -137,7 +137,11 @@
    and without the overlap rescue, band doubling at bandwidth 8, overflow
    at max_regs 1, windows at the strand boundary and reference ends, the
    edge batch's fat retry; int32 and int64, int64 also shifted past
-   2^31) and of its random stage inputs (seeds 5-7, both dtypes); each
+   2^31), of its random stage inputs (seeds 5-7, both dtypes) and of
+   ``extend_calls.lane_cases`` (the scan's first stop on the edge lanes
+   of a pass, n_usable off a multiple of 32, more extended seeds than a
+   warp, 0 and 16 live regions; the right merge at R 1 and 16 and S 40
+   and 70, both dtypes); each
    ``extend_all`` call with the kernels equal to it with the plain
    twins. For each recorded call, each kernel's launches summed: time
    (each a launch in a CUDA graph), plain twins' time, bound (the bytes
@@ -667,8 +671,10 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
     CUDA graph), the plain twins', the bound and the share. For the main
     path's call: the host's waits on the card and a clocked run's split
     (scan, windows, SW, merge, seedcov), with the kernels and with the
-    plain twins (the eager loops the port ran before). Returns the
-    kernels line's entries (the main path's call)."""
+    plain twins (the eager loops the port ran before). Then the random
+    stage inputs and ``extend_calls.lane_cases`` (the boundaries of the
+    kernels' thread layout), bit-equal. Returns the kernels line's
+    entries (the main path's call)."""
     recorded = {}
     for path, d in (("main path", m), ("PE", pe), ("FM-seeded", fmp),
                     ("long-read", lr), ("int64", i64)):
@@ -759,6 +765,25 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
         log(f"extend kernels on random stage inputs "
             f"({str(rdt).removeprefix('torch.')}, seeds {RANDOM_SEEDS}): "
             f"{n} calls, max_abs_err=0")
+        n = 0
+        for name, (calls, want) in extend_calls.lane_cases(
+                rdt, device=dev).items():
+            if rdt == torch.int64:
+                calls = calls + [c.shifted() for c in calls
+                                 if c.kind != "extend_windows"]
+            for st in calls:
+                got = st.run()
+                if extend_calls.max_abs_err(got, st.run(plain=True)):
+                    raise AssertionError(f"{st.name} disagrees with plain on "
+                                         f"the lane case {name}")
+                n += 1
+            if want is not None and not torch.equal(
+                    calls[0].run()["cursor"].long().cpu(), want):
+                raise AssertionError(f"the lane case {name} lost its stops")
+        log(f"extend kernels on the lane cases "
+            f"({str(rdt).removeprefix('torch.')}: "
+            f"{', '.join(extend_calls.LANE_CASES)}): {n} calls, "
+            f"max_abs_err=0")
     return {k: r["main path"] for k, r in rows.items()}
 
 

@@ -3,7 +3,8 @@ equal their plain twins on the card, every output exactly: each stage call
 (``extend_scan``, ``extend_windows``, ``extend_merge`` both sides,
 ``extend_seedcov``) of a simulated batch's ``extend_all`` call, of
 ``tools/extend_calls.py``'s edge set with its fat retry at int32 and
-int64 ranks (and past 2^31), and of its random stage inputs; each call
+int64 ranks (and past 2^31), of its random stage inputs and of its lane
+cases (the scan's and the merge's thread-layout boundaries); each call
 on CUDA tensors is one launch; ``extend_all`` with the kernels equals it
 with the plain twins and waits on the card less often; and a device step
 on the card launches all four. Skips without a CUDA device. Imports no
@@ -109,3 +110,18 @@ def test_kernels_equal_plain_on_random_inputs(dtype, seed):
         calls += [s.shifted() for s in calls if s.kind != "extend_windows"]
     for s in calls:
         _check(s)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_equal_plain_on_lane_cases(dtype):
+    _card()
+    for name, (calls, want) in ec.lane_cases(DTYPES[dtype],
+                                             device="cuda").items():
+        if dtype == "int64":
+            calls = calls + [s.shifted() for s in calls
+                             if s.kind != "extend_windows"]
+        for s in calls:
+            _check(s)
+        if want is not None:
+            got = calls[0].run()["cursor"].long().cpu()
+            assert torch.equal(got, want), name

@@ -16,11 +16,17 @@ plain twins, on the CPU (the kernels themselves run only on the card:
   and more than 16 regions a read (ValueError) before they touch a
   library.
 - The constants of ``csrc/extend.cu`` equal the Python modules'.
+- The lane cases (``extend_calls.lane_cases``) hold what they were made
+  for: the scan's first stop on lanes 0, 1, 31, 32, 33, 63 and 64 of a
+  pass, bare and rescued; n_usable off a multiple of 32; every slot
+  extended; no live regions and 16.
 - The kernels' lane bodies, compiled for the host with g++ (the source's
   host entries), equal the plain twins on every stage call of the edge
   set (int32, int64, and int64 past 2^31), of a recorded batch with its
-  fat retry (S 128, R 16), and on random stage inputs; the host entries
-  refuse an argument array of the wrong length. Skipped without g++.
+  fat retry (S 128, R 16), on random stage inputs and on the lane cases
+  (the right merge at R 1 and 16 and at S 40 and 70 too); the host
+  entries refuse an argument array of the wrong length. Skipped without
+  g++.
 Integer programs: tolerance 0."""
 
 import shutil
@@ -256,3 +262,48 @@ def test_host_entries_refuse_a_wrong_argument_count(host_lib, stages):
         assert fn(ecu.array(args[:-1]), len(args) - 1) == 1, entry
         assert fn(ecu.array(args + [0]), len(args) + 1) == 1, entry
         assert fn(ecu.array(args), len(args)) == 0, entry
+
+
+@pytest.fixture(scope="module")
+def lanes():
+    return {name: ec.lane_cases(dt) for name, dt in DTYPES.items()}
+
+
+@pytest.mark.parametrize("case", ec.LANE_CASES[:5])
+def test_lane_cases_hold_their_cases(lanes, case):
+    (call,), want = lanes["int32"][case]
+    tab, st, p = call.args
+    got = call.run(plain=True)
+    assert torch.equal(got["cursor"].long(), want)
+    stopped = got["cursor"] < tab["n_usable"]
+    lane = (got["cursor"] - st["cursor"])[stopped]
+    bare = extend.extend_scan_plain(
+        tab, dict(st, was_ext=torch.zeros_like(st["was_ext"])), p)
+    rescued = bare["cursor"] != got["cursor"]
+    if case == "scan with no live regions":
+        assert (st["n_regs"] == 0).all() and (lane == 0).all()
+        return
+    assert rescued.any()
+    if case == "scan n_usable off 32":
+        ran = ~stopped & (st["cursor"] < tab["n_usable"])
+        assert ran.any() and (tab["n_usable"][ran] % 32 != 0).all()
+        return
+    for k in (0, 31, 32):
+        assert (lane == k).any() and (lane[rescued[stopped]] == k).any(), k
+    if case == "scan with every slot extended":
+        assert st["was_ext"].all() and tab["order"].shape[1] > 64
+    if case == "scan with 16 live regions":
+        assert (st["n_regs"] == 16).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ec.LANE_CASES)
+def test_host_build_equals_plain_on_lane_cases(host_lib, lanes, case,
+                                               dtype):
+    calls, want = lanes[dtype][case]
+    if dtype == "int64":
+        calls = calls + [s.shifted() for s in calls
+                         if s.kind != "extend_windows"]
+    _host_equals_plain(host_lib, calls)
+    if want is not None:
+        assert torch.equal(calls[0].host(host_lib)["cursor"].long(), want)
