@@ -59,6 +59,7 @@
 //   which the CPU tests hold against the plain version.
 
 #include "lanes.cuh"
+#include "occ.cuh"
 
 namespace {
 
@@ -76,8 +77,6 @@ constexpr int RD_LAST = 2;
 constexpr int kQuad = 4;         // threads a read: one a code
 constexpr int kReads = 8;        // reads a block (one warp)
 constexpr int kMaxCand = 32;     // candidate stack rows (the wrapper raises above)
-constexpr int kLog2OccBlock = 7;   // 128 bases an Occ block (fmindex.OCC_BLOCK)
-constexpr int kLog2Major = 15;     // blocks a major checkpoint (fmindex.MAJOR_BLOCKS)
 constexpr int kLog2FetchRow = 10;  // the JAX machine's fetch row: 1,024 bases
 constexpr int kRefused = 1;        // cudaErrorInvalidValue
 
@@ -104,16 +103,6 @@ struct Params {
   int B, W, M, P, J, max_iters;
   int min_seed_len, split_len, split_width, max_mem_intv;
 };
-
-template <typename T>
-LANE_HD inline T clampv(T v, T lo, T hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// _MASK_TABLE[v]: the first v bases (2 bits each, big-endian) of a word
-LANE_HD inline uint32_t first_bases(int v) {
-  return v == 0 ? 0u : (0x55555555u << (2 * (16 - v)));
-}
 
 // the jump key of the depth-J window at column pos (sum_t q[pos + t] << 2t;
 // seed.py _jump_keys), or -1 when the window holds a code >= 4 or runs
@@ -153,40 +142,11 @@ LANE_HD inline Stacks<R> stacks_at(unsigned char* base, int P) {
                    r + 4 * P, r + 5 * P};
 }
 
-// occ(c, r): the count of code c before conceptual-prefix rank r
-// (kernels/fm.py occ_rows_for + occ4_from_row for one code): the Occ block
-// row's checkpoint of c, the c bases in the row's first (jr & 127) bases,
-// and the major checkpoint of c
+// occ(c, r) on the call's Occ table (occ.cuh occ_code)
 template <typename R>
-GROUP_FN inline R occ_code(const Params& p, const R* majors, R r, R primary,
-                           int c) {
-  const R jr = r - static_cast<R>(r > primary);
-  const R blk = jr >> kLog2OccBlock;
-  const long long octo =
-      clampv<long long>(static_cast<long long>(blk >> 3), 0, p.n_octo - 1);
-  const long long row = octo * 8 + static_cast<long long>(blk & 7);
-  const int32_t* src = p.occ_rows + row * 12;
-  const int ck = __ldg(src + c);
-  const int4 wa = __ldg(reinterpret_cast<const int4*>(src) + 1);
-  const int4 wb = __ldg(reinterpret_cast<const int4*>(src) + 2);
-  const long long m = clampv<long long>(
-      static_cast<long long>(blk >> kLog2Major), 0, p.n_major - 1);
-  const R mj = __ldg(majors + m * 4 + c);
-  const int off = static_cast<int>(jr & 127);
-  const uint32_t words[8] = {
-      static_cast<uint32_t>(wa.x), static_cast<uint32_t>(wa.y),
-      static_cast<uint32_t>(wa.z), static_cast<uint32_t>(wa.w),
-      static_cast<uint32_t>(wb.x), static_cast<uint32_t>(wb.y),
-      static_cast<uint32_t>(wb.z), static_cast<uint32_t>(wb.w)};
-  const uint32_t pat = static_cast<uint32_t>(c) * 0x55555555u;
-  int cnt = 0;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const uint32_t x = words[w] ^ pat;
-    const uint32_t y = ~(x | (x >> 1)) & 0x55555555u;
-    cnt += popc32(y & first_bases(clampv(off - 16 * w, 0, 16)));
-  }
-  return static_cast<R>(ck + cnt) + mj;
+GROUP_FN inline R occ_at(const Params& p, const R* majors, R r, R primary,
+                         int c) {
+  return occ_code<R>(p.occ_rows, p.n_octo, majors, p.n_major, r, primary, c);
 }
 
 // the backward row's extensions by code c of every prev row (k, s), the
@@ -200,8 +160,8 @@ GROUP_FN void fetch_row(const Params& p, const R* majors, const Stacks<R>& sk,
     for (int jj = t; jj < n_prev; jj += kQuad) {
       const R a = sk.k[pb][jj];
       const R s = sk.s[pb][jj];
-      const R o1 = occ_code<R>(p, majors, a, primary, c);
-      const R o2 = occ_code<R>(p, majors, a + (s < 0 ? 0 : s), primary, c);
+      const R o1 = occ_at<R>(p, majors, a, primary, c);
+      const R o2 = occ_at<R>(p, majors, a + (s < 0 ? 0 : s), primary, c);
       sk.fk[jj] = base + o1;
       sk.fs[jj] = o2 - o1;
     }
@@ -389,8 +349,8 @@ GROUP_FN void fm_seed_read(const Params& p, int b, unsigned char* sm) {
         const int c = clampv(3 - qi, 0, 3);
         Lanes<R, G> o1, d;
         FOR_LANES(G, t) {
-          o1[t] = occ_code<R>(p, majors, a, primary, t);
-          d[t] = occ_code<R>(p, majors, posB, primary, t) - o1[t];
+          o1[t] = occ_at<R>(p, majors, a, primary, t);
+          d[t] = occ_at<R>(p, majors, posB, primary, t) - o1[t];
         }
         const R o1c = shfl(o1, c);
         ok_s = shfl(d, c);

@@ -27,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = {"sw_extend": "sw_extend.cu", "fm_seed": "fm_seed.cu",
            "kmer": "kmer.cu", "seedsw": "seedsw.cu", "chain": "chain.cu",
-           "extend": "extend.cu", "probes": "probes.cu"}
+           "extend": "extend.cu", "fm": "fm.cu", "probes": "probes.cu"}
 EXTEND_KERNELS = ("extend_scan", "extend_windows", "extend_merge",
                   "extend_seedcov")
 KERNELS = ("sw_extend",                            # sw_extend.cu
@@ -36,11 +36,16 @@ KERNELS = ("sw_extend",                            # sw_extend.cu
            "seed_sw",                              # seedsw.cu
            "chain_seeds", "filter_chains",         # chain.cu
            *EXTEND_KERNELS,                        # extend.cu
+           "sa_resolve", "backward_search",        # fm.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
 # the kernels a full-pipeline device step launches: kmer_seed on the kmer
 # seeder's batches (W <= 320), seed_sw on long reads only
 STEP_KERNELS = ("sw_extend", "fm_seed", "kmer_seed", "seed_sw",
-                "chain_seeds", "filter_chains", *EXTEND_KERNELS)
+                "chain_seeds", "filter_chains", *EXTEND_KERNELS, "sa_resolve")
+# the kernels an exact-mode step launches
+EXACT_KERNELS = ("backward_search", "sa_resolve")
+# the kernels a user's path launches (every kernel but the probes)
+PATH_KERNELS = STEP_KERNELS + ("backward_search",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -40,12 +40,16 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
 
     A row whose l column is nonzero carries a doubled-text position in
     its k column (the kmer seeder's s == 1 rows) and skips the SA walk.
-    Only the rank rows walk, compacted to at most ``(B * S) // 4`` lanes
-    (or ``compact_cap``), as the JAX version's static buffer holds them;
-    lanes past it overflow. ``compact_cap`` None walks every rank lane:
-    the buffer is a TPU static-shape cap, and the port compacts to the
-    lanes there are. ``group``: a sharded index's process group
-    (``kernels/fm.py``), whose ranks hold the same seeds."""
+    Only the rank rows walk, at most ``(B * S) // 4`` of them (or
+    ``compact_cap``) in slot order, as the JAX version's static buffer
+    holds them; lanes past it overflow. ``compact_cap`` None walks every
+    rank lane: the buffer is a TPU static-shape cap. On CUDA tensors
+    without a group the SA walk is one launch of ``csrc/fm.cu``'s
+    ``sa_resolve`` over all B x S lanes, masked to the walking ones (no
+    host wait); elsewhere the walking lanes are compacted first
+    (``_walk_masked``). Both give the same dict. ``group``: a sharded
+    index's process group (``kernels/fm.py``), whose ranks hold the same
+    seeds."""
     B, M, _ = mems.shape
     S = max_seeds
     dev = mems.device
@@ -83,10 +87,15 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
             K = min(K, compact_cap)
         fvalid = (valid & ~isposrow).reshape(-1)
         cpos = torch.cumsum(fvalid.to(i32), 0) - 1
-        src = torch.nonzero(fvalid & (cpos < K))[:, 0]
-        pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=dev)
-        pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src], sa_interval,
-                                  group)
+        walk = fvalid & (cpos < K)
+        if _walk_masked(ranks, group):
+            pos = kfm.sa_resolve(fm, ranks.reshape(-1), sa_interval, group,
+                                 mask=walk)
+        else:
+            src = torch.nonzero(walk)[:, 0]
+            pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=dev)
+            pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src],
+                                      sa_interval, group)
         pos = pos.reshape(B, S)
         truncated = (fvalid & (cpos >= K)).reshape(B, S)
         valid = valid & ~truncated
@@ -111,6 +120,14 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
         valid=ok,
         overflow=overflow,
     )
+
+
+def _walk_masked(ranks: torch.Tensor, group) -> bool:
+    """Whether ``resolve_seeds`` walks every rank lane under a mask of the
+    lanes within its cap, with no host wait: on the kernel's path (CUDA
+    tensors, no group). Elsewhere it compacts the lanes first
+    (``torch.nonzero``), so that the plain walk runs on them alone."""
+    return ranks.device.type == "cuda" and group is None
 
 
 def l_rep_device(mems: torch.Tensor, n_mem: torch.Tensor, max_occ: int

@@ -25,6 +25,14 @@ group must make the same queries in the same order on the same shapes.
 ``COLLECTIVES`` counts the owner sums (calls, bytes; seconds when
 ``reset_collectives(timed=True)`` asks), as ``build.LAUNCHES`` counts
 kernel launches.
+
+The two device loops here, ``sa_resolve`` and ``backward_search``, are
+one launch each of ``csrc/fm.cu``'s kernels on CUDA tensors without a
+group (``kernels/fm_cuda.py``: a thread a lane runs every step), which
+raise rather than fall back; on CPU tensors, and under a group, whose
+every step is an owner sum, they run their plain twins
+``sa_resolve_plain`` and ``backward_search_plain``, the loops as eager
+ops, bit-equal to the kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ import torch.distributed as dist
 
 from bioseqdb_tpu_torch.index import layout
 from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK, FMIndex
+from bioseqdb_tpu_torch.kernels.fm_cuda import (backward_search_cuda,
+                                                sa_resolve_cuda)
 
 LOG2_OCC_BLOCK = 7
 LOG2_MAJOR = MAJOR_BLOCKS.bit_length() - 1
@@ -268,7 +278,23 @@ def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor,
     """Exact-match intervals of a batch of reads: codes int32 [B, W]
     (0..3 bases, >= 4 ambiguous), lens int32 [B]. Returns (lo, hi) [B]
     in the rank dtype; the empty interval (0, 0) on no match, an
-    ambiguous base or an empty read."""
+    ambiguous base or an empty read. On CUDA tensors without a group one
+    launch of ``csrc/fm.cu``'s kernel (``fm_cuda``), which raises rather
+    than fall back; on CPU tensors, and under a group (every step an
+    owner sum, which no launch holds), the plain twin."""
+    if codes.device.type != "cuda" or group is not None:
+        return backward_search_plain(fm, codes, lens, group)
+    return backward_search_cuda(fm, codes.to(torch.int32).contiguous(),
+                                lens.to(torch.int32).contiguous())
+
+
+def backward_search_plain(fm: FMDevice, codes: torch.Tensor,
+                          lens: torch.Tensor, group=None,
+                          touched: dict | None = None):
+    """``backward_search``'s plain twin, on any device: W steps of eager
+    ops, a column a step. ``touched`` (``tools/fm_calls.py``
+    ``FmCall.touched``'s dict of per-row flags) gets the Occ and major rows the live steps read, and
+    the steps and columns they take."""
     B, W = codes.shape
     lens = lens.to(torch.int32)
     lo = torch.zeros(B, dtype=fm.rank_dtype, device=codes.device)
@@ -280,12 +306,36 @@ def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor,
         c = torch.gather(codes, 1, idx[:, None])[:, 0]
         live = t < lens
         active = live & (lo < hi) & (c < 4)
+        if touched is not None:
+            _touch_occ(fm, touched, torch.cat([lo, hi]),
+                       torch.cat([active, active]))
+            touched["steps"] += active.sum()
+            touched["columns"] += (live & (lo < hi)).sum()
         nlo, nhi = backward_ext(fm, lo, hi, c.clamp(0, 3), group)
         bad = live & (c >= 4)       # an ambiguous base kills the match
         lo = torch.where(active, nlo, torch.where(bad, 1, lo))
         hi = torch.where(active, nhi, torch.where(bad, 1, hi))
     empty = (hi <= lo) | (lens == 0)
     return torch.where(empty, 0, lo), torch.where(empty, 0, hi)
+
+
+def _touch_occ(fm: FMDevice, touched: dict, r: torch.Tensor,
+               live: torch.Tensor) -> None:
+    """Mark the Occ block rows and major rows that the occ queries at
+    conceptual ranks ``r`` read, on the ``live`` lanes."""
+    j = r - (r > fm.primary).to(r.dtype)
+    blk = (j >> LOG2_OCC_BLOCK).long()
+    octo, _ = _local_row(blk >> 3, fm.blocks.shape[0])
+    _touch(touched["occ"], octo * 8 + (blk & 7), live)
+    m = (blk >> LOG2_MAJOR).clamp(0, fm.occ_majors.shape[0] - 1)
+    _touch(touched["major"], m, live)
+
+
+def _touch(flags: torch.Tensor, rows: torch.Tensor, live: torch.Tensor
+           ) -> None:
+    """flags[rows[live]] = True, without a host wait: dead lanes mark the
+    spare last flag."""
+    flags[torch.where(live, rows, flags.shape[0] - 1)] = True
 
 
 def fmd_extend_from_occ(fm: FMDevice, k, l, s, o1, o2):
@@ -369,19 +419,64 @@ def lf_step(fm: FMDevice, r: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def sa_resolve(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32,
-               group=None) -> torch.Tensor:
+               group=None, mask: torch.Tensor | None = None) -> torch.Tensor:
     """Resolve conceptual ranks to doubled-text positions: at most
-    ``sa_interval - 1`` LF steps to a marked rank. Under a group a
-    step's mark test and LF share one owner sum."""
+    ``sa_interval - 1`` LF steps to a marked rank. ``mask`` (bool, the
+    ranks' shape): only its lanes walk, the others give 0. On CUDA
+    tensors without a group one launch of ``csrc/fm.cu``'s kernel
+    (``fm_cuda``), which raises rather than fall back; on CPU tensors,
+    and under a group (every step an owner sum, which no launch holds),
+    the plain twin."""
+    r = ranks.to(fm.rank_dtype)
+    if r.device.type != "cuda" or group is not None:
+        return sa_resolve_plain(fm, r, sa_interval, group, mask)
+    m = None if mask is None else mask.reshape(-1).contiguous()
+    return sa_resolve_cuda(fm, r.reshape(-1).contiguous(), sa_interval,
+                           m).reshape(r.shape)
+
+
+def sa_resolve_plain(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32,
+                     group=None, mask: torch.Tensor | None = None,
+                     touched: dict | None = None) -> torch.Tensor:
+    """``sa_resolve``'s plain twin, on any device: ``sa_interval - 1``
+    steps of eager ops over every lane. Under a group a step's mark test
+    and LF share one owner sum. ``touched`` (``tools/fm_calls.py``
+    ``FmCall.touched``'s dict of per-row flags) gets the rows the walking lanes read: a mark word
+    each step, an Occ and a major row each step that moves, and the
+    slot's mark words, count, major and sample at the end; and the
+    steps."""
     r = ranks.to(fm.rank_dtype)
     steps = torch.zeros_like(r)
+    if touched is not None:
+        lanes = torch.ones_like(r, dtype=torch.bool) if mask is None else mask
+        walk = lanes
     for _ in range(sa_interval - 1):
         bit, lf = _owner_sums([_sa_mark_bit(fm, r, group),
                                _lf_value(fm, r, group)], group)
+        if touched is not None:
+            moved = walk & ~bit.bool()
+            _touch(touched["mark"], (r >> 5).long().clamp(
+                0, fm.sa_words.shape[0] - 1), walk)
+            _touch_occ(fm, touched, r, moved)
+            touched["steps"] += moved.sum()
+            walk = moved
         r = torch.where(bit.bool(), r,
                         torch.where(r == fm.primary, 0, lf).to(r.dtype))
         steps = torch.where(bit.bool(), steps, steps + 1)
-    return _clamped(fm.sa_sample, _sa_slot(fm, r, group)) + steps
+    slot = _sa_slot(fm, r, group)
+    if touched is not None:
+        r5 = (r >> 7).long()
+        widx = torch.arange(4, device=r.device)
+        _touch(touched["mark"], (r5[..., None] * 4 + widx).clamp(
+            0, fm.sa_words.shape[0] - 1), lanes[..., None].expand(
+                *lanes.shape, 4))
+        _touch(touched["cnt"], r5.clamp(0, fm.sa_cnt.shape[0] - 1), lanes)
+        _touch(touched["sa_major"], (r5 >> LOG2_MAJOR).clamp(
+            0, fm.sa_majors.shape[0] - 1), lanes)
+        _touch(touched["sample"], slot.long().clamp(
+            0, fm.sa_sample.shape[0] - 1), lanes)
+    pos = _clamped(fm.sa_sample, slot) + steps
+    return pos if mask is None else torch.where(mask, pos, 0)
 
 
 def depos(fm: FMDevice, pos: torch.Tensor, length):

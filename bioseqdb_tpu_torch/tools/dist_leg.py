@@ -113,11 +113,11 @@ def _cell(rank: int, device_type: str, shape, names, idx, jobs: list
             r["stages"] = sc.split()
         else:
             r = _job(als[key], job, rank)
-        r.update(**{k: build.LAUNCHES[k] for k in build.STEP_KERNELS},
+        r.update(**{k: build.LAUNCHES[k] for k in build.PATH_KERNELS},
                  collectives=dict(kfm.COLLECTIVES))
         kfm.reset_collectives()
         rows.append(r if rank == 0 else dict(
-            {k: r[k] for k in build.STEP_KERNELS}, stages=r.get("stages"),
+            {k: r[k] for k in build.PATH_KERNELS}, stages=r.get("stages"),
             collectives=r.get("collectives")))
     return dict(jobs=rows, build_s=built)
 
@@ -157,7 +157,7 @@ def run_tasks(rank: int, world_size: int, device_type: str, tasks: list
       ``columns`` (``long_leg.run_batch``, finalized on rank 0); with
       ``job["clock"]`` under ``long_leg.stage_clock`` and with the owner
       sums timed. Rank 0 returns the jobs' results; every rank the
-      launches of each ``build.STEP_KERNELS`` kernel and
+      launches of each ``build.PATH_KERNELS`` kernel and
       ``kernels/fm.py``'s ``COLLECTIVES`` a job (counts zeroed just
       before the job and read just after), the stage split of a clocked
       job and the build seconds.
@@ -310,7 +310,7 @@ def main(argv=None) -> None:
             spawn_s=time.perf_counter() - t0,
             build_s=cell["build_s"],
             **{k: sum(r["tasks"][0]["jobs"][1][k] for r in res)
-               for k in build.STEP_KERNELS},
+               for k in build.PATH_KERNELS},
             **summary(job, clocked, n), overflow=int(job["n_ovf"]),
             compared=int(both.size), rows_differ=len(diff),
             **long_leg.check(al, sim_b, b, job["cols"]))), flush=True)

@@ -1,18 +1,18 @@
 """Two trees of the repository in turns on one card: the main path, the
-FM-seeded main path and the long-read leg of each.
+FM-seeded main path, the long-read leg and exact mode of each.
 
     python -m bioseqdb_tpu_torch.tools.path_turns OLD_ROOT NEW_ROOT [--turns 2]
 
 Each turn starts a process of its own in one tree's root, which builds
 that tree's kernels and runs its ``chip_smoke.py`` ``main_path``,
-``fm_main_path`` and ``long_path`` (each checks truth and the host
-oracle, as in ``chip_smoke.py``): OLD, NEW, NEW, OLD for two turns, so
-that a drift of the card or its host over the call falls on both trees.
-It prints the card line, then each turn's lines that carry reads/s, a
-timed batch or a device step, prefixed with the tree ("[old]", "[new]");
-a turn that fails stops the run. Unpack the other tree with ``git
-archive`` into a directory that ``.gitignore`` lists. Needs a CUDA
-device.
+``fm_main_path``, ``long_path`` and ``exact_path`` (each checks truth
+and the host oracle or the CPU path, as in ``chip_smoke.py``): OLD,
+NEW, NEW, OLD for two turns, so that a drift of the card or its host
+over the call falls on both trees. It prints the card line, then each
+turn's lines that carry reads/s, a timed batch or a device step,
+prefixed with the tree ("[old]", "[new]"); a turn that fails stops the
+run. Unpack the other tree with ``git archive`` into a directory that
+``.gitignore`` lists. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ build.build()
 m = cs.main_path(dev, card)
 cs.fm_main_path(m, dev, card)
 cs.long_path(m, card)
+cs.exact_path(m, dev, card)
 """
 KEEP = re.compile(r"reads/s|device step|timed batch")
 

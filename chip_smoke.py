@@ -9,12 +9,15 @@
    ``kmer_seed`` (``kmer.cu``), ``seed_sw`` (``seedsw.cu``),
    ``chain_seeds`` and ``filter_chains`` (``chain.cu``), ``extend_scan``,
    ``extend_windows``, ``extend_merge`` and ``extend_seedcov``
-   (``extend.cu``) and the probes. Every phase that runs the full
-   pipeline on one device (main path, PE, FM-seeded, long reads, int64,
-   API, the CLI's full-mode ``align`` commands) must launch every step
-   kernel of its path in its counted window: ``kmer_seed`` on the kmer
-   seeder's paths and never on the FM-seeded or long-read ones,
-   ``seed_sw`` on long reads only;
+   (``extend.cu``), ``sa_resolve`` and ``backward_search`` (``fm.cu``)
+   and the probes. Every phase that runs the full pipeline on one device
+   (main path, PE, FM-seeded, long reads, int64, API, the CLI's
+   full-mode ``align`` commands) must launch every step kernel of its
+   path in its counted window (``sa_resolve`` among them):
+   ``kmer_seed`` on the kmer seeder's paths and never on the FM-seeded
+   or long-read ones, ``seed_sw`` on long reads only; exact mode (the
+   exact step, ``align --mode exact``, the data mesh's exact run) must
+   launch ``backward_search`` and ``sa_resolve`` and no other;
 3. SW kernel phase: ``sw_extend`` against its plain PyTorch version on
    the card, bit-equal on every case set of ``tools/sw_sets.py``: small
    ones, ``synthetic`` (16,384 read-like pairs at the extension stage's
@@ -48,7 +51,9 @@
    (``tools/chain_calls.py``), for phase 9b, their ``extend_all``
    calls (``tools/extend_calls.py``) for phase 9c, and the kmer seeder's
    calls of this warm-up batch, the PE one and the int64 one
-   (``tools/kmer_calls.py``) for phase 9d;
+   (``tools/kmer_calls.py``) for phase 9d, and the ``sa_resolve`` calls
+   of this warm-up batch, the FM-seeded, long-read and int64 ones
+   (``tools/fm_calls.py``) for phase 9f;
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -98,7 +103,10 @@
 8. exact phase (``bench.py bench_exact``'s workload): the main path's
    genome, 16,384 150 bp reads with no edits (read seed 2), an ``Aligner``
    built with ``mode="exact"``; one warm-up and five timed calls of
-   ``exact_align_step`` at ``max_hits`` 4, then one ``align_batch`` at the
+   ``exact_align_step`` at ``max_hits`` 4 (the warm-up's
+   ``backward_search`` and ``sa_resolve`` calls recorded for phase 9f;
+   counts zeroed just before the timed calls and read just after: both
+   kernels, once a call, and no other), then one ``align_batch`` at the
    default ``max_hits``. Every read must have a hit, every read with one
    hit its primary at its simulated position and strand, and the records
    and SAM text must equal the port's CPU path on the same batch;
@@ -181,6 +189,23 @@
    and the share; then
    the long-read timed batch clocked with the kernel and with the plain
    twin, in turns;
+9f. FM-index phase: ``sa_resolve`` and ``backward_search`` against their
+   plain twins (``fm.sa_resolve_plain``, ``fm.backward_search_plain``)
+   on the card, bit-equal, at the recorded calls (the main path's
+   ``resolve_seeds`` walk: 16,384 x 64 lanes under its lane mask; the
+   FM-seeded, long-read and int64 ones; the exact step's search of
+   16,384 reads and walk of 16,384 x 4 ranks), at
+   ``fm_calls.edge_calls`` on an index at SA interval 32 (rank 0, the
+   primary, ``seq_len``, the dummy rank 1, marked ranks, ranks that need
+   all 31 steps, a lane mask, ranks off the table; empty, one-base,
+   full-width, all-ambiguous and no-match reads, an ambiguous base at
+   either end, repeats, a length past the width) with int32 and int64
+   ranks and past 2^31, and at its random calls (seeds 1-3: 65,536
+   ranks, 4,096 reads). Each recorded and random call: the kernel's time
+   (a launch in a CUDA graph), the plain twin's (CUDA events), the bound
+   (the distinct mark, Occ, major, count and sample rows the lanes read,
+   each once, the ranks, mask and positions, or the lengths, codes and
+   intervals; or the steps' instructions) and the share;
 10. API phase: ``multi_search`` of the first 256 reads of the main path's
    timed batch against the main path's ``Aligner``, counts zeroed just
    before and read just after (``sw_extend`` must have run); the
@@ -200,9 +225,11 @@
    has fewer GPUs than ranks, else ``nccl``; the kernels built before):
    data-parallel (``data`` 2: the kmer ``Aligner`` on the main path's
    index, each rank half of the rows; the timed batch, and exact mode
-   on the exact phase's reads), index-sharded (``index`` 2: the FM
-   tables split in two, the timed batch) and ``data`` 2 x ``index`` 2
-   (4 ranks, its first 4,096 reads). Each cell runs its batch twice:
+   on the exact phase's reads, where every rank must launch
+   ``backward_search`` and ``sa_resolve`` and no other kernel),
+   index-sharded (``index`` 2: the FM tables split in two, the timed
+   batch) and ``data`` 2 x ``index`` 2 (4 ranks, its first 4,096
+   reads). Each cell runs its batch twice:
    clocked (a device sync around each stage and each collective; also
    the warm-up), then unclocked. It prints the backend, the unclocked
    run's reads/s and device step, and the clocked run's stage split, FM
@@ -213,10 +240,11 @@
    counted), exact mode's the exact phase's; truth >= 98% and
    ``device_ne_oracle`` 0; every rank must launch ``sw_extend``,
    ``chain_seeds``, ``filter_chains``, ``extend_scan``, ``extend_merge``
-   and ``extend_seedcov`` in both runs, ``fm_seed``, ``extend_windows``
-   and ``kmer_seed`` too on the data mesh and never on an index mesh (the
-   FM machine and the windows stay plain there, and its FM seeder has no
-   kmer stage), ``seed_sw`` on no rank (short reads)
+   and ``extend_seedcov`` in both runs, ``fm_seed``, ``extend_windows``,
+   ``kmer_seed`` and ``sa_resolve`` too on the data mesh and never on an
+   index mesh (the FM machine, the windows and the SA walk stay plain
+   there, and its FM seeder has no kmer stage), ``seed_sw`` (short
+   reads) and ``backward_search`` on no rank
    (counts zeroed just before each job and read just after, in each
    rank; the unclocked runs' go on the kernels line);
 13. probe path: counts zeroed, the two probe entry points
@@ -234,12 +262,15 @@
    are the FM-seeded batch's, ``kmer_seed``'s, ``chain_seeds``' and
    ``filter_chains``' the main path's, ``seed_sw``'s the long-read timed
    batch's, the extension kernels' the main path's call with each
-   kernel's launches summed), then the device line as the last line.
+   kernel's launches summed, ``sa_resolve``'s the main path's walk,
+   ``backward_search``'s the exact step's; the exact step's and the dist
+   phase's exact run's launches count too), then the device line as the
+   last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``kmer_seed``,
-``seed_sw``, ``chain_seeds``, ``filter_chains`` and the library calls:
-20), so that the host's enqueue
+``seed_sw``, ``chain_seeds``, ``filter_chains``, ``sa_resolve``,
+``backward_search`` and the library calls: 20), so that the host's enqueue
 time does not count; ``gather_chain``: CUDA events around one call;
 ``fm_seed``: CUDA events around one launch, the median of 3. Plain
 versions are timed eagerly with CUDA events. ``bound_ms`` is the larger
@@ -282,9 +313,9 @@ from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
 from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
-                                      fm_machine, kmer_calls, long_leg,
-                                      microbench_gather, microbench_seed,
-                                      pe_leg, seedsw_calls)
+                                      fm_calls, fm_machine, kmer_calls,
+                                      long_leg, microbench_gather,
+                                      microbench_seed, pe_leg, seedsw_calls)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
@@ -338,6 +369,10 @@ FILTER_INSTR = dict(trips=20, pairs=12, slots=10)
 EXTEND_LINES = dict(extend_scan=341, extend_windows=462, extend_merge=520,
                     extend_seedcov=567)
 RANDOM_SEEDS = (5, 6, 7)   # extend_calls.random_calls' inputs
+# the FM-index kernels: the JAX loops each replaces (sa_resolve's
+# fori_loop, backward_search's), and fm_calls.random_calls' inputs
+FM_LINES = dict(sa_resolve=536, backward_search=409)
+FM_RANDOM_SEEDS = (1, 2, 3)
 KMER_RANDOM_SEEDS = (1, 2, 3)   # kmer_calls.random_calls' inputs
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
@@ -462,6 +497,15 @@ def must_launch(path: str, launches: dict, kmer: bool = True,
     runs = dict(kmer_seed=kmer, seed_sw=long_reads)
     for name in build.STEP_KERNELS:
         if (launches[name] > 0) != runs.get(name, True):
+            raise AssertionError(f"kernel {name}: {launches[name]} launches "
+                                 f"on the {path}")
+
+
+def must_launch_exact(path: str, launches: dict) -> None:
+    """``path`` ran exact mode: both FM-index kernels must have launched,
+    and no other kernel of a full-pipeline step."""
+    for name in build.PATH_KERNELS:
+        if (launches[name] > 0) != (name in build.EXACT_KERNELS):
             raise AssertionError(f"kernel {name}: {launches[name]} launches "
                                  f"on the {path}")
 
@@ -921,6 +965,88 @@ def seedsw_phase(m: dict, lr: dict, dev) -> dict:
     return dict(rows["long-read timed"], max_abs_err=0)
 
 
+def fm_index_phase(m: dict, fmp: dict, lr: dict, i64: dict, ex: dict,
+                   dev) -> dict:
+    """``sa_resolve`` and ``backward_search`` against their plain twins
+    (``fm.sa_resolve_plain``, ``fm.backward_search_plain``) on the card,
+    bit-equal, at the calls the pipeline gave them (recorded in the
+    warm-ups: the main path's, the FM-seeded, long-read and int64 ones
+    and the exact step's) and at ``tools/fm_calls.py``'s edge sets and
+    random inputs (seeds FM_RANDOM_SEEDS) on an index at SA interval 32,
+    int32, int64 and past 2^31. Each recorded and random call: the
+    kernel's time (a launch in a CUDA graph), the plain twin's (CUDA
+    events), the bound (the distinct table rows the lanes read, each
+    once, with the ranks, mask and positions or the lengths, the codes
+    the searches take and the intervals; or the steps' instructions) and
+    the share. Returns the kernels line's entries: the main path's
+    ``sa_resolve`` call, the exact step's ``backward_search``."""
+    recorded = []
+    for path, d in (("main path", m), ("FM-seeded", fmp), ("long-read", lr),
+                    ("int64", i64), ("exact step", ex)):
+        recorded += [(f"{path} call {k}", c)
+                     for k, c in enumerate(d["fmi_calls"])]
+    first = dict(recorded)
+    sa, bs, xs = (first["main path call 0"], first["exact step call 0"],
+                  first["exact step call 1"])
+    if (sa.kind != "sa_resolve" or sa.lanes < BATCH * 64
+            or sa.args["mask"] is None or bs.kind != "backward_search"
+            or xs.kind != "sa_resolve" or xs.args["ranks"].shape[1]
+            != EXACT_MAX_HITS or first["int64 call 0"].fm.rank_dtype
+            != torch.int64):
+        raise AssertionError("the recorded FM-index calls are not the "
+                             "pipeline's: " + "; ".join(
+                                 f"{n}: {c.kind} {c.shape}"
+                                 for n, c in recorded))
+    inputs = [(name, c, True) for name, c in recorded]
+    es = fm_calls.edge_setup()
+    for rdt in (torch.int32, torch.int64):
+        fm = kfm.FMDevice.from_host(es.idx, dev, rank_dtype=rdt)
+        tag = str(rdt).removeprefix("torch.")
+        inputs += [(f"edge {n}, {tag}", c, False) for n, c in
+                   fm_calls.edge_calls(es, fm, device=dev).items()]
+        for seed in FM_RANDOM_SEEDS:
+            inputs += [(f"{n}, {tag}", c, True) for n, c in
+                       fm_calls.random_calls(es, fm, seed, device=dev,
+                                             n_ranks=65536,
+                                             n_reads=4096).items()]
+        if rdt == torch.int64:
+            inputs += [(f"edge {n}, past 2^31", c, False) for n, c in
+                       fm_calls.edge_calls(es, fm_calls.shifted(fm),
+                                           device=dev).items()]
+    rows = {k: {} for k in FM_LINES}
+    for name, call, timed in inputs:
+        got = call.run()
+        torch.cuda.synchronize()
+        plain_ms, ref = call.plain_ms()
+        err = fm_calls.max_abs_err(got, ref, call.kind)
+        if err != 0:
+            raise AssertionError(f"{call.kind} disagrees with plain on "
+                                 f"{name}: max_abs_err={err}")
+        if not timed:
+            log(f"{call.kind} [{name}] {call.shape}: max_abs_err={err}")
+            continue
+        ms = call.kernel_ms()
+        n = call.counts()
+        bound_ms, bound_by = bound(n["table_bytes"] + n["io_bytes"],
+                                   n["instr"])
+        work = ", ".join(f"{k} {v}" for k, v in n.items())
+        log(f"{call.kind} [{name}] {call.shape}: cuda {ms:.4f} ms a launch "
+            f"in a CUDA graph; plain {plain_ms:.2f} ms ({plain_ms / ms:.0f}x)"
+            f"; {work}; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+            f"{100 * bound_ms / ms:.2f}% of it; max_abs_err={err}")
+        rows[call.kind][name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, shape=f"{name}: {call.shape}")
+    out = {}
+    for kind, key in (("sa_resolve", "main path call 0"),
+                      ("backward_search", "exact step call 0")):
+        e = rows[kind][key]
+        out[kind] = dict(max_abs_err=0, ms=e["ms"], plain_ms=e["plain_ms"],
+                         bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+                         library_ms=None, shape=e["shape"])
+    return out
+
+
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
     idx, al, sims, batches, genome = main_path_setup(dev)
@@ -928,11 +1054,13 @@ def main_path(dev, card: str) -> dict:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
-    calls, fm_calls, ch_calls, ext_calls, km_calls = [], [], [], [], []
+    calls, mc_calls, ch_calls, ext_calls, km_calls = [], [], [], [], []
+    fmi_calls = []
     n0 = build.LAUNCHES["sw_extend"]
-    with (recording(calls), fm_machine.recording(fm_calls),
+    with (recording(calls), fm_machine.recording(mc_calls),
           chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls)):
+          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls),
+          fm_calls.recording(fmi_calls)):
         long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
@@ -958,10 +1086,11 @@ def main_path(dev, card: str) -> dict:
         long_leg.run_batch(al, batches[1])
     log(f"main path device step (the timed batch again, clocked): "
         f"{stage_line(clock)}")
-    return dict(launches=launches, rps=rps, calls=calls, fm_calls=fm_calls,
+    return dict(launches=launches, rps=rps, calls=calls, fm_calls=mc_calls,
                 ch_calls=ch_calls, ext_calls=ext_calls, km_calls=km_calls,
-                idx=idx, al=al, genome=genome, sims=sims, batches=batches,
-                cols=res["cols"], ovf=res["ovf"], sam=sam)
+                fmi_calls=fmi_calls, idx=idx, al=al, genome=genome,
+                sims=sims, batches=batches, cols=res["cols"], ovf=res["ovf"],
+                sam=sam)
 
 
 def with_quals(batch):
@@ -1018,9 +1147,9 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     log(f"FM-seeded Aligner.build (jump depth {al.jump.depth}): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    fm_calls, ch_calls, ext_calls = [], [], []
-    with (fm_machine.recording(fm_calls), chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls)):
+    mc_calls, ch_calls, ext_calls, fmi_calls = [], [], [], []
+    with (fm_machine.recording(mc_calls), chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls), fm_calls.recording(fmi_calls)):
         long_leg.run_batch(al, m["batches"][0])
     log(f"FM-seeded warm-up batch: {time.time() - t0:.1f} s")
     build.reset_launches()
@@ -1039,7 +1168,8 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     truth_check("FM-seeded main path", al, m["sims"][1], m["batches"][1],
                 res["cols"], res["n_ovf"])
     return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
-                fm_calls=fm_calls, ch_calls=ch_calls, ext_calls=ext_calls,
+                fm_calls=mc_calls, ch_calls=ch_calls, ext_calls=ext_calls,
+                fmi_calls=fmi_calls,
                 sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
@@ -1052,13 +1182,13 @@ def long_path(m: dict, card: str) -> dict:
                     (long_leg.TIMED_READS, long_leg.TIMED_SEED)))
     log(f"long reads simulated: {time.time() - t0:.1f} s")
     t0 = time.time()
-    calls, fm_calls, ch_calls, ext_calls = [], [], [], []
+    calls, mc_calls, ch_calls, ext_calls, fmi_calls = [], [], [], [], []
     sw_calls = ([], [])   # the warm-up's seed-SW filter calls, the timed's
     n0 = build.LAUNCHES["sw_extend"]
-    with (recording(calls), fm_machine.recording(fm_calls),
+    with (recording(calls), fm_machine.recording(mc_calls),
           chain_calls.recording(ch_calls),
           extend_calls.recording(ext_calls),
-          seedsw_calls.recording(sw_calls[0])):
+          seedsw_calls.recording(sw_calls[0]), fm_calls.recording(fmi_calls)):
         long_leg.run_batch(al, warm[1])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
@@ -1093,8 +1223,9 @@ def long_path(m: dict, card: str) -> dict:
     truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
     main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
                        "long-read")
-    return dict(launches=launches, fm_calls=fm_calls, ch_calls=ch_calls,
-                ext_calls=ext_calls, sw_calls=sw_calls, batch=timed[1])
+    return dict(launches=launches, fm_calls=mc_calls, ch_calls=ch_calls,
+                ext_calls=ext_calls, sw_calls=sw_calls, fmi_calls=fmi_calls,
+                batch=timed[1])
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -1178,13 +1309,20 @@ def exact_path(m: dict, dev, card: str, n_reads: int = BATCH) -> dict:
         return exact_align_step(al.fm, codes, lens, EXACT_MAX_HITS,
                                 sa_interval=idx.sa_interval)
 
+    fmi_calls = []
     t0 = time.perf_counter()
-    step()
+    with fm_calls.recording(fmi_calls):
+        step()
     warm = time.perf_counter() - t0
+    build.reset_launches()
     t0 = time.perf_counter()
     for _ in range(EXACT_STEPS):
         out = step()
     step_s = (time.perf_counter() - t0) / EXACT_STEPS
+    launches = dict(build.LAUNCHES)
+    log(f"exact_align_step launches ({EXACT_STEPS} calls): "
+        f"{ {k: launches[k] for k in build.EXACT_KERNELS} }")
+    must_launch_exact("exact step", launches)
     log(f"exact_align_step ({n_reads} x {READ_LEN} bp, max_hits "
         f"{EXACT_MAX_HITS}, {READ_LEN} backward steps + "
         f"{idx.sa_interval - 1} LF steps): warm-up {warm:.4f} s, "
@@ -1218,7 +1356,8 @@ def exact_path(m: dict, dev, card: str, n_reads: int = BATCH) -> dict:
         f"({time.time() - t0:.1f} s)")
     if not same:
         raise AssertionError("exact mode on the card differs from the CPU")
-    return dict(sim=sim, batch=batch, al=al, res=res, sam=sam)
+    return dict(sim=sim, batch=batch, al=al, res=res, sam=sam,
+                launches=launches, fmi_calls=fmi_calls)
 
 
 def cols_equal(a, b) -> bool:
@@ -1260,10 +1399,11 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
     log(f"int64 FMDevice + jump table (depth {jump.depth}): "
         f"{time.time() - t0:.2f} s")
     t0 = time.time()
-    calls, ch_calls, ext_calls, km_calls = [], [], [], []
+    calls, ch_calls, ext_calls, km_calls, fmi_calls = [], [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
     with (recording(calls), chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls)):
+          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls),
+          fm_calls.recording(fmi_calls)):
         long_leg.run_batch(als["kmer"], m["batches"][0])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"int64 warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
@@ -1313,7 +1453,7 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
         raise AssertionError("int64 exact mode differs from int32")
     main_path_launches(calls, "int64")
     return dict(launches=total, ch_calls=ch_calls, ext_calls=ext_calls,
-                km_calls=km_calls)
+                km_calls=km_calls, fmi_calls=fmi_calls)
 
 
 def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
@@ -1428,6 +1568,8 @@ def cli_path(m: dict, ex: dict, pe: dict, card: str,
                                      f"{err[-2000:]}")
             if stage in ("finalize", "align_pe"):   # full-mode alignment
                 must_launch(f"CLI {what}", launches)
+            elif stage == "align":                  # exact mode
+                must_launch_exact(f"CLI {what}", launches)
             if stage:
                 check_report(what, err, stage, n)
         checks = {
@@ -1523,7 +1665,7 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         ("index-sharded", (2,), ("index",), runs(batch)),
         ("data x index", (2, 2), ("data", "index"), runs(grid)),
     ]
-    launches = {k: 0 for k in build.STEP_KERNELS}
+    launches = {k: 0 for k in build.PATH_KERNELS}
     for what, shape, names, jobs in cells:
         t0 = time.time()
         res, backend = dist_leg.spawn_tasks(
@@ -1536,15 +1678,18 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         for k, job in enumerate(jobs[:2]):
             per_rank = {n: [r["tasks"][0]["jobs"][k][n] for r in res]
                         for n in launches}
-            # the FM machine and the windows stay plain on an index mesh
-            # (each owner sum is a collective no launch holds), whose FM
-            # seeder has no kmer stage; no short read runs the seed-SW
-            mesh_plain = ("fm_seed", "extend_windows", "kmer_seed")
+            # the FM machine, the windows and the SA walk stay plain on an
+            # index mesh (each owner sum is a collective no launch holds),
+            # whose FM seeder has no kmer stage; no short read runs the
+            # seed-SW, and no full step the backward search
+            mesh_plain = ("fm_seed", "extend_windows", "kmer_seed",
+                          "sa_resolve")
+            never = ("seed_sw", "backward_search")
             plain_ok = all(min(per_rank[n]) > 0 if names == ("data",)
                            else max(per_rank[n]) == 0 for n in mesh_plain)
-            if (not plain_ok or max(per_rank["seed_sw"]) > 0
+            if (not plain_ok or max(max(per_rank[n]) for n in never) > 0
                     or min(min(per_rank[n]) for n in launches
-                           if n not in (*mesh_plain, "seed_sw")) <= 0):
+                           if n not in (*mesh_plain, *never)) <= 0):
                 raise AssertionError(f"{what}: launches by rank in job {k}: "
                                      f"{per_rank}")
             if job.get("timed"):
@@ -1565,11 +1710,19 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
                     == [dataclasses.asdict(r) for r in ex["res"]]
                     and sam == ex["sam"])
             sec = cell["jobs"][2]["seconds"]["align_batch"]
+            per_rank = {n: [r["tasks"][0]["jobs"][2][n] for r in res]
+                        for n in launches}
             log(f"  exact align_batch on the data mesh ({eb.n} reads): "
                 f"{sec:.3f} s, {eb.n / sec:.1f} reads/s; records and SAM "
-                f"equal to the exact phase's: {same}")
+                f"equal to the exact phase's: {same}; launches by rank "
+                f"{ {n: per_rank[n] for n in build.EXACT_KERNELS} }")
             if not same:
                 raise AssertionError("exact mode on a data mesh differs")
+            for rank in range(len(res)):
+                must_launch_exact(f"data mesh's exact run, rank {rank}",
+                                  {n: v[rank] for n, v in per_rank.items()})
+            for n in build.EXACT_KERNELS:
+                launches[n] += sum(per_rank[n])
         else:
             dist_records(what, m, job, fmp, b)
             al = fmp["al"]
@@ -1707,6 +1860,9 @@ def main() -> None:
     sws = seedsw_phase(m, lr, dev)
     log(f"seed-SW phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    fmi = fm_index_phase(m, fm, lr, i64, ex, dev)
+    log(f"FM-index phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     api = api_path(m, card)
     log(f"API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1716,7 +1872,7 @@ def main() -> None:
     dl = dist_path(m, fm, ex, card)
     log(f"dist phase: {time.time() - t0:.1f} s")
     runs = (m["launches"], pe["launches"], fm["launches"], lr["launches"],
-            i64["launches"], api, cl, dl)
+            ex["launches"], i64["launches"], api, cl, dl)
     kernels = [dict(name="sw_extend", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/sw_extend.cu",
                     replaces="bioseqdb_tpu/kernels/sw_pallas.py:52",
@@ -1743,6 +1899,11 @@ def main() -> None:
                      replaces=f"bioseqdb_tpu/kernels/extend.py:{line}",
                      launches=sum(x[name] for x in runs), **ext[name])
                 for name, line in EXTEND_LINES.items()]
+    kernels += [dict(name=name, route="cuda",
+                     source="bioseqdb_tpu_torch/csrc/fm.cu",
+                     replaces=f"bioseqdb_tpu/kernels/fm.py:{line}",
+                     launches=sum(x[name] for x in runs), **fmi[name])
+                for name, line in FM_LINES.items()]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -206,7 +206,11 @@ def test_wrapper_refuses_cpu_tensors_and_big_stacks(setup, monkeypatch):
 
 
 def test_kernel_constants_equal_the_modules():
+    # the Occ table's constants live in the header the source shares
+    # with csrc/fm.cu
     src = (build.CSRC / build.SOURCES["fm_seed"]).read_text()
+    assert '#include "occ.cuh"' in src
+    src += (build.CSRC / "occ.cuh").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int (\w+) = (\d+);", src)}
     names = [n for n in dir(seed) if re.fullmatch(r"(PH|RD)_[A-Z0-9]+", n)]
