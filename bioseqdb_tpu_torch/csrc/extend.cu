@@ -1,9 +1,11 @@
-// The extension stage's device loops for Hopper: every trip of a round's
-// containment scan, its SW windows, the fold of its SW results into the
-// region table, and the seedcov epilogue, each one launch.
+// The extension stage's device loops for Hopper: its set-up (the seed
+// order and the chains' windows), every trip of a round's containment
+// scan, its SW windows, the fold of its SW results into the region table,
+// and the seedcov epilogue, each one launch.
 //
 // Replaces the TPU program around the one Pallas kernel of
-// bioseqdb_tpu/kernels/extend.py extend_all (:155): the containment scan
+// bioseqdb_tpu/kernels/extend.py extend_all (:155): the set-up (:195-250,
+// two argsorts and the rmax fori_loop at :229-243), the containment scan
 // (containment_scan :280-346, a chunked_while at :341), the rounds'
 // fori_loop (:543) with its window fetch and region merge
 // (_extend_round :444-541; lax.cond at :405 and :439) and seedcov's
@@ -11,21 +13,53 @@
 // device program; the Pallas kernel inside, the banded SW (sw_pallas.py
 // :258), is csrc/sw_extend.cu, launched between these kernels. Each
 // kernel computes exactly what its plain twin in
-// bioseqdb_tpu_torch/kernels/extend.py computes (extend_scan_plain,
-// extend_windows_plain, extend_merge_plain, extend_seedcov_plain), which
-// equal the JAX package, not bwa's C.
+// bioseqdb_tpu_torch/kernels/extend.py computes (extend_setup_plain,
+// extend_scan_plain, extend_windows_plain, extend_merge_plain,
+// extend_seedcov_plain), which equal the JAX package, not bwa's C.
+//
+// The JAX program's two lax.conds (a round with no active read, a side
+// with no retry) stay on the device: the scan adds its round's active
+// reads to a count on the card, and the windows, the merges and the SW
+// kernel take a pointer to a count (the round's, or the side's retries)
+// as their gate and skip their work when it is 0. So the host never
+// waits on the card between the rounds.
 //
 // What bounds them: each reads a read's seed slots, its region table and
 // (windows) its read codes and a window of the packed text once, and
 // writes its outputs once; the work between is a few dozen integer
-// compares a seed the scan passes, R regions a seed for seedcov. So the
-// card's memory rate bounds them, and the windows kernel, which writes
-// two [B, W] and two [B, W + 4 * band + 64] int32 buffers (the SW
+// compares a seed the scan passes, R regions a seed for seedcov, and in
+// the set-up S + C compares a seed (its counting ranks: at the main
+// path's S 64 these instructions and its bytes bound it about equally).
+// So the card's memory rate bounds them, and the windows kernel, which
+// writes two [B, W] and two [B, W + 4 * band + 64] int32 buffers (the SW
 // kernel's interface), moves the most. What a launch of the others costs
 // is each read's chain of dependent loads (its slot, then its seed, then
 // its regions or results) and the instructions its threads issue.
 //
 // Design:
+// - extend_setup: a warp a read, its seeds' keys, windows and chains in
+//   shared memory sized by the call (up to kSetupReads reads a block
+//   within 48 KB), or where one read's do not fit (S past 3,056 with
+//   int32 ranks at C 32, 2,037 with int64: about 36 kb and 24 kb reads,
+//   half that in the fat retry, which doubles S) in a scratch buffer in
+//   device memory that the wrapper allocates, a read's row of it. Both
+//   stable argsorts of the plain twin are per read, so each is a counting
+//   rank: a key's rank is the number of keys below it plus the number of
+//   equal keys at lower slots, a permutation whose inverse is the stable
+//   argsort (order[rank[s]] = s). The chain order's argsort (the rank of
+//   each chain by the filter's order) is the same rank-and-scatter over C,
+//   so it equals the argsort whatever the values are. A lane a seed
+//   computes its key, its window ends and its chain, then a lane a seed
+//   counts its rank over the S keys, and a lane a chain takes the min and
+//   max of the windows of its seeds; a seed outside a chain (clamped to
+//   chain 0 in cis) touches no window.
+// - the gates: a gated kernel reads its gate once; 0 means no read of the
+//   round is active (or no lane of the side retries). The windows kernel
+//   then skips the two SW buffers and writes only the rows' small
+//   outputs (qn, tn and active all 0, h0, inv), which the retry masks
+//   read; the merges return at once; the right merge updates the state
+//   in place when its outputs are its inputs (extend_all's rounds), so a
+//   gated round leaves it as it was.
 // - extend_scan: a warp a read (kScanGroup threads), 4 a block. Reads
 //   are independent (the plain twins act on each read's row alone), and
 //   within a read each trip's verdict is independent of the trips before
@@ -99,6 +133,10 @@ constexpr int kMaxRegs = 16;    // regions a read (the wrapper raises above)
 constexpr int kNoCode = 4;      // the code past a buffer's length
 constexpr int kRefused = 1;     // cudaErrorInvalidValue
 constexpr int kFields = 6;      // an SW result (sw.FIELDS), max_off last
+constexpr int kSetupGroup = 32; // the set-up's threads a read
+constexpr int kSetupReads = 4;  // a set-up block's reads at most
+constexpr int kSetupSmem = 49152;   // a set-up block's shared memory at most
+constexpr int32_t kUnusable = 0x7FFFFFF0;   // an unusable seed's sort key
 static_assert(kScanGroup >= kMaxRegs && kScanGroup <= kWarp,
               "a read's group loads region r on its lane r");
 
@@ -229,6 +267,7 @@ struct ScanParams {
   int32_t* slot;           // [B] out
   uint8_t* act;            // [B] out
   int32_t* work;           // [2, B] out
+  int32_t* count;          // [1] or null: the active reads are added to it
   long long B, S, C, Rg;
   Opts o;
 };
@@ -250,6 +289,7 @@ struct WinParams {
   uint8_t* active;         // [2, B] out
   int32_t* h0;             // [B] out: the left side's, sorted
   int32_t* inv;            // [2, B] out: lane -> sorted row
+  const int32_t* gate;     // [1] or null: 0 skips the SW buffers
   long long B, S, C, W, T, n_words, seq_len;
   int32_t match;
 };
@@ -280,6 +320,7 @@ struct MergeParams {
   int32_t* n_regs_out;
   uint8_t* was_ext_out;
   int32_t* cursor_out;
+  const int32_t* gate;     // [1] or null: 0 skips the merge
   long long B, S, C, Rg;
   int32_t match, bandwidth, pen_clip;
 };
@@ -294,6 +335,32 @@ struct CovParams {
   const int32_t* cchain;
   int32_t* seedcov;        // [B, Rg] out
   long long B, S, Rg;
+};
+
+struct SetupParams {
+  const void* rbeg;        // [B, S] R
+  const int32_t* qbeg;     // [B, S]
+  const int32_t* len;      // [B, S]
+  const uint8_t* valid;    // [B, S]
+  const int32_t* score;    // [B, S], or null: len x match
+  const int32_t* assign;   // [B, S] the seed's chain, < 0 for none
+  const int32_t* forder;   // [B, C] the filter's chain order
+  const int32_t* kept;     // [B, C]
+  const void* f_rbeg;      // [B, C] R: the chain's first seed
+  const int32_t* crid;     // [B, C] the chain's reference
+  const int32_t* lens;     // [B]
+  const void* ref_offsets; // [n_refs] R
+  const void* ref_lens;    // [n_refs] R
+  int32_t* order;          // [B, S] out: the processing order of the slots
+  int32_t* n_usable;       // [B] out
+  int32_t* cis;            // [B, S] out: assign clamped into [0, C)
+  uint8_t* ok;             // [B, S] out: valid and in a chain
+  void* rmax0;             // [B, C] R out: the chain's reference window
+  void* rmax1;             // [B, C] R out
+  unsigned char* scratch;  // [B, setup_bytes(S, C)] or null: the reads'
+                           // tables in shared memory
+  long long B, S, C, n_refs, l_pac, seq_len;
+  Opts o;
 };
 
 // the seed at slot s of read b: its query start, length, chain and
@@ -439,9 +506,9 @@ GROUP_FN void rescue(const ExtBatch<R>& e, uint32_t need,
 }
 
 // the containment scan of read b (extend_scan_plain, one read) by a group
-// of kScanGroup threads
+// of kScanGroup threads; whether the read is active this round
 template <typename R>
-GROUP_FN void scan_group(const ScanParams& p, long long b, ScanSmem<R>& sm) {
+GROUP_FN bool scan_group(const ScanParams& p, long long b, ScanSmem<R>& sm) {
   constexpr auto G = kScanGroup;
   const long long row = b * p.S;
   const int32_t* order = p.order + row;
@@ -550,6 +617,12 @@ GROUP_FN void scan_group(const ScanParams& p, long long b, ScanSmem<R>& sm) {
     p.work[b] = work[0];
     p.work[p.B + b] = work[1];
   }
+  return act;
+}
+
+// is a gate closed: given, and its count 0
+LANE_HD inline bool closed(const int32_t* gate) {
+  return gate != nullptr && *gate == 0;
 }
 
 // row `row` of the sorted SW order (side row / B), columns lane, lane +
@@ -569,12 +642,15 @@ LANE_HD void windows_row(const WinParams& p, long long row, int lane,
   const R tn = k == 0 ? sub_(s.r, static_cast<const R*>(p.rmax0)[ch])
                       : sub_(static_cast<const R*>(p.rmax1)[ch], re0);
   const bool has = p.act[b] && qn > 0;
+  // a gated round (no active read) writes no SW buffer: no launch reads it
+  const long long W = closed(p.gate) ? 0 : p.W;
+  const long long T = closed(p.gate) ? 0 : p.T;
   // query: the prefix before the seed reversed, or the suffix after it
   const int32_t* codes = p.codes + b * p.W;
   int32_t* q = p.qbuf + row * p.W;
   const long long q0 = k == 0 ? static_cast<long long>(s.q) - 1 : qe0;
   const long long qdir = k == 0 ? -1 : 1;
-  for (long long j = lane; j < p.W; j += step) {
+  for (long long j = lane; j < W; j += step) {
     const long long at = q0 + qdir * j;
     q[j] = has && j < qn && at < p.W ? codes[min_(max_(at, 0LL), p.W - 1)]
                                      : kNoCode;
@@ -583,7 +659,7 @@ LANE_HD void windows_row(const WinParams& p, long long row, int lane,
   int32_t* t = p.tbuf + row * p.T;
   const long long t0 = k == 0 ? static_cast<long long>(s.r) - 1
                               : static_cast<long long>(re0);
-  for (long long j = lane; j < p.T; j += step) {
+  for (long long j = lane; j < T; j += step) {
     int32_t v = kNoCode;
     const long long pos = t0 + qdir * j;
     if (has && j < static_cast<long long>(tn) && pos >= 0 && pos < p.seq_len) {
@@ -617,6 +693,7 @@ LANE_HD inline Result result(const MergeParams& p, int k, long long b) {
 // the left side's result folded into lane b (extend_merge_plain side 0)
 template <typename R>
 LANE_HD void merge_left_lane(const MergeParams& p, long long b) {
+  if (closed(p.gate)) return;
   const Seed<R> s(p.sd, b * p.S + p.slot[b]);
   const Result x = result(p, 0, b);
   const bool has = p.act[b] && s.q > 0;
@@ -634,10 +711,13 @@ LANE_HD void merge_left_lane(const MergeParams& p, long long b) {
 
 // the right side's result and the new region row of read b, the state
 // copied with it (extend_merge_plain side 1), by a group of kMergeGroup
-// threads
+// threads. In place (the outputs are the inputs), only the new row, the
+// slot's was_ext byte, n_regs and the cursor are written.
 template <typename R>
 GROUP_FN void merge_right_group(const MergeParams& p, long long b) {
   constexpr auto G = kMergeGroup;
+  if (closed(p.gate)) return;
+  const bool inplace = p.was_ext_out == p.was_ext;
   const int32_t slot = p.slot[b];
   const Seed<R> s(p.sd, b * p.S + slot);
   const Result x = result(p, 1, b);
@@ -668,6 +748,7 @@ GROUP_FN void merge_right_group(const MergeParams& p, long long b) {
   FOR_LANES(G, t) {
     for (long long r = t; r < p.Rg; r += G) {
       const bool put = act && r == at;
+      if (inplace && !put) continue;
       const long long e = reg + r;
       static_cast<R*>(p.regs_out[0])[e] =
           put ? rb : static_cast<const R*>(p.regs[0])[e];
@@ -683,6 +764,15 @@ GROUP_FN void merge_right_group(const MergeParams& p, long long b) {
   const long long row = b * p.S;
   const uint8_t* src = p.was_ext + row;
   uint8_t* dst = p.was_ext_out + row;
+  group_sync<G>();   // every thread has read n_regs before it is written
+  if (inplace) {
+    if (group_leader<G>() && act) {
+      dst[slot] = 1;
+      p.n_regs_out[b] = add_(nr, 1);
+      p.cursor_out[b] = add_(p.cursor[b], 1);
+    }
+    return;
+  }
   const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
   const uintptr_t da = reinterpret_cast<uintptr_t>(dst);
   const long long head =
@@ -740,15 +830,165 @@ LANE_HD void seedcov_lane(const CovParams& p, long long b) {
   for (int r = 0; r < Rg; ++r) p.seedcov[reg + r] = acc[r];
 }
 
+// the shared memory of a set-up group (one read): the seeds' window ends
+// and sort keys, the chain of each seed (-1: none), the filter's order
+// and its argsort
+template <typename R>
+LANE_HD inline long long setup_bytes(long long S, long long C) {
+  return (2 * S * static_cast<long long>(sizeof(R)) + 8 * S + 8 * C + 15) &
+         ~15LL;
+}
+
+template <typename R>
+struct SetupSmem {
+  R* b;             // [S] the seed's window start (in a chain)
+  R* e;             // [S] its window end
+  int32_t* key;     // [S] the sort key
+  int32_t* chain;   // [S] the seed's chain, -1 outside one
+  int32_t* forder;  // [C] the filter's order
+  int32_t* crank;   // [C] its argsort: the rank of chain c
+  LANE_HD SetupSmem(unsigned char* base, long long S, long long C)
+      : b(reinterpret_cast<R*>(base)),
+        e(reinterpret_cast<R*>(base) + S),
+        key(reinterpret_cast<int32_t*>(base + 2 * S * sizeof(R))),
+        chain(key + S),
+        forder(chain + S),
+        crank(forder + C) {}
+};
+
+// the set-up of read b (extend_setup_plain, one read) by a group of
+// kSetupGroup threads
+template <typename R>
+GROUP_FN void setup_group(const SetupParams& p, long long b,
+                          SetupSmem<R> sm) {
+  constexpr auto G = kSetupGroup;
+  const long long S = p.S, C = p.C;
+  const long long row = b * S, crow = b * C;
+  // the chains' ranks by the filter's order (a stable argsort of it)
+  FOR_LANES(G, t) {
+    for (long long j = t; j < C; j += G) sm.forder[j] = p.forder[crow + j];
+  }
+  group_sync<G>();
+  FOR_LANES(G, t) {
+    for (long long j = t; j < C; j += G) {
+      const int32_t v = sm.forder[j];
+      long long rank = 0;
+      for (long long i = 0; i < C; ++i) {
+        const int32_t u = sm.forder[i];
+        rank += u < v || (u == v && i < j);
+      }
+      sm.crank[rank] = static_cast<int32_t>(j);
+    }
+  }
+  group_sync<G>();
+  // each seed's chain, key and window ends
+  const int32_t lens = p.lens[b];
+  const R big = static_cast<R>((sizeof(R) == 8 ? INT64_MAX : INT32_MAX) / 2);
+  Lanes<int32_t, G> usable;
+  FOR_LANES(G, t) {
+    usable[t] = 0;
+    for (long long s = t; s < S; s += G) {
+      const long long at = row + s;
+      const int32_t a = p.assign[at];
+      const bool in = a >= 0;
+      const int32_t c = static_cast<int32_t>(
+          min_<long long>(max_<long long>(a, 0), C - 1));
+      const bool valid = p.valid[at];
+      const bool use = in && valid && p.kept[crow + c] > 0;
+      p.cis[at] = c;
+      p.ok[at] = valid && in;
+      usable[t] += use;
+      const int32_t q = p.qbeg[at], l = p.len[at];
+      const int32_t sc = p.score != nullptr ? p.score[at] : mul_(l, p.o.match);
+      sm.key[s] = use ? sm.crank[c] * (1 << 19) +
+                            (4095 - min_(max_(sc, 0), 4095)) * (1 << 7) +
+                            static_cast<int32_t>(S - 1 - s)
+                      : kUnusable;
+      sm.chain[s] = in ? c : -1;
+      if (in) {
+        const R r = static_cast<const R*>(p.rbeg)[at];
+        const int32_t rem = sub_(sub_(lens, q), l);
+        sm.b[s] = sub_(r, static_cast<R>(add_(q, max_gap<int32_t>(q, p.o))));
+        sm.e[s] = add_(add_(add_(r, static_cast<R>(l)), static_cast<R>(rem)),
+                       static_cast<R>(max_gap<int32_t>(rem, p.o)));
+      }
+    }
+  }
+  const int32_t n_usable = group_sum(usable);
+  group_sync<G>();
+  // the order: the stable argsort of the keys, by counting ranks
+  FOR_LANES(G, t) {
+    for (long long s = t; s < S; s += G) {
+      const int32_t v = sm.key[s];
+      long long rank = 0;
+      for (long long i = 0; i < S; ++i) {
+        const int32_t u = sm.key[i];
+        rank += u < v || (u == v && i < s);
+      }
+      p.order[row + rank] = static_cast<int32_t>(s);
+    }
+  }
+  // each chain's window over its seeds, then the strand and reference
+  // clips of its first seed's side and reference
+  const R l_pac = static_cast<R>(p.l_pac), seq_len = static_cast<R>(p.seq_len);
+  FOR_LANES(G, t) {
+    for (long long c = t; c < C; c += G) {
+      R r0 = big, r1 = 0;
+      for (long long s = 0; s < S; ++s) {
+        if (sm.chain[s] != c) continue;
+        r0 = min_(r0, sm.b[s]);
+        r1 = max_(r1, sm.e[s]);
+      }
+      r0 = max_(r0, static_cast<R>(0));
+      r1 = min_(r1, seq_len);
+      const R first = static_cast<const R*>(p.f_rbeg)[crow + c];
+      const bool crosses = r0 < l_pac && l_pac < r1;
+      if (crosses && first < l_pac) r1 = l_pac;
+      if (crosses && first >= l_pac) r0 = l_pac;
+      const long long ref = min_<long long>(
+          max_<long long>(p.crid[crow + c], 0), p.n_refs - 1);
+      const R off = static_cast<const R*>(p.ref_offsets)[ref];
+      const R rl = static_cast<const R*>(p.ref_lens)[ref];
+      const bool rev = first >= l_pac;
+      r0 = max_(r0, rev ? sub_(seq_len, add_(off, rl)) : off);
+      r1 = min_(r1, rev ? sub_(seq_len, off) : add_(off, rl));
+      static_cast<R*>(p.rmax0)[crow + c] = r0;
+      static_cast<R*>(p.rmax1)[crow + c] = r1;
+    }
+  }
+  if (group_leader<G>()) p.n_usable[b] = n_usable;
+}
+
 #ifdef __CUDACC__
 template <typename R>
 __global__ void __launch_bounds__(kScanThreads, kScanMinBlocks)
     extend_scan(const ScanParams p) {
   __shared__ ScanSmem<R> sm[kScanThreads / kScanGroup];
+  __shared__ int n_act;   // the block's active reads
+  if (threadIdx.x == 0) n_act = 0;
+  __syncthreads();
   const int g = threadIdx.x / kScanGroup;
   const long long b =
       static_cast<long long>(blockIdx.x) * (kScanThreads / kScanGroup) + g;
-  if (b < p.B) scan_group<R>(p, b, sm[g]);
+  if (b < p.B && scan_group<R>(p, b, sm[g]) && group_leader<kScanGroup>())
+    atomicAdd(&n_act, 1);
+  __syncthreads();
+  if (threadIdx.x == 0 && p.count != nullptr && n_act > 0)
+    atomicAdd(p.count, n_act);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kSetupGroup * kSetupReads)
+    extend_setup(const SetupParams p, int reads) {
+  extern __shared__ __align__(16) unsigned char setup_smem[];
+  const int g = threadIdx.x / kSetupGroup;
+  const long long b = static_cast<long long>(blockIdx.x) * reads + g;
+  const long long bytes = setup_bytes<R>(p.S, p.C);
+  if (g < reads && b < p.B)
+    setup_group<R>(p, b, SetupSmem<R>(p.scratch != nullptr
+                                          ? p.scratch + b * bytes
+                                          : setup_smem + g * bytes,
+                                      p.S, p.C));
 }
 
 template <typename R>
@@ -871,6 +1111,7 @@ extern "C" int LANE_ENTRY(extend_scan)(const long long* a,
   p.slot = g.ptr<int32_t*>();
   p.act = g.ptr<uint8_t*>();
   p.work = g.ptr<int32_t*>();
+  p.count = g.ptr<int32_t*>();
   p.B = g.num();
   p.S = g.num();
   p.C = g.num();
@@ -885,10 +1126,9 @@ extern "C" int LANE_ENTRY(extend_scan)(const long long* a,
   ScanSmem<long long> sm64;
   ScanSmem<int32_t> sm32;
   for (long long b = 0; b < p.B; ++b) {
-    if (rank_bytes == 8)
-      scan_group<long long>(p, b, sm64);
-    else
-      scan_group<int32_t>(p, b, sm32);
+    const bool act = rank_bytes == 8 ? scan_group<long long>(p, b, sm64)
+                                     : scan_group<int32_t>(p, b, sm32);
+    if (act && p.count != nullptr) ++*p.count;
   }
   return 0;
 #endif
@@ -915,6 +1155,7 @@ extern "C" int LANE_ENTRY(extend_windows)(const long long* a,
   p.active = g.ptr<uint8_t*>();
   p.h0 = g.ptr<int32_t*>();
   p.inv = g.ptr<int32_t*>();
+  p.gate = g.ptr<const int32_t*>();
   p.B = g.num();
   p.S = g.num();
   p.C = g.num();
@@ -980,6 +1221,7 @@ extern "C" int LANE_ENTRY(extend_merge_left)(const long long* a,
   MergeParams p = {};
   merge_common(g, p);
   p.h0 = g.ptr<int32_t*>();
+  p.gate = g.ptr<const int32_t*>();
   merge_sizes(g, p);
   if (merge_refused(g, n, rank_bytes, p)) return kRefused;
 #ifdef __CUDACC__
@@ -1010,8 +1252,18 @@ extern "C" int LANE_ENTRY(extend_merge_right)(const long long* a,
   p.n_regs_out = g.ptr<int32_t*>();
   p.was_ext_out = g.ptr<uint8_t*>();
   p.cursor_out = g.ptr<int32_t*>();
+  p.gate = g.ptr<const int32_t*>();
   merge_sizes(g, p);
-  if (merge_refused(g, n, rank_bytes, p)) return kRefused;
+  // in place: every output its input, or none
+  bool same = p.was_ext_out == p.was_ext && p.n_regs_out == p.n_regs &&
+              p.cursor_out == p.cursor;
+  bool apart = p.was_ext_out != p.was_ext && p.n_regs_out != p.n_regs &&
+               p.cursor_out != p.cursor;
+  for (int f = 0; f < 10; ++f) {
+    same = same && p.regs_out[f] == p.regs[f];
+    apart = apart && p.regs_out[f] != p.regs[f];
+  }
+  if (merge_refused(g, n, rank_bytes, p) || !(same || apart)) return kRefused;
 #ifdef __CUDACC__
   EXT_RUN(extend_merge_right, p.B, kMergeReads, kMergeReads * kMergeGroup, p);
 #else
@@ -1053,6 +1305,75 @@ extern "C" int LANE_ENTRY(extend_seedcov)(const long long* a,
     else
       seedcov_lane<int32_t>(p, b);
   }
+  return 0;
+#endif
+}
+
+extern "C" int LANE_ENTRY(extend_setup)(const long long* a,
+                                       long long n LANE_STREAM) {
+  Args g{a, n, 0};
+  const long long rank_bytes = g.num();
+  SetupParams p;
+  p.rbeg = g.ptr<const void*>();
+  p.qbeg = g.ptr<const int32_t*>();
+  p.len = g.ptr<const int32_t*>();
+  p.valid = g.ptr<const uint8_t*>();
+  p.score = g.ptr<const int32_t*>();
+  p.assign = g.ptr<const int32_t*>();
+  p.forder = g.ptr<const int32_t*>();
+  p.kept = g.ptr<const int32_t*>();
+  p.f_rbeg = g.ptr<const void*>();
+  p.crid = g.ptr<const int32_t*>();
+  p.lens = g.ptr<const int32_t*>();
+  p.ref_offsets = g.ptr<const void*>();
+  p.ref_lens = g.ptr<const void*>();
+  p.order = g.ptr<int32_t*>();
+  p.n_usable = g.ptr<int32_t*>();
+  p.cis = g.ptr<int32_t*>();
+  p.ok = g.ptr<uint8_t*>();
+  p.rmax0 = g.ptr<void*>();
+  p.rmax1 = g.ptr<void*>();
+  p.scratch = g.ptr<unsigned char*>();
+  p.B = g.num();
+  p.S = g.num();
+  p.C = g.num();
+  p.n_refs = g.num();
+  p.l_pac = g.num();
+  p.seq_len = g.num();
+  p.o = opts(g);
+  if (g.i != n || bad_rank(rank_bytes) || p.B < 1 || p.S < 1 || p.C < 1 ||
+      p.n_refs < 1)
+    return kRefused;
+  const long long bytes = rank_bytes == 8 ? setup_bytes<long long>(p.S, p.C)
+                                          : setup_bytes<int32_t>(p.S, p.C);
+  // a read's tables past a block's shared memory live in the scratch
+  if ((bytes > kSetupSmem) != (p.scratch != nullptr)) return kRefused;
+  const int reads = static_cast<int>(
+      p.scratch != nullptr ? kSetupReads
+                           : min_<long long>(kSetupReads, kSetupSmem / bytes));
+#ifdef __CUDACC__
+  const unsigned grid = blocks(p.B, reads);
+  const unsigned smem =
+      p.scratch != nullptr ? 0u : static_cast<unsigned>(reads * bytes);
+  if (rank_bytes == 8)
+    extend_setup<long long><<<grid, kSetupGroup * reads, smem, stream>>>(
+        p, reads);
+  else
+    extend_setup<int32_t><<<grid, kSetupGroup * reads, smem, stream>>>(
+        p, reads);
+  return static_cast<int>(cudaGetLastError());
+#else
+  (void)reads;
+  unsigned char* buf = p.scratch != nullptr ? nullptr
+                                            : new unsigned char[bytes];
+  for (long long b = 0; b < p.B; ++b) {
+    unsigned char* at = p.scratch != nullptr ? p.scratch + b * bytes : buf;
+    if (rank_bytes == 8)
+      setup_group<long long>(p, b, SetupSmem<long long>(at, p.S, p.C));
+    else
+      setup_group<int32_t>(p, b, SetupSmem<int32_t>(at, p.S, p.C));
+  }
+  delete[] buf;
   return 0;
 #endif
 }

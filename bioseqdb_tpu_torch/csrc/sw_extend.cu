@@ -114,6 +114,7 @@ struct Args {
   int* out;
   int B, WQ, WT, a, b, o_del, e_del, o_ins, e_ins, end_bonus, zdrop;
   int ring;  // H and E slots of a lane in the ring layout (a power of two)
+  const int* gate;  // null, or a count: 0 makes the launch return at once
 };
 
 // One lane's scalar state, held alike by every thread that serves it.
@@ -226,6 +227,7 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
   const int slot = threadIdx.x / G;
   const int lane = blockIdx.x * (kThreads / G) + slot;
   const bool real = lane < p.B;  // groups past B idle along with their warp
+  if (p.gate != nullptr && *p.gate == 0) return;  // nothing to extend
 
   const int WQ = p.WQ;
   const int NC = lane_cols(WQ);
@@ -238,6 +240,12 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
 
   Lane ln;
   ln.init(p, lane, real);
+  // a warp whose lanes all have an empty query or target (a retry's idle
+  // lanes, sorted last) writes their start state without loading a row
+  if (!__any_sync(kFull, ln.active)) {
+    if (real && t == 0) ln.write(p, lane);
+    return;
+  }
   const int qlen = ln.qlen, h0 = ln.h0, w = ln.w;
   const int a = p.a, b = p.b, e_del = p.e_del, e_ins = p.e_ins;
   const int oe_del = p.o_del + e_del;
@@ -487,19 +495,23 @@ extern "C" int sw_prof_zero() {
 }
 #endif
 
-// Plain C entry point (bound with ctypes). query int32[B, WQ], target
+// Plain C entry points (bound with ctypes). query int32[B, WQ], target
 // int32[B, WT], qlen/tlen/w0/h0 int32[B], out int32[6, B] (score, qle,
 // tle, gtle, gscore, max_off). max_w bounds every lane's w0 (it sizes the
 // ring of a WQ > 320 launch; a lane's band past it would be wrong).
-// Returns cudaErrorInvalidValue for bad sizes or a block's shared memory
-// past the card's limit, else cudaGetLastError().
-extern "C" int sw_extend_launch(const void* query, const void* qlen,
-                                const void* target, const void* tlen,
-                                const void* w0, const void* h0, void* out,
-                                int B, int WQ, int WT, int a, int b,
-                                int o_del, int e_del, int o_ins, int e_ins,
-                                int end_bonus, int zdrop, int max_w,
-                                void* stream) {
+// sw_extend_gated_launch also takes `gate`, a device int32 (or null): a
+// launch whose gate reads 0 returns at once and writes nothing (the
+// extension stage's rounds with no active read or no retry, whose results
+// no one reads). Returns cudaErrorInvalidValue for bad sizes or a block's
+// shared memory past the card's limit, else cudaGetLastError().
+extern "C" int sw_extend_gated_launch(const void* query, const void* qlen,
+                                      const void* target, const void* tlen,
+                                      const void* w0, const void* h0,
+                                      void* out, int B, int WQ, int WT,
+                                      int a, int b, int o_del, int e_del,
+                                      int o_ins, int e_ins, int end_bonus,
+                                      int zdrop, int max_w, const void* gate,
+                                      void* stream) {
   if (WQ < 1 || WT < 1 || max_w < 0 || WQ > 65000)
     return (int)cudaErrorInvalidValue;
   const int ring = ring_slots(WQ, max_w);
@@ -507,7 +519,7 @@ extern "C" int sw_extend_launch(const void* query, const void* qlen,
                static_cast<const int*>(target), static_cast<const int*>(tlen),
                static_cast<const int*>(w0), static_cast<const int*>(h0),
                static_cast<int*>(out), B, WQ, WT, a, b, o_del, e_del, o_ins,
-               e_ins, end_bonus, zdrop, ring};
+               e_ins, end_bonus, zdrop, ring, static_cast<const int*>(gate)};
   const int smem = block_bytes(WQ, max_w);
   const int lanes = kThreads / G;
   const dim3 grid((B + lanes - 1) / lanes);
@@ -520,4 +532,16 @@ extern "C" int sw_extend_launch(const void* query, const void* qlen,
     sw_kernel<false><<<grid, kThreads, smem, st>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int sw_extend_launch(const void* query, const void* qlen,
+                                const void* target, const void* tlen,
+                                const void* w0, const void* h0, void* out,
+                                int B, int WQ, int WT, int a, int b,
+                                int o_del, int e_del, int o_ins, int e_ins,
+                                int end_bonus, int zdrop, int max_w,
+                                void* stream) {
+  return sw_extend_gated_launch(query, qlen, target, tlen, w0, h0, out, B,
+                                WQ, WT, a, b, o_del, e_del, o_ins, e_ins,
+                                end_bonus, zdrop, max_w, nullptr, stream);
 }

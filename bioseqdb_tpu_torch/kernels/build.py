@@ -27,9 +27,11 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = {"sw_extend": "sw_extend.cu", "fm_seed": "fm_seed.cu",
            "kmer": "kmer.cu", "seedsw": "seedsw.cu", "chain": "chain.cu",
-           "extend": "extend.cu", "fm": "fm.cu", "probes": "probes.cu"}
-EXTEND_KERNELS = ("extend_scan", "extend_windows", "extend_merge",
-                  "extend_seedcov")
+           "extend": "extend.cu", "fm": "fm.cu", "resolve": "resolve.cu",
+           "probes": "probes.cu"}
+EXTEND_KERNELS = ("extend_setup", "extend_scan", "extend_windows",
+                  "extend_merge", "extend_seedcov")
+RESOLVE_KERNELS = ("resolve_expand", "resolve_finish")
 KERNELS = ("sw_extend",                            # sw_extend.cu
            "fm_seed",                              # fm_seed.cu
            "kmer_seed",                            # kmer.cu
@@ -37,11 +39,13 @@ KERNELS = ("sw_extend",                            # sw_extend.cu
            "chain_seeds", "filter_chains",         # chain.cu
            *EXTEND_KERNELS,                        # extend.cu
            "sa_resolve", "backward_search",        # fm.cu
+           *RESOLVE_KERNELS,                       # resolve.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
 # the kernels a full-pipeline device step launches: kmer_seed on the kmer
 # seeder's batches (W <= 320), seed_sw on long reads only
 STEP_KERNELS = ("sw_extend", "fm_seed", "kmer_seed", "seed_sw",
-                "chain_seeds", "filter_chains", *EXTEND_KERNELS, "sa_resolve")
+                "chain_seeds", "filter_chains", *EXTEND_KERNELS, "sa_resolve",
+                *RESOLVE_KERNELS)
 # the kernels an exact-mode step launches
 EXACT_KERNELS = ("backward_search", "sa_resolve")
 # the kernels a user's path launches (every kernel but the probes)

@@ -12,7 +12,10 @@ and ``filter_chains`` are one launch each of ``csrc/chain.cu``'s kernels
 (``kernels/chain_cuda.py``: a thread a read runs every trip), which raise
 rather than fall back; on CPU tensors they run their plain twins,
 ``chain_seeds_plain`` and ``filter_chains_plain``, the loops as eager
-torch ops vectorized over reads, bit-equal to the kernels.
+torch ops vectorized over reads, bit-equal to the kernels. ``resolve_seeds``
+on CUDA tensors is two launches of ``csrc/resolve.cu``'s kernels
+(``kernels/resolve_cuda.py``: a warp a read) around the SA walk's, and
+on CPU tensors its plain twin ``resolve_seeds_plain``.
 Reference positions (``rbeg``, a chain's ``pos``, ``f_rbeg`` and
 ``l_rbeg``, the filter's reference ends) hold the index's rank dtype,
 int64 past 2^31 doubled bases, as in the JAX version; query positions,
@@ -26,6 +29,8 @@ import torch
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.chain_cuda import (chain_seeds_cuda,
                                                    filter_chains_cuda)
+from bioseqdb_tpu_torch.kernels.resolve_cuda import (resolve_expand_cuda,
+                                                     resolve_finish_cuda)
 from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row, take
 
 NEG = -(1 << 30)
@@ -43,13 +48,50 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     Only the rank rows walk, at most ``(B * S) // 4`` of them (or
     ``compact_cap``) in slot order, as the JAX version's static buffer
     holds them; lanes past it overflow. ``compact_cap`` None walks every
-    rank lane: the buffer is a TPU static-shape cap. On CUDA tensors
-    without a group the SA walk is one launch of ``csrc/fm.cu``'s
-    ``sa_resolve`` over all B x S lanes, masked to the walking ones (no
-    host wait); elsewhere the walking lanes are compacted first
-    (``_walk_masked``). Both give the same dict. ``group``: a sharded
+    rank lane: the buffer is a TPU static-shape cap. ``group``: a sharded
     index's process group (``kernels/fm.py``), whose ranks hold the same
-    seeds."""
+    seeds.
+
+    On CUDA tensors without a group: one launch of ``csrc/resolve.cu``'s
+    ``resolve_expand``, the SA walk (``csrc/fm.cu``'s ``sa_resolve``) of
+    every rank lane under the expansion's mask, one cumsum of the reads'
+    walking lanes where the cap may cut some, and one launch of
+    ``resolve_finish``, which applies the cap; no host wait. Elsewhere
+    the plain twin ``resolve_seeds_plain``: on CPU tensors, and under a
+    group by an explicit branch: there the walk is an owner sum a step
+    (``kernels/fm.py``), so it takes the lanes under the cap alone,
+    compacted by eager ops that need the cap's mask before the walk,
+    which the expansion kernel does not give. Both give the same dict."""
+    if not mems.is_cuda or group is not None:
+        return resolve_seeds_plain(fm, mems, n_mem, max_occ, max_seeds,
+                                   sa_interval, compact_cap, group)
+    B = mems.shape[0]
+    S = max_seeds
+    ex = resolve_expand_cuda(mems, n_mem, max_occ, S)
+    pos = kfm.sa_resolve(fm, ex["ranks"], sa_interval, mask=ex["walk"])
+    cap = walk_cap(B, S, compact_cap)
+    ends = (torch.cumsum(ex["n_walk"], 0) if cap < B * S else None)
+    return resolve_finish_cuda(fm, ex, pos, ends, cap)
+
+
+def walk_cap(B: int, S: int, compact_cap: int | None) -> int:
+    """The most rank lanes ``resolve_seeds`` walks, in slot order: the JAX
+    version's compact buffer, (B * S) // 4 or ``compact_cap`` if smaller,
+    every lane with ``compact_cap`` None or B * S <= 4096 (no buffer)."""
+    if B * S <= 4096 or compact_cap is None:
+        return B * S
+    K = (B * S) // 4
+    return min(K, compact_cap) if compact_cap > 0 else K
+
+
+def resolve_seeds_plain(fm: kfm.FMDevice, mems: torch.Tensor,
+                        n_mem: torch.Tensor, max_occ: int, max_seeds: int,
+                        sa_interval: int = 32, compact_cap: int | None = 0,
+                        group=None) -> dict:
+    """``resolve_seeds``' plain twin, on any device: eager ops. Past the
+    no-buffer size the walking lanes within the cap are compacted first
+    (``torch.nonzero``), as the JAX version's buffer holds them, and only
+    they walk."""
     B, M, _ = mems.shape
     S = max_seeds
     dev = mems.device
@@ -80,22 +122,14 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
                         ).to(fm.rank_dtype)
 
     if B * S > 4096:
-        K = (B * S) // 4
-        if compact_cap is None:
-            K = B * S
-        elif compact_cap > 0:
-            K = min(K, compact_cap)
+        K = walk_cap(B, S, compact_cap)
         fvalid = (valid & ~isposrow).reshape(-1)
         cpos = torch.cumsum(fvalid.to(i32), 0) - 1
         walk = fvalid & (cpos < K)
-        if _walk_masked(ranks, group):
-            pos = kfm.sa_resolve(fm, ranks.reshape(-1), sa_interval, group,
-                                 mask=walk)
-        else:
-            src = torch.nonzero(walk)[:, 0]
-            pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=dev)
-            pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src],
-                                      sa_interval, group)
+        src = torch.nonzero(walk)[:, 0]
+        pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=dev)
+        pos[src] = kfm.sa_resolve(fm, ranks.reshape(-1)[src], sa_interval,
+                                  group)
         pos = pos.reshape(B, S)
         truncated = (fvalid & (cpos >= K)).reshape(B, S)
         valid = valid & ~truncated
@@ -120,14 +154,6 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
         valid=ok,
         overflow=overflow,
     )
-
-
-def _walk_masked(ranks: torch.Tensor, group) -> bool:
-    """Whether ``resolve_seeds`` walks every rank lane under a mask of the
-    lanes within its cap, with no host wait: on the kernel's path (CUDA
-    tensors, no group). Elsewhere it compacts the lanes first
-    (``torch.nonzero``), so that the plain walk runs on them alone."""
-    return ranks.device.type == "cuda" and group is None
 
 
 def l_rep_device(mems: torch.Tensor, n_mem: torch.Tensor, max_occ: int

@@ -10,9 +10,13 @@ per-read sequential loop becomes global rounds: every lane scans to its
 next seed to extend, then one batched SW call a side serves all active
 lanes.
 
-A round is four stages around the SW launches, each a function with a
-plain twin (eager torch ops) here and a hand-written CUDA kernel in
-``csrc/extend.cu`` (``extend_cuda.py``):
+The set-up and a round's four stages around the SW launches are each a
+function with a plain twin (eager torch ops) here and a hand-written
+CUDA kernel in ``csrc/extend.cu`` (``extend_cuda.py``):
+- ``extend_setup``: the seeds' processing order (chains by the filter's
+  order, seeds by score), the usable count and each chain's reference
+  window (rmax), clipped at the strand boundary and the reference of its
+  first seed;
 - ``extend_scan``: the containment scan (every trip of every lane), the
   round's overflow and active lanes, and the SW sort keys of both sides;
 - ``extend_windows``: both sides' query and target buffers, written in
@@ -24,9 +28,27 @@ plain twin (eager torch ops) here and a hand-written CUDA kernel in
 - ``extend_seedcov``: after the rounds, each region's seedcov.
 On CUDA tensors each stage launches its kernel (and raises if it cannot);
 on CPU tensors it runs the plain twin. The SW is ``sw_cuda.py``'s kernel
-on the card and the plain ``sw.sw_extend_batch`` on the CPU. The host
-waits on the card only where the JAX program branches (``lax.cond``):
-whether a round has an active lane, and whether a side retries.
+on the card and the plain ``sw.sw_extend_batch`` on the CPU.
+
+The JAX program branches on the device (``lax.cond``) where a round has
+no active lane and where a side has no retry. On the card the port keeps
+both branches there and never waits on the card in a call: every round
+runs its launches, and each launch takes a gate, a count on the card
+(the scan's active reads of the round; a side's retries, a sum), at
+which 0 the kernel skips its work (``extend_cuda.py``; a gated right
+merge writes the state in place, so a skipped round leaves it as it
+was). Issued one by one, a dead round would still cost the host its ~30
+launches, so the call runs as a CUDA graph: captured at the first call
+of its shapes and options (on a side stream; nothing runs then) and
+replayed after, its inputs copied into the graph's own tensors and its
+outputs copied out, so each call gets tensors of its own
+(``GRAPH_CACHE`` graphs are kept, the least recently used dropped
+first; calls on one stream). A replay adds the launches its capture
+counted to ``build.LAUNCHES``. On the CPU, where reading a value costs
+nothing, the host tests both branches; all orders give the same result.
+``_ROUTE`` (None: the device and the group decide) forces one order for
+tools that time one against another or record the stages' calls
+(``tools/extend_calls.py`` ``route``).
 
 Reference coordinates (the chains' windows, the regions' ``rb`` and
 ``re``) hold the seeds' rank dtype, int64 past 2^31 doubled bases, as
@@ -38,13 +60,19 @@ come from this rank's range of the per-base forward codes instead,
 summed to their owner over the group (``fetch_doubled``), as in the JAX
 version; a round's two windows share one owner sum. No single launch
 holds that sum, so there ``extend_windows`` takes its plain twin by an
-explicit branch; scan, merge and seedcov still launch their kernels.
+explicit branch; set-up, scan, merge and seedcov still launch their
+kernels. Every rank must enter a round's window fetch together, so there
+the host tests the branches too, as on the CPU, and nothing is captured:
+the ranks hold the same reads, so they take the same branches.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
 
+from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels import extend_cuda as ecu
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.extend_cuda import REG_FIELDS
@@ -54,6 +82,16 @@ from bioseqdb_tpu_torch.kernels.sw import FIELDS, sw_extend_batch
 from bioseqdb_tpu_torch.kernels.sw_cuda import sw_extend_cuda
 
 SCAN_CHUNK = 8   # the plain scan's trips between live-lane checks
+ROUTES = ("graph", "gates", "guards")
+# the order of extend_all's rounds forced on every call (one of ROUTES),
+# or None: a CUDA graph of the gated rounds on CUDA tensors, the host's
+# guards on CPU tensors; under a group the host's guards always
+_ROUTE: str | None = None
+GRAPH_CACHE = 8   # extend_all's captured graphs kept at most
+# the tables extend_all reads, copied into a graph's inputs
+GRAPH_INPUTS = dict(seeds=("rbeg", "qbeg", "len", "valid", "score"),
+                    chains=("assign", "f_rbeg", "rid"),
+                    flt=("order", "kept"))
 
 
 def window_doubled(pac_rows, seq_len: int, pos: torch.Tensor) -> torch.Tensor:
@@ -117,7 +155,75 @@ def _sides(tab: dict, act: torch.Tensor, slot: torch.Tensor) -> tuple:
     return act[None, :] & (qn > 0), qn, tn
 
 
-def extend_scan_plain(tab: dict, st: dict, p: dict) -> dict:
+def extend_setup_plain(seeds: dict, chains: dict, flt: dict,
+                       lens: torch.Tensor, refs: dict, p: dict) -> dict:
+    """The set-up of the rounds: ``order`` (int32 [B, S], the slots in
+    processing order: usable seeds by their chain's rank in the filter's
+    order, then by score descending, ties to the later slot; the others
+    after), ``n_usable`` (int32 [B]), ``cis`` (the seed's chain clamped
+    into [0, C), int32 [B, S]), ``ok`` (valid and in a chain), and each
+    chain's reference window ``rmax0`` / ``rmax1`` ([B, C] in the rank
+    dtype): the span its seeds' extensions may reach, clipped to the
+    strand and the reference (``refs``: offsets, lens, l_pac, seq_len)
+    of its first seed."""
+    B, S = seeds["rbeg"].shape
+    C = chains["f_rbeg"].shape[1]
+    dev = seeds["rbeg"].device
+    rdt = seeds["rbeg"].dtype
+    l_pac, seq_len = refs["l_pac"], refs["seq_len"]
+    slen = seeds["len"]
+    ci = chains["assign"]
+    in_chain = ci >= 0
+    cis = ci.clamp(0, C - 1)
+    crank = torch.gather(torch.argsort(flt["order"], dim=1, stable=True), 1,
+                         cis.long())
+    ckept = torch.gather(flt["kept"], 1, cis.long()) > 0
+    usable = in_chain & ckept & seeds["valid"]
+    sidx = torch.arange(S, device=dev)[None, :]
+    # seed score: len * match, unless the long-read seed-SW filter
+    # (kernels/seedsw.py) re-scored it (bwa's s->score)
+    sscore = seeds.get("score")
+    if sscore is None:
+        sscore = slen * p["match_score"]
+    key = (crank * (1 << 19)
+           + (4095 - sscore.clamp(0, 4095)) * (1 << 7)
+           + (S - 1 - sidx))
+    key = torch.where(usable, key, 0x7FFFFFF0)
+    order = torch.argsort(key, dim=1, stable=True)
+
+    # ---- per-chain rmax windows ----
+    qbeg, rbeg = seeds["qbeg"], seeds["rbeg"]
+    qlen_rem = lens[:, None] - qbeg - slen
+    gap = _gap(p)
+    big = torch.iinfo(rdt).max // 2
+    b_all = torch.where(in_chain, rbeg - (qbeg + gap(qbeg)), big)
+    e_all = torch.where(in_chain, rbeg + slen + qlen_rem + gap(qlen_rem), 0)
+    rmax0 = torch.full((B, C), big, dtype=rdt, device=dev).scatter_reduce(
+        1, cis.long(), b_all.to(rdt), "amin")
+    rmax1 = torch.zeros(B, C, dtype=rdt, device=dev).scatter_reduce(
+        1, cis.long(), e_all.to(rdt), "amax")
+    rmax0 = rmax0.clamp(min=0)
+    rmax1 = rmax1.clamp(max=seq_len)
+    cfirst = chains["f_rbeg"]
+    crosses = (rmax0 < l_pac) & (l_pac < rmax1)
+    rmax1 = torch.where(crosses & (cfirst < l_pac), l_pac, rmax1)
+    rmax0 = torch.where(crosses & (cfirst >= l_pac), l_pac, rmax0)
+    # clip to the reference holding the first seed (bns_fetch_seq)
+    crid = chains["rid"].long().clamp(0, refs["offsets"].shape[0] - 1)
+    roff = refs["offsets"][crid]
+    rlen_ref = refs["lens"][crid]
+    mid_rev = cfirst >= l_pac
+    rmax0 = torch.maximum(rmax0, torch.where(
+        mid_rev, seq_len - (roff + rlen_ref), roff))
+    rmax1 = torch.minimum(rmax1, torch.where(
+        mid_rev, seq_len - roff, roff + rlen_ref))
+    return dict(order=order.to(torch.int32),
+                n_usable=usable.sum(1, dtype=torch.int32),
+                cis=cis.to(torch.int32), ok=seeds["valid"] & in_chain,
+                rmax0=rmax0, rmax1=rmax1)
+
+
+def extend_scan_plain(tab: dict, st: dict, p: dict, count=None) -> dict:
     """The containment scan: each lane advances its cursor over ``order``
     past the seeds an accumulated region covers (and no overlap rescue
     claims) until it reaches a seed to extend or ``n_usable``. Returns
@@ -125,7 +231,8 @@ def extend_scan_plain(tab: dict, st: dict, p: dict) -> dict:
     ``slot`` (int32 [B]), ``act`` (bool [B]: a seed to extend and room
     for its region) and ``work`` (int32 [2, B]: the SW sort key of each
     side, rows until the band empties ~ min(tlen, qlen + band), -1 for
-    an idle lane)."""
+    an idle lane). ``count`` (one int32, or None) gets the active lanes
+    added, as the kernel adds them."""
     order, n_usable = tab["order"], tab["n_usable"]
     qbeg, rbeg, slen, cis = tab["qbeg"], tab["rbeg"], tab["len"], tab["cis"]
     regs, n_regs, was_ext = st["regs"], st["n_regs"], st["was_ext"]
@@ -181,12 +288,14 @@ def extend_scan_plain(tab: dict, st: dict, p: dict) -> dict:
     qn = torch.where(has, qn, 0).to(torch.int32)
     tn = torch.where(has, tn, 0).to(torch.int32)
     work = torch.where(qn > 0, torch.minimum(tn, qn + p["bandwidth"]), -1)
+    if count is not None:
+        count += act.sum(dtype=torch.int32)
     return dict(cursor=cursor, overflow=st["overflow"] | ovf_now, slot=slot,
                 act=act, work=work.to(torch.int32))
 
 
 def extend_windows_plain(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
-                         p: dict, group=None) -> dict:
+                         p: dict, group=None, gate=None) -> dict:
     """Both sides' SW inputs for the round, in the sorted lane order
     ``perm`` (int64 [2, B]: row i of side k is lane perm[k, i]): ``qbuf``
     int32 [2, B, W] (left: the query prefix reversed; right: the suffix),
@@ -196,7 +305,9 @@ def extend_windows_plain(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
     int32 [2, B] (0 there), ``active`` bool [2, B], the left side's
     ``h0`` int32 [B] (seed length x match) and ``inv`` int32 [2, B]
     (lane b is row inv[k, b]). ``pac`` is the packed doubled text, or
-    under ``group`` this rank's forward codes (owner-summed)."""
+    under ``group`` this rank's forward codes (owner-summed). Every output
+    is computed whatever the ``gate`` (the kernel's skips the buffers at
+    0, when no launch reads them)."""
     codes, lens = tab["codes"], tab["lens"]
     B, W = codes.shape
     T = W + 4 * p["bandwidth"] + 64
@@ -244,7 +355,7 @@ def _unsort(win: dict, k: int, r1: dict, r2: dict, retry, bw: int):
 
 def extend_merge_plain(side: int, tab: dict, st: dict, scan: dict,
                        win: dict, r1: dict, r2: dict, retry: torch.Tensor,
-                       p: dict, left: dict | None = None) -> dict:
+                       p: dict, left: dict | None = None, gate=None) -> dict:
     """Fold side ``side``'s SW results (``r1``, and ``r2`` where the
     sorted mask ``retry`` is set; dicts of int32 [B] in sorted order)
     into the lanes of the round. Left (0): the left result by lane,
@@ -253,7 +364,9 @@ def extend_merge_plain(side: int, tab: dict, st: dict, scan: dict,
     its sorted order. Right (1, ``left`` the left merge's output): the
     new state, the region table with each active lane's region put at
     row ``n_regs`` (clamped to R - 1), ``n_regs``, ``was_ext`` and
-    ``cursor``."""
+    ``cursor``. The kernel's ``gate`` (and the in-place writes of a gated
+    right merge) change nothing here: the outputs are new tensors, the
+    same ones a gated round's state holds (its lanes are not active)."""
     bw = p["bandwidth"]
     slot, act = scan["slot"], scan["act"]
     sq, sr, sl, c, _, _ = _lanes(tab, slot)
@@ -312,28 +425,37 @@ def extend_seedcov_plain(tab: dict, regs: dict) -> torch.Tensor:
     return torch.where(inside, l3, 0).sum(1, dtype=torch.int32)
 
 
-def extend_scan(tab: dict, st: dict, p: dict) -> dict:
+def extend_setup(seeds: dict, chains: dict, flt: dict, lens: torch.Tensor,
+                 refs: dict, p: dict) -> dict:
+    """``extend_setup_plain``: the kernel on CUDA tensors, else the twin."""
+    fn = (ecu.extend_setup_cuda if seeds["rbeg"].is_cuda
+          else extend_setup_plain)
+    return fn(seeds, chains, flt, lens, refs, p)
+
+
+def extend_scan(tab: dict, st: dict, p: dict, count=None) -> dict:
     """``extend_scan_plain``: the kernel on CUDA tensors, else the twin."""
     fn = ecu.extend_scan_cuda if tab["order"].is_cuda else extend_scan_plain
-    return fn(tab, st, p)
+    return fn(tab, st, p, count)
 
 
 def extend_windows(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
-                   p: dict, group=None) -> dict:
+                   p: dict, group=None, gate=None) -> dict:
     """``extend_windows_plain``: the kernel on CUDA tensors with no
     ``group``, else the twin (the owner sum of an index mesh's targets
     is a collective no launch holds)."""
     if tab["order"].is_cuda and group is None:
-        return ecu.extend_windows_cuda(tab, fm.seq_len, pac, scan, perm, p)
+        return ecu.extend_windows_cuda(tab, fm.seq_len, pac, scan, perm, p,
+                                       gate)
     return extend_windows_plain(tab, fm, pac, scan, perm, p, group)
 
 
 def extend_merge(side: int, tab: dict, st: dict, scan: dict, win: dict,
                  r1: dict, r2: dict, retry: torch.Tensor, p: dict,
-                 left: dict | None = None) -> dict:
+                 left: dict | None = None, gate=None) -> dict:
     """``extend_merge_plain``: the kernel on CUDA tensors, else the twin."""
     fn = ecu.extend_merge_cuda if tab["order"].is_cuda else extend_merge_plain
-    return fn(side, tab, st, scan, win, r1, r2, retry, p, left)
+    return fn(side, tab, st, scan, win, r1, r2, retry, p, left, gate)
 
 
 def extend_seedcov(tab: dict, regs: dict) -> torch.Tensor:
@@ -353,75 +475,135 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
     (qb/qe/score/truesc/w/seedlen0/cchain/rid/seedcov int32[B, R], and
     rb/re [B, R] in the seeds' rank dtype) with n_regs and overflow.
     With ``group``, ``pac_rows`` is this rank's shard of the per-base
-    forward codes (``FMSharded.pac``), not the packed doubled text."""
+    forward codes (``FMSharded.pac``), not the packed doubled text. On
+    CUDA tensors with no group the call is a CUDA graph of the gated
+    rounds (the module's docstring); on CPU tensors and under a group the
+    host guards the rounds. All give the same result."""
+    opts = dict(match_score=match_score, mismatch_penalty=mismatch_penalty,
+                o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                bandwidth=bandwidth, zdrop=zdrop, pen_clip5=pen_clip5,
+                pen_clip3=pen_clip3, max_rounds=max_rounds,
+                max_regs=max_regs)
+    route = _route(codes.is_cuda, group)
+    if route == "graph" and codes.shape[0] > 0:
+        return _graphed(fm, pac_rows, codes, lens, seeds, chains, flt, opts)
+    return _rounds(fm, pac_rows, codes, lens, seeds, chains, flt, mat, opts,
+                   group, guards=route == "guards")
+
+
+def _route(cuda: bool, group) -> str:
+    """How ``extend_all`` runs (one of ROUTES): under a group the host's
+    guards (every rank enters each window fetch); else ``_ROUTE`` where
+    set (a graph only on the card), a graph on the card and the guards
+    on the CPU."""
+    if _ROUTE is not None and _ROUTE not in ROUTES:
+        raise ValueError(f"extend_all: no route {_ROUTE!r}")
+    if group is not None or (not cuda and _ROUTE != "gates"):
+        return "guards"
+    return _ROUTE or "graph"
+
+
+class _Graph:
+    """``extend_all`` captured as a CUDA graph: its input tensors (the
+    graph reads them), its outputs (it writes them) and the launches its
+    capture counted (each replay makes them)."""
+
+    def __init__(self, inputs: dict, run):
+        dev = next(iter(inputs.values())).device
+        self.inputs = {k: torch.empty_like(
+            t, memory_format=torch.contiguous_format)
+            for k, t in inputs.items()}
+        self.load(inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        counted = dict(build.LAUNCHES)
+        try:
+            with torch.cuda.stream(side):
+                self.graph.capture_begin()
+                try:
+                    self.outputs = run(self.inputs)
+                finally:
+                    self.graph.capture_end()
+            # the capture launched nothing: its launches are the replays'
+            self.launches = {k: n - counted[k]
+                             for k, n in build.LAUNCHES.items()
+                             if n != counted[k]}
+        finally:
+            build.LAUNCHES.update(counted)
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def load(self, inputs: dict) -> None:
+        for k, t in inputs.items():
+            self.inputs[k].copy_(t)
+
+    def replay(self, inputs: dict) -> dict:
+        """The outputs for ``inputs``, copied out of the graph's."""
+        self.load(inputs)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            build.LAUNCHES[k] += n
+        copy = lambda o: ({k: copy(v) for k, v in o.items()}
+                          if isinstance(o, dict) else o.clone())
+        return copy(self.outputs)
+
+
+_GRAPHS: "OrderedDict[tuple, _Graph]" = OrderedDict()
+
+
+def _graphed(fm, pac_rows, codes, lens, seeds: dict, chains: dict,
+             flt: dict, opts: dict) -> dict:
+    """``extend_all`` (CUDA tensors, no group) through the CUDA graph of
+    its shapes, tables and options, captured first if there is none."""
+    tables = dict(seeds=seeds, chains=chains, flt=flt)
+    inputs = dict(codes=codes, lens=lens, **{
+        f"{g}.{k}": tables[g][k] for g, keys in GRAPH_INPUTS.items()
+        for k in keys if k in tables[g]})
+    refs = (pac_rows, fm.ref_offsets, fm.ref_lens)
+    key = (codes.device,
+           tuple((k, tuple(t.shape), t.dtype) for k, t in inputs.items()),
+           tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in refs),
+           fm.l_pac, fm.seq_len, tuple(opts.items()))
+    g = _GRAPHS.pop(key, None)
+    if g is None:
+        def run(st: dict) -> dict:
+            part = lambda name: {k: st[f"{name}.{k}"]
+                                 for k in GRAPH_INPUTS[name]
+                                 if f"{name}.{k}" in st}
+            return _rounds(fm, pac_rows, st["codes"], st["lens"],
+                           part("seeds"), part("chains"), part("flt"), None,
+                           opts, None, guards=False)
+
+        while len(_GRAPHS) >= GRAPH_CACHE:
+            _GRAPHS.popitem(last=False)
+        g = _Graph(inputs, run)
+    _GRAPHS[key] = g
+    return g.replay(inputs)
+
+
+def _rounds(fm, pac_rows, codes, lens, seeds: dict, chains: dict, flt: dict,
+            mat, opts: dict, group, guards: bool) -> dict:
+    """``extend_all``'s work, launch by launch: with ``guards`` the host
+    skips a round with no active read and a retry no lane takes (reading
+    the device), else every launch runs under its gate on the device."""
     B, S = seeds["rbeg"].shape
-    C = chains["pos"].shape[1]
-    R = max_regs
+    R = opts["max_regs"]
     dev = codes.device
     i32 = torch.int32
     rdt = seeds["rbeg"].dtype
     W = codes.shape[1]
-    seq_len, l_pac = fm.seq_len, fm.l_pac
     codes = codes.to(i32)
     lens = lens.to(i32)
-    p = dict(match_score=match_score, o_del=o_del, e_del=e_del, o_ins=o_ins,
-             e_ins=e_ins, bandwidth=bandwidth, pen_clip5=pen_clip5,
-             pen_clip3=pen_clip3)
-    slen = seeds["len"]
-
-    # ---- the global seed processing order ----
-    ci = chains["assign"]
-    in_chain = ci >= 0
-    cis = ci.clamp(0, C - 1)
-    crank = torch.gather(torch.argsort(flt["order"], dim=1, stable=True), 1,
-                         cis.long())
-    ckept = torch.gather(flt["kept"], 1, cis.long()) > 0
-    usable = in_chain & ckept & seeds["valid"]
-    sidx = torch.arange(S, device=dev)[None, :]
-    # seed score: len * match, unless the long-read seed-SW filter
-    # (kernels/seedsw.py) re-scored it (bwa's s->score)
-    sscore = seeds.get("score")
-    if sscore is None:
-        sscore = slen * match_score
-    key = (crank * (1 << 19)
-           + (4095 - sscore.clamp(0, 4095)) * (1 << 7)
-           + (S - 1 - sidx))
-    key = torch.where(usable, key, 0x7FFFFFF0)
-    order = torch.argsort(key, dim=1, stable=True)
-
-    # ---- per-chain rmax windows ----
-    qbeg, rbeg = seeds["qbeg"], seeds["rbeg"]
-    qlen_rem = lens[:, None] - qbeg - slen
-    gap = _gap(p)
-    big = torch.iinfo(rdt).max // 2
-    b_all = torch.where(in_chain, rbeg - (qbeg + gap(qbeg)), big)
-    e_all = torch.where(in_chain, rbeg + slen + qlen_rem + gap(qlen_rem), 0)
-    rmax0 = torch.full((B, C), big, dtype=rdt, device=dev).scatter_reduce(
-        1, cis.long(), b_all.to(rdt), "amin")
-    rmax1 = torch.zeros(B, C, dtype=rdt, device=dev).scatter_reduce(
-        1, cis.long(), e_all.to(rdt), "amax")
-    rmax0 = rmax0.clamp(min=0)
-    rmax1 = rmax1.clamp(max=seq_len)
-    cfirst = chains["f_rbeg"]
-    crosses = (rmax0 < l_pac) & (l_pac < rmax1)
-    rmax1 = torch.where(crosses & (cfirst < l_pac), l_pac, rmax1)
-    rmax0 = torch.where(crosses & (cfirst >= l_pac), l_pac, rmax0)
-    # clip to the reference holding the first seed (bns_fetch_seq)
-    crid = chains["rid"].long().clamp(0, fm.ref_offsets.shape[0] - 1)
-    roff = fm.ref_offsets[crid]
-    rlen_ref = fm.ref_lens[crid]
-    mid_rev = cfirst >= l_pac
-    rmax0 = torch.maximum(rmax0, torch.where(
-        mid_rev, seq_len - (roff + rlen_ref), roff))
-    rmax1 = torch.minimum(rmax1, torch.where(
-        mid_rev, seq_len - roff, roff + rlen_ref))
-
-    tab = dict(order=order.to(i32), n_usable=usable.sum(1, dtype=i32),
-               qbeg=qbeg.to(i32), rbeg=rbeg, len=slen.to(i32),
-               cis=cis.to(i32), valid=seeds["valid"],
-               ok=seeds["valid"] & in_chain, lens=lens, codes=codes,
-               rmax0=rmax0, rmax1=rmax1,
-               crid=chains["rid"].to(i32))
+    p = {k: opts[k] for k in ("match_score", "o_del", "e_del", "o_ins",
+                              "e_ins", "bandwidth", "pen_clip5",
+                              "pen_clip3")}
+    bandwidth = opts["bandwidth"]
+    refs = dict(offsets=fm.ref_offsets, lens=fm.ref_lens, l_pac=fm.l_pac,
+                seq_len=fm.seq_len)
+    tab = dict(extend_setup(seeds, chains, flt, lens, refs, p),
+               qbeg=seeds["qbeg"].to(i32), rbeg=seeds["rbeg"],
+               len=seeds["len"].to(i32), valid=seeds["valid"], lens=lens,
+               codes=codes, crid=chains["rid"].to(i32))
     tab = {k: v.contiguous() for k, v in tab.items()}
 
     # ---- extension rounds ----
@@ -433,45 +615,57 @@ def extend_all(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
               cursor=torch.zeros(B, dtype=i32, device=dev),
               was_ext=torch.zeros(B, S, dtype=torch.bool, device=dev),
               overflow=torch.zeros(B, dtype=torch.bool, device=dev))
+    # each round's count of active reads, the gate of its launches
+    counts = (None if guards
+              else torch.zeros(opts["max_rounds"], dtype=i32, device=dev))
+    # the bands of a side's SW launch and of its retry
+    w1 = torch.full((B,), bandwidth, dtype=i32, device=dev)
+    w2 = w1 * 2
+    sw = {k: opts[k] for k in ("match_score", "mismatch_penalty", "o_del",
+                               "e_del", "o_ins", "e_ins", "zdrop")}
 
-    def sw_one(qbuf, qn, tbuf, tn, w, bonus, h0, max_w):
+    def sw_one(qbuf, qn, tbuf, tn, w, bonus, h0, max_w, gate):
         if qbuf.is_cuda:
-            return sw_extend_cuda(
-                qbuf, qn, tbuf, tn, w, h0, match_score=match_score,
-                mismatch_penalty=mismatch_penalty, o_del=o_del, e_del=e_del,
-                o_ins=o_ins, e_ins=e_ins, end_bonus=bonus, zdrop=zdrop,
-                max_w=max_w)
-        return sw_extend_batch(qbuf, qn, tbuf, tn, mat, o_del, e_del, o_ins,
-                               e_ins, w, bonus, zdrop, h0, W)
+            return sw_extend_cuda(qbuf, qn, tbuf, tn, w, h0, end_bonus=bonus,
+                                  max_w=max_w, gate=gate, **sw)
+        return sw_extend_batch(qbuf, qn, tbuf, tn, mat, sw["o_del"],
+                               sw["e_del"], sw["o_ins"], sw["e_ins"], w,
+                               bonus, sw["zdrop"], h0, W)
 
-    def sw_side(win, k, h0, bonus, prev):
+    def sw_side(win, k, h0, bonus, prev, gate):
         """Side ``k``'s ksw_extend on the sorted lanes, with bwa's band
         doubling: retry at twice the band iff the score moved and the max
-        offset filled the band. Returns (r1, r2, retry), r2 = r1 when no
-        lane retried."""
+        offset filled the band. Returns (r1, r2, retry); under the guards
+        r2 = r1 when no lane retried, else the retry launch's gate is the
+        count of retries (its results are read only where one retried)."""
         qbuf, tbuf, qn, tn = (win[f][k] for f in ("qbuf", "tbuf", "qn", "tn"))
-        w1 = torch.full((B,), bandwidth, dtype=i32, device=dev)
-        r1 = sw_one(qbuf, qn, tbuf, tn, w1, bonus, h0, bandwidth)
+        r1 = sw_one(qbuf, qn, tbuf, tn, w1, bonus, h0, bandwidth, gate)
         retry = (win["active"][k] & (r1["score"] != prev)
                  & (r1["max_off"] >= (bandwidth >> 1) + (bandwidth >> 2)))
-        if not bool(retry.any()):
+        if guards and not bool(retry.any()):
             return r1, r1, retry
+        retries = None if guards else retry.sum(dtype=i32)
         r2 = sw_one(qbuf, torch.where(retry, qn, 0).to(i32), tbuf, tn,
-                    w1 * 2, bonus, h0, 2 * bandwidth)
+                    w2, bonus, h0, 2 * bandwidth, retries)
         return r1, r2, retry
 
-    for _ in range(max_rounds):
-        scan = extend_scan(tab, st, p)
+    for rnd in range(opts["max_rounds"]):
+        gate = None if counts is None else counts[rnd]
+        scan = extend_scan(tab, st, p, count=gate)
         st.update(cursor=scan["cursor"], overflow=scan["overflow"])
-        if not bool(scan["act"].any()):
+        if guards and not bool(scan["act"].any()):
             continue
         perm = torch.argsort(-scan["work"], dim=1, stable=True)
-        win = extend_windows(tab, fm, pac_rows, scan, perm, p, group)
-        left = extend_merge(0, tab, st, scan, win,
-                            *sw_side(win, 0, win["h0"], pen_clip5, -1), p)
+        win = extend_windows(tab, fm, pac_rows, scan, perm, p, group,
+                             gate=gate)
+        left = extend_merge(
+            0, tab, st, scan, win,
+            *sw_side(win, 0, win["h0"], p["pen_clip5"], -1, gate), p,
+            gate=gate)
         st.update(extend_merge(
             1, tab, st, scan, win,
-            *sw_side(win, 1, left["h0"], pen_clip3, left["h0"]), p, left))
+            *sw_side(win, 1, left["h0"], p["pen_clip3"], left["h0"], gate),
+            p, left, gate=gate))
     regs = dict(st["regs"], seedcov=extend_seedcov(tab, st["regs"]))
     return dict(regs=regs, n_regs=st["n_regs"],
                 overflow=st["overflow"] | (st["cursor"] < tab["n_usable"]))

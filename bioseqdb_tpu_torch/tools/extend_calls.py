@@ -10,19 +10,35 @@ the pipeline gives them.
   cloned), ``syncs`` counts the host's waits on the device in a run,
   ``clocked`` splits a run's seconds into its parts, ``lanes`` takes
   some reads of the call;
-- ``StageCall``: one call of ``extend_scan``, ``extend_windows``,
-  ``extend_merge`` (``side`` 0 or 1) or ``extend_seedcov``; ``run`` makes
+- ``StageCall``: one call of ``extend_setup``, ``extend_scan``,
+  ``extend_windows``, ``extend_merge`` (``side`` 0 or 1) or
+  ``extend_seedcov``; ``run`` makes
   it on the kernel or the plain twin, ``host`` on a host build of
   ``csrc/extend.cu`` (``host_library``), ``kernel_ms`` times a launch in a
   CUDA graph, ``plain_ms`` the plain twin, ``counts`` gives what the
   bound needs (bytes read and written, instructions), ``shifted`` moves
   every reference coordinate past 2^31 (int64 ranks);
+- ``ExtendCall.wall`` times a run between synchronisations at its ends
+  (``extend_all``'s own route: its CUDA graph on the card), ``capture_s``
+  one that captures that graph,
+  ``graph_ms`` the device time of the gated launches of a whole call in a
+  CUDA graph, ``route(name)`` forces one of ``extend.ROUTES`` in a block
+  (``gates``: launch by launch, no host wait; ``guards``: the host skips
+  dead rounds and retries, reading the device), ``ungated()`` runs the
+  launches with every gate left off, ``dead`` is the call with no usable
+  seed (every round dead); ``run`` with ``plain``, ``stages``, ``clocked``
+  and ``graph_ms`` run the call launch by launch (the gates), as the
+  graph captures it;
 - ``edge_calls(rank_dtype)``: a hand-made edge set, simulated from a seed
   on a small two-reference genome with a repeat and aligned on the CPU:
   covered seeds skipped with and without the overlap rescue, band-doubling
   retries at bandwidth 8, overflow at max_regs 1, windows at the strand
   boundary and at each reference's ends;
 - ``random_calls``: every stage on narrow random inputs;
+  ``setup_calls``: the set-up on random inputs at the paths' S and C
+  and at those of 8 kb and 18 kb reads (past a block's shared memory)
+  (ties in the keys and the filter's order, unusable seeds, chains
+  across l_pac, windows clipped at reference ends);
 - ``lane_cases(rank_dtype)``: the boundaries of the kernels' thread
   layout: the scan's first stop on each edge lane of a pass, n_usable off
   a multiple of 32, more extended seeds than a warp, 0 and 16 live
@@ -59,17 +75,20 @@ from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
 
 KINDS = build.EXTEND_KERNELS
 _SIG = inspect.signature(extend.extend_all)
-_PLAIN = dict(extend_scan=extend.extend_scan_plain,
+_PLAIN = dict(extend_setup=extend.extend_setup_plain,
+              extend_scan=extend.extend_scan_plain,
               extend_windows=extend.extend_windows_plain,
               extend_merge=extend.extend_merge_plain,
               extend_seedcov=extend.extend_seedcov_plain)
-_CUDA = dict(extend_scan=ecu.extend_scan_cuda,
+_CUDA = dict(extend_setup=ecu.extend_setup_cuda,
+             extend_scan=ecu.extend_scan_cuda,
              extend_windows=ecu.extend_windows_cuda,
              extend_merge=ecu.extend_merge_cuda,
              extend_seedcov=ecu.extend_seedcov_cuda)
-_ARGS = dict(extend_scan=ecu.scan_args, extend_windows=ecu.windows_args,
+_ARGS = dict(extend_setup=ecu.setup_args,
+             extend_scan=ecu.scan_args, extend_windows=ecu.windows_args,
              extend_merge=ecu.merge_args, extend_seedcov=ecu.seedcov_args)
-PARTS = ("scan", "windows", "sw", "merge", "seedcov")
+PARTS = ("setup", "scan", "windows", "sw", "merge", "seedcov")
 PAST_2_31 = 1 << 32   # the shift of ``StageCall.shifted``
 # instructions the bound charges: a scan trip's compares and selects
 # (~12) and ~20 a live region it tests (the containment test and two
@@ -79,6 +98,9 @@ SCAN_INSTR = dict(trips=12, region_tests=20)
 MERGE_INSTR = dict(lanes=40, entries=3)
 SEEDCOV_INSTR = 8
 WINDOW_INSTR = 4
+# the set-up: a compare of two keys in a counting rank or of a seed's
+# chain in a window scan (~3); a seed's key, gaps and window ends (~60)
+SETUP_INSTR = dict(compares=3, seeds=60)
 
 
 def _clone(v, memo: dict):
@@ -149,6 +171,7 @@ class StageCall:
 
     @property
     def tab(self) -> dict:
+        """The seed tables (the set-up's seeds)."""
         return self.args[1] if self.kind == "extend_merge" else self.args[0]
 
     @property
@@ -231,6 +254,18 @@ class StageCall:
             return {k: up(v) if k in keys else v for k, v in d.items()}
 
         args = list(self.args)
+        if self.kind == "extend_setup":
+            # as if PAST_2_31 bases came before the first reference: every
+            # doubled-text position, l_pac and the offsets move by it, the
+            # doubled length by twice it
+            seeds, chains, flt, lens, refs, p = args
+            refs = dict(refs, offsets=up(refs["offsets"]),
+                        lens=refs["lens"].to(torch.int64),
+                        l_pac=refs["l_pac"] + PAST_2_31,
+                        seq_len=refs["seq_len"] + 2 * PAST_2_31)
+            return StageCall(self.kind, (move(seeds, ("rbeg",)),
+                                         move(chains, ("f_rbeg", "pos")),
+                                         flt, lens, refs, p))
         i = 1 if self.kind == "extend_merge" else 0
         args[i] = move(self.tab, ("rbeg", "rmax0", "rmax1"))
         if self.kind == "extend_seedcov":
@@ -262,6 +297,15 @@ class StageCall:
         tree = lambda o: (sum(tree(v) for v in o.values())
                           if isinstance(o, dict) else size(o))
         written = tree(out)
+        if self.kind == "extend_setup":
+            seeds, chains = self.args[0], self.args[1]
+            C = chains["f_rbeg"].shape[1]
+            per_seed = rb + 4 + 4 + 1 + 4 + (4 if "score" in seeds else 0)
+            read = (B * S * per_seed + B * C * (4 + 4 + rb + 4) + 4 * B
+                    + 2 * self.args[4]["offsets"].numel() * rb)
+            instr = (SETUP_INSTR["compares"] * B * (S * S + C * C + C * S)
+                     + SETUP_INSTR["seeds"] * B * S)
+            return dict(read=read, written=written, instr=instr)
         if self.kind == "extend_scan":
             st = self.args[1]
             live = st["n_regs"].clamp(0, st["regs"]["rb"].shape[1]).long()
@@ -349,23 +393,37 @@ class ExtendCall:
         return (f"B {B}, W {W}, S {S}, R {R}, band "
                 f"{self.args['bandwidth']}, ranks {rdt}")
 
+    def eager(self):
+        """A context in which ``extend_all`` runs the call launch by
+        launch: the gates on CUDA tensors where no route is forced
+        (what its CUDA graph captures), else as it would."""
+        if self.args["codes"].is_cuda and extend._ROUTE in (None, "graph"):
+            return route("gates")
+        return contextlib.nullcontext()
+
     def run(self, plain: bool = False) -> dict:
         """``extend_all`` on the call: with the kernels on CUDA tensors
-        (the plain twins on CPU tensors), or every stage's plain twin."""
-        with plain_stages() if plain else contextlib.nullcontext():
-            return extend.extend_all(**self.args)
+        (through its CUDA graph; the plain twins on CPU tensors), or every
+        stage's plain twin, launch by launch."""
+        if plain:
+            with plain_stages(), self.eager():
+                return extend.extend_all(**self.args)
+        return extend.extend_all(**self.args)
 
     def stages(self, plain: bool = False) -> tuple[dict, list]:
         """``run``'s outputs and every stage call it made, in order, its
-        inputs cloned."""
-        calls, memo = [], {}
-        with plain_stages() if plain else contextlib.nullcontext():
+        inputs cloned as they were at the call (the right merge updates
+        the state in place on the card). A call's gate is left off: a
+        replay computes every output."""
+        calls = []
+        with (plain_stages() if plain else contextlib.nullcontext(),
+              self.eager()):
             saved = {k: getattr(extend, k) for k in KINDS}
 
             def recorder(kind):
-                def rec(*args):
-                    calls.append(StageCall(kind, _clone(args, memo)))
-                    return saved[kind](*args)
+                def rec(*args, **kw):
+                    calls.append(StageCall(kind, _clone(args, {})))
+                    return saved[kind](*args, **kw)
                 return rec
 
             for k in KINDS:
@@ -400,6 +458,37 @@ class ExtendCall:
                 setattr(torch.Tensor, k, fn)
         return n[0]
 
+    @property
+    def dead(self) -> "ExtendCall":
+        """The call with every chain dropped by the filter (kept 0): no
+        seed is usable, so every round is dead."""
+        flt = self.args["flt"]
+        return self.replace(flt=dict(flt, kept=torch.zeros_like(flt["kept"])))
+
+    def wall(self, plain: bool = False) -> float:
+        """Seconds of one run between two device synchronisations, at its
+        ends only: the host's dispatch and the device's work overlap."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.run(plain)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def capture_s(self) -> float:
+        """Seconds of a run that captures ``extend_all``'s CUDA graph (the
+        cached graphs dropped first) and replays it, between two device
+        synchronisations."""
+        extend._GRAPHS.clear()
+        return self.wall()
+
+    def graph_ms(self, reps: int = 5) -> float:
+        """Device milliseconds of one run with the kernels: a CUDA graph
+        of one call's gated launches (what ``extend_all`` captures), the
+        median of ``reps`` replays, so that the host's enqueue does not
+        count."""
+        with self.eager():
+            return shapes.graph_ms(self.run, 1, reps)
+
     def clocked(self, plain: bool = False) -> dict:
         """A run's seconds by part (PARTS: each stage's calls summed, the
         SW launches), each between two device synchronisations, with
@@ -408,9 +497,9 @@ class ExtendCall:
         sync = (torch.cuda.synchronize if torch.cuda.is_available()
                 else (lambda: None))
         sec = dict.fromkeys(PARTS, 0.0)
-        part = dict(extend_scan="scan", extend_windows="windows",
-                    extend_merge="merge", extend_seedcov="seedcov",
-                    sw_extend_cuda="sw")
+        part = dict(extend_setup="setup", extend_scan="scan",
+                    extend_windows="windows", extend_merge="merge",
+                    extend_seedcov="seedcov", sw_extend_cuda="sw")
 
         def clock(name, fn):
             def timed(*args, **kw):
@@ -422,7 +511,8 @@ class ExtendCall:
                 return out
             return timed
 
-        with plain_stages() if plain else contextlib.nullcontext():
+        with (plain_stages() if plain else contextlib.nullcontext(),
+              self.eager()):
             saved = {k: getattr(extend, k) for k in part}
             for k, fn in saved.items():
                 setattr(extend, k, clock(k, fn))
@@ -436,6 +526,43 @@ class ExtendCall:
                 for k, fn in saved.items():
                     setattr(extend, k, fn)
         return dict(sec, total=total, rest=total - sum(sec.values()))
+
+
+@contextlib.contextmanager
+def route(name: str | None):
+    """Within the block, ``extend_all`` runs every call by route
+    ``name`` (one of ``extend.ROUTES``; None: the device and the group
+    decide; an index mesh keeps the host's guards whatever it is)."""
+    if name is not None and name not in extend.ROUTES:
+        raise ValueError(f"no route {name!r}")
+    saved = extend._ROUTE
+    extend._ROUTE = name
+    try:
+        yield
+    finally:
+        extend._ROUTE = saved
+
+
+@contextlib.contextmanager
+def ungated():
+    """Within the block, ``extend_all``'s windows, merges and SW launches
+    take no gate: a dead round, or a side with no retry, runs every
+    launch in full (for the cost of a dead round without its gate)."""
+    names = ("extend_windows", "extend_merge", "sw_extend_cuda")
+    saved = {k: getattr(extend, k) for k in names}
+
+    def drop(fn):
+        def f(*args, gate=None, **kw):
+            return fn(*args, **kw)
+        return f
+
+    for k, fn in saved.items():
+        setattr(extend, k, drop(fn))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(extend, k, fn)
 
 
 @contextlib.contextmanager
@@ -658,7 +785,88 @@ def random_calls(rank_dtype: torch.dtype = torch.int32, seed: int = 5,
              StageCall("extend_merge", (1, tab, st, scan, win, res(), res(),
                                         flag(0.3, B), p, left)),
              StageCall("extend_seedcov", (tab, regs))]
-    return [StageCall(c.kind, _to(c.args, device)) for c in calls]
+    calls = [StageCall(c.kind, _to(c.args, device)) for c in calls]
+    return calls + [setup_call(rank_dtype, seed, B, S, C, bandwidth=bandwidth,
+                               device=device)]
+
+
+# the set-up's random references: four of 1,200, 1,800, 1,100 and 900
+# bases (l_pac 5,000)
+SETUP_REFS = ((0, 1200), (1200, 1800), (3000, 1100), (4100, 900))
+
+
+def setup_call(rank_dtype: torch.dtype = torch.int32, seed: int = 5,
+               B: int = 1024, S: int = 64, C: int = 16, score: bool = False,
+               bandwidth: int = 100, device="cpu") -> StageCall:
+    """An ``extend_setup`` call on random inputs made with numpy from
+    ``seed``: seeds and chains' first seeds near the references' ends and
+    the strand boundary (l_pac 5,000, four references), so that windows
+    cross l_pac and are clipped at reference ends; chain indices past C
+    and negative (outside a chain); the filter's order in a narrow range
+    (ties) and ``kept`` 0-3; 15% of the seeds not valid; with ``score``,
+    seed scores from -50 to 5,000 (clamped at 0 and 4,095), so that keys
+    of one chain tie but for the slot."""
+    rng = np.random.default_rng(seed)
+    ri = lambda lo, hi, *shape: torch.from_numpy(
+        rng.integers(lo, hi, shape).astype(np.int64))
+    i32 = lambda t: t.to(torch.int32)
+    l_pac = sum(n for _, n in SETUP_REFS)
+    seq_len = 2 * l_pac
+    marks = [0, l_pac, seq_len] + [x for o, n in SETUP_REFS
+                                   for x in (o, o + n, seq_len - o,
+                                             seq_len - o - n)]
+    near = lambda *shape: (torch.from_numpy(rng.choice(marks, shape))
+                           + ri(-300, 300, *shape)).clamp(0, seq_len - 1)
+    seeds = dict(rbeg=near(B, S).to(rank_dtype), qbeg=i32(ri(0, 150, B, S)),
+                 len=i32(ri(10, 60, B, S)),
+                 valid=torch.from_numpy(rng.random((B, S)) < 0.85))
+    if score:
+        seeds["score"] = i32(ri(-50, 5000, B, S))
+    chains = dict(assign=i32(ri(-2, C + 2, B, S)),
+                  f_rbeg=near(B, C).to(rank_dtype),
+                  rid=i32(ri(-1, len(SETUP_REFS) + 1, B, C)))
+    flt = dict(order=i32(ri(0, max(C // 2, 1), B, C)),
+               kept=i32(ri(0, 4, B, C)))
+    refs = dict(offsets=torch.tensor([o for o, _ in SETUP_REFS],
+                                     dtype=rank_dtype),
+                lens=torch.tensor([n for _, n in SETUP_REFS],
+                                  dtype=rank_dtype),
+                l_pac=l_pac, seq_len=seq_len)
+    opts = AlignOptions()
+    p = dict(match_score=opts.match_score, o_del=opts.o_del,
+             e_del=opts.e_del, o_ins=opts.o_ins, e_ins=opts.e_ins,
+             bandwidth=bandwidth, pen_clip5=opts.pen_clip5,
+             pen_clip3=opts.pen_clip3)
+    return StageCall("extend_setup", _to(
+        (seeds, chains, flt, i32(ri(0, 300, B)), refs, p), device))
+
+
+# setup_calls' cases: (B, S, C, scores)
+_SETUP = {"S 64, C 16": (256, 64, 16, False),
+          "S 64, C 16, scores": (256, 64, 16, True),
+          "S 128, C 32": (128, 128, 32, False),
+          "S 128, C 32, scores": (128, 128, 32, True),
+          "S 189, C 32": (96, 189, 32, False),
+          "S 189, C 32, scores": (96, 189, 32, True),
+          "S 1536, C 256, scores": (4, 1536, 256, True),
+          # 8 kb and 18 kb reads (S = W // 12 + 64, C 32) and the 18 kb
+          # fat retry (S and C doubled): past a block's shared memory at
+          # both rank dtypes, so its tables take the scratch
+          "S 730, C 32, scores (8 kb)": (8, 730, 32, True),
+          "S 1564, C 32 (18 kb)": (4, 1564, 32, False),
+          "S 3128, C 64, scores (18 kb fat retry)": (3, 3128, 64, True)}
+SETUP_CASES = tuple(_SETUP)
+
+
+def setup_calls(rank_dtype: torch.dtype = torch.int32, device="cpu"
+                ) -> dict[str, StageCall]:
+    """{name (SETUP_CASES): set-up call} at the port's paths' S and C (64
+    and 16, 128 and 32, 189 and 32), with and without seed scores, at
+    1,536 and 256, and at those of 8 kb and 18 kb reads and the 18 kb fat
+    retry (a few reads each)."""
+    return {name: setup_call(rank_dtype, seed=40 + k, B=B, S=S, C=C,
+                             score=score, device=device)
+            for k, (name, (B, S, C, score)) in enumerate(_SETUP.items())}
 
 
 # ---- the lane cases: the warp scan's and the group merge's boundaries ----

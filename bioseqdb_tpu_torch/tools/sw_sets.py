@@ -172,24 +172,39 @@ class recording:
     """Within the block, every call of the SW wrapper that
     ``kernels/extend.py`` makes also appends its inputs to ``calls`` as a
     ``SwCall``: a copy, or with ``copy=False`` the tensors themselves
-    (for their shapes)."""
+    (for their shapes), every launch. A copy is made only of a launch
+    whose gate is open: one that is closed (a dead round, or a side with
+    no retry: it computes nothing) is counted in ``closed`` instead, and
+    reading the gate waits on the card. In the block ``extend_all`` runs
+    launch by launch (its gates; no CUDA graph, whose replays call no
+    wrapper). A recorded call keeps no gate: its replays compute every
+    lane."""
 
     def __init__(self, calls: list, copy: bool = True):
         self.calls, self.copy = calls, copy
+        self.closed = 0
 
     def __enter__(self):
         self.real = real = extend_mod.sw_extend_cuda
+        self.route = extend_mod._ROUTE
+        if self.route in (None, "graph"):
+            extend_mod._ROUTE = "gates"
 
-        def rec(q, qlen, t, tlen, w0, h0, **kw):
-            self.calls.append(SwCall(*(x.clone() if self.copy else x for x in
-                                       (q, qlen, t, tlen, w0, h0)), kw))
-            return real(q, qlen, t, tlen, w0, h0, **kw)
+        def rec(q, qlen, t, tlen, w0, h0, gate=None, **kw):
+            if self.copy and gate is not None and int(gate) == 0:
+                self.closed += 1
+            else:
+                self.calls.append(SwCall(*(x.clone() if self.copy else x
+                                           for x in (q, qlen, t, tlen, w0,
+                                                     h0)), kw))
+            return real(q, qlen, t, tlen, w0, h0, gate=gate, **kw)
 
         extend_mod.sw_extend_cuda = rec
         return self
 
     def __exit__(self, *exc):
         extend_mod.sw_extend_cuda = self.real
+        extend_mod._ROUTE = self.route
 
 
 def main_path_setup(dev):

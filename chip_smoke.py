@@ -7,13 +7,15 @@
 2. builds the hand-written CUDA kernels from ``bioseqdb_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once): ``sw_extend``, ``fm_seed``,
    ``kmer_seed`` (``kmer.cu``), ``seed_sw`` (``seedsw.cu``),
-   ``chain_seeds`` and ``filter_chains`` (``chain.cu``), ``extend_scan``,
-   ``extend_windows``, ``extend_merge`` and ``extend_seedcov``
-   (``extend.cu``), ``sa_resolve`` and ``backward_search`` (``fm.cu``)
-   and the probes. Every phase that runs the full pipeline on one device
-   (main path, PE, FM-seeded, long reads, int64, API, the CLI's
-   full-mode ``align`` commands) must launch every step kernel of its
-   path in its counted window (``sa_resolve`` among them):
+   ``chain_seeds`` and ``filter_chains`` (``chain.cu``), ``extend_setup``,
+   ``extend_scan``, ``extend_windows``, ``extend_merge`` and
+   ``extend_seedcov`` (``extend.cu``), ``sa_resolve`` and
+   ``backward_search`` (``fm.cu``), ``resolve_expand`` and
+   ``resolve_finish`` (``resolve.cu``) and the probes. Every phase that
+   runs the full pipeline on one device (main path, PE, FM-seeded, long
+   reads, int64, API, the CLI's full-mode ``align`` commands) must launch
+   every step kernel of its path in its counted window (``sa_resolve``,
+   ``extend_setup`` and the resolve kernels among them):
    ``kmer_seed`` on the kmer seeder's paths and never on the FM-seeded
    or long-read ones, ``seed_sw`` on long reads only; exact mode (the
    exact step, ``align --mode exact``, the data mesh's exact run) must
@@ -33,14 +35,19 @@
 4. main path: a 4.6 Mb simulated genome (E. coli scale), two batches of
    16,384 150 bp single-end reads at 1% substitutions through
    ``Aligner.device_regions`` -> ``absorb_overflow`` ->
-   ``finalize_columns``; the second batch is timed. Reads at their
+   ``finalize_columns``; the second batch is timed, after the first
+   runs once more unrecorded (the recorders run ``extend_all`` launch by
+   launch, so that run captures its CUDA graph, which the timed batch
+   replays, as every batch of a shape after a server's first does). Reads at their
    simulated origin are counted, and every read off it must equal the
    host oracle. Launch counts are zeroed just before the timed batch and
    read just after: ``sw_extend`` must have run; then the timed batch
    runs again under the stage clock for its stage split. The warm-up batch
    records the inputs of every ``sw_extend`` launch the extension stage
    makes (the wrapper ``kernels/extend.py`` calls is wrapped for that
-   batch only, and the recorded calls must match the launches counted);
+   batch only; a launch whose gate is closed, a dead round's or a side's
+   with no retry, is counted apart, and the recorded calls and those must
+   match the launches counted);
    each recorded launch is then run again alone: active lanes, DP cells,
    rows, time, bound and share, bit-equal to plain. The timed batch's
    SAM text is rendered with ``emit_sam_columns`` outside the timed
@@ -53,7 +60,9 @@
    calls of this warm-up batch, the PE one and the int64 one
    (``tools/kmer_calls.py``) for phase 9d, and the ``sa_resolve`` calls
    of this warm-up batch, the FM-seeded, long-read and int64 ones
-   (``tools/fm_calls.py``) for phase 9f;
+   (``tools/fm_calls.py``) for phase 9f, and the ``resolve_seeds`` calls
+   of this warm-up batch, the PE, FM-seeded, long-read and int64 ones
+   (``tools/resolve_calls.py``) for phase 9g;
 5. paired-end path, on the main path's index: two batches of 8,192 FR
    pairs (150 bp, 1% substitutions, inserts 400 +- 40; pair seeds 700,
    the warm-up, and 701) through ``device_regions_pair`` ->
@@ -79,12 +88,17 @@
    (1,024 reads, the warm-up) and 301 (4,096 reads, timed). Batches this
    wide take the FM seeder and the seed-SW filter. The warm-up's
    ``sw_extend`` launches are recorded and each one wider than 320 is run
-   again alone, as on the main path; the timed batch runs under the stage
+   again alone, as on the main path; the timed batch runs once untimed
+   (``extend_all`` captures its CUDA graph), then under the stage
    clock with counts zeroed just before and read just after, and must
-   launch ``sw_extend`` at Wq > 320 (its launches' widths are recorded).
+   launch ``sw_extend`` at Wq > 320, four times a round of each of its
+   ``extend_all`` calls (recorded, with their widths).
    Reads/s, bases/s, the stage split, truth >= 98% and every read off
    truth equal to the host oracle. The seed-SW filter's calls of both
-   batches are recorded (``tools/seedsw_calls.py``) for phase 9e;
+   batches are recorded (``tools/seedsw_calls.py``) for phase 9e, and the
+   timed batch's ``extend_all`` call for phase 9c. Then 64 reads of 8 kb
+   (seed 302) run twice: every step kernel of the path launched, truth,
+   the host oracle, and the same records both times;
 7b. FM machine phase: ``fm_seed`` against its plain twin
    (``seed.collect_seeds_plain``) on the card, bit-equal on all six
    outputs (mems, n_mem, overflow, iters, it_r1, it_r2) at the recorded
@@ -135,8 +149,9 @@
    assigned seed slots, the live chains' pos; each output written once;
    the instructions of the valid seeds, the live chains they scan and the
    chain pairs the filter compares) and the share;
-9c. extend phase: ``extend_scan``, ``extend_windows``, ``extend_merge``
-   (both entries) and ``extend_seedcov`` against their plain twins
+9c. extend phase: ``extend_setup``, ``extend_scan``, ``extend_windows``,
+   ``extend_merge`` (both entries) and ``extend_seedcov`` against their
+   plain twins
    (``extend.extend_*_plain``) on the card, bit-equal on every output at
    every stage call of the recorded ``extend_all`` calls (the main
    path's: B 16,384, S 64, R 8; the PE step's and its fat retry's, the
@@ -145,7 +160,9 @@
    and without the overlap rescue, band doubling at bandwidth 8, overflow
    at max_regs 1, windows at the strand boundary and reference ends, the
    edge batch's fat retry; int32 and int64, int64 also shifted past
-   2^31), of its random stage inputs (seeds 5-7, both dtypes) and of
+   2^31), of its random stage inputs (seeds 5-7, both dtypes), of
+   ``extend_calls.setup_calls`` (the set-up at S 64 / 128 / 189 / 1,536
+   and C 16 / 32 / 256, both dtypes, int64 also past 2^31) and of
    ``extend_calls.lane_cases`` (the scan's first stop on the edge lanes
    of a pass, n_usable off a multiple of 32, more extended seeds than a
    warp, 0 and 16 live regions; the right merge at R 1 and 16 and S 40
@@ -155,9 +172,19 @@
    (each a launch in a CUDA graph), plain twins' time, bound (the bytes
    of the seed slots the stage reads, the region table, the window codes
    and the outputs; the instructions of its trips) and share. For the
-   main path's call: the host's waits on the card with the kernels and
-   with the plain twins, and its clocked split (scan, windows, SW, merge,
-   seedcov, the rest) both ways, in turns;
+   main path's call: the host's waits on the card with the kernels (must
+   be 0: the rounds' and retries' guards are gates on the card) and with
+   the plain twins, its clocked split (set-up, scan, windows, SW, merge,
+   seedcov, the rest) and its unclocked time (a sync at its ends only)
+   both ways, in turns; its and the long-read calls' (the warm-up's and
+   the timed batch's) active reads a round and unclocked time by each
+   route of ``extend_all`` (``extend_calls.route``: its CUDA graph, the
+   default; the same gated launches issued one by one; the host guards,
+   a wait a round and a side, the earlier order), in turns, and the seconds
+   of a call that captures the graph; the gated launches' time in a CUDA
+   graph (their device time without the host's dispatch), and the cost
+   of a dead round with and without the gates (the call with no usable
+   seed, in CUDA graphs of 6 rounds and of 1);
 9d. kmer phase: ``kmer_seed`` against its plain twin
    (``kmer.collect_seeds_kmer_plain``) on the card, bit-equal on every
    output (mem_pos, mem_s, mem_b, mem_e, n_mem, needs_r2, overflow, why)
@@ -206,6 +233,25 @@
    (the distinct mark, Occ, major, count and sample rows the lanes read,
    each once, the ranks, mask and positions, or the lengths, codes and
    intervals; or the steps' instructions) and the share;
+9g. resolve phase: ``resolve_seeds`` through ``resolve_expand``, the
+   ``sa_resolve`` walk and ``resolve_finish`` against its plain twin
+   (``chain.resolve_seeds_plain``) on the card, bit-equal on the whole
+   dict, at the recorded calls (the main path's: B 16,384, S 64, the
+   compact cap 4,096; the PE step's, the FM-seeded one's, the long-read
+   one's: S 189, no cap; the int64 one's; any fat retry of them), at
+   ``resolve_calls.edge_calls`` on an index at SA interval 32 (the cap
+   flooded at 4,096 and at (B x S) // 4, position rows, sampling past
+   max_occ, more seeds than slots, seeds bridging l_pac and reference
+   ends, B x S <= 4,096, no cap, a cap of 64) and its random calls
+   (seeds 1-3), int32, int64 and past 2^31. Each recorded call, the
+   flooded edge calls and the random ones: each kernel's time (a launch
+   in a CUDA graph), the plain twin's before and after its walk (CUDA
+   events), the bound (the live intervals, the slots' values and flags,
+   the six outputs; the sort's and the slots' compares) and the share,
+   and the walk's time under the expansion's mask (every walking lane:
+   the cap is applied after the walk) and under the cap's mask alone;
+   the main path's call clocked with the kernels and with the plain
+   twin, in turns;
 10. API phase: ``multi_search`` of the first 256 reads of the main path's
    timed batch against the main path's ``Aligner``, counts zeroed just
    before and read just after (``sw_extend`` must have run); the
@@ -240,11 +286,12 @@
    counted), exact mode's the exact phase's; truth >= 98% and
    ``device_ne_oracle`` 0; every rank must launch ``sw_extend``,
    ``chain_seeds``, ``filter_chains``, ``extend_scan``, ``extend_merge``
-   and ``extend_seedcov`` in both runs, ``fm_seed``, ``extend_windows``,
-   ``kmer_seed`` and ``sa_resolve`` too on the data mesh and never on an
-   index mesh (the FM machine, the windows and the SA walk stay plain
-   there, and its FM seeder has no kmer stage), ``seed_sw`` (short
-   reads) and ``backward_search`` on no rank
+   ``extend_seedcov`` and ``extend_setup`` in both runs, ``fm_seed``,
+   ``extend_windows``, ``kmer_seed``, ``sa_resolve``, ``resolve_expand``
+   and ``resolve_finish`` too on the data mesh and never on an index mesh
+   (the FM machine, the windows, the SA walk and the seeds' resolution
+   stay plain there, and its FM seeder has no kmer stage), ``seed_sw``
+   (short reads) and ``backward_search`` on no rank
    (counts zeroed just before each job and read just after, in each
    rank; the unclocked runs' go on the kernels line);
 13. probe path: counts zeroed, the two probe entry points
@@ -263,9 +310,10 @@
    ``filter_chains``' the main path's, ``seed_sw``'s the long-read timed
    batch's, the extension kernels' the main path's call with each
    kernel's launches summed, ``sa_resolve``'s the main path's walk,
-   ``backward_search``'s the exact step's; the exact step's and the dist
-   phase's exact run's launches count too), then the device line as the
-   last line.
+   ``backward_search``'s the exact step's, ``resolve_expand``'s and
+   ``resolve_finish``'s the main path's call; the exact step's and the
+   dist phase's exact run's launches count too), then the device line as
+   the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``kmer_seed``,
@@ -315,7 +363,8 @@ from bioseqdb_tpu_torch.utils.sim import simulate_reads
 from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
                                       fm_calls, fm_machine, kmer_calls,
                                       long_leg, microbench_gather,
-                                      microbench_seed, pe_leg, seedsw_calls)
+                                      microbench_seed, pe_leg, resolve_calls,
+                                      seedsw_calls)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
@@ -349,6 +398,7 @@ RAGGED_READS, RAGGED_SEED = 2048, 900
 # exact phase: bench.py bench_exact's reads and step
 EXACT_SEED, EXACT_STEPS, EXACT_MAX_HITS = 2, 5, 4
 API_READS = 256
+WIDE_READS, WIDE_LEN, WIDE_SEED = 64, 8000, 302   # long_path's wide batch
 DIST_GRID_READS = 4096    # the data x index cell's batch
 PROFILE_READS = 2048
 QUAL = "I"   # the base quality written to every FASTQ record
@@ -366,13 +416,18 @@ FILTER_INSTR = dict(trips=20, pairs=12, slots=10)
 # the extension kernels: the JAX extend_all lines each replaces (the
 # containment scan's chunked_while, the round's window fetch, its region
 # append, seedcov's fori_loop)
-EXTEND_LINES = dict(extend_scan=341, extend_windows=462, extend_merge=520,
-                    extend_seedcov=567)
+EXTEND_LINES = dict(extend_setup=195, extend_scan=341, extend_windows=462,
+                    extend_merge=520, extend_seedcov=567)
 RANDOM_SEEDS = (5, 6, 7)   # extend_calls.random_calls' inputs
 # the FM-index kernels: the JAX loops each replaces (sa_resolve's
 # fori_loop, backward_search's), and fm_calls.random_calls' inputs
 FM_LINES = dict(sa_resolve=536, backward_search=409)
 FM_RANDOM_SEEDS = (1, 2, 3)
+# the resolve kernels: the JAX resolve_seeds lines each replaces (the
+# intervals' argsort, the bridge test), and resolve_calls.random_calls'
+# inputs
+RESOLVE_LINES = dict(resolve_expand=76, resolve_finish=141)
+RESOLVE_RANDOM_SEEDS = (1, 2, 3)
 KMER_RANDOM_SEEDS = (1, 2, 3)   # kmer_calls.random_calls' inputs
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
@@ -738,11 +793,60 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
     log(f"extend_all [main path] {main.shape}: the host waits on the card "
         f"{waits['kernels']} times with the kernels, {waits['plain']} with "
         f"the plain twins (the eager loops)")
+    if waits["kernels"] != 0:
+        raise AssertionError("extend_all with the kernels waits on the card")
     for way in ("plain", "kernels", "kernels", "plain"):
         sp = main.clocked(plain=way == "plain")
         log(f"extend_all [main path] clocked with the {way}: total "
             f"{sp['total']:.4f} s = " + ", ".join(
-                f"{k} {sp[k]:.4f}" for k in (*extend_calls.PARTS, "rest")))
+                f"{k} {sp[k]:.4f}" for k in (*extend_calls.PARTS, "rest"))
+            + f"; unclocked (a sync at the ends only) "
+            f"{main.wall(plain=way == 'plain'):.4f} s")
+    # each route of extend_all (its CUDA graph, the gated launches one by
+    # one, the host guards: a wait a round and a side), in turns,
+    # between syncs at the ends; each round's active reads; and a call
+    # that captures the graph
+    for path, call in (("main path", main),
+                       ("long-read", recorded["long-read"]),
+                       ("long-read timed", lr["timed_ext_call"])):
+        acts = [int(st.run(plain=True)["act"].sum()) for st in
+                call.stages()[1] if st.kind == "extend_scan"]
+        routes = ("guards", "gates", "graph")
+        call.run()   # its graph captured before the turns
+        walls = {way: [] for way in routes}
+        for way in routes + routes[::-1]:
+            with extend_calls.route(way):
+                walls[way].append(call.wall())
+        with extend_calls.route("guards"):
+            waits = call.syncs()
+        capture = call.capture_s()
+        log(f"extend_all [{path}] {call.shape}: active reads a round "
+            f"{acts}; unclocked (a sync at the ends only), in turns: "
+            + "; ".join(f"{way} " + ", ".join(f"{t:.4f}" for t in walls[way])
+                        for way in routes)
+            + f" s (the guards wait {waits} times, the others 0); a call "
+            f"that captures the graph {capture:.4f} s")
+    # the call's device time alone (a CUDA graph of it: no host dispatch),
+    # and a dead round's, with and without the gates: a graph of the
+    # call with no usable seed at 6 rounds less one at 1 round, over 5
+    dead = main.dead
+    ms = {}
+    for way in ("gated", "ungated"):
+        with (extend_calls.ungated() if way == "ungated"
+              else contextlib.nullcontext()):
+            ms[way] = [dead.replace(max_rounds=r).graph_ms()
+                       for r in (1, main.args["max_rounds"])]
+    n_dead = main.args["max_rounds"] - 1
+    log(f"extend_all [main path] in a CUDA graph: {main.graph_ms():.4f} ms "
+        f"a call (the clocked totals above less this: the host's dispatch)"
+        f"; a dead round (the call with no usable seed: "
+        f"{ms['gated'][0]:.4f} ms at 1 round, {ms['gated'][1]:.4f} at "
+        f"{n_dead + 1}): gated "
+        f"{(ms['gated'][1] - ms['gated'][0]) / n_dead:.4f} ms, ungated "
+        f"{(ms['ungated'][1] - ms['ungated'][0]) / n_dead:.4f} ms "
+        f"({ms['ungated'][0]:.4f} / {ms['ungated'][1]:.4f})")
+    if extend_calls.max_abs_err(dead.run(), dead.run(plain=True)):
+        raise AssertionError("extend_all disagrees with plain on dead rounds")
     inputs = list(recorded.items())
     for rdt in (torch.int32, torch.int64):
         edge, _ = extend_calls.edge_calls(rdt, device=dev, retry=True)
@@ -795,6 +899,17 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
                 bound_ms=r["bound_ms"], bound_by=by, library_ms=None,
                 shape=f"{r['shape']}, {r['launches']} launches summed")
     for rdt in (torch.int32, torch.int64):
+        n = 0
+        for name, st in extend_calls.setup_calls(rdt, device=dev).items():
+            for c in [st] + ([st.shifted()] if rdt == torch.int64 else []):
+                if extend_calls.max_abs_err(c.run(), c.run(plain=True)):
+                    raise AssertionError(f"extend_setup disagrees with plain "
+                                         f"on the set-up call {name}")
+                n += 1
+        log(f"extend_setup on the set-up calls "
+            f"({str(rdt).removeprefix('torch.')}: "
+            f"{', '.join(extend_calls.SETUP_CASES)}; int64 also past 2^31): "
+            f"{n} calls, max_abs_err=0")
         n = 0
         for seed in RANDOM_SEEDS:
             calls = extend_calls.random_calls(rdt, seed=seed, device=dev)
@@ -1047,6 +1162,90 @@ def fm_index_phase(m: dict, fmp: dict, lr: dict, i64: dict, ex: dict,
     return out
 
 
+def resolve_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
+                  ) -> dict:
+    """``resolve_seeds`` with ``resolve_expand`` and ``resolve_finish``
+    (around the ``sa_resolve`` walk) against its plain twin
+    (``chain.resolve_seeds_plain``) on the card, bit-equal on the whole
+    dict, at every call the pipeline made (recorded in the warm-ups: the
+    main path's, the PE step's, the FM-seeded one's, the long-read one's,
+    the int64 one's and any fat retry of them), at
+    ``resolve_calls.edge_calls`` and random intervals (int32, int64 and
+    past 2^31). Each recorded and random call: each kernel's time (a
+    launch in a CUDA graph), the plain twin's time before and after its
+    walk (CUDA events), the bound and the share; the walk's time under
+    the expansion's mask (every walking lane) and under the cap's alone.
+    The main path's call clocked through the kernels and the plain twin,
+    in turns. Returns the kernels line's entries (the main path's
+    call)."""
+    recorded = {}
+    for path, d in (("main path", m), ("PE", pe), ("FM-seeded", fmp),
+                    ("long-read", lr), ("int64", i64)):
+        for k, call in enumerate(d["res_calls"]):
+            recorded[path if k == 0 else f"{path} fat retry {k}"] = call
+    want = {"main path": (BATCH, 64, torch.int32, 4096),
+            "long-read": (long_leg.WARM_READS, 189, torch.int32, None),
+            "int64": (BATCH, 64, torch.int64, 4096)}
+    for path, (B, S, rdt, cap) in want.items():
+        c = recorded[path]
+        if (c.dims[0], c.dims[2]) != (B, S) or (
+                c.args["mems"].dtype != rdt or c.args["compact_cap"] != cap):
+            raise AssertionError(f"the recorded {path} resolve_seeds call is "
+                                 f"not the pipeline's: {c.shape}")
+    main = recorded["main path"]
+    for way in ("plain", "kernels", "kernels", "plain"):
+        log(f"resolve_seeds [main path] {main.shape} clocked with the "
+            f"{way}: {main.clocked(plain=way == 'plain'):.6f} s")
+    inputs = [(name, c, True) for name, c in recorded.items()]
+    es = fm_calls.edge_setup()
+    for rdt in (torch.int32, torch.int64):
+        fm = kfm.FMDevice.from_host(es.idx, dev, rank_dtype=rdt)
+        tag = str(rdt).removeprefix("torch.")
+        edge = resolve_calls.edge_calls(es, fm, device=dev)
+        for seed in RESOLVE_RANDOM_SEEDS:
+            edge.update(resolve_calls.random_calls(es, fm, seed, device=dev))
+        if rdt == torch.int64:
+            edge.update({f"{n}, past 2^31": c.shifted()
+                         for n, c in list(edge.items())})
+        inputs += [(f"edge {n}, {tag}", c, n.startswith("random")
+                    or n.startswith("cap 4096")) for n, c in edge.items()]
+    rows = {k: {} for k in RESOLVE_LINES}
+    for name, call, timed in inputs:
+        got = call.run()
+        torch.cuda.synchronize()
+        before, after, ref = call.plain_ms()
+        err = resolve_calls.max_abs_err(got, ref)
+        if err != 0:
+            raise AssertionError(f"resolve_seeds with the kernels disagrees "
+                                 f"with plain on {name}: {err}")
+        if not timed:
+            log(f"resolve_seeds [{name}] {call.shape}: max_abs_err=0")
+            continue
+        ex, pos, ends = call.stages()
+        n = call.counts(ex, got)
+        walk = call.walk_ms()
+        log(f"resolve_seeds [{name}] {call.shape}: the walk of "
+            f"{walk['walking']} walking lanes (the cap {call.cap}): cuda "
+            f"{walk['all']:.4f} ms under the expansion's mask (all), "
+            f"{walk['capped']:.4f} under the cap's; max_abs_err=0")
+        for kind, ms, plain_ms in (("resolve_expand", call.expand_ms(),
+                                    before),
+                                   ("resolve_finish", call.finish_ms(),
+                                    after)):
+            c = n[kind.removeprefix("resolve_")]
+            bound_ms, bound_by = bound(c["read"] + c["written"], c["instr"])
+            log(f"  {kind} [{name}]: cuda {ms:.4f} ms a launch in a CUDA "
+                f"graph; plain {plain_ms:.3f} ms ({plain_ms / ms:.0f}x); "
+                f"read {c['read']} B, written {c['written']} B, "
+                f"{c['instr']} instructions: bound {bound_ms:.5f} ms "
+                f"({bound_by}), kernel at {100 * bound_ms / ms:.2f}% of it")
+            rows[kind][name] = dict(
+                max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                shape=f"{name}: {call.shape}")
+    return {k: r["main path"] for k, r in rows.items()}
+
+
 def main_path(dev, card: str) -> dict:
     t0 = time.time()
     idx, al, sims, batches, genome = main_path_setup(dev)
@@ -1055,19 +1254,28 @@ def main_path(dev, card: str) -> dict:
 
     t0 = time.time()
     calls, mc_calls, ch_calls, ext_calls, km_calls = [], [], [], [], []
-    fmi_calls = []
+    fmi_calls, res_calls = [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with (recording(calls), fm_machine.recording(mc_calls),
+    with (recording(calls) as sw_rec, fm_machine.recording(mc_calls),
           chain_calls.recording(ch_calls),
           extend_calls.recording(ext_calls), kmer_calls.recording(km_calls),
-          fm_calls.recording(fmi_calls)):
+          fm_calls.recording(fmi_calls),
+          resolve_calls.recording(res_calls)):
         long_leg.run_batch(al, batches[0])
     warm = build.LAUNCHES["sw_extend"] - n0
     log(f"warm-up batch: {time.time() - t0:.1f} s, {len(calls)} sw_extend "
-        f"launches recorded, {warm} counted")
-    if not 0 < len(calls) == warm:
+        f"launches recorded and {sw_rec.closed} with a closed gate, {warm} "
+        f"counted")
+    if not 0 < len(calls) + sw_rec.closed == warm:
         raise AssertionError("the warm-up batch's sw_extend launches were "
                              "not all recorded")
+    # the warm-up again, unrecorded: extend_all captures its CUDA graph
+    # (the recorders run it launch by launch), as a server's first batch
+    # of a shape does, so the timed batch replays it
+    t0 = time.time()
+    long_leg.run_batch(al, batches[0])
+    log(f"warm-up batch again, unrecorded (extend_all's graph captured): "
+        f"{time.time() - t0:.3f} s")
     build.reset_launches()
     res = long_leg.run_batch(al, batches[1])
     launches = dict(build.LAUNCHES)
@@ -1088,7 +1296,8 @@ def main_path(dev, card: str) -> dict:
         f"{stage_line(clock)}")
     return dict(launches=launches, rps=rps, calls=calls, fm_calls=mc_calls,
                 ch_calls=ch_calls, ext_calls=ext_calls, km_calls=km_calls,
-                fmi_calls=fmi_calls, idx=idx, al=al, genome=genome,
+                fmi_calls=fmi_calls, res_calls=res_calls, idx=idx, al=al,
+                genome=genome,
                 sims=sims, batches=batches, cols=res["cols"], ovf=res["ovf"],
                 sam=sam)
 
@@ -1147,9 +1356,10 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
     log(f"FM-seeded Aligner.build (jump depth {al.jump.depth}): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    mc_calls, ch_calls, ext_calls, fmi_calls = [], [], [], []
+    mc_calls, ch_calls, ext_calls, fmi_calls, res_calls = [], [], [], [], []
     with (fm_machine.recording(mc_calls), chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls), fm_calls.recording(fmi_calls)):
+          extend_calls.recording(ext_calls), fm_calls.recording(fmi_calls),
+          resolve_calls.recording(res_calls)):
         long_leg.run_batch(al, m["batches"][0])
     log(f"FM-seeded warm-up batch: {time.time() - t0:.1f} s")
     build.reset_launches()
@@ -1169,7 +1379,7 @@ def fm_main_path(m: dict, dev, card: str) -> dict:
                 res["cols"], res["n_ovf"])
     return dict(launches=launches, al=al, cols=res["cols"], ovf=res["ovf"],
                 fm_calls=mc_calls, ch_calls=ch_calls, ext_calls=ext_calls,
-                fmi_calls=fmi_calls,
+                fmi_calls=fmi_calls, res_calls=res_calls,
                 sam=se_sam(m["idx"], res["cols"], m["batches"][1]))
 
 
@@ -1183,28 +1393,42 @@ def long_path(m: dict, card: str) -> dict:
     log(f"long reads simulated: {time.time() - t0:.1f} s")
     t0 = time.time()
     calls, mc_calls, ch_calls, ext_calls, fmi_calls = [], [], [], [], []
+    res_calls = []
     sw_calls = ([], [])   # the warm-up's seed-SW filter calls, the timed's
     n0 = build.LAUNCHES["sw_extend"]
-    with (recording(calls), fm_machine.recording(mc_calls),
+    with (recording(calls) as sw_rec, fm_machine.recording(mc_calls),
           chain_calls.recording(ch_calls),
           extend_calls.recording(ext_calls),
-          seedsw_calls.recording(sw_calls[0]), fm_calls.recording(fmi_calls)):
+          seedsw_calls.recording(sw_calls[0]), fm_calls.recording(fmi_calls),
+          resolve_calls.recording(res_calls)):
         long_leg.run_batch(al, warm[1])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"long-read warm-up batch ({long_leg.WARM_READS} x "
         f"{long_leg.READ_LEN} bp): {time.time() - t0:.1f} s, {len(calls)} "
-        f"sw_extend launches recorded, {counted} counted")
-    if not 0 < len(calls) == counted:
+        f"sw_extend launches recorded and {sw_rec.closed} with a closed "
+        f"gate, {counted} counted")
+    if not 0 < len(calls) + sw_rec.closed == counted:
         raise AssertionError("the long-read warm-up batch's sw_extend "
                              "launches were not all recorded")
+    # the timed batch once unrecorded and unclocked: extend_all captures
+    # the CUDA graph of its shape (the warm-up's recorders ran it launch
+    # by launch, at another batch size), as a server's first batch does
+    t0 = time.time()
+    long_leg.run_batch(al, timed[1])
+    log(f"long-read timed batch, a first run (extend_all's graph "
+        f"captured): {time.time() - t0:.3f} s")
     build.reset_launches()
-    widths = []
-    with (long_leg.stage_clock() as clock, recording(widths, copy=False),
-          seedsw_calls.recording(sw_calls[1])):
+    timed_ext = []
+    with (long_leg.stage_clock() as clock,
+          seedsw_calls.recording(sw_calls[1]),
+          extend_calls.recording(timed_ext)):
         res = long_leg.run_batch(al, timed[1])
     launches = dict(build.LAUNCHES)
-    wide = [c.args[0].shape[1] for c in widths
-            if c.args[0].shape[1] > FULL_MAX_QLEN]
+    # every round of an extend_all call launches sw_extend four times
+    # (each side and its retry) at Wq = the batch's width
+    sw_calls_made = sum(4 * c.args["max_rounds"] for c in timed_ext)
+    wide = [c.args["codes"].shape[1] for c in timed_ext
+            if c.args["codes"].shape[1] > FULL_MAX_QLEN]
     sec = res["seconds"]
     total = sum(sec.values())
     n = long_leg.TIMED_READS
@@ -1216,16 +1440,33 @@ def long_path(m: dict, card: str) -> dict:
         f"{long_leg.READ_LEN} bp SE, {GENOME_LEN} b genome) on {card}; "
         f"launches {launches}; sw_extend at Wq > {FULL_MAX_QLEN}: "
         f"{len(wide)} (Wq {sorted(set(wide))})")
-    if launches["sw_extend"] != len(widths) or not wide:
+    if launches["sw_extend"] != sw_calls_made or not wide:
         raise AssertionError("the long-read batch did not launch sw_extend "
                              f"at Wq > {FULL_MAX_QLEN}")
     must_launch("long-read path", launches, kmer=False, long_reads=True)
     truth_check("long-read path", al, *timed, res["cols"], res["n_ovf"])
     main_path_launches([c for c in calls if c.args[0].shape[1] > FULL_MAX_QLEN],
                        "long-read")
+    # reads of 8 kb (the FM seeder's M 548, S 730: the set-up's and the
+    # expansion's tables of a read in shared memory still, the fat
+    # retry's set-up past it), twice: truth, and the same records
+    sim, batch = long_leg.simulate(m["genome"], WIDE_READS, WIDE_SEED,
+                                   read_len=WIDE_LEN)
+    build.reset_launches()
+    t0 = time.time()
+    wide = [long_leg.run_batch(al, batch) for _ in range(2)]
+    log(f"wide reads ({WIDE_READS} x {WIDE_LEN} bp, twice): "
+        f"{time.time() - t0:.2f} s; launches {dict(build.LAUNCHES)}")
+    must_launch("wide reads", dict(build.LAUNCHES), kmer=False,
+                long_reads=True)
+    truth_check("wide reads", al, sim, batch, wide[0]["cols"],
+                wide[0]["n_ovf"])
+    if not cols_equal(wide[0]["cols"], wide[1]["cols"]):
+        raise AssertionError("wide reads: two runs differ")
     return dict(launches=launches, fm_calls=mc_calls, ch_calls=ch_calls,
-                ext_calls=ext_calls, sw_calls=sw_calls, fmi_calls=fmi_calls,
-                batch=timed[1])
+                ext_calls=ext_calls, timed_ext_call=timed_ext[0],
+                sw_calls=sw_calls, fmi_calls=fmi_calls,
+                res_calls=res_calls, batch=timed[1])
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -1237,15 +1478,17 @@ def pe_path(m: dict, card: str) -> dict:
     log(f"two batches of {pe_leg.PAIRS} pairs simulated: "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    calls, ch_calls, ext_calls, km_calls = [], [], [], []
+    calls, ch_calls, ext_calls, km_calls, res_calls = [], [], [], [], []
     n0 = build.LAUNCHES["sw_extend"]
-    with (recording(calls), chain_calls.recording(ch_calls),
-          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls)):
+    with (recording(calls) as sw_rec, chain_calls.recording(ch_calls),
+          extend_calls.recording(ext_calls), kmer_calls.recording(km_calls),
+          resolve_calls.recording(res_calls)):
         pe_leg.run_batch(al, warm)
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"PE warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
-        f"sw_extend launches recorded, {counted} counted")
-    if not 0 < len(calls) == counted:
+        f"sw_extend launches recorded and {sw_rec.closed} with a closed "
+        f"gate, {counted} counted")
+    if not 0 < len(calls) + sw_rec.closed == counted:
         raise AssertionError("the PE warm-up batch's sw_extend launches "
                              "were not all recorded")
     build.reset_launches()
@@ -1274,7 +1517,7 @@ def pe_path(m: dict, card: str) -> dict:
     sam = pe_sam(idx, res["cols"], timed)
     main_path_launches(calls, "PE")
     return dict(launches=launches, timed=timed, sam=sam, ch_calls=ch_calls,
-                ext_calls=ext_calls, km_calls=km_calls)
+                ext_calls=ext_calls, km_calls=km_calls, res_calls=res_calls)
 
 
 def pe_sam(idx, cols, pb) -> str:
@@ -1400,15 +1643,17 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
         f"{time.time() - t0:.2f} s")
     t0 = time.time()
     calls, ch_calls, ext_calls, km_calls, fmi_calls = [], [], [], [], []
+    res_calls = []
     n0 = build.LAUNCHES["sw_extend"]
-    with (recording(calls), chain_calls.recording(ch_calls),
+    with (recording(calls) as sw_rec, chain_calls.recording(ch_calls),
           extend_calls.recording(ext_calls), kmer_calls.recording(km_calls),
-          fm_calls.recording(fmi_calls)):
+          fm_calls.recording(fmi_calls), resolve_calls.recording(res_calls)):
         long_leg.run_batch(als["kmer"], m["batches"][0])
     counted = build.LAUNCHES["sw_extend"] - n0
     log(f"int64 warm-up batch: {time.time() - t0:.1f} s, {len(calls)} "
-        f"sw_extend launches recorded, {counted} counted")
-    if not 0 < len(calls) == counted:
+        f"sw_extend launches recorded and {sw_rec.closed} with a closed "
+        f"gate, {counted} counted")
+    if not 0 < len(calls) + sw_rec.closed == counted:
         raise AssertionError("the int64 warm-up batch's sw_extend launches "
                              "were not all recorded")
     total = {k: 0 for k in build.KERNELS}
@@ -1453,7 +1698,7 @@ def int64_path(m: dict, fmp: dict, ex: dict, dev, card: str) -> dict:
         raise AssertionError("int64 exact mode differs from int32")
     main_path_launches(calls, "int64")
     return dict(launches=total, ch_calls=ch_calls, ext_calls=ext_calls,
-                km_calls=km_calls, fmi_calls=fmi_calls)
+                km_calls=km_calls, fmi_calls=fmi_calls, res_calls=res_calls)
 
 
 def api_path(m: dict, card: str, n_reads: int = API_READS) -> dict:
@@ -1650,9 +1895,11 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
     summed (each rank's counts zeroed just before a job and read just
     after). Every rank launches ``sw_extend``, ``chain_seeds``,
     ``filter_chains``, ``extend_scan``, ``extend_merge`` and
-    ``extend_seedcov`` in both runs; ``fm_seed``, ``extend_windows`` and
-    ``kmer_seed`` too on a data mesh, and never on an index mesh (their
-    owner sums keep the FM machine and the windows plain, and the mesh's
+    ``extend_seedcov`` and ``extend_setup`` in both runs; ``fm_seed``,
+    ``extend_windows``, ``kmer_seed``, ``sa_resolve``, ``resolve_expand``
+    and ``resolve_finish`` too on a data mesh, and never on an index mesh
+    (their owner sums keep the FM machine, the windows and the seeds'
+    resolution plain, and the mesh's
     FM seeder has no kmer stage); ``seed_sw`` on no rank (short
     reads)."""
     idx, batch = m["idx"], m["batches"][1]
@@ -1683,7 +1930,7 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
             # whose FM seeder has no kmer stage; no short read runs the
             # seed-SW, and no full step the backward search
             mesh_plain = ("fm_seed", "extend_windows", "kmer_seed",
-                          "sa_resolve")
+                          "sa_resolve", *build.RESOLVE_KERNELS)
             never = ("seed_sw", "backward_search")
             plain_ok = all(min(per_rank[n]) > 0 if names == ("data",)
                            else max(per_rank[n]) == 0 for n in mesh_plain)
@@ -1863,6 +2110,9 @@ def main() -> None:
     fmi = fm_index_phase(m, fm, lr, i64, ex, dev)
     log(f"FM-index phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    rsv = resolve_phase(m, pe, fm, lr, i64, dev)
+    log(f"resolve phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     api = api_path(m, card)
     log(f"API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1904,6 +2154,11 @@ def main() -> None:
                      replaces=f"bioseqdb_tpu/kernels/fm.py:{line}",
                      launches=sum(x[name] for x in runs), **fmi[name])
                 for name, line in FM_LINES.items()]
+    kernels += [dict(name=name, route="cuda",
+                     source="bioseqdb_tpu_torch/csrc/resolve.cu",
+                     replaces=f"bioseqdb_tpu/kernels/chain.py:{line}",
+                     launches=sum(x[name] for x in runs), **rsv[name])
+                for name, line in RESOLVE_LINES.items()]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
 """The hand-written CUDA kernels of the extension stage (csrc/extend.cu)
 equal their plain twins on the card, every output exactly: each stage call
-(``extend_scan``, ``extend_windows``, ``extend_merge`` both sides,
-``extend_seedcov``) of a simulated batch's ``extend_all`` call, of
+(``extend_setup``, ``extend_scan``, ``extend_windows``, ``extend_merge``
+both sides, ``extend_seedcov``) of a simulated batch's ``extend_all`` call, of
 ``tools/extend_calls.py``'s edge set with its fat retry at int32 and
 int64 ranks (and past 2^31), of its random stage inputs and of its lane
-cases (the scan's and the merge's thread-layout boundaries); each call
-on CUDA tensors is one launch; ``extend_all`` with the kernels equals it
-with the plain twins and waits on the card less often; and a device step
-on the card launches all four. Skips without a CUDA device. Imports no
+cases (the scan's and the merge's thread-layout boundaries), and the
+set-up on ``extend_calls.setup_calls`` (S up to 3,128, C up to 256: past
+a block's shared memory, a scratch in device memory); each call on CUDA
+tensors is one launch; ``extend_all`` with the kernels equals it with
+the plain twins and never waits on the card (its rounds' and retries'
+guards are gates on the device), also on a call whose every round is
+dead; its CUDA graph, captured at a shape's first call and replayed
+after, equals the launches issued one by one, counts the launches each
+replay makes and gives each call tensors of its own; and a device step
+on the card launches all five. Skips without a CUDA device. Imports no
 jax, so it runs on a card machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_extend_cuda.py``."""
 
@@ -82,9 +88,55 @@ def test_kernels_equal_plain_on_a_recorded_batch(recorded):
 def test_the_kernels_wait_on_the_card_less(recorded):
     call, _ = recorded
     kernel, plain = call.syncs(), call.syncs(plain=True)
-    # at most the JAX program's branches: a round's any(act), a side's
-    # any(retry)
-    assert kernel <= 3 * call.args["max_rounds"] < plain
+    # the JAX program's branches (a round's any(act), a side's any(retry))
+    # are gates on the card: no wait at all
+    assert kernel == 0 < plain
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ec.max_abs_err(out, call.run(plain=True)) == 0
+
+
+def test_dead_rounds_leave_the_state(recorded):
+    call, _ = recorded
+    dead = call.dead
+    out = dead.run()
+    assert ec.max_abs_err(out, dead.run(plain=True)) == 0
+    assert int(out["n_regs"].sum()) == 0
+    with ec.ungated():
+        assert ec.max_abs_err(call.run(), call.run(plain=True)) == 0
+
+
+def test_graph_replays_equal_the_launches(recorded):
+    call, _ = recorded
+    with ec.route("gates"):
+        n0 = dict(build.LAUNCHES)
+        want = call.run()
+        gated = {k: build.LAUNCHES[k] - n0[k] for k in n0}
+    outs = []
+    for _ in range(3):   # the capture (if no earlier call made it), replays
+        n0 = dict(build.LAUNCHES)
+        outs.append(call.run())
+        assert {k: build.LAUNCHES[k] - n0[k] for k in n0} == gated
+    for out in outs:
+        assert ec.max_abs_err(out, want) == 0
+    outs[0]["n_regs"].fill_(-1)   # each call's tensors are its own
+    assert ec.max_abs_err(outs[1], want) == 0
+    dead = call.dead.run()   # the same graph, other inputs
+    assert int(dead["n_regs"].sum()) == 0
+    assert ec.max_abs_err(call.run(), want) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_setup_equals_plain_on_setup_calls(dtype):
+    _card()
+    for name, s in ec.setup_calls(DTYPES[dtype], device="cuda").items():
+        _check(s)
+        if dtype == "int64":
+            _check(s.shifted())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -27,6 +27,25 @@ plain twins, on the CPU (the kernels themselves run only on the card:
   (the right merge at R 1 and 16 and at S 40 and 70 too); the host
   entries refuse an argument array of the wrong length. Skipped without
   g++.
+- The set-up (``extend_setup``): its host entry equals
+  ``extend_setup_plain`` at S 64, 128, 189 and 1,536 and C 16, 32 and
+  256, and at the S and C of 8 kb and 18 kb reads and the 18 kb fat
+  retry (730, 1,564 and 3,128; the last past a block's shared memory:
+  its scratch in device memory) (``extend_calls.setup_calls``: ties in
+  the keys and the filter's order, unusable seeds, chains across l_pac,
+  windows clipped at reference ends), int32, int64 and past 2^31; the
+  wrapper takes any S and C (a scratch past its shared memory) and
+  refuses wrong dtypes and CPU tensors.
+- The rounds without host waits: ``extend_all`` with every round and
+  retry run under its gate (``extend_calls.route("gates")``, what the
+  card's CUDA graph captures) equals the guarded order on the edge set,
+  whose rounds go dead and whose sides mostly take no retry, and on a
+  call with no usable seed; on the host build, a gate of 0 leaves the
+  merges' outputs unwritten and the windows' small outputs equal to the
+  twin's, the scan adds its active reads to its count, and the gated
+  right merge (in place) equals it ungated (out of place); the route
+  (a CUDA graph on the card, the guards on the CPU and under a group,
+  ``extend_calls.route`` forcing one) follows the device and group.
 Integer programs: tolerance 0."""
 
 import shutil
@@ -199,8 +218,9 @@ def test_kernel_constants_equal_the_modules():
         r"constexpr (?:int|long long) (\w+) = (-?\w+);", src)}
     assert consts["kMaxRegs"] == ecu.MAX_REGS == 16
     assert consts["kNoCode"] == 4 and consts["kFields"] == 6
-    for k in ("extend_scan", "extend_windows", "extend_merge_left",
-              "extend_merge_right", "extend_seedcov"):
+    assert consts["kSetupSmem"] == ecu.SETUP_SMEM
+    for k in ("extend_setup", "extend_scan", "extend_windows",
+              "extend_merge_left", "extend_merge_right", "extend_seedcov"):
         assert f"LANE_ENTRY({k})" in src
     for k in build.EXTEND_KERNELS:
         assert k in build.KERNELS and k in build.STEP_KERNELS
@@ -232,7 +252,7 @@ def test_host_build_equals_plain_on_the_edge_set(host_lib, edge, dtype):
             calls += [s.shifted() for s in calls
                       if s.kind != "extend_windows"]
         seen = _host_equals_plain(host_lib, calls)
-        assert set(seen) == {"extend_scan", "extend_windows",
+        assert set(seen) == {"extend_setup", "extend_scan", "extend_windows",
                              "extend_merge left", "extend_merge right",
                              "extend_seedcov"}, name
 
@@ -307,3 +327,149 @@ def test_host_build_equals_plain_on_lane_cases(host_lib, lanes, case,
     _host_equals_plain(host_lib, calls)
     if want is not None:
         assert torch.equal(calls[0].host(host_lib)["cursor"].long(), want)
+
+
+# ---- the set-up ----
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ec.SETUP_CASES)
+def test_setup_host_build_equals_plain(host_lib, dtype, case):
+    call = ec.setup_calls(DTYPES[dtype])[case]
+    calls = [call] + ([call.shifted()] if dtype == "int64" else [])
+    _host_equals_plain(host_lib, calls)
+    tab = call.run(plain=True)
+    seeds, chains = call.args[0], call.args[1]
+    # what the set makes: usable and unusable seeds, ties in the filter's
+    # order, windows clipped at l_pac and at reference ends
+    assert 0 < int(tab["n_usable"].sum()) < tab["order"].numel()
+    flt_order = call.args[2]["order"]
+    assert (flt_order[:, :, None] == flt_order[:, None, :]).sum() > (
+        flt_order.numel())
+    refs = call.args[4]
+    ends = {refs["l_pac"]} | {int(o + n) for o, n in zip(refs["offsets"],
+                                                         refs["lens"])}
+    hit = lambda t: sum(int((t == e).sum()) for e in ends)
+    assert hit(tab["rmax0"]) > 0 and hit(tab["rmax1"]) > 0
+    assert ((chains["assign"] < 0) & seeds["valid"]).any()
+
+
+def test_setup_wrapper_refuses_wide_reads(monkeypatch):
+    """Wide reads are not refused: past a block's shared memory the
+    set-up takes a scratch in device memory. Wrong dtypes and CPU tensors
+    are."""
+    monkeypatch.setattr(build, "library", None)   # never reached
+    call = ec.setup_calls(torch.int32)["S 64, C 16"]
+    seeds, chains, flt, lens, refs, p = call.args
+    wide = lambda d, keys, n: dict(d, **{k: d[k].repeat(1, n) for k in keys})
+    for n_s, n_c, scratch in ((25, 1, False), (50, 1, True), (1, 17, False),
+                              (1, 400, True)):
+        ws = wide(seeds, ("rbeg", "qbeg", "len", "valid"), n_s)
+        wc = wide(wide(chains, ("assign",), n_s), ("f_rbeg", "rid"), n_c)
+        wf = wide(flt, ("order", "kept"), n_c)
+        S, C = 64 * n_s, 16 * n_c
+        _, args, tensors = ecu.setup_args(ws, wc, wf, lens, refs, p)
+        per_read = ecu.setup_bytes(S, C, torch.int32)
+        assert (per_read > ecu.SETUP_SMEM) == scratch, (S, C)
+        assert len(tensors) == len(ecu.SETUP_ARGS) - (not scratch) - 1
+        if scratch:   # a read's row of it each
+            assert tensors[-1].numel() == lens.shape[0] * per_read
+        with pytest.raises(ValueError, match="CUDA"):
+            ecu.extend_setup_cuda(ws, wc, wf, lens, refs, p)
+    with pytest.raises(ValueError, match="kept"):
+        ecu.extend_setup_cuda(seeds, chains, dict(flt, kept=flt["kept"]
+                                                  .long()), lens, refs, p)
+    with pytest.raises(ValueError, match="CUDA"):
+        ecu.extend_setup_cuda(seeds, chains, flt, lens, refs, p)
+
+
+# ---- the rounds without host waits ----
+
+def _guards(call: ec.ExtendCall) -> dict:
+    """What the guarded order skips in ``call``: the dead rounds (a scan
+    with no active lane) and the sides that took no retry."""
+    _, calls = call.stages()
+    scans = [s for s in calls if s.kind == "extend_scan"]
+    dead = sum(not bool(s.run(plain=True)["act"].any()) for s in scans)
+    merges = [s for s in calls if s.kind == "extend_merge"]
+    return dict(dead=dead, no_retry=sum(not bool(m.args[7].any())
+                                        for m in merges))
+
+
+@pytest.mark.parametrize("case", ["default", "band 8", "max_regs 1", "dead"])
+def test_guard_free_rounds_equal_the_guarded(edge, case):
+    call = dict(edge["int32"]).get(case) or dict(edge["int32"])["default"].dead
+    guarded = call.run()
+    with ec.route("gates"):
+        free = call.run()
+    assert ec.max_abs_err(free, guarded) == 0
+    n = _guards(call)
+    assert n["dead"] > 0, n
+    if case != "dead":
+        assert n["no_retry"] > 0, n
+
+
+def test_route_by_device_and_group():
+    """extend_all's route: a CUDA graph on the card, the host's guards on
+    the CPU and under an index mesh's group whatever is forced; a forced
+    route elsewhere (a graph only on the card)."""
+    group = object()
+    assert extend._route(True, None) == "graph"
+    assert extend._route(False, None) == "guards"
+    assert extend._route(True, group) == "guards"
+    for name in extend.ROUTES:
+        with ec.route(name):
+            assert extend._route(True, None) == name
+            assert extend._route(True, group) == "guards"
+            assert extend._route(False, None) == (
+                "gates" if name == "gates" else "guards")
+    with pytest.raises(ValueError, match="no route"):
+        with ec.route("eager"):
+            pass
+    assert extend._ROUTE is None
+
+
+def test_host_gates_scan_count_and_in_place_merge(host_lib, stages):
+    # the scan adds its active reads to its count
+    scan = stages["extend_scan"]
+    count = torch.tensor([5], dtype=torch.int32)
+    out, args, _ = ecu.scan_args(*scan.args, count=count)
+    assert ecu.bind(host_lib, "extend_scan_host", stream=False)(
+        ecu.array(args), len(args)) == 0
+    assert int(count) == 5 + int(out["act"].sum()) and out["act"].any()
+    # a closed gate: the merges write nothing, the windows no SW buffer
+    closed = torch.zeros(1, dtype=torch.int32)
+    for name in ("extend_merge left", "extend_merge right"):
+        st = stages[name]
+        out, args, _ = ecu.merge_args(*st.args, gate=closed)
+        flat = lambda o: [t for v in o.values() for t in (
+            v.values() if isinstance(v, dict) else [v])]
+        for t in flat(out):
+            t.fill_(-7) if t.dtype != torch.bool else t.fill_(True)
+        assert ecu.bind(host_lib, f"{st.entry}_host", stream=False)(
+            ecu.array(args), len(args)) == 0
+        assert all((t == -7).all() if t.dtype != torch.bool else t.all()
+                   for t in flat(out)), name
+    win = stages["extend_windows"]
+    tab, fm, pac, scan_out, perm, p, _ = win.args
+    out, args, _ = ecu.windows_args(tab, fm.seq_len, pac, scan_out, perm, p,
+                                    gate=closed)
+    out["qbuf"].fill_(-7)
+    assert ecu.bind(host_lib, "extend_windows_host", stream=False)(
+        ecu.array(args), len(args)) == 0
+    want = win.run(plain=True)
+    assert (out["qbuf"] == -7).all()
+    for k in ("qn", "tn", "active", "h0", "inv"):
+        assert torch.equal(out[k], want[k]), k
+    # the right merge in place equals it out of place
+    right = stages["extend_merge right"]
+    want = right.host(host_lib)
+    st = {k: ({f: t.clone() for f, t in v.items()} if isinstance(v, dict)
+              else v.clone()) for k, v in right.args[2].items()}
+    args = list(right.args)
+    args[2] = st
+    out, arr, _ = ecu.merge_args(*args, gate=torch.ones(1,
+                                                        dtype=torch.int32))
+    assert ecu.bind(host_lib, "extend_merge_right_host", stream=False)(
+        ecu.array(arr), len(arr)) == 0
+    assert out["n_regs"] is st["n_regs"]
+    assert ec.max_abs_err(out, want) == 0

@@ -10,11 +10,13 @@ run only on the card: ``tests/test_torch_fm_cuda.py``).
   full-width, all-ambiguous and no-match reads, an ambiguous base at
   either end, repeats, a length past the width), int32 and int64 (under
   x64); the edge sets hold the cases they were made for.
-- ``resolve_seeds``: the masked route (every rank lane walks under a
-  mask, the kernel's) equals the compacting route on CPU tensors at
-  ``compact_cap`` 0, 4096, None and a cap that truncates, the whole dict
-  (``overflow`` included), on synthetic seed intervals and on a
-  recorded pipeline call.
+- ``resolve_seeds``: the masked route (the kernels' on the card: every
+  rank lane walks under a mask and the cap applies after the walk; here
+  the host build of ``csrc/resolve.cu`` around the plain walk) equals
+  the plain twin's compacting route at ``compact_cap`` 0, 4096, None and
+  a cap that truncates, the whole dict (``overflow`` included), on
+  synthetic seed intervals and on a recorded pipeline call; skipped
+  without g++.
 - The kernels' lane bodies, compiled for the host with g++ (the source's
   host entries), equal the plain twins on the edge sets (masked, off the
   table, many major checkpoints, an unmarked primary rank, past 2^31),
@@ -30,6 +32,7 @@ The plain twins run on one intra-op thread. Integer programs: tolerance
 0."""
 
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +50,7 @@ from bioseqdb_tpu_torch.kernels import chain as tch
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels import fm_cuda
 from bioseqdb_tpu_torch.tools import fm_calls as fc
+from bioseqdb_tpu_torch.tools import resolve_calls as rc
 from bioseqdb_tpu_torch.utils.sim import simulate_reads
 
 RANKS = {"int32": torch.int32, "int64": torch.int64}
@@ -80,7 +84,7 @@ def recorded(es):
     """A pipeline batch on the edge index (SA interval 32), on the CPU:
     80 simulated 150 bp reads at 2% substitutions and 8 repeat reads
     through the kmer seeder's ``device_regions`` (80 x 64 seed slots:
-    ``resolve_seeds``' masked or compacting branch), then exact mode's
+    ``resolve_seeds``' compacting branch), then exact mode's
     ``align_batch``; every ``sa_resolve`` and ``backward_search`` call
     recorded, and the ``resolve_seeds`` calls' arguments."""
     g = es.refs[0]
@@ -169,22 +173,29 @@ def test_edge_sets_hold_their_cases(es, fms):
     assert (n[rk == "one base"] > 1000).all()
 
 
-def _resolve_both(monkeypatch, *args, **kw):
-    """resolve_seeds through the compacting route and the masked one."""
+@pytest.fixture(scope="module")
+def resolve_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the lane bodies for the host")
+    return rc.host_library(tmp_path_factory.mktemp("resolve_host"))
+
+
+def _resolve_both(resolve_lib, *args, **kw):
+    """resolve_seeds through the masked route (the resolve kernels' lane
+    bodies around the plain walk under their mask) and the compacting
+    one (the plain twin)."""
     want = tch.resolve_seeds(*args, **kw)
-    with monkeypatch.context() as m:
-        m.setattr(tch, "_walk_masked", lambda ranks, group: True)
-        got = tch.resolve_seeds(*args, **kw)
+    got = rc.ResolveCall.of(*args, **kw).host(resolve_lib)
     return got, want
 
 
 @pytest.mark.parametrize("rank", list(RANKS))
 @pytest.mark.parametrize("cap", list(CAPS))
-def test_resolve_seeds_masked_route_equals_compacting(es, fms, monkeypatch,
+def test_resolve_seeds_masked_route_equals_compacting(es, fms, resolve_lib,
                                                      rank, cap):
     fm = fms[rank]
     mems, n_mem = fc.synthetic_mems(es)
-    got, want = _resolve_both(monkeypatch, fm, mems.to(fm.rank_dtype), n_mem,
+    got, want = _resolve_both(resolve_lib, fm, mems.to(fm.rank_dtype), n_mem,
                               max_occ=500, max_seeds=64,
                               sa_interval=es.idx.sa_interval,
                               compact_cap=CAPS[cap])
@@ -198,14 +209,15 @@ def test_resolve_seeds_masked_route_equals_compacting(es, fms, monkeypatch,
     assert (want["overflow"].sum() > full["overflow"].sum()) == (cap != "None")
 
 
-def test_resolve_seeds_masked_route_on_a_recorded_call(recorded, monkeypatch):
+def test_resolve_seeds_masked_route_on_a_recorded_call(recorded,
+                                                       resolve_lib):
     _, resolves = recorded
     assert resolves
     for args, kw in resolves:
         B, S = args[1].shape[0], kw["max_seeds"]
         assert B * S > 4096
         for cap in CAPS.values():
-            got, want = _resolve_both(monkeypatch, *args,
+            got, want = _resolve_both(resolve_lib, *args,
                                       **dict(kw, compact_cap=cap))
             for k in want:
                 assert torch.equal(got[k], want[k]), (cap, k)
