@@ -28,8 +28,7 @@
 // (windows) its read codes and a window of the packed text once, and
 // writes its outputs once; the work between is a few dozen integer
 // compares a seed the scan passes, R regions a seed for seedcov, and in
-// the set-up S + C compares a seed (its counting ranks: at the main
-// path's S 64 these instructions and its bytes bound it about equally).
+// the set-up a sort of the usable seeds' keys and of the C chains.
 // So the card's memory rate bounds them, and the windows kernel, which
 // writes two [B, W] and two [B, W + 4 * band + 64] int32 buffers (the SW
 // kernel's interface), moves the most. What a launch of the others costs
@@ -37,22 +36,28 @@
 // its regions or results) and the instructions its threads issue.
 //
 // Design:
-// - extend_setup: a warp a read, its seeds' keys, windows and chains in
-//   shared memory sized by the call (up to kSetupReads reads a block
-//   within 48 KB), or where one read's do not fit (S past 3,056 with
-//   int32 ranks at C 32, 2,037 with int64: about 36 kb and 24 kb reads,
-//   half that in the fat retry, which doubles S) in a scratch buffer in
-//   device memory that the wrapper allocates, a read's row of it. Both
-//   stable argsorts of the plain twin are per read, so each is a counting
-//   rank: a key's rank is the number of keys below it plus the number of
-//   equal keys at lower slots, a permutation whose inverse is the stable
-//   argsort (order[rank[s]] = s). The chain order's argsort (the rank of
-//   each chain by the filter's order) is the same rank-and-scatter over C,
-//   so it equals the argsort whatever the values are. A lane a seed
-//   computes its key, its window ends and its chain, then a lane a seed
-//   counts its rank over the S keys, and a lane a chain takes the min and
-//   max of the windows of its seeds; a seed outside a chain (clamped to
-//   chain 0 in cis) touches no window.
+// - extend_setup: a warp a read (kSetupReads a block), its sort buffer
+//   and chain tables in shared memory sized by the call (within 48 KB),
+//   or where one read's do not fit (S past 4,096, about 48 kb reads, 24
+//   kb in the fat retry, which doubles S) in a scratch buffer in device
+//   memory that the wrapper allocates, a read's row of it. The plain
+//   twin's two stable argsorts are sorts of (key, slot) entries, which
+//   are distinct, so any sort of them is stable: a bitonic network, in
+//   registers (a lane an entry, shuffles between) up to 32 entries, in
+//   the buffer (a lane a pair a step, padded to a power of two) past it.
+//   The chain order's argsort sorts the filter's C entries. For the seed
+//   order a lane a seed (coalesced loads) computes its key (int64, as
+//   the plain twin's), its chain and its window ends, which it folds
+//   into its chain's window with shared-memory atomic min and max (one
+//   pass over the seeds, not a lane a chain scanning them all; a seed
+//   outside a chain touches no window). Only the keys below kUnusable
+//   (usable seeds) are sorted: the others all hold kUnusable, so their
+//   places are n_usable plus a ballot prefix count in slot order, and on
+//   short reads most of the 64 slots are such. Every usable key is below
+//   kUnusable as long as (C - 1) * 2^19 + 4,095 * 2^7 + S - 1 is (at C
+//   4,095, S up to 524,400; the paths' C is 64 at most), and the wrapper
+//   refuses a call past that, so the order equals the twin's for any
+//   call it takes.
 // - the gates: a gated kernel reads its gate once; 0 means no read of the
 //   round is active (or no lane of the side retries). The windows kernel
 //   then skips the two SW buffers and writes only the rows' small
@@ -830,31 +835,101 @@ LANE_HD void seedcov_lane(const CovParams& p, long long b) {
   for (int r = 0; r < Rg; ++r) p.seedcov[reg + r] = acc[r];
 }
 
-// the shared memory of a set-up group (one read): the seeds' window ends
-// and sort keys, the chain of each seed (-1: none), the filter's order
-// and its argsort
+// A set-up sort entry: a 32-bit key (its sign bit flipped, so that an
+// unsigned compare orders signed keys) above the slot. Entries are
+// distinct, so any sort of them is the stable sort of their keys.
+LANE_HD inline uint64_t sort_entry(int32_t key, long long slot) {
+  return (static_cast<uint64_t>(static_cast<uint32_t>(key) ^ 0x80000000u)
+          << 32) |
+         static_cast<uint32_t>(slot);
+}
+LANE_HD inline int32_t entry_slot(uint64_t e) {
+  return static_cast<int32_t>(static_cast<uint32_t>(e));
+}
+constexpr uint64_t kSortPad = ~0ULL;  // after every entry
+
+// entries a set-up group's sort buffer holds for n keys: n up to a group,
+// a power of two past it (the bitonic network in memory pads to one)
+LANE_HD inline long long sort_cap(long long n) {
+  if (n <= kSetupGroup) return n;
+  long long c = kSetupGroup;
+  while (c < n) c <<= 1;
+  return c;
+}
+
+// the shared memory of a set-up group (one read): the sort buffer (the
+// filter's order, then the seeds' keys), and the chains' windows, ranks
+// and kept flags
 template <typename R>
 LANE_HD inline long long setup_bytes(long long S, long long C) {
-  return (2 * S * static_cast<long long>(sizeof(R)) + 8 * S + 8 * C + 15) &
+  return (8 * sort_cap(max_(S, C)) +
+          C * (2 * static_cast<long long>(sizeof(R)) + 8) + 15) &
          ~15LL;
 }
 
 template <typename R>
 struct SetupSmem {
-  R* b;             // [S] the seed's window start (in a chain)
-  R* e;             // [S] its window end
-  int32_t* key;     // [S] the sort key
-  int32_t* chain;   // [S] the seed's chain, -1 outside one
-  int32_t* forder;  // [C] the filter's order
-  int32_t* crank;   // [C] its argsort: the rank of chain c
+  uint64_t* sort;   // [sort_cap(max(S, C))] sort entries, or seed keys
+  R* r0;            // [C] the chain's window start, folded over its seeds
+  R* r1;            // [C] its window end
+  int32_t* crank;   // [C] the argsort of the filter's order
+  int32_t* kept;    // [C] the filter's kept
   LANE_HD SetupSmem(unsigned char* base, long long S, long long C)
-      : b(reinterpret_cast<R*>(base)),
-        e(reinterpret_cast<R*>(base) + S),
-        key(reinterpret_cast<int32_t*>(base + 2 * S * sizeof(R))),
-        chain(key + S),
-        forder(chain + S),
-        crank(forder + C) {}
+      : sort(reinterpret_cast<uint64_t*>(base)),
+        r0(reinterpret_cast<R*>(sort + sort_cap(max_(S, C)))),
+        r1(r0 + C),
+        crank(reinterpret_cast<int32_t*>(r1 + C)),
+        kept(crank + C) {}
 };
+
+// Sorts buf[0, n) ascending, by a group of G threads: up to G entries a
+// bitonic network in registers of n's power of two, a lane an entry and
+// shuffles between; more in memory, padded to sort_cap(n) with kSortPad, a
+// lane a pair a step.
+template <int G>
+GROUP_FN void group_sort(uint64_t* buf, long long n) {
+  if (n <= 1) return;
+  if (n <= G) {
+    int P = 2;   // the network's size: n's power of two (lanes past it
+    while (P < n) P <<= 1;   // sort their pads among themselves)
+    Lanes<uint64_t, G> v;
+    FOR_LANES(G, t) { v[t] = t < n ? buf[t] : kSortPad; }
+    for (int k = 2; k <= P; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        const Lanes<uint64_t, G> o = shfl_xor<G>(v, j);
+        FOR_LANES(G, t) {
+          const bool low = ((t & j) == 0) == ((t & k) == 0);
+          v[t] = low ? min_(v[t], o[t]) : max_(v[t], o[t]);
+        }
+      }
+    }
+    FOR_LANES(G, t) {
+      if (t < n) buf[t] = v[t];
+    }
+    group_sync<G>();
+    return;
+  }
+  const long long N = sort_cap(n);
+  FOR_LANES(G, t) {
+    for (long long i = n + t; i < N; i += G) buf[i] = kSortPad;
+  }
+  group_sync<G>();
+  for (long long k = 2; k <= N; k <<= 1) {
+    for (long long j = k >> 1; j > 0; j >>= 1) {
+      FOR_LANES(G, t) {
+        for (long long i = t; i < N / 2; i += G) {
+          const long long lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+          const uint64_t a = buf[lo], c = buf[lo + j];
+          if ((a > c) == ((lo & k) == 0)) {
+            buf[lo] = c;
+            buf[lo + j] = a;
+          }
+        }
+      }
+      group_sync<G>();
+    }
+  }
+}
 
 // the set-up of read b (extend_setup_plain, one read) by a group of
 // kSetupGroup threads
@@ -864,26 +939,27 @@ GROUP_FN void setup_group(const SetupParams& p, long long b,
   constexpr auto G = kSetupGroup;
   const long long S = p.S, C = p.C;
   const long long row = b * S, crow = b * C;
-  // the chains' ranks by the filter's order (a stable argsort of it)
-  FOR_LANES(G, t) {
-    for (long long j = t; j < C; j += G) sm.forder[j] = p.forder[crow + j];
-  }
-  group_sync<G>();
+  const R big = static_cast<R>((sizeof(R) == 8 ? INT64_MAX : INT32_MAX) / 2);
+  // the chains: kept, the windows' start values, and the filter's order
+  // sorted into its argsort
   FOR_LANES(G, t) {
     for (long long j = t; j < C; j += G) {
-      const int32_t v = sm.forder[j];
-      long long rank = 0;
-      for (long long i = 0; i < C; ++i) {
-        const int32_t u = sm.forder[i];
-        rank += u < v || (u == v && i < j);
-      }
-      sm.crank[rank] = static_cast<int32_t>(j);
+      sm.kept[j] = p.kept[crow + j];
+      sm.r0[j] = big;
+      sm.r1[j] = 0;
+      sm.sort[j] = sort_entry(p.forder[crow + j], j);
     }
   }
   group_sync<G>();
-  // each seed's chain, key and window ends
+  group_sort<G>(sm.sort, C);
+  FOR_LANES(G, t) {
+    for (long long j = t; j < C; j += G) sm.crank[j] = entry_slot(sm.sort[j]);
+  }
+  group_sync<G>();
+  // a lane a seed: its chain, key and window ends, the ends folded into
+  // its chain's window. Keys are int64 as in the plain twin; sort[s]
+  // holds seed s's.
   const int32_t lens = p.lens[b];
-  const R big = static_cast<R>((sizeof(R) == 8 ? INT64_MAX : INT32_MAX) / 2);
   Lanes<int32_t, G> usable;
   FOR_LANES(G, t) {
     usable[t] = 0;
@@ -894,53 +970,73 @@ GROUP_FN void setup_group(const SetupParams& p, long long b,
       const int32_t c = static_cast<int32_t>(
           min_<long long>(max_<long long>(a, 0), C - 1));
       const bool valid = p.valid[at];
-      const bool use = in && valid && p.kept[crow + c] > 0;
+      const bool use = in && valid && sm.kept[c] > 0;
       p.cis[at] = c;
       p.ok[at] = valid && in;
-      usable[t] += use;
       const int32_t q = p.qbeg[at], l = p.len[at];
       const int32_t sc = p.score != nullptr ? p.score[at] : mul_(l, p.o.match);
-      sm.key[s] = use ? sm.crank[c] * (1 << 19) +
-                            (4095 - min_(max_(sc, 0), 4095)) * (1 << 7) +
-                            static_cast<int32_t>(S - 1 - s)
-                      : kUnusable;
-      sm.chain[s] = in ? c : -1;
+      const long long key =
+          use ? static_cast<long long>(sm.crank[c]) * (1 << 19) +
+                    (4095 - min_(max_(sc, 0), 4095)) * (1 << 7) +
+                    (S - 1 - s)
+              : kUnusable;
+      sm.sort[s] = static_cast<uint64_t>(key);   // keys are >= 0
+      usable[t] += use;
       if (in) {
         const R r = static_cast<const R*>(p.rbeg)[at];
         const int32_t rem = sub_(sub_(lens, q), l);
-        sm.b[s] = sub_(r, static_cast<R>(add_(q, max_gap<int32_t>(q, p.o))));
-        sm.e[s] = add_(add_(add_(r, static_cast<R>(l)), static_cast<R>(rem)),
-                       static_cast<R>(max_gap<int32_t>(rem, p.o)));
+        fold_min(sm.r0 + c, sub_(r, static_cast<R>(
+                                        add_(q, max_gap<int32_t>(q, p.o)))));
+        fold_max(sm.r1 + c,
+                 add_(add_(add_(r, static_cast<R>(l)), static_cast<R>(rem)),
+                      static_cast<R>(max_gap<int32_t>(rem, p.o))));
       }
     }
   }
   const int32_t n_usable = group_sum(usable);
   group_sync<G>();
-  // the order: the stable argsort of the keys, by counting ranks
-  FOR_LANES(G, t) {
-    for (long long s = t; s < S; s += G) {
-      const int32_t v = sm.key[s];
-      long long rank = 0;
-      for (long long i = 0; i < S; ++i) {
-        const int32_t u = sm.key[i];
-        rank += u < v || (u == v && i < s);
-      }
-      p.order[row + rank] = static_cast<int32_t>(s);
+  // the order: the usable seeds' keys (all below kUnusable) sorted, then
+  // the others, all kUnusable, in slot order. A pass of G slots moves its
+  // sorted set's entries to the buffer's front (to slots at or before
+  // their own, read before any is written) and writes the others' places
+  // in the order at once.
+  long long at_sort = 0, at_rest = n_usable;
+  for (long long base = 0; base < S; base += G) {
+    Lanes<uint64_t, G> key;
+    Lanes<bool, G> sorted, rest;
+    FOR_LANES(G, t) {
+      const long long s = base + t;
+      key[t] = s < S ? sm.sort[s] : 0;
+      sorted[t] = s < S && key[t] < static_cast<uint64_t>(kUnusable);
+      rest[t] = s < S && !sorted[t];
     }
+    const uint32_t ms = ballot(sorted), mr = ballot(rest);
+    group_sync<G>();
+    FOR_LANES(G, t) {
+      const uint32_t lower = (1u << t) - 1u;
+      const long long s = base + t;
+      if (sorted[t])
+        sm.sort[at_sort + popc32(ms & lower)] =
+            sort_entry(static_cast<int32_t>(key[t]), s);
+      else if (rest[t])
+        p.order[row + at_rest + popc32(mr & lower)] = static_cast<int32_t>(s);
+    }
+    at_sort += popc32(ms);
+    at_rest += popc32(mr);
   }
-  // each chain's window over its seeds, then the strand and reference
-  // clips of its first seed's side and reference
+  group_sync<G>();
+  group_sort<G>(sm.sort, n_usable);
+  FOR_LANES(G, t) {
+    for (long long i = t; i < n_usable; i += G)
+      p.order[row + i] = entry_slot(sm.sort[i]);
+  }
+  // each chain's window, then the strand and reference clips of its
+  // first seed's side and reference
   const R l_pac = static_cast<R>(p.l_pac), seq_len = static_cast<R>(p.seq_len);
   FOR_LANES(G, t) {
     for (long long c = t; c < C; c += G) {
-      R r0 = big, r1 = 0;
-      for (long long s = 0; s < S; ++s) {
-        if (sm.chain[s] != c) continue;
-        r0 = min_(r0, sm.b[s]);
-        r1 = max_(r1, sm.e[s]);
-      }
-      r0 = max_(r0, static_cast<R>(0));
-      r1 = min_(r1, seq_len);
+      R r0 = max_(sm.r0[c], static_cast<R>(0));
+      R r1 = min_(sm.r1[c], seq_len);
       const R first = static_cast<const R*>(p.f_rbeg)[crow + c];
       const bool crosses = r0 < l_pac && l_pac < r1;
       if (crosses && first < l_pac) r1 = l_pac;

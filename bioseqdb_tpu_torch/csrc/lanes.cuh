@@ -84,6 +84,11 @@ template <int G, typename T>
 __device__ __forceinline__ T shfl(const Lanes<T, G>& x, int src) {
   return __shfl_sync(group_mask<G>(), x.v, src, G);
 }
+// each lane gets the value of lane t ^ m of its group (m < G)
+template <int G, typename T>
+__device__ __forceinline__ Lanes<T, G> shfl_xor(const Lanes<T, G>& x, int m) {
+  return Lanes<T, G>{__shfl_xor_sync(group_mask<G>(), x.v, m, G)};
+}
 template <int G, typename T>
 __device__ __forceinline__ T group_sum(const Lanes<T, G>& x) {
   T v = x.v;
@@ -98,11 +103,24 @@ __device__ __forceinline__ T group_min(const Lanes<T, G>& x) {
     v = min_(v, __shfl_xor_sync(group_mask<G>(), v, o, G));
   return v;
 }
+template <int G, typename T>
+__device__ __forceinline__ T group_max(const Lanes<T, G>& x) {
+  T v = x.v;
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = max_(v, __shfl_xor_sync(group_mask<G>(), v, o, G));
+  return v;
+}
 // uniform code's stores to device memory: lane 0 of the group
 template <int G>
 __device__ __forceinline__ bool group_leader() {
   return threadIdx.x % G == 0;
 }
+// a lane's min / max into a value other lanes of the block fold into too
+// (shared or device memory): atomic on the card, in turn on the host
+template <typename T>
+__device__ __forceinline__ void fold_min(T* at, T v) { atomicMin(at, v); }
+template <typename T>
+__device__ __forceinline__ void fold_max(T* at, T v) { atomicMax(at, v); }
 __device__ __forceinline__ int popc32(uint32_t x) { return __popc(x); }
 // the lowest / highest set bit of x != 0
 __device__ __forceinline__ int low_bit(uint32_t x) { return __ffs(x) - 1; }
@@ -128,6 +146,12 @@ inline uint32_t ballot(const Lanes<bool, G>& p) {
 template <int G, typename T>
 inline T shfl(const Lanes<T, G>& x, int src) { return x[src % G]; }
 template <int G, typename T>
+inline Lanes<T, G> shfl_xor(const Lanes<T, G>& x, int m) {
+  Lanes<T, G> y;
+  for (int t = 0; t < G; ++t) y[t] = x[t ^ m];
+  return y;
+}
+template <int G, typename T>
 inline T group_sum(const Lanes<T, G>& x) {
   T v = 0;
   for (int t = 0; t < G; ++t) v += x[t];
@@ -139,8 +163,18 @@ inline T group_min(const Lanes<T, G>& x) {
   for (int t = 1; t < G; ++t) v = min_(v, x[t]);
   return v;
 }
+template <int G, typename T>
+inline T group_max(const Lanes<T, G>& x) {
+  T v = x[0];
+  for (int t = 1; t < G; ++t) v = max_(v, x[t]);
+  return v;
+}
 template <int G>
 inline bool group_leader() { return true; }
+template <typename T>
+inline void fold_min(T* at, T v) { if (v < *at) *at = v; }
+template <typename T>
+inline void fold_max(T* at, T v) { if (v > *at) *at = v; }
 inline int popc32(uint32_t x) { return __builtin_popcount(x); }
 inline int low_bit(uint32_t x) { return __builtin_ctz(x); }
 inline int high_bit(uint32_t x) { return 31 - __builtin_clz(x); }

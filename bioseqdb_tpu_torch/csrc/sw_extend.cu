@@ -27,7 +27,7 @@
 //   into G contiguous stripes; thread t walks its stripe in order. H, E
 //   and the query codes of a lane live in shared memory, so the band
 //   slides without moving data between threads.
-// - Two layouts of a lane's columns, picked by the query width. Up to
+// - Three layouts of a lane's columns, picked by the query width. Up to
 //   WQ = 320 (every short-read launch) H and E hold every column, 9
 //   bytes a column with the query code. Wider queries (long reads: WQ =
 //   W, up to thousands) would need more shared memory than an SM has, so
@@ -40,11 +40,23 @@
 //   with max_w the widest band of the launch (the caller's bound on w0):
 //   512 slots, 4 KB a lane, for the band-doubling retry's w = 200. Reads
 //   past a stripe's end (values never used) may alias a live slot; no
-//   write does. Shared memory then grows with WQ by one byte a column,
-//   and the launch is refused only past the card's per-block limit (WQ
-//   above ~10,400 at w <= 200). Keeping H and E in device memory instead
-//   would have put every cell's two loads and two stores on the L2; a
-//   fixed lane count a block keeps one code path for both layouts.
+//   write does. Shared memory then grows with WQ by one byte a column.
+//   Keeping H and E in device memory instead would have put every cell's
+//   two loads and two stores on the L2.
+// - The wide layout: where the ring's block (16 lanes' query rows and
+//   rings) passes the card's per-block shared memory (WQ above 12,468 at
+//   w <= 100, 10,420 at w <= 200 on an H100), the query codes stay in the
+//   int32 query tensor in device memory and only the ring is in shared
+//   memory: 16 x 4 KB at w <= 200, whatever WQ. A thread reads its
+//   stripe's codes there in pass 1, the band's columns only (about 2w + 3
+//   a row, so a block's working set of ~26 KB stays in L1 from row to
+//   row while the band slides one column a row). Fewer lanes a block would
+//   have kept the codes in shared memory but still capped WQ (a lane's
+//   row alone passes 227 KB at WQ ~ 228,000) and changed the lane count
+//   the other layouts are tuned for; this keeps one block shape and no
+//   width cap. The first and last live columns are reduced as two 32-bit
+//   values there (a min and a max), not packed into 16-bit halves, so WQ
+//   past 65,535 runs too; the other layouts keep the packed form.
 // - F runs serially inside a stripe as g = max(g - e_ins, max(M - oe_ins,
 //   0)), and across the stripes as a log2(G)-step shuffle max-scan of each
 //   stripe's max(t_ins + e_ins * j) (the plain version's prefix-max form):
@@ -113,7 +125,7 @@ struct Args {
   const int* h0;
   int* out;
   int B, WQ, WT, a, b, o_del, e_del, o_ins, e_ins, end_bonus, zdrop;
-  int ring;  // H and E slots of a lane in the ring layout (a power of two)
+  int ring;  // H and E slots of a lane in a ring layout (a power of two)
   const int* gate;  // null, or a count: 0 makes the launch return at once
 };
 
@@ -191,16 +203,22 @@ struct Lane {
 __host__ __device__ constexpr int lane_cols(int WQ) { return WQ + G + kChunk; }
 
 constexpr int kFullMaxWQ = 320;  // widest query of the every-column layout
+constexpr int kPackedMaxWQ = 65000;  // live_pair's 16-bit halves
+
+// a lane's layout: every column, the ring with the query codes in shared
+// memory, or the ring alone (the codes read from device memory)
+enum Layout { kAllCols = 0, kRing = 1, kWide = 2 };
 
 // H and E slots of a lane: every column, or the ring's R slots
-__host__ __device__ constexpr int lane_slots(int WQ, int ring) {
-  return WQ <= kFullMaxWQ ? lane_cols(WQ) : ring;
+__host__ __device__ constexpr int lane_slots(int WQ, int ring, int layout) {
+  return layout == kAllCols ? lane_cols(WQ) : ring;
 }
 
-// Shared memory of one lane: H and E as int32, then one byte of query
-// code a column.
-__host__ __device__ constexpr int lane_bytes(int WQ, int ring) {
-  return (lane_slots(WQ, ring) * 8 + lane_cols(WQ) + 15) & ~15;
+// Shared memory of one lane: H and E as int32, then (but in the wide
+// layout) one byte of query code a column.
+__host__ __device__ constexpr int lane_bytes(int WQ, int ring, int layout) {
+  return (lane_slots(WQ, ring, layout) * 8 +
+          (layout == kWide ? 0 : lane_cols(WQ)) + 15) & ~15;
 }
 
 // a thread's first and last live column as (65535 - first, last + 1):
@@ -212,15 +230,15 @@ __device__ __forceinline__ unsigned live_pair(int first, int last) {
 }
 
 // The shared-memory slot of column j: the column itself, or its ring slot
-template <bool kRing>
+template <int kLayout>
 struct Cols {
   int mask;
   __device__ __forceinline__ int operator()(int j) const {
-    return kRing ? (j & mask) : j;
+    return kLayout != kAllCols ? (j & mask) : j;
   }
 };
 
-template <bool kRing>
+template <int kLayout>
 __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
   extern __shared__ __align__(16) unsigned char sw_smem[];
   const int t = threadIdx.x % G;
@@ -231,10 +249,10 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
 
   const int WQ = p.WQ;
   const int NC = lane_cols(WQ);
-  const int NS = kRing ? p.ring : NC;  // H and E slots
-  const Cols<kRing> col{p.ring - 1};
-  int* H = reinterpret_cast<int*>(sw_smem +
-                                  (size_t)slot * lane_bytes(WQ, p.ring));
+  const int NS = kLayout != kAllCols ? p.ring : NC;  // H and E slots
+  const Cols<kLayout> col{p.ring - 1};
+  int* H = reinterpret_cast<int*>(
+      sw_smem + (size_t)slot * lane_bytes(WQ, p.ring, kLayout));
   int* E = H + NS;
   unsigned char* Q = reinterpret_cast<unsigned char*>(E + NS);
 
@@ -253,9 +271,11 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
 
   const int* qrow = p.query + (size_t)(real ? lane : 0) * WQ;
   const int* trow = p.target + (size_t)(real ? lane : 0) * p.WT;
-  for (int j = t; j < NC; j += G) {
-    const int q = (real && j < WQ) ? qrow[j] : 4;
-    Q[j] = (unsigned char)((q >= 0 && q <= 3) ? q : 4);
+  if (kLayout != kWide) {
+    for (int j = t; j < NC; j += G) {
+      const int q = (real && j < WQ) ? qrow[j] : 4;
+      Q[j] = (unsigned char)((q >= 0 && q <= 3) ? q : 4);
+    }
   }
   // the boundary row's H (in the ring, of the columns the first row reads)
   for (int j = t; j < NS; j += G) {
@@ -307,7 +327,12 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
         hv[u] = H[col(c + u)];
-        qv[u] = Q[c + u];
+        if (kLayout == kWide) {  // the codes past c1 are never used
+          const int q = __ldg(qrow + min(c + u, WQ - 1));
+          qv[u] = (q >= 0 && q <= 3) ? q : 4;
+        } else {
+          qv[u] = Q[c + u];
+        }
       }
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
@@ -392,12 +417,30 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
     // the row max and its column as one 64-bit key: values may need all
     // 32 bits
     long long key = (long long)best * 4294967296LL + (bestj + 1);
-    unsigned live = live_pair(first, last);
+    bool any_live;
+    int live_first, live_last;
+    if (kLayout == kWide) {  // columns past 65,535: two 32-bit reductions
 #pragma unroll
-    for (int d = G / 2; d > 0; d >>= 1) {
-      key = max(key, __shfl_xor_sync(kFull, key, d, G));
-      live = __vmaxu2(live, __shfl_xor_sync(kFull, live, d, G));
-      h_end = max(h_end, __shfl_xor_sync(kFull, h_end, d, G));  // H >= 0
+      for (int d = G / 2; d > 0; d >>= 1) {
+        key = max(key, __shfl_xor_sync(kFull, key, d, G));
+        first = min(first, __shfl_xor_sync(kFull, first, d, G));
+        last = max(last, __shfl_xor_sync(kFull, last, d, G));
+        h_end = max(h_end, __shfl_xor_sync(kFull, h_end, d, G));  // H >= 0
+      }
+      any_live = last >= 0;
+      live_first = first;
+      live_last = last;
+    } else {
+      unsigned live = live_pair(first, last);
+#pragma unroll
+      for (int d = G / 2; d > 0; d >>= 1) {
+        key = max(key, __shfl_xor_sync(kFull, key, d, G));
+        live = __vmaxu2(live, __shfl_xor_sync(kFull, live, d, G));
+        h_end = max(h_end, __shfl_xor_sync(kFull, h_end, d, G));  // H >= 0
+      }
+      any_live = (live & 0xffffu) != 0;
+      live_first = 65535 - (int)(live >> 16);
+      live_last = (int)(live & 0xffffu) - 1;
     }
     best = (int)(key >> 32);
     bestj = (int)(key & 0xffffffffLL) - 1;
@@ -406,9 +449,8 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Args p) {
     // so the lane stops after this row.
 
     if (ln.active) {
-      ln.row(p, bg, en, n > 0 ? h_end : h1b, best, bestj,
-             (live & 0xffffu) != 0, 65535 - (int)(live >> 16),
-             (int)(live & 0xffffu) - 1);
+      ln.row(p, bg, en, n > 0 ? h_end : h1b, best, bestj, any_live,
+             live_first, live_last);
       tb_raw = tb_nx;
       if ((ln.i & (G - 1)) == 0) {
         t_cur = t_next;
@@ -433,53 +475,89 @@ int ring_slots(int WQ, int max_w) {
   return r;
 }
 
+// The card's shared memory a block may take (its opt-in limit).
+int smem_optin() {
+  static const int v = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return n;
+  }();
+  return v;
+}
+
+// The block's shared memory at query width WQ with bands up to max_w in
+// a layout.
+int block_bytes(int WQ, int max_w, int layout) {
+  return kThreads / G * lane_bytes(WQ, ring_slots(WQ, max_w), layout);
+}
+
+// The layout of a launch: every column up to WQ = 320; above it the ring
+// with the codes in shared memory where its block fits the card (and WQ
+// fits live_pair's halves), else the wide layout.
+int pick_layout(int WQ, int max_w) {
+  if (WQ <= kFullMaxWQ) return kAllCols;
+  return WQ <= kPackedMaxWQ && block_bytes(WQ, max_w, kRing) <= smem_optin()
+             ? kRing
+             : kWide;
+}
+
 // Lets the kernel's instantiation take `bytes` of shared memory a block
 // and asks for the SM's whole carveout as shared memory, so that as many
 // lanes as fit stay resident. The first call at the every-column layout
 // sets WQ = 320's size; a wider ring launch raises the limit to its
 // size, once a size, so that a CUDA graph capture replaying a launch
 // already made sets nothing. Returns false past the card's limit.
-template <bool kRing>
+template <int kLayout>
 bool set_smem(int bytes) {
   static int allowed = 0;
-  static const int optin = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaFuncSetAttribute(sw_kernel<kRing>,
+  static const bool carveout = [] {
+    cudaFuncSetAttribute(sw_kernel<kLayout>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
-    return v;
+    return true;
   }();
-  if (bytes > optin) return false;
+  (void)carveout;
+  if (bytes > smem_optin()) return false;
   if (bytes > allowed) {
-    allowed = kRing ? bytes : kThreads / G * lane_bytes(kFullMaxWQ, 0);
-    cudaFuncSetAttribute(sw_kernel<kRing>,
+    allowed = kLayout != kAllCols
+                  ? bytes
+                  : kThreads / G * lane_bytes(kFullMaxWQ, 0, kAllCols);
+    cudaFuncSetAttribute(sw_kernel<kLayout>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, allowed);
   }
   return true;
 }
 
-// The block's shared memory at query width WQ with bands up to max_w.
-int block_bytes(int WQ, int max_w) {
-  return kThreads / G * lane_bytes(WQ, ring_slots(WQ, max_w));
+bool set_smem(int layout, int bytes) {
+  return layout == kAllCols   ? set_smem<kAllCols>(bytes)
+         : layout == kRing ? set_smem<kRing>(bytes)
+                           : set_smem<kWide>(bytes);
 }
 
 }  // namespace
+
+// The layout a launch at query width WQ with bands up to max_w takes, for
+// reports and checks: 0 every column, 1 the ring, 2 the wide layout.
+extern "C" int sw_extend_layout(int WQ, int max_w) {
+  return pick_layout(WQ, max_w);
+}
 
 // Occupancy of the kernel at query width WQ and bands up to max_w, for
 // reports: blocks of kThreads resident on one SM, or -1 on a CUDA error
 // or past the card's shared-memory limit.
 extern "C" int sw_extend_blocks_per_sm(int WQ, int max_w) {
   int n = 0;
-  const int bytes = block_bytes(WQ, max_w);
-  const bool ring = WQ > kFullMaxWQ;
-  if (!(ring ? set_smem<true>(bytes) : set_smem<false>(bytes))) return -1;
+  const int layout = pick_layout(WQ, max_w);
+  const int bytes = block_bytes(WQ, max_w, layout);
+  if (!set_smem(layout, bytes)) return -1;
   const cudaError_t rc =
-      ring ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &n, sw_kernel<true>, kThreads, bytes)
-           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &n, sw_kernel<false>, kThreads, bytes);
+      layout == kAllCols ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            &n, sw_kernel<kAllCols>, kThreads, bytes)
+      : layout == kRing ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                              &n, sw_kernel<kRing>, kThreads, bytes)
+                        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                              &n, sw_kernel<kWide>, kThreads, bytes);
   return rc == 0 ? n : -1;
 }
 
@@ -502,8 +580,9 @@ extern "C" int sw_prof_zero() {
 // sw_extend_gated_launch also takes `gate`, a device int32 (or null): a
 // launch whose gate reads 0 returns at once and writes nothing (the
 // extension stage's rounds with no active read or no retry, whose results
-// no one reads). Returns cudaErrorInvalidValue for bad sizes or a block's
-// shared memory past the card's limit, else cudaGetLastError().
+// no one reads). Any WQ runs (the wide layout past the ring's shared
+// memory). Returns cudaErrorInvalidValue for bad sizes, else
+// cudaGetLastError().
 extern "C" int sw_extend_gated_launch(const void* query, const void* qlen,
                                       const void* target, const void* tlen,
                                       const void* w0, const void* h0,
@@ -512,25 +591,25 @@ extern "C" int sw_extend_gated_launch(const void* query, const void* qlen,
                                       int o_ins, int e_ins, int end_bonus,
                                       int zdrop, int max_w, const void* gate,
                                       void* stream) {
-  if (WQ < 1 || WT < 1 || max_w < 0 || WQ > 65000)
-    return (int)cudaErrorInvalidValue;
+  if (WQ < 1 || WT < 1 || max_w < 0) return (int)cudaErrorInvalidValue;
   const int ring = ring_slots(WQ, max_w);
   const Args p{static_cast<const int*>(query), static_cast<const int*>(qlen),
                static_cast<const int*>(target), static_cast<const int*>(tlen),
                static_cast<const int*>(w0), static_cast<const int*>(h0),
                static_cast<int*>(out), B, WQ, WT, a, b, o_del, e_del, o_ins,
                e_ins, end_bonus, zdrop, ring, static_cast<const int*>(gate)};
-  const int smem = block_bytes(WQ, max_w);
+  const int layout = pick_layout(WQ, max_w);
+  const int smem = block_bytes(WQ, max_w, layout);
+  if (!set_smem(layout, smem)) return (int)cudaErrorInvalidValue;
   const int lanes = kThreads / G;
   const dim3 grid((B + lanes - 1) / lanes);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (ring) {
-    if (!set_smem<true>(smem)) return (int)cudaErrorInvalidValue;
-    sw_kernel<true><<<grid, kThreads, smem, st>>>(p);
-  } else {
-    if (!set_smem<false>(smem)) return (int)cudaErrorInvalidValue;
-    sw_kernel<false><<<grid, kThreads, smem, st>>>(p);
-  }
+  if (layout == kAllCols)
+    sw_kernel<kAllCols><<<grid, kThreads, smem, st>>>(p);
+  else if (layout == kRing)
+    sw_kernel<kRing><<<grid, kThreads, smem, st>>>(p);
+  else
+    sw_kernel<kWide><<<grid, kThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@ shadowing filter; ``l_rep_device`` is the repetitive-coverage length.
 The per-seed and per-chain loops stay sequential in the seed or chain
 index (their steps depend on each other). On CUDA tensors ``chain_seeds``
 and ``filter_chains`` are one launch each of ``csrc/chain.cu``'s kernels
-(``kernels/chain_cuda.py``: a thread a read runs every trip), which raise
+(``kernels/chain_cuda.py``: a group of 8 threads a read, or a thread a
+read, runs every trip), which raise
 rather than fall back; on CPU tensors they run their plain twins,
 ``chain_seeds_plain`` and ``filter_chains_plain``, the loops as eager
 torch ops vectorized over reads, bit-equal to the kernels. ``resolve_seeds``

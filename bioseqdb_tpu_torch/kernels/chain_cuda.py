@@ -3,16 +3,19 @@
 The Hopper counterparts of the JAX package's ``chain_seeds`` and
 ``filter_chains`` loops (``bioseqdb_tpu/kernels/chain.py``): one launch of
 ``chain_seeds`` runs mem_chain's insertion loop over every seed slot of
-every read, one launch of ``filter_chains`` mem_chain_flt's weight,
-shadow and promotion loops, a thread a read. The plain versions are
+every read (a group of 8 threads a read), one launch of
+``filter_chains`` mem_chain_flt's weight, shadow and promotion loops (a
+thread a read). The plain versions are
 ``chain.chain_seeds_plain`` and ``chain.filter_chains_plain``;
 ``chain.chain_seeds`` and ``chain.filter_chains`` call these on CUDA
 tensors. They launch on PyTorch's current stream, allocate only their
 outputs, and do not synchronise.
 
-The chain state is per-thread arrays of ``MAX_CHAINS`` slots, so a
-``max_chains`` above it is refused (ValueError): the port's paths take
-16, 32 or 64. Nothing falls back to the plain versions.
+The chain state holds ``MAX_CHAINS`` slots at most (chain_seeds: up to 8
+chains' pos in each thread's registers; filter_chains: per-thread
+arrays), so a ``max_chains`` above it is refused (ValueError): the
+port's paths take 16, 32 or 64. Nothing falls back to the plain
+versions.
 
 ``chain_seeds_args`` and ``filter_chains_args`` check the tensors,
 allocate the outputs on their device and give the C entry points'

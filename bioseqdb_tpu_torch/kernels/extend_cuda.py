@@ -35,8 +35,8 @@ retry. Seeds (S) and chains (C) stream from device memory, but in the
 set-up, which holds a read's in shared memory (the port's paths take S
 64 and C 16, 128 and 32 in the fat retry, 189 and 32 on 1,500 bp reads;
 S grows with the read, W // 12 + 64), or where they do not fit a block's
-``SETUP_SMEM`` (S past 3,056 with int32 ranks at C 32, 2,037 with int64)
-in a scratch buffer of ``setup_bytes(S, C)`` bytes a read that
+``SETUP_SMEM`` (S past 4,096 at C 32, either rank dtype: the sort buffer
+pads to a power of two) in a scratch buffer of ``setup_bytes(S, C)`` bytes a read that
 ``setup_args`` allocates on the device: no read length is refused.
 Nothing falls back to the plain versions.
 
@@ -59,6 +59,7 @@ from bioseqdb_tpu_torch.kernels.sw import FIELDS
 
 MAX_REGS = 16   # csrc/extend.cu kMaxRegs
 SETUP_SMEM = 49152   # csrc/extend.cu kSetupSmem
+UNUSABLE_KEY = 0x7FFFFFF0   # csrc/extend.cu kUnusable
 # the region table's fields, in the order the kernels take them
 REG_FIELDS = ("rb", "re", "qb", "qe", "score", "truesc", "w", "seedlen0",
               "cchain", "rid")
@@ -305,11 +306,18 @@ def merge_args(side: int, tab: dict, st: dict, scan: dict, win: dict,
     return out, args, tensors
 
 
+def sort_cap(n: int) -> int:
+    """Entries of the set-up's sort buffer for n keys (csrc/extend.cu
+    ``sort_cap``): n up to a warp, a power of two past it."""
+    return n if n <= 32 else 1 << (n - 1).bit_length()
+
+
 def setup_bytes(S: int, C: int, rank_dtype: torch.dtype) -> int:
     """A read's bytes of ``extend_setup``'s tables (csrc/extend.cu
-    ``setup_bytes``): two rank values and two int32 a seed, two int32 a
-    chain, rounded up to 16."""
-    return (2 * S * rank_dtype.itemsize + 8 * S + 8 * C + 15) // 16 * 16
+    ``setup_bytes``): a sort buffer of 8-byte entries for max(S, C)
+    keys, and two rank values and two int32 a chain, rounded up to 16."""
+    return (8 * sort_cap(max(S, C)) + C * (2 * rank_dtype.itemsize + 8)
+            + 15) // 16 * 16
 
 
 def setup_args(seeds: dict, chains: dict, flt: dict, lens: torch.Tensor,
@@ -330,6 +338,11 @@ def setup_args(seeds: dict, chains: dict, flt: dict, lens: torch.Tensor,
     C = chains["f_rbeg"].shape[1] if chains["f_rbeg"].dim() == 2 else -1
     if S < 1 or C < 1:
         raise ValueError(f"extend kernels: S {S} and C {C} must be >= 1")
+    # every usable seed's sort key below the unusable seeds' (the set-up's
+    # sort orders those alone): at C 4,095, S up to 524,400
+    if (C - 1) * (1 << 19) + 4095 * (1 << 7) + S - 1 >= UNUSABLE_KEY:
+        raise ValueError(f"extend_setup: C {C} at S {S} gives sort keys "
+                         f"at or past the unusable seeds' {UNUSABLE_KEY:#x}")
     n_refs = refs["offsets"].shape[0]
     named = dict(rbeg=rbeg, qbeg=seeds["qbeg"], len=seeds["len"],
                  valid=seeds["valid"], score=seeds.get("score"),

@@ -11,13 +11,16 @@ widest band, ``max_w``). A launch may take a gate, a device int32 count
 when it reads 0 the kernel returns at once and writes nothing, so the
 host need not read the count to skip the launch.
 
-Any query width runs on the card: up to 320 (every short-read launch)
-a lane keeps every column of H and E in shared memory; wider queries
-(long reads) keep them in a ring over the band, sized by ``max_w``, so
-shared memory grows by one byte a query column (``csrc/sw_extend.cu``).
-A launch is refused (RuntimeError) only when a block's shared memory
-passes the card's limit: Wq above about 10,400 at bands up to 200 on an
-H100. Nothing falls back to the plain version.
+Any query width runs on the card, in one of three layouts
+(``csrc/sw_extend.cu``): up to 320 (every short-read launch) a lane
+keeps every column of H and E in shared memory; wider queries (long
+reads) keep them in a ring over the band, sized by ``max_w``, with one
+byte of query code a column beside it; where a block of that passes the
+card's shared memory (Wq above 12,468 at bands up to 100, 10,420 at
+200 on an H100), the wide layout keeps only the ring there and reads
+the codes from ``query`` in device memory, so no width is refused. A
+launch that still fails raises (RuntimeError). Nothing falls back to the
+plain version or to the CPU.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels.sw import FIELDS
 
 FULL_MAX_QLEN = 320  # widest query of the every-column layout
+LAYOUTS = ("every column", "ring", "wide")  # csrc/sw_extend.cu Layout
 
 
 def _fn():
@@ -98,3 +102,12 @@ def blocks_per_sm(query_width: int, max_w: int = 200) -> int:
     if n < 0:
         raise RuntimeError("sw_extend occupancy query failed")
     return n
+
+
+def layout(query_width: int, max_w: int = 200) -> str:
+    """The layout (``LAYOUTS``) a launch at this query width and widest
+    band takes on the current card."""
+    fn = build.library("sw_extend").sw_extend_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return LAYOUTS[fn(query_width, max_w)]

@@ -289,6 +289,13 @@ def edge_seeds(rank_dtype: torch.dtype = torch.int32, S: int = 64,
     base = PAST_2_31 if rank_dtype == torch.int64 else 1 << 20
     l_pac = base + 40_000_000
     kinds, rows = _rows(rng, l_pac, base, S)
+    return l_pac, _tables(rng, rows, base, l_pac, S, rank_dtype), kinds
+
+
+def _tables(rng, rows: list, base: int, l_pac: int, S: int,
+            rank_dtype: torch.dtype) -> dict:
+    """The seed tables of ``rows`` (a read's list of (rbeg, qbeg, len,
+    rid) or None), their invalid slots random."""
     B = len(rows)
     rbeg = rng.integers(base, 2 * l_pac, (B, S), dtype=np.int64)
     qbeg = rng.integers(-5, 200, (B, S)).astype(np.int32)
@@ -296,15 +303,75 @@ def edge_seeds(rank_dtype: torch.dtype = torch.int32, S: int = 64,
     rid = rng.integers(-1, 3, (B, S)).astype(np.int32)
     valid = np.zeros((B, S), bool)
     for b, row in enumerate(rows):
-        for s, t in enumerate(row):
+        for s, t in enumerate(row[:S]):
             if t is not None:
                 rbeg[b, s], qbeg[b, s], ln[b, s], rid[b, s] = t
                 valid[b, s] = True
-    seeds = dict(rbeg=torch.from_numpy(rbeg).to(rank_dtype),
-                 qbeg=torch.from_numpy(qbeg), len=torch.from_numpy(ln),
-                 rid=torch.from_numpy(rid), valid=torch.from_numpy(valid),
-                 overflow=torch.zeros(B, dtype=torch.bool))
-    return l_pac, seeds, kinds
+    return dict(rbeg=torch.from_numpy(rbeg).to(rank_dtype),
+                qbeg=torch.from_numpy(qbeg), len=torch.from_numpy(ln),
+                rid=torch.from_numpy(rid), valid=torch.from_numpy(valid),
+                overflow=torch.zeros(B, dtype=torch.bool))
+
+
+# group_calls' cases: the chain table's spread over a group's lanes
+GROUP_CASES = ("overflow at C", "contained on a later lane",
+               "equal pos across lanes", "strand crossing on a later lane",
+               "pos below NEG", "only chain below NEG")
+
+
+def _group_rows(l_pac: int, base: int, C: int) -> dict:
+    """{case: a read's seeds}: each read first opens C // 2 + 1 chains far
+    apart (so the chains the case is about sit on later lanes of the
+    group at every chains-a-lane), then the case."""
+    far = [(base + 10_000_000 + 100_000 * j, 0, 20, 0)
+           for j in range(C // 2 + 1)]
+    P = base + 5_000_000
+    Q = base + 20_000_000
+    return {
+        # C + 3 chains: the last three are refused (overflow, -1)
+        "overflow at C": far + [(Q + 100_000 * j, 3 * j % 120, 20, 0)
+                                for j in range(C + 3 - len(far))],
+        # a chain, seeds contained in it (-2), a grow, contained again
+        "contained on a later lane": far + [
+            (P, 0, 60, 0), (P + 10, 10, 20, 0), (P + 70, 70, 30, 0),
+            (P + 75, 75, 10, 0)],
+        # chains at one position in far-apart slots (and, at two chains
+        # a lane and more, in one lane's two): a seed takes the first
+        "equal pos across lanes": far[:2] + [(P, 0, 30, 0)] + far[2:] + [
+            (P, 150, 30, 0), (P, 151, 30, 0), (P + 60, 60, 20, 0)],
+        # colinear seeds across l_pac after the far chains
+        "strand crossing on a later lane": far + [
+            (l_pac - 60, 0, 30, 0), (l_pac, 60, 30, 0),
+            (l_pac + 40, 100, 30, 0), (l_pac - 61, 1, 20, 0)],
+        # a chain whose pos lies below NEG: the search's best is below
+        # NEG, so a seed past it opens a new chain
+        "pos below NEG": far + [(-(1 << 30) - 500, 0, 30, 0),
+                                (-(1 << 30) - 400, 100, 30, 0),
+                                (P, 40, 30, 0)],
+        # the same with no other chain: every candidate lies below NEG
+        "only chain below NEG": [(-(1 << 30) - 500, 0, 30, 0),
+                                 (-(1 << 30) - 400, 100, 30, 0),
+                                 (P, 40, 30, 0)],
+    }
+
+
+def group_calls(rank_dtype: torch.dtype = torch.int32, C: int = 16,
+                device="cpu") -> dict[str, ChainCall]:
+    """{case (GROUP_CASES): a chain_seeds call of one read} at C chains,
+    S 2 * C + 1 (one slot past a multiple of a group's 8); with int64 ranks
+    every position lies past 2^31, but pos below NEG's negative ones."""
+    rng = np.random.default_rng(C)
+    base = PAST_2_31 if rank_dtype == torch.int64 else 1 << 20
+    l_pac = base + 40_000_000
+    S = 2 * C + 1
+    fm = types.SimpleNamespace(l_pac=l_pac)
+    out = {}
+    for kind, row in _group_rows(l_pac, base, C).items():
+        seeds = _tables(rng, [row], base, l_pac, S, rank_dtype)
+        out[kind] = ChainCall("chain_seeds", dict(
+            fm=fm, seeds={k: v.to(device) for k, v in seeds.items()},
+            max_chains=C, **CHAIN_OPTS))
+    return out
 
 
 def edge_calls(rank_dtype: torch.dtype = torch.int32, S: int = 64,

@@ -857,6 +857,87 @@ _SETUP = {"S 64, C 16": (256, 64, 16, False),
           "S 3128, C 64, scores (18 kb fat retry)": (3, 3128, 64, True)}
 SETUP_CASES = tuple(_SETUP)
 
+# setup_edge_calls' cases: the sort's and the windows' boundaries
+SETUP_EDGE_CASES = ("no usable seed", "one usable seed a read",
+                    "every seed usable", "S 45, C 16", "S 189, C 64",
+                    "S 1564, C 32", "tied keys past S 128",
+                    "seeds outside any chain", "S 128, C 64",
+                    "chain ranks up to 4,094 (C 4,095)",
+                    "S 4200 (scratch)")
+
+
+def setup_edge_calls(rank_dtype: torch.dtype = torch.int32, device="cpu"
+                     ) -> dict[str, StageCall]:
+    """{name (SETUP_EDGE_CASES): set-up call}: ``setup_call``'s random
+    inputs made to hold no usable seed, exactly one a read, or every
+    seed usable; S off a multiple of 32 and up to 18 kb reads' 1,564; C
+    16, 32 and 64; usable keys that tie but for the slot (S 200: seed
+    scores 1,000 + (S - 1 - s) // 128, so slots 128 apart tie); half the
+    seeds outside any chain; chain ranks up to 4,094 (C 4,095, the
+    largest the wrapper takes at this S), whose keys come within 2^19 of
+    the unusable seeds' 0x7FFFFFF0; and S 4,200, whose sort buffer
+    passes a block's shared memory (the scratch)."""
+    def call(k, B, S, C, score=False, edit=None):
+        st = setup_call(rank_dtype, seed=60 + k, B=B, S=S, C=C, score=score)
+        if edit is not None:
+            seeds, chains, flt = st.args[:3]
+            edit(seeds, chains, flt)
+        return StageCall(st.kind, _to(st.args, device))
+
+    def usable(seeds, chains, flt, per_read=None):
+        B, S = seeds["valid"].shape
+        C = flt["kept"].shape[1]
+        chains["assign"] = chains["assign"].clamp(0, C - 1)
+        flt["kept"].clamp_(min=1)
+        seeds["valid"][:] = True
+        if per_read is not None:   # only slot per_read[b] of read b valid
+            seeds["valid"][:] = False
+            seeds["valid"][torch.arange(B), per_read] = True
+
+    def none(seeds, chains, flt):
+        seeds["valid"][:] = False
+
+    def one(seeds, chains, flt):
+        B, S = seeds["valid"].shape
+        usable(seeds, chains, flt, torch.arange(B) * 7 % S)
+
+    def tied(seeds, chains, flt):
+        usable(seeds, chains, flt)
+        S = seeds["valid"].shape[1]
+        s = torch.arange(S)
+        seeds["score"] = (1000 + (S - 1 - s) // 128).to(torch.int32).expand(
+            seeds["valid"].shape[0], S).contiguous()
+        chains["assign"] //= 4   # a few chains, so ties meet in one
+
+    def outside(seeds, chains, flt):
+        B, S = seeds["valid"].shape
+        off = torch.arange(B * S).reshape(B, S) % 2 == 0
+        chains["assign"][off] = -1 - (torch.arange(B * S).reshape(B, S)[off]
+                                      % 3).to(torch.int32)
+
+    def far_ranks(seeds, chains, flt):
+        usable(seeds, chains, flt)
+        C = flt["order"].shape[1]
+        flt["order"] = torch.arange(C, dtype=torch.int32).expand_as(
+            flt["order"]).contiguous()
+        chains["assign"] = (C - 1 - chains["assign"] % 200).to(torch.int32)
+
+    specs = {
+        "no usable seed": (64, 64, 16, False, none),
+        "one usable seed a read": (64, 64, 16, True, one),
+        "every seed usable": (64, 64, 16, True, usable),
+        "S 45, C 16": (96, 45, 16, True, None),
+        "S 189, C 64": (32, 189, 64, True, None),
+        "S 1564, C 32": (4, 1564, 32, True, None),
+        "tied keys past S 128": (8, 200, 16, True, tied),
+        "seeds outside any chain": (64, 64, 16, False, outside),
+        "S 128, C 64": (32, 128, 64, False, None),
+        "chain ranks up to 4,094 (C 4,095)": (2, 150, 4095, True,
+                                              far_ranks),
+        "S 4200 (scratch)": (2, 4200, 32, True, None)}
+    return {name: call(k, *specs[name])
+            for k, name in enumerate(SETUP_EDGE_CASES)}
+
 
 def setup_calls(rank_dtype: torch.dtype = torch.int32, device="cpu"
                 ) -> dict[str, StageCall]:

@@ -1,32 +1,34 @@
-"""Another tree's ``kmer_seed``, ``fm_seed``, ``extend_scan`` and
-``extend_merge`` against this tree's, in turns on one card, at the calls
-the pipeline gives them.
+"""Another tree's ``kmer_seed``, ``fm_seed``, ``chain_seeds``,
+``extend_setup``, ``extend_scan`` and ``extend_merge`` against this
+tree's, in turns on one card, at the calls the pipeline gives them.
 
-    python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT
+    python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT [--only K,..]
 
 Run from this tree's root. Builds OTHER_ROOT's ``csrc/kmer.cu``,
-``csrc/fm_seed.cu`` and ``csrc/extend.cu`` (nvcc, the package's flags,
-into ``_build/other``) and this tree's, and prints each build's
-``-Xptxas -v`` lines (registers, stack frame, spills). Runs
+``csrc/fm_seed.cu``, ``csrc/extend.cu`` and ``csrc/chain.cu`` (nvcc, the
+package's flags, into ``_build/other``) and this tree's, and prints each
+build's ``-Xptxas -v`` lines (registers, stack frame, spills). Runs
 ``chip_smoke.py``'s main, PE, FM-seeded and long-read paths once on this
 tree's kernels, recording their calls, and the int64 warm-up batch (the
 main path's first batch with int64 ranks forced): the main path's and
 the PE step's kmer calls; the machine calls of the main path's reseed
-entry, the FM-seeded batch and the long-read warm-up; and the stage
-calls of the main path's, the PE step's, the FM-seeded, the long-read
-warm-up's and the int64 ``extend_all`` calls (``ExtendCall.stages``).
-Each call is checked bit-equal to the plain twin on both trees' kernels
-(the C entry points take the same arguments), then timed on them in
-turns: other, this, this, other (``KmerCall.kernel_ms`` and
+entry, the FM-seeded batch and the long-read warm-up; the chain_seeds
+calls and the stage calls of the ``extend_all`` calls of the main path,
+the PE step, the FM-seeded batch, the long-read warm-up and the int64
+batch (``ExtendCall.stages``). Each call is checked bit-equal to the
+plain twin on both trees' kernels (the C entry points take the same
+arguments), then timed on them in turns: other, this, this, other
+(``KmerCall.kernel_ms``, ``ChainCall.kernel_ms`` and
 ``StageCall.kernel_ms``: a launch in a CUDA graph;
 ``MachineCall.kernel_ms``: CUDA events, median of 3). A line a call:
 both trees' times, the bound (``chip_smoke.bound`` / ``fm_bound`` /
-``extend_bound``) and each share of it; for the machine also its slowest
-lane's steps (so us a step) and the backward share of the summed steps;
-for the extension kernels, ``extend_scan``, ``extend_merge left`` and
-``extend_merge right`` each summed over the call's launches. Unpack the
-other tree with ``git archive`` into a directory that ``.gitignore``
-lists. Needs a CUDA device.
+``chain_bound`` / ``extend_bound``) and each share of it; for the
+machine also its slowest lane's steps (so us a step) and the backward
+share of the summed steps; for the extension kernels, each kernel
+summed over the call's launches (``extend_merge left`` and ``right``
+apart). ``--only`` times the kernels it names alone (comma-separated;
+all by default). Unpack the other tree with ``git archive`` into a
+directory that ``.gitignore`` lists. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,13 +46,14 @@ import chip_smoke as cs
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
-from bioseqdb_tpu_torch.tools import (extend_calls, fm_machine, kmer_calls,
-                                      long_leg)
+from bioseqdb_tpu_torch.tools import (chain_calls, extend_calls, fm_machine,
+                                      kmer_calls, long_leg)
 from bioseqdb_tpu_torch.tools.shapes import card_line
 
-SOURCES = ("kmer", "fm_seed", "extend")
+SOURCES = ("kmer", "fm_seed", "extend", "chain")
 # the extension kernels timed in turns (the others are another tree's too)
-EXTEND_TIMED = ("extend_scan", "extend_merge")
+EXTEND_TIMED = ("extend_setup", "extend_scan", "extend_merge")
+TIMED = ("kmer_seed", "fm_seed", "chain_seeds") + EXTEND_TIMED
 ORDER = ("other", "this", "this", "other")
 
 
@@ -103,6 +106,9 @@ def in_turns(call, other: dict) -> dict:
            if isinstance(call, fm_machine.MachineCall)
            else extend_calls.max_abs_err
            if isinstance(call, extend_calls.StageCall)
+           else (lambda got, want: chain_calls.max_abs_err(got, want,
+                                                           call.kind))
+           if isinstance(call, chain_calls.ChainCall)
            else kmer_calls.max_abs_err)
     want = call.run(plain=True)
     times = {"other": [], "this": []}
@@ -119,25 +125,26 @@ def in_turns(call, other: dict) -> dict:
     return times
 
 
-def int64_call(m: dict, dev) -> "extend_calls.ExtendCall":
-    """The ``extend_all`` call of the main path's warm-up batch with int64
-    ranks forced (``chip_smoke.int64_path``'s Aligner)."""
+def int64_calls(m: dict, dev) -> dict:
+    """The ``extend_all`` call (``ext_calls``) and the chaining calls
+    (``ch_calls``) of the main path's warm-up batch with int64 ranks
+    forced (``chip_smoke.int64_path``'s Aligner)."""
     fm64 = kfm.FMDevice.from_host(m["idx"], dev, rank_dtype=torch.int64)
     al = dataclasses.replace(m["al"], fm=fm64, jump=build_r3_jump(fm64))
-    calls = []
-    with extend_calls.recording(calls):
+    ext, ch = [], []
+    with extend_calls.recording(ext), chain_calls.recording(ch):
         long_leg.run_batch(al, m["batches"][0])
-    return calls[0]
+    return dict(ext_calls=ext, ch_calls=ch)
 
 
-def extend_turns(name: str, call: "extend_calls.ExtendCall", other: dict
-                 ) -> None:
-    """Log EXTEND_TIMED's launches in ``call`` (each entry of
-    ``extend_merge`` apart), summed over the call, in turns."""
+def extend_turns(name: str, call: "extend_calls.ExtendCall", other: dict,
+                 only: tuple = EXTEND_TIMED) -> None:
+    """Log the launches in ``call`` of the kernels ``only`` names (each
+    entry of ``extend_merge`` apart), summed over the call, in turns."""
     _, stages = call.stages()
     sums = {}
     for st in stages:
-        if st.kind not in EXTEND_TIMED:
+        if st.kind not in only:
             continue
         times = in_turns(st, other)
         t_bytes, t_ops, _ = cs.extend_bound(st, st.run())
@@ -167,7 +174,12 @@ def turn_line(kernel: str, name: str, call, times: dict, bound_ms: float,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path)
+    ap.add_argument("--only", default=",".join(TIMED),
+                    help="the kernels to time, comma-separated")
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(","))
+    if not set(only) <= set(TIMED):
+        raise SystemExit(f"--only takes kernels of {TIMED}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -186,32 +198,41 @@ def main(argv=None) -> None:
     pe = cs.pe_path(m, card)
     fmp = cs.fm_main_path(m, dev, card)
     lr = cs.long_path(m, card)
-    for name, call in (("main path", m["km_calls"][0]),
-                       ("PE", pe["km_calls"][0])):
-        times = in_turns(call, other)
-        n = call.counts()
-        cs.log(turn_line("kmer_seed", name, call, times,
-                         *cs.bound(n["read"] + n["written"], n["instr"])))
-    for name, call in (("reseed entry", m["fm_calls"][0]),
-                       ("FM-seeded", fmp["fm_calls"][0]),
-                       ("long-read warm-up", lr["fm_calls"][0])):
-        times = in_turns(call, other)
-        _, out, touched = call.plain_ms()
-        steps = out["iters"]
-        slow, summed = int(steps.max()), int(steps.sum())
-        us = lambda t: " / ".join(f"{1e3 * x / slow:.3f}" for x in t)
-        cs.log(turn_line("fm_seed", name, call, times,
-                         *cs.fm_bound(call, out, touched))
-               + f"; slowest lane {slow} steps: us a step other "
-                 f"{us(times['other'])}, this {us(times['this'])}; backward "
-                 f"steps {touched['bwd']} of {summed} summed "
-                 f"({100 * touched['bwd'] / max(summed, 1):.1f}%)")
-    for name, call in (("main path", m["ext_calls"][0]),
-                       ("PE", pe["ext_calls"][0]),
-                       ("FM-seeded", fmp["ext_calls"][0]),
-                       ("long-read warm-up", lr["ext_calls"][0]),
-                       ("int64", int64_call(m, dev))):
-        extend_turns(name, call, other)
+    if "kmer_seed" in only:
+        for name, call in (("main path", m["km_calls"][0]),
+                           ("PE", pe["km_calls"][0])):
+            times = in_turns(call, other)
+            n = call.counts()
+            cs.log(turn_line("kmer_seed", name, call, times,
+                             *cs.bound(n["read"] + n["written"], n["instr"])))
+    if "fm_seed" in only:
+        for name, call in (("reseed entry", m["fm_calls"][0]),
+                           ("FM-seeded", fmp["fm_calls"][0]),
+                           ("long-read warm-up", lr["fm_calls"][0])):
+            times = in_turns(call, other)
+            _, out, touched = call.plain_ms()
+            steps = out["iters"]
+            slow, summed = int(steps.max()), int(steps.sum())
+            us = lambda t: " / ".join(f"{1e3 * x / slow:.3f}" for x in t)
+            cs.log(turn_line("fm_seed", name, call, times,
+                             *cs.fm_bound(call, out, touched))
+                   + f"; slowest lane {slow} steps: us a step other "
+                     f"{us(times['other'])}, this {us(times['this'])}; "
+                     f"backward steps {touched['bwd']} of {summed} summed "
+                     f"({100 * touched['bwd'] / max(summed, 1):.1f}%)")
+    i64 = int64_calls(m, dev)
+    paths = (("main path", m), ("PE", pe), ("FM-seeded", fmp),
+             ("long-read warm-up", lr), ("int64", i64))
+    if "chain_seeds" in only:
+        for name, d in paths:
+            call = chain_calls.pairs(d["ch_calls"])[0][0]
+            times = in_turns(call, other)
+            cs.log(turn_line("chain_seeds", name, call, times,
+                             *cs.chain_bound(call, call.run())[:2]))
+    timed = tuple(k for k in EXTEND_TIMED if k in only)
+    if timed:
+        for name, d in paths:
+            extend_turns(name, d["ext_calls"][0], other, timed)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Where the banded-SW kernel spends its time, on the card.
 
     python -m bioseqdb_tpu_torch.tools.sw_profile [--turns LABEL=SOURCE ...]
+    python -m bioseqdb_tpu_torch.tools.sw_profile --sets wide_18000,wide_25000
 
 1. Builds ``csrc/sw_extend.cu`` with ``-DSW_PROFILE``, which turns on its
    ``clock64()`` marks between the phases of a row (set-up, pass 1, the F
@@ -15,8 +16,14 @@
    version from git), checks it bit-equal to the plain version, and times
    it in turns with the package's kernel (the package's, the others, the
    others again in reverse, four turns each; device time a launch in a
-   CUDA graph) on the synthetic case set and on each SW launch of the
-   main path's warm-up batch (``tools/sw_sets.py``).
+   CUDA graph) on the synthetic, long_1500 and wide_2048 case sets and on
+   each SW launch of the main path's warm-up batch
+   (``tools/sw_sets.py``).
+
+With ``--sets``, it times the named case sets of ``tools/sw_sets.py``
+alone instead (the wide layout's ``wide_18000`` and ``wide_25000``
+among them): bit-equal to plain, time, bound and share as
+``chip_smoke.py``'s SW phase gives them.
 
 The builds here are for measurement only: they launch through their own
 binding, never count as the package's launches, and the package never
@@ -39,6 +46,7 @@ import torch
 
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels.sw import FIELDS
+from bioseqdb_tpu_torch.kernels.sw_cuda import layout as sw_layout
 from bioseqdb_tpu_torch.kernels.sw_cuda import sw_extend_cuda
 from bioseqdb_tpu_torch.tools import sw_sets
 from bioseqdb_tpu_torch.tools.shapes import graph_of, require_cuda, turns_ms
@@ -47,6 +55,7 @@ PHASES = ("total", "set-up", "pass 1", "scan", "pass 2", "fix-ups",
           "reductions", "lane update", "sync")
 SASS_OPS = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "PRMT", "SHFL", "LDS", "STS")
 TURNS = 4
+TURN_SETS = ("synthetic", "long_1500", "wide_2048")   # sw_sets' names
 
 
 def build_sources(specs: dict) -> dict:
@@ -174,7 +183,7 @@ def main_path_calls(dev) -> list:
 
 def turns(dev, sources: dict) -> dict:
     """The package's kernel and each of ``sources`` ({label: path}) in
-    turns on the synthetic set and each recorded main-path launch.
+    turns on TURN_SETS and each recorded main-path launch.
     Returns {input name: {label: [ms a launch of each turn]}}."""
     libs = build_sources({k: (p, ()) for k, p in sources.items()})
     for label, (_, text) in libs.items():
@@ -184,11 +193,10 @@ def turns(dev, sources: dict) -> dict:
     launches = {"this": sw_extend_cuda,
                 **{k: launcher(lib, "max_w" in Path(sources[k]).read_text())
                    for k, (lib, _) in libs.items()}}
-    synthetic = next(sw_sets.SwCall.from_cases(cases, *opts, dev)
-                     for name, cases, *opts in
-                     sw_sets.sw_sets(np.random.default_rng(7))
-                     if name == "synthetic")
-    inputs = [("synthetic", synthetic)] + [
+    inputs = [(name, sw_sets.SwCall.from_cases(cases, *opts, dev))
+              for name, cases, *opts in
+              sw_sets.sw_sets(np.random.default_rng(7))
+              if name in TURN_SETS] + [
         (f"main-path launch {k}", c) for k, c in enumerate(main_path_calls(dev))]
     out, sums = {}, {}
     for name, call in inputs:
@@ -207,7 +215,7 @@ def turns(dev, sources: dict) -> dict:
             f"{k} {', '.join(f'{v:.4f}' for v in ts)} ms (median "
             f"{statistics.median(ts):.4f})" for k, ts in ms.items()),
             flush=True)
-        if name != "synthetic":
+        if name.startswith("main-path"):
             for k, ts in ms.items():
                 sums[k] = [x + y for x, y in zip(sums.get(k, [0.0] * TURNS),
                                                  ts)]
@@ -218,14 +226,45 @@ def turns(dev, sources: dict) -> dict:
     return out
 
 
+def time_sets(dev, names: list) -> None:
+    """Each named case set of ``sw_sets`` (the wide ones included): its
+    layout, bit-equal to the plain version, its time (a launch in a CUDA
+    graph), its DP cells and rows, the bound and the share
+    (``chip_smoke.sw_bound``, as the SW phase counts them)."""
+    import chip_smoke
+    sets = {name: rest for name, *rest in sw_sets.sw_sets(
+        np.random.default_rng(7))}
+    for name in names:
+        call = sw_sets.SwCall.from_cases(*sets[name], dev)
+        ref = call.plain(count_cells=True)
+        err = call.err(ref)
+        if err:
+            raise AssertionError(f"sw_extend disagrees with plain on {name}")
+        ms = call.ms()
+        b_ms, b_by = chip_smoke.sw_bound(call, ref)
+        wq, w = call.args[0].shape[1], call.kw["max_w"]
+        print(f"sw_extend [{name}] {call.shape()}, {sw_layout(wq, w)} "
+              f"layout: cuda {ms:.4f} ms (a launch in a CUDA graph); "
+              f"{int(ref['cells'].sum())} DP cells, {int(ref['rows'].sum())} "
+              f"rows, a lane at most {int(ref['rows'].max())} -> bound "
+              f"{b_ms:.5f} ms ({b_by}), kernel at {100 * b_ms / ms:.3f}% of "
+              f"it; max_abs_err=0", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--turns", action="append", default=[],
                     metavar="LABEL=SOURCE",
                     help="another sw_extend source to time in turns")
+    ap.add_argument("--sets", default="",
+                    help="case sets of tools/sw_sets.py to time alone "
+                         "(comma-separated), without the profile")
     args = ap.parse_args(argv)
     dev = require_cuda()
     print(torch.cuda.get_device_name(0), flush=True)
+    if args.sets:
+        time_sets(dev, args.sets.split(","))
+        return
     profile(dev)
     sass_census()
     if args.turns:

@@ -11,7 +11,10 @@ retry); and the long-read widths, where the kernel keeps H and E in a
 ring over the band: ``long_1500`` (4,096 read-like pairs up to 1,500
 bases at the widths a batch of 1,500 bp reads launches, Wq 1,504 and Wt
 1,968, band 100) and ``wide_2048`` (1,024 pairs up to 2,048 bases at Wq
-2,048, Wt 2,512, band 200).
+2,048, Wt 2,512, band 200); and past the ring's shared memory, where
+it takes its wide layout: ``wide_18000`` (16 pairs up to 18,000 bases,
+the launch of a batch of 16 18 kb reads, band 100) and ``wide_25000``
+(64 pairs up to 25,000 bases, band 200).
 """
 
 from __future__ import annotations
@@ -45,6 +48,11 @@ SW_CALLS = 5        # launches in the CUDA graph that times one
 # Wt = W + 4 * band + 64
 LONG_WQ, LONG_WT = 1504, 1968
 WIDE_WQ, WIDE_WT = 2048, 2512
+# past the ring layout's shared memory: sw_extend's wide layout (18 kb and
+# 25 kb reads), lanes up to the full width each: {name: (lanes, Wq, Wt,
+# band)}
+WIDE_LAYOUT = {"wide_18000": (16, 18000, 18464, 100),
+               "wide_25000": (64, 25000, 25464, 200)}
 
 
 def sw_cases(rng, n, max_q, max_t, amb=False, indel=False):
@@ -92,7 +100,8 @@ def edge_cases(rng, n, a):
 
 def sw_sets(rng) -> list:
     """(name, cases, Wq, Wt, w, zdrop, end_bonus, a, b) of every case
-    set, drawn from ``rng`` in this order."""
+    set, drawn from ``rng`` in this order, the sets of WIDE_LAYOUT last
+    (their plain runs take seconds to a minute each)."""
     return [
         ("random", sw_cases(rng, 64, 50, 90), 64, 128, 100, 100, 5, 1, 4),
         ("narrow_band", sw_cases(rng, 64, 40, 60), 64, 128, 3, 100, 5, 1, 4),
@@ -112,6 +121,8 @@ def sw_sets(rng) -> list:
          LONG_WQ, LONG_WT, 100, 100, 5, 1, 4),
         ("wide_2048", sw_cases(rng, 1024, WIDE_WQ, WIDE_WT, indel=True),
          WIDE_WQ, WIDE_WT, 200, 100, 5, 1, 4),
+        *((name, sw_cases(rng, n, wq, wt, indel=True), wq, wt, w, 100, 5,
+           1, 4) for name, (n, wq, wt, w) in WIDE_LAYOUT.items()),
     ]
 
 

@@ -28,9 +28,14 @@
    (band 200, the band-doubling retry), and the long-read widths, where
    the kernel keeps H and E in a ring over the band: ``long_1500``
    (4,096 pairs, Wq 1,504, Wt 1,968) and ``wide_2048`` (1,024 pairs, Wq
-   2,048, Wt 2,512, band 200); the bound from the DP cells and rows the
-   plain version counts on the synthetic set, which gives the kernels
-   line its time, and on the two long-read sets (time, bound, share);
+   2,048, Wt 2,512, band 200), and past the ring's shared memory, where
+   it keeps only the ring there and reads the query codes from device
+   memory (its wide layout, which it must take): ``wide_18000`` (16
+   pairs, Wq 18,000, band 100: the launch of a batch of 16 18 kb reads;
+   the card tests and ``tools/sw_profile.py --sets`` take
+   ``wide_25000``); the bound from the DP cells and rows the plain
+   version counts on the synthetic set, which gives the kernels line its
+   time, and on the three long-read sets (time, bound, share);
    and the synthetic set's 1% of lanes with the most cells timed alone;
 4. main path: a 4.6 Mb simulated genome (E. coli scale), two batches of
    16,384 150 bp single-end reads at 1% substitutions through
@@ -97,8 +102,12 @@
    truth equal to the host oracle. The seed-SW filter's calls of both
    batches are recorded (``tools/seedsw_calls.py``) for phase 9e, and the
    timed batch's ``extend_all`` call for phase 9c. Then 64 reads of 8 kb
-   (seed 302) run twice: every step kernel of the path launched, truth,
-   the host oracle, and the same records both times;
+   (seed 302), 16 of 18 kb (seed 303) and 16 of 25 kb (seed 304) run
+   twice each (``huge_reads_path`` the last two, whose launches stay out
+   of the kernels line): every step kernel of the path launched (at 18
+   and 25 kb ``sw_extend`` at its wide layout at both bands of each
+   recorded ``extend_all`` call), truth, the host oracle, and the same
+   records both times;
 7b. FM machine phase: ``fm_seed`` against its plain twin
    (``seed.collect_seeds_plain``) on the card, bit-equal on all six
    outputs (mems, n_mem, overflow, iters, it_r1, it_r2) at the recorded
@@ -142,8 +151,11 @@
    overflow; weight, kept, order, beg, end) at the recorded inputs: the
    main path's (B 16,384, S 64, C 16), the PE step's (16,384 rows), the
    FM-seeded one's, the long-read warm-up's (1,024 reads, S 189, C 32),
-   the int64 one's and any fat retry of them (S 128, C 32), and at
-   ``edge_seeds`` with int32 and int64 ranks. Each: the kernel's time (a
+   the int64 one's and any fat retry of them (S 128, C 32), at
+   ``edge_seeds`` with int32 and int64 ranks, and (``chain_seeds``) at
+   ``chain_calls.group_calls`` (C reached, contained seeds, equal pos,
+   a strand crossing and chains below NEG on later lanes of the group,
+   at C 8, 16 and 64, both dtypes). Each: the kernel's time (a
    launch in a CUDA graph), the plain twin's, the bound (each input the
    function needs read once: the valid mask, the fields of the valid or
    assigned seed slots, the live chains' pos; each output written once;
@@ -162,7 +174,10 @@
    edge batch's fat retry; int32 and int64, int64 also shifted past
    2^31), of its random stage inputs (seeds 5-7, both dtypes), of
    ``extend_calls.setup_calls`` (the set-up at S 64 / 128 / 189 / 1,536
-   and C 16 / 32 / 256, both dtypes, int64 also past 2^31) and of
+   and C 16 / 32 / 256, both dtypes, int64 also past 2^31) and
+   ``setup_edge_calls`` (no, one and every seed usable, S 45 / 189 /
+   1,564 / 4,200, C 16 / 32 / 64, tied keys past S 128, seeds outside
+   any chain, chain ranks up to 4,094 at C 4,095), of
    ``extend_calls.lane_cases`` (the scan's first stop on the edge lanes
    of a pass, n_usable off a multiple of 32, more extended seeds than a
    warp, 0 and 16 live regions; the right merge at R 1 and 16 and S 40
@@ -355,7 +370,8 @@ from bioseqdb_tpu_torch.io.fasta import FastaRecord, write_fasta, write_fastq
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
-from bioseqdb_tpu_torch.kernels.sw_cuda import FULL_MAX_QLEN, blocks_per_sm
+from bioseqdb_tpu_torch.kernels.sw_cuda import (FULL_MAX_QLEN, blocks_per_sm,
+                                                layout as sw_layout)
 from bioseqdb_tpu_torch.sam.emit import (emit_sam, emit_sam_columns,
                                          emit_sam_pair_columns)
 from bioseqdb_tpu_torch.utils.profiling import TRACE_FILE
@@ -368,7 +384,8 @@ from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
-                                              MAIN_WQ, READ_LEN, WIDE_WQ,
+                                              MAIN_WQ, READ_LEN, WIDE_LAYOUT,
+                                              WIDE_WQ,
                                               SwCall, main_path_setup,
                                               recording, sw_sets)
 
@@ -399,6 +416,8 @@ RAGGED_READS, RAGGED_SEED = 2048, 900
 EXACT_SEED, EXACT_STEPS, EXACT_MAX_HITS = 2, 5, 4
 API_READS = 256
 WIDE_READS, WIDE_LEN, WIDE_SEED = 64, 8000, 302   # long_path's wide batch
+# huge_reads_path's reads past the SW ring layout: (reads, length, seed)
+HUGE_READS = ((16, 18000, 303), (16, 25000, 304))
 DIST_GRID_READS = 4096    # the data x index cell's batch
 PROFILE_READS = 2048
 QUAL = "I"   # the base quality written to every FASTQ record
@@ -459,20 +478,30 @@ def sw_bound(call: SwCall, counted: dict) -> tuple[float, str]:
     return bound(n_bytes, SW_INSTR_PER_CELL * int(counted["cells"].sum()))
 
 
-LONG_SETS = ("long_1500", "wide_2048")
+LONG_SETS = ("long_1500", "wide_2048", "wide_18000")
+# sw_sets' sets the SW phase leaves out: the card tests hold Wq 25,000
+# against plain at both bands, and this set's plain run takes a minute
+UNCHECKED_SETS = ("wide_25000",)
 
 
 def kernel_phase(dev) -> dict:
-    for wq, w in ((MAIN_WQ, 200), (320, 200), (LONG_WQ, 100), (WIDE_WQ, 200)):
+    for wq, w in ((MAIN_WQ, 200), (320, 200), (LONG_WQ, 100), (WIDE_WQ, 200),
+                  *((wq, w) for _, wq, _, w in WIDE_LAYOUT.values())):
         n = blocks_per_sm(wq, w)
-        log(f"sw_extend occupancy at Wq={wq}, bands up to {w}: {n} blocks "
-            f"of 128 threads an SM ({4 * n} warps)")
+        log(f"sw_extend occupancy at Wq={wq}, bands up to {w} "
+            f"({sw_layout(wq, w)} layout): {n} blocks of 128 threads an SM "
+            f"({4 * n} warps)")
     rng = np.random.default_rng(7)
-    max_err, calls = 0, {}
+    max_err, calls, counted_sets = 0, {}, {}
     for name, cases, *opts in sw_sets(rng):
+        if name in UNCHECKED_SETS:
+            continue
         call = SwCall.from_cases(cases, *opts, dev)
         calls[name] = call
-        err = call.err(call.plain())
+        ref = call.plain(count_cells=name in LONG_SETS)
+        if name in LONG_SETS:   # the wide sets' plain runs take seconds
+            counted_sets[name] = ref
+        err = call.err(ref)
         max_err = max(max_err, err)
         timing = ""
         if len(cases) >= 2048:
@@ -500,12 +529,17 @@ def kernel_phase(dev) -> dict:
     log(f"sw_extend [synthetic, the {len(top)} lanes with the most cells "
         f"({int(lane_cells[top].sum())} DP cells) alone]: cuda "
         f"{slow.ms():.4f} ms")
-    for name in LONG_SETS:   # the band-ring layout of long reads
-        call = calls[name]
-        ref = call.plain(count_cells=True)
+    for name in LONG_SETS:   # the band-ring and wide layouts of long reads
+        call, ref = calls[name], counted_sets[name]
+        wq, w = call.args[0].shape[1], call.kw["max_w"]
+        want = "wide" if name in WIDE_LAYOUT else "ring"
+        if sw_layout(wq, w) != want:
+            raise AssertionError(f"sw_extend [{name}] takes the "
+                                 f"{sw_layout(wq, w)} layout, not {want}")
         wide_ms = call.ms()
         b_ms, b_by = sw_bound(call, ref)
-        log(f"sw_extend [{name}] {call.shape()}: cuda {wide_ms:.4f} ms (a "
+        log(f"sw_extend [{name}] {call.shape()}, {want} layout: cuda "
+            f"{wide_ms:.4f} ms (a "
             f"launch in a CUDA graph); {int(ref['cells'].sum())} DP cells, "
             f"{int(ref['rows'].sum())} rows, a lane at most "
             f"{int(ref['rows'].max())} -> bound {b_ms:.5f} ms ({b_by}), "
@@ -713,6 +747,19 @@ def chain_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
         cs, fc, _ = chain_calls.edge_calls(rdt, device=dev)
         inputs.append((f"edge seeds {str(rdt).removeprefix('torch.')}",
                        (cs, fc)))
+        n = 0
+        for C in (8, 16, 64):   # the group's chains on later lanes
+            for case, call in chain_calls.group_calls(rdt, C, dev).items():
+                got = call.run()
+                if chain_calls.max_abs_err(got, call.run(plain=True),
+                                           call.kind):
+                    raise AssertionError(f"chain_seeds disagrees with plain "
+                                         f"on {case}, C {C}, {rdt}")
+                n += 1
+        log(f"chain_seeds on chain_calls.group_calls "
+            f"({str(rdt).removeprefix('torch.')}, C 8 / 16 / 64: "
+            f"{', '.join(chain_calls.GROUP_CASES)}): {n} calls, "
+            f"max_abs_err=0")
     rows = {k: {} for k in CHAIN_KERNELS}
     for name, calls in inputs:
         for call in calls:
@@ -900,7 +947,9 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
                 shape=f"{r['shape']}, {r['launches']} launches summed")
     for rdt in (torch.int32, torch.int64):
         n = 0
-        for name, st in extend_calls.setup_calls(rdt, device=dev).items():
+        for name, st in [
+                *extend_calls.setup_calls(rdt, device=dev).items(),
+                *extend_calls.setup_edge_calls(rdt, device=dev).items()]:
             for c in [st] + ([st.shifted()] if rdt == torch.int64 else []):
                 if extend_calls.max_abs_err(c.run(), c.run(plain=True)):
                     raise AssertionError(f"extend_setup disagrees with plain "
@@ -908,7 +957,9 @@ def extend_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
                 n += 1
         log(f"extend_setup on the set-up calls "
             f"({str(rdt).removeprefix('torch.')}: "
-            f"{', '.join(extend_calls.SETUP_CASES)}; int64 also past 2^31): "
+            f"{', '.join(extend_calls.SETUP_CASES)}; the sort's edges: "
+            f"{', '.join(extend_calls.SETUP_EDGE_CASES)}; int64 also past "
+            f"2^31): "
             f"{n} calls, max_abs_err=0")
         n = 0
         for seed in RANDOM_SEEDS:
@@ -1467,6 +1518,39 @@ def long_path(m: dict, card: str) -> dict:
                 ext_calls=ext_calls, timed_ext_call=timed_ext[0],
                 sw_calls=sw_calls, fmi_calls=fmi_calls,
                 res_calls=res_calls, batch=timed[1])
+
+
+def huge_reads_path(m: dict) -> None:
+    """Reads past the SW ring layout's shared memory (18 kb and 25 kb) on
+    the main path's index and Aligner, twice each: every step kernel
+    launches, sw_extend at its wide layout; truth; the same records."""
+    al = m["al"]
+    for n_reads, read_len, seed in HUGE_READS:
+        what = f"{read_len // 1000} kb reads"
+        sim, batch = long_leg.simulate(m["genome"], n_reads, seed,
+                                       read_len=read_len)
+        build.reset_launches()
+        ext = []
+        t0 = time.time()
+        with extend_calls.recording(ext):
+            runs = [long_leg.run_batch(al, batch)]
+        runs.append(long_leg.run_batch(al, batch))
+        huge_launches = dict(build.LAUNCHES)
+        widths = sorted({c.args["codes"].shape[1] for c in ext})
+        layouts = {w: (sw_layout(w, c.args["bandwidth"]),
+                       sw_layout(w, 2 * c.args["bandwidth"]))
+                   for c in ext for w in [c.args["codes"].shape[1]]}
+        log(f"{what} ({n_reads} x {read_len} bp, seed {seed}, twice): "
+            f"{time.time() - t0:.2f} s; launches {huge_launches}; "
+            f"extend_all at Wq {widths}, sw_extend layouts at its bands "
+            f"{layouts}")
+        must_launch(what, huge_launches, kmer=False, long_reads=True)
+        if not ext or any(v != ("wide", "wide") for v in layouts.values()):
+            raise AssertionError(f"{what}: sw_extend did not take its wide "
+                                 f"layout: {layouts}")
+        truth_check(what, al, sim, batch, runs[0]["cols"], runs[0]["n_ovf"])
+        if not cols_equal(runs[0]["cols"], runs[1]["cols"]):
+            raise AssertionError(f"{what}: two runs differ")
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -2073,7 +2157,9 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    t0 = time.time()
     sw = kernel_phase(dev)
+    log(f"SW phase: {time.time() - t0:.1f} s")
     m = main_path(dev, card)
     main_path_launches(m["calls"])
     t0 = time.time()
@@ -2084,6 +2170,7 @@ def main() -> None:
     log(f"FM-seeded phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     lr = long_path(m, card)
+    huge_reads_path(m)
     log(f"long-read phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     fms = fm_machine_phase(m, fm, lr, dev)

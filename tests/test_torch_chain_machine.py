@@ -18,6 +18,15 @@ twins, on the CPU (the kernels themselves run only on the card:
 - The kernels' lane bodies, compiled for the host with g++ (the source's
   host entries), equal the plain twins on ``edge_seeds`` at the
   pipeline's S and C and on the recorded batch; skipped without g++.
+- ``chain_seeds``' group body (a group of 8 threads a read, its chains
+  spread over the lanes) on the host build equals the twin on
+  ``chain_calls.group_calls`` at C 8, 16 and 64 (one, two and eight
+  chains a lane; S one past a multiple of 8), int32 and int64 past 2^31: C
+  reached (new chains refused with overflow), contained seeds, equal
+  pos on different lanes and in one lane (the first slot wins), a
+  strand crossing and a chain below NEG, each after enough chains that
+  the one it is about sits on a later lane, and a read whose only chain
+  lies below NEG; each case holds what it was made for.
 Integer programs: tolerance 0."""
 
 import ctypes
@@ -272,3 +281,39 @@ def test_host_build_equals_plain_on_a_recorded_batch(host_lib, recorded):
         assert cc.max_abs_err(_host_run(host_lib, call),
                               call.run(plain=True), call.kind) == 0
     assert (cs.run(plain=True)["n"] > 1).any()
+
+
+@pytest.mark.parametrize("rank_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", cc.GROUP_CASES)
+def test_group_body_equals_plain_on_group_calls(host_lib, rank_dtype, case):
+    for C in (8, 16, 64):
+        call = cc.group_calls(rank_dtype, C)[case]
+        want = call.run(plain=True)
+        assert cc.max_abs_err(_host_run(host_lib, call), want,
+                              call.kind) == 0, C
+        seeds = call.seeds
+        n_far = C // 2 + 1
+        n, assign = int(want["n"][0]), want["assign"][0]
+        rbeg = seeds["rbeg"][0]
+        slot = lambda r, q: int(torch.nonzero(
+            (rbeg == r) & (seeds["qbeg"][0] == q) & seeds["valid"][0])[0, 0])
+        if case == "overflow at C":
+            assert bool(want["overflow"][0]) and n == C
+            assert int((assign[seeds["valid"][0]] == -1).sum()) == 3
+        elif case == "contained on a later lane":
+            assert int((assign == -2).sum()) == 2 and n == n_far + 1
+        elif case == "equal pos across lanes":
+            pos = want["pos"][0, :n]
+            first = int(torch.nonzero(pos == pos[2])[0, 0])
+            assert first == 2 and int((pos == pos[2]).sum()) >= 2
+            last = int(torch.nonzero(seeds["valid"][0])[-1, 0])
+            assert int(assign[last]) == 2
+        elif case == "strand crossing on a later lane":
+            l_pac = call.args["fm"].l_pac
+            a = [int(assign[slot(l_pac + d, q)])
+                 for d, q in ((-60, 0), (0, 60), (40, 100))]
+            assert a[0] != a[1] == a[2] and n == n_far + 3
+        else:
+            first = 0 if case == "only chain below NEG" else n_far
+            below = int(assign[slot(-(1 << 30) - 400, 100)])
+            assert below == first + 1 and n == first + 3

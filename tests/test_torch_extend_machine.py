@@ -36,6 +36,13 @@ plain twins, on the CPU (the kernels themselves run only on the card:
   windows clipped at reference ends), int32, int64 and past 2^31; the
   wrapper takes any S and C (a scratch past its shared memory) and
   refuses wrong dtypes and CPU tensors.
+- The set-up's sorts (``extend_calls.setup_edge_calls``): its host
+  entry equals the twin with no usable seed, one a read and every seed
+  usable; at S 45 (off a multiple of 32), 189, 1,564 and 4,200 (the
+  scratch) and C 16, 32 and 64; with usable keys that tie but for the
+  slot (S 200); with half the seeds outside any chain; and at chain
+  ranks up to 4,094 (C 4,095), whose keys come within 2^19 of the
+  unusable seeds' (int32, int64 and past 2^31).
 - The rounds without host waits: ``extend_all`` with every round and
   retry run under its gate (``extend_calls.route("gates")``, what the
   card's CUDA graph captures) equals the guarded order on the edge set,
@@ -353,16 +360,45 @@ def test_setup_host_build_equals_plain(host_lib, dtype, case):
     assert ((chains["assign"] < 0) & seeds["valid"]).any()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ec.SETUP_EDGE_CASES)
+def test_setup_sort_edges_host_build_equals_plain(host_lib, dtype, case):
+    call = ec.setup_edge_calls(DTYPES[dtype])[case]
+    calls = [call] + ([call.shifted()] if dtype == "int64" else [])
+    _host_equals_plain(host_lib, calls)
+    seeds, chains, flt = call.args[:3]
+    B, S = seeds["valid"].shape
+    C = flt["order"].shape[1]
+    n_usable = call.run(plain=True)["n_usable"]
+    # what each case was made for
+    want = {"no usable seed": lambda: (n_usable == 0).all(),
+            "one usable seed a read": lambda: (n_usable == 1).all(),
+            "every seed usable": lambda: (n_usable == S).all(),
+            "S 45, C 16": lambda: S % 32 != 0,
+            "S 189, C 64": lambda: (S, C) == (189, 64),
+            "S 1564, C 32": lambda: (S, C) == (1564, 32),
+            "tied keys past S 128": lambda: S > 128 and (n_usable == S).all(),
+            "seeds outside any chain": lambda: (
+                (chains["assign"] < 0) & seeds["valid"]).sum() > B * S // 3,
+            "S 128, C 64": lambda: C == 64,
+            "chain ranks up to 4,094 (C 4,095)": lambda: C == 4095 and (
+                chains["assign"] >= 4000).any() and (n_usable == S).all(),
+            "S 4200 (scratch)": lambda: ecu.setup_bytes(
+                S, C, DTYPES[dtype]) > ecu.SETUP_SMEM}[case]
+    assert want(), case
+
+
 def test_setup_wrapper_refuses_wide_reads(monkeypatch):
     """Wide reads are not refused: past a block's shared memory the
-    set-up takes a scratch in device memory. Wrong dtypes and CPU tensors
-    are."""
+    set-up takes a scratch in device memory. Wrong dtypes, CPU tensors
+    and a C and S whose usable seeds' sort keys would reach the unusable
+    seeds' 0x7FFFFFF0 are."""
     monkeypatch.setattr(build, "library", None)   # never reached
     call = ec.setup_calls(torch.int32)["S 64, C 16"]
     seeds, chains, flt, lens, refs, p = call.args
     wide = lambda d, keys, n: dict(d, **{k: d[k].repeat(1, n) for k in keys})
-    for n_s, n_c, scratch in ((25, 1, False), (50, 1, True), (1, 17, False),
-                              (1, 400, True)):
+    for n_s, n_c, scratch in ((25, 1, False), (100, 1, True), (1, 17, False),
+                              (1, 255, True), (1, 256, True)):
         ws = wide(seeds, ("rbeg", "qbeg", "len", "valid"), n_s)
         wc = wide(wide(chains, ("assign",), n_s), ("f_rbeg", "rid"), n_c)
         wf = wide(flt, ("order", "kept"), n_c)
@@ -375,6 +411,14 @@ def test_setup_wrapper_refuses_wide_reads(monkeypatch):
             assert tensors[-1].numel() == lens.shape[0] * per_read
         with pytest.raises(ValueError, match="CUDA"):
             ecu.extend_setup_cuda(ws, wc, wf, lens, refs, p)
+    # C 4,096 is taken at S 64 (its largest key 0x7FFFFFBF), not at S 128
+    # or past C 4,096
+    for n_s, n_c in ((2, 256), (1, 257)):
+        ws = wide(seeds, ("rbeg", "qbeg", "len", "valid"), n_s)
+        wc = wide(wide(chains, ("assign",), n_s), ("f_rbeg", "rid"), n_c)
+        with pytest.raises(ValueError, match="unusable"):
+            ecu.setup_args(ws, wc, wide(flt, ("order", "kept"), n_c), lens,
+                           refs, p)
     with pytest.raises(ValueError, match="kept"):
         ecu.extend_setup_cuda(seeds, chains, dict(flt, kept=flt["kept"]
                                                   .long()), lens, refs, p)

@@ -138,15 +138,39 @@ def test_kernel_wide_query(dev):
           max_qlen=320, max_tlen=640)
 
 
-@pytest.mark.parametrize("wq", [321, 1504, 2048])
-def test_kernel_long_query(dev, wq):
+@pytest.mark.parametrize("wq,w,n", [
+    pytest.param(321, 200, 256, id="321"),
+    pytest.param(1504, 200, 256, id="1504"),
+    pytest.param(2048, 200, 256, id="2048"),
+    # past the ring layout's shared memory (12,468 at w 100, 10,420 at
+    # 200): the wide layout, its query codes read from device memory
+    *(pytest.param(wq, w, 24, id=f"{wq}-w{w}")
+      for wq in (12469, 18000, 25000) for w in (100, 200))])
+def test_kernel_long_query(dev, wq, w, n):
     """Query widths past 320 (long reads): H and E in a ring over the
-    band, at the band-doubling retry's band (w = 200), with lanes up to
-    the full width and lanes much shorter than it."""
-    rng = np.random.default_rng(wq)
+    band, at the main band (w = 100) and the band-doubling retry's (w =
+    200), with a lane at the full width, lanes up to it and lanes much
+    shorter than it."""
+    rng = np.random.default_rng(wq + w)
     wt = wq + 4 * 100 + 64
-    _both(dev, _read_like(rng, 256, wq, wt), w=200, max_qlen=wq,
-          max_tlen=wt)
+    cases = _read_like(rng, n, wq, wt)
+    qq = rng.integers(0, 4, wq)
+    cases[0] = (qq, np.concatenate([qq, rng.integers(0, 4, wt - wq)]), 30)
+    _both(dev, cases, w=w, max_qlen=wq, max_tlen=wt)
+
+
+def test_kernel_query_past_65535(dev):
+    """Wq 70,000 with a short target: the wide layout's live columns are
+    two 32-bit reductions, not 16-bit halves, so no width cap remains."""
+    rng = np.random.default_rng(70)
+    wq, wt = 70000, 96
+    cases = []
+    for k in range(16):
+        qq = rng.integers(0, 4, wq - 1000 * k)
+        tt = qq[:wt].copy()
+        tt[rng.random(wt) < 0.05] = rng.integers(0, 4)
+        cases.append((qq, tt, int(rng.integers(1, 60))))
+    _both(dev, cases, w=200, max_qlen=wq, max_tlen=wt)
 
 
 def test_kernel_retry_band(dev):
