@@ -1,6 +1,6 @@
 // Chaining and the chain filter for Hopper: every trip of every loop of a
-// read in one launch, a group of 8 threads a read (chain_seeds) or a
-// thread a read (filter_chains).
+// read in one launch, a group of 8 threads a read (chain_seeds) or of 16
+// or 32, a lane a chain (filter_chains).
 //
 // Replaces the TPU program of bioseqdb_tpu/kernels/chain.py: chain_seeds
 // (bwa's mem_chain insertion, its lax.fori_loop over the seed slots at
@@ -52,15 +52,25 @@
 //     table at the end.
 //   The insertion order over the seeds stays serial, as in bwa's
 //   mem_chain.
-// - filter_chains: one thread a read, 128 threads a block; reads are
-//   independent (the plain versions act on each read's row alone), so a
-//   lane runs its read's loops in order with no synchronisation. Its
-//   state (wq, endq, wr, endr, beg, end, weight, kept, first and the
-//   order) lives in per-thread arrays of kMaxChains in local memory (C
-//   is 16 at W <= 512, 32 above, 64 in the long-read fat retry; the
-//   wrapper refuses more). Seed slots stream from device memory, so S is
-//   unbounded. Its row-major [B, S] reads are strided across the threads
-//   of a warp.
+// - filter_chains: a group of threads a read, a lane a chain: 16 threads
+//   for C up to 16 (8 reads a 128-thread block, so 16,384 reads make
+//   2,048 blocks, about one resident wave), a warp past it, two chains a
+//   lane past 32 (C is 16 at W <= 512, 32 above, 64 in the long-read fat
+//   retry; the wrapper refuses more). A chain's state (its weight folds,
+//   beg, end, weight, kept, first shadow and place in the order) lives in
+//   its lane's registers; what other lanes read (the order keys, the
+//   order with each place's beg / end / weight, the first shadows) in the
+//   group's shared memory. The seed slots stream in passes of 64, so S is
+//   unbounded: a pass's assign loads coalesced, an assigned slot's fields
+//   go to shared memory and its bit into its chain's 64-bit mask, and each
+//   lane folds its own chains' seeds in slot order (a chain's weight
+//   depends on that order). The two stable ranks of the order are a
+//   lane's compares against the group's keys; the shadow loop's trips run
+//   over the alive chains in weight order, each a group test of every
+//   kept chain against the trip's (a group min of the drop chains' places,
+//   a ballot for `large`); the promotion loop walks the kept chains with
+//   a shadow in slot order as uniform mask arithmetic. The outputs go out
+//   as coalesced rows.
 // - Ranks and reference positions take the template type R (int32 or
 //   int64, the index's rank dtype); query positions, lengths and weights
 //   int32, as in the plain versions. The shadow test's products are
@@ -71,12 +81,13 @@
 // - Every argument of the plain versions' vector ops that reads state
 //   from before a trip (the shadow loop's kept and first) reads it
 //   before the trip writes it: the shadow trip finds the first drop
-//   chain in one pass over the chains and updates first in a second.
-// - The per-read bodies are __host__ __device__ functions (chain_seeds'
-//   a group body through csrc/lanes.cuh). Compiled without nvcc (g++ -x
-//   c++), the file gives host entry points that run the same bodies over
-//   every read, a group's lanes in turn, so the logic can be held against
-//   the plain versions on a machine without a card.
+//   chain by a group min over every lane's tests and updates first after
+//   it.
+// - The per-read bodies are group bodies (csrc/lanes.cuh). Compiled
+//   without nvcc (g++ -x c++), the file gives host entry points that run
+//   the same bodies over every read, a group's lanes in turn, so the
+//   logic can be held against the plain versions on a machine without a
+//   card.
 
 #include "lanes.cuh"
 
@@ -399,135 +410,312 @@ void chain_seeds_read(const ChainParams& p, long long b, unsigned char* smem) {
 }
 #endif
 
-// mem_chain_flt for read b (filter_chains_plain, one lane)
+// filter_chains' group: G threads a read, lane t holding chains t, t + G,
+// .., t + (K - 1) * G (16 threads for C up to 16, a warp past it, two
+// chains a lane past 32)
+LANE_HD inline int filter_group(long long C) { return C <= 16 ? 16 : 32; }
+LANE_HD inline int filter_chains_a_lane(long long C) {
+  return C <= 32 ? 1 : 2;
+}
+constexpr int kFilterPass = 64;   // a filter group's seed slots a pass
+
+// a filter group's shared memory (or, on the host, a buffer)
 template <typename R>
-LANE_HD void filter_chains_lane(const FilterParams& p, long long b) {
-  int32_t wq[kMaxChains], endq[kMaxChains], wr[kMaxChains], beg[kMaxChains],
-      end[kMaxChains], weight[kMaxChains], kept[kMaxChains],
-      first[kMaxChains], rank_of[kMaxChains], order[kMaxChains],
-      key[kMaxChains];
-  R endr[kMaxChains];
+struct FilterSmem {
+  uint64_t* seeds;     // [C] a chain's assigned slots in the pass, a bit each
+  uint64_t* alive_at;  // [1] the places in the order that alive chains hold
+  R* rb;               // [kFilterPass] an assigned slot's rbeg, by its place
+  R* pkey;             // [C] the order's position keys
+  int32_t* qb;         // [kFilterPass] an assigned slot's qbeg
+  int32_t* ln;         // [kFilterPass] its len
+  int32_t* key;        // [C] -combined
+  int32_t* order;      // [C] the chain at each place of the order
+  int32_t* obeg;       // [C] beg, end and weight of that chain
+  int32_t* oend;
+  int32_t* ow;
+  int32_t* first;      // [C] each chain's first shadow, for the promotion
+  LANE_HD FilterSmem(unsigned char* base, int C)
+      : seeds(reinterpret_cast<uint64_t*>(base)),
+        alive_at(seeds + C),
+        rb(reinterpret_cast<R*>(alive_at + 1)),
+        pkey(rb + kFilterPass),
+        qb(reinterpret_cast<int32_t*>(pkey + C)),
+        ln(qb + kFilterPass),
+        key(ln + kFilterPass),
+        order(key + C),
+        obeg(order + C),
+        oend(obeg + C),
+        ow(oend + C),
+        first(ow + C) {}
+};
+
+template <typename R>
+LANE_HD inline long long filter_bytes(long long C) {
+  return (8 * (C + 1) +
+          static_cast<long long>(sizeof(R)) * (kFilterPass + C) +
+          4 * (2 * kFilterPass + 6 * C) + 15) &
+         ~15LL;
+}
+
+// mem_chain_flt for read b (filter_chains_plain, one read) by a group of G
+// threads, K chains a lane
+template <typename R, int G, int K>
+GROUP_FN void filter_chains_group(const FilterParams& p, long long b,
+                                  FilterSmem<R> sm) {
   const int C = static_cast<int>(p.C);
-  for (int c = 0; c < C; ++c) {
-    wq[c] = endq[c] = wr[c] = end[c] = 0;
-    endr[c] = 0;
-    beg[c] = kBegFill;
+  // a lane's chains' folds, in registers
+  Lanes<int32_t, G> wq[K], endq[K], wr[K], beg[K], end[K];
+  Lanes<R, G> endr[K];
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      wq[k][t] = endq[k][t] = wr[k][t] = end[k][t] = 0;
+      endr[k][t] = 0;
+      beg[k][t] = kBegFill;
+    }
+    for (int c = t; c < C; c += G) sm.seeds[c] = 0;
+    if (t == 0) *sm.alive_at = 0;
   }
+  group_sync<G>();
   // the weights: each assigned seed adds the part of its query and of its
-  // reference span past its chain's end so far
+  // reference span past its chain's end so far, in slot order. A pass's
+  // assign loads together (coalesced); an assigned slot's fields go to
+  // shared memory and its bit to its chain's mask, and each lane then
+  // folds its chains' seeds alone, in slot order (their bits ascending).
   const long long row = b * p.S;
   const R* rbegs = static_cast<const R*>(p.rbeg) + row;
-  for (long long s = 0; s < p.S; ++s) {
-    const int32_t ci = p.assign[row + s];
-    if (ci < 0) continue;
-    const int c = min_(ci, C - 1);
-    const int32_t qb = p.qbeg[row + s];
-    const int32_t ln = p.len[row + s];
-    const R rb = rbegs[s];
-    const int32_t qe = add_(qb, ln);
-    wq[c] = add_(wq[c], qb >= endq[c] ? ln : max_(sub_(qe, endq[c]), 0));
-    endq[c] = max_(endq[c], qe);
-    const R re = add_(rb, static_cast<R>(ln));
-    const R add = rb >= endr[c] ? static_cast<R>(ln)
-                                : max_(sub_(re, endr[c]), R(0));
-    // the sum in the rank type, stored as int32 (put_row casts)
-    wr[c] = wrap32(add_(static_cast<long long>(wr[c]),
-                        static_cast<long long>(add)));
-    endr[c] = max_(endr[c], re);
-    beg[c] = min_(beg[c], qb);
-    end[c] = max_(end[c], qe);
-  }
-  const int n = p.n[b];
-  uint64_t alive = 0;
-  for (int c = 0; c < C; ++c) {
-    const int32_t w = c < n ? min_(wq[c], wr[c]) : -1;
-    const bool a = c < n && w >= p.min_chain_weight;
-    weight[c] = a ? w : -1;
-    alive |= static_cast<uint64_t>(a) << c;
+  constexpr int U = kFilterPass / G;   // a lane's slots a pass
+  for (long long base = 0; base < p.S; base += kFilterPass) {
+    Lanes<int32_t, G> a[U];
+    FOR_LANES(G, t) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long s = base + u * G + t;
+        a[u][t] = s < p.S ? p.assign[row + s] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (a[u][t] < 0) continue;
+        const int i = u * G + t;
+        const long long s = base + i;
+        sm.rb[i] = rbegs[s];
+        sm.qb[i] = p.qbeg[row + s];
+        sm.ln[i] = p.len[row + s];
+        fold_or(sm.seeds + min_(a[u][t], C - 1), 1ULL << i);
+      }
+    }
+    group_sync<G>();
+    FOR_LANES(G, t) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = k * G + t;
+        if (c >= C) continue;
+        for (uint64_t m = sm.seeds[c]; m != 0; m &= m - 1) {
+          const int i = low_bit64(m);
+          const int32_t qb = sm.qb[i], ln = sm.ln[i];
+          const R rb = sm.rb[i];
+          const int32_t qe = add_(qb, ln);
+          wq[k][t] = add_(wq[k][t], qb >= endq[k][t]
+                                        ? ln
+                                        : max_(sub_(qe, endq[k][t]), 0));
+          endq[k][t] = max_(endq[k][t], qe);
+          const R re = add_(rb, static_cast<R>(ln));
+          const R add = rb >= endr[k][t] ? static_cast<R>(ln)
+                                         : max_(sub_(re, endr[k][t]), R(0));
+          // the sum in the rank type, stored as int32 (put_row casts)
+          wr[k][t] = wrap32(add_(static_cast<long long>(wr[k][t]),
+                                 static_cast<long long>(add)));
+          endr[k][t] = max_(endr[k][t], re);
+          beg[k][t] = min_(beg[k][t], qb);
+          end[k][t] = max_(end[k][t], qe);
+        }
+        sm.seeds[c] = 0;
+      }
+    }
+    group_sync<G>();   // the pass is folded before the next one loads
   }
   // the order: weight-descending, ties by chain pos ascending. pos_rank
   // is the stable rank of where(exists, pos, 0x7FFFFFFF); combined =
-  // weight * C + (C - 1 - pos_rank) is unique, and rank_of (a slot's
-  // place in the order) the stable rank of -combined
+  // weight * C + (C - 1 - pos_rank) is unique, and rank_of (a chain's
+  // place in the order) the stable rank of -combined: a lane ranks its
+  // chains by compares against the group's keys in shared memory
+  const int n = p.n[b];
   const R* pos = static_cast<const R*>(p.pos) + b * p.C;
-  R* const pkey = endr;   // the reference ends are spent
-  for (int c = 0; c < C; ++c) pkey[c] = c < n ? pos[c] : R(kPosFill);
-  for (int c = 0; c < C; ++c) {   // key = -combined
-    int r = 0;
-    for (int k = 0; k < C; ++k)
-      r += pkey[k] < pkey[c] || (pkey[k] == pkey[c] && k < c);
-    key[c] = wrap32(-static_cast<long long>(wrap32(
-        static_cast<long long>(weight[c]) * C + (C - 1 - r))));
+  Lanes<int32_t, G> weight[K], rank_of[K];
+  Lanes<bool, G> alive[K];
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = k * G + t;
+      const int32_t w = c < n ? min_(wq[k][t], wr[k][t]) : -1;
+      alive[k][t] = c < C && c < n && w >= p.min_chain_weight;
+      weight[k][t] = alive[k][t] ? w : -1;
+      if (c < C) sm.pkey[c] = c < n ? pos[c] : R(kPosFill);
+    }
   }
-  for (int c = 0; c < C; ++c) {
-    int r = 0;
-    for (int k = 0; k < C; ++k)
-      r += key[k] < key[c] || (key[k] == key[c] && k < c);
-    rank_of[c] = r;
-    order[r] = c;
+  group_sync<G>();
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = k * G + t;
+      if (c >= C) continue;
+      const R v = sm.pkey[c];
+      int r = 0;
+      for (int j = 0; j < C; ++j) {
+        const R u = sm.pkey[j];
+        r += u < v || (u == v && j < c);
+      }
+      sm.key[c] = wrap32(-static_cast<long long>(wrap32(
+          static_cast<long long>(weight[k][t]) * C + (C - 1 - r))));
+    }
   }
-  for (int c = 0; c < C; ++c) {
-    kept[c] = 0;
-    first[c] = -1;
+  group_sync<G>();
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = k * G + t;
+      rank_of[k][t] = 0;
+      if (c >= C) continue;
+      const int32_t v = sm.key[c];
+      int r = 0;
+      for (int j = 0; j < C; ++j) {
+        const int32_t u = sm.key[j];
+        r += u < v || (u == v && j < c);
+      }
+      rank_of[k][t] = r;
+      sm.order[r] = c;
+      sm.obeg[r] = beg[k][t];
+      sm.oend[r] = end[k][t];
+      sm.ow[r] = weight[k][t];
+      if (alive[k][t]) fold_or(sm.alive_at, 1ULL << r);
+    }
   }
-  if ((alive >> order[0]) & 1) kept[order[0]] = 3;   // the best is kept
-  // the shadow loop, in weight order: a chain overlapped by a kept chain
-  // (mask_level of the shorter span) is dropped when much lighter than
-  // the first such chain that drops it, and marks the kept chains up to
-  // that one as its shadows
+  group_sync<G>();
+  // the best is kept; then the shadow loop, in weight order, over the
+  // alive chains alone: a chain overlapped by a kept chain (mask_level of
+  // the shorter span) is dropped when much lighter than the first such
+  // chain that drops it, and marks the kept chains up to that one as its
+  // shadows. Lane j tests its chains against the trip's, every test
+  // reading kept as it stood before the trip; the first drop is a group
+  // min of the drop chains' places, `large` a ballot.
+  const uint64_t alive_at = *sm.alive_at;
+  const int best = sm.order[0];
+  Lanes<int32_t, G> kept[K], first[K];
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      kept[k][t] = (alive_at & 1) && k * G + t == best ? 3 : 0;
+      first[k][t] = -1;
+    }
+  }
   const float mask_level = p.mask_level;
   const float drop_ratio = p.chain_drop_ratio;
-  for (int r = 1; r < C; ++r) {
-    const int ci = order[r];
-    if (!((alive >> ci) & 1)) continue;
-    const int32_t bi = beg[ci], ei = end[ci], wi = weight[ci];
+  for (uint64_t todo = alive_at & ~1ULL; todo != 0; todo &= todo - 1) {
+    const int r = low_bit64(todo);
+    const int ci = sm.order[r];
+    const int32_t bi = sm.obeg[r], ei = sm.oend[r], wi = sm.ow[r];
     const int32_t li = sub_(ei, bi);
-    int32_t first_drop = kBegFill;
-    bool large = false;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int j = 0; j < C; ++j) {
-        if (kept[j] <= 0) continue;
-        const int32_t b_max = max_(beg[j], bi);
-        const int32_t e_min = min_(end[j], ei);
-        const int32_t min_l = min_(li, sub_(end[j], beg[j]));
-        const bool sig = e_min > b_max &&
-                         static_cast<float>(sub_(e_min, b_max)) >=
-                             mul_f32(static_cast<float>(min_l), mask_level) &&
-                         min_l < p.max_chain_gap;
-        if (!sig) continue;
-        if (pass == 0) {
-          const bool drop =
-              static_cast<float>(wi) <
-                  mul_f32(static_cast<float>(weight[j]), drop_ratio) &&
-              sub_(weight[j], wi) >=
-                  p.min_seed_len * 2;
-          if (drop) first_drop = min_(first_drop, rank_of[j]);
-        } else if (rank_of[j] <= first_drop) {
-          large = true;
-          if (first[j] < 0) first[j] = ci;
-        }
+    Lanes<bool, G> sig[K];
+    Lanes<int32_t, G> drop_at;
+    FOR_LANES(G, t) {
+      drop_at[t] = kBegFill;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        sig[k][t] = false;
+        if (kept[k][t] <= 0) continue;
+        const int32_t bj = beg[k][t], ej = end[k][t], wj = weight[k][t];
+        const int32_t b_max = max_(bj, bi);
+        const int32_t e_min = min_(ej, ei);
+        const int32_t min_l = min_(li, sub_(ej, bj));
+        sig[k][t] = e_min > b_max &&
+                    static_cast<float>(sub_(e_min, b_max)) >=
+                        mul_f32(static_cast<float>(min_l), mask_level) &&
+                    min_l < p.max_chain_gap;
+        const bool drop =
+            sig[k][t] &&
+            static_cast<float>(wi) <
+                mul_f32(static_cast<float>(wj), drop_ratio) &&
+            sub_(wj, wi) >= p.min_seed_len * 2;
+        if (drop) drop_at[t] = min_(drop_at[t], rank_of[k][t]);
       }
     }
-    if (kept[ci] == 0)
-      kept[ci] = first_drop < kBegFill ? 0 : (large ? 2 : 3);
-  }
-  // promote the shadows that kept chains reference, in slot order
-  for (int c = 0; c < C; ++c) {
-    const int32_t fi = first[c];
-    if (kept[c] > 0 && fi >= 0) {
-      const int f = min_(fi, C - 1);
-      if (kept[f] == 0) kept[f] = 1;
+    const int32_t first_drop = group_min<G>(drop_at);
+    Lanes<bool, G> large;
+    FOR_LANES(G, t) {
+      large[t] = false;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (!sig[k][t] || rank_of[k][t] > first_drop) continue;
+        large[t] = true;
+        if (first[k][t] < 0) first[k][t] = ci;
+      }
+    }
+    const bool any_large = ballot(large) != 0;
+    FOR_LANES(G, t) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k * G + t == ci && kept[k][t] == 0)
+          kept[k][t] = first_drop < kBegFill ? 0 : (any_large ? 2 : 3);
+      }
     }
   }
+  // promote the shadows that kept chains reference, in slot order: a
+  // promoted chain past the one that promotes it promotes in its turn.
+  // Every thread of the group runs the loop on the same masks.
+  uint64_t kept_at = 0, has_first = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    Lanes<bool, G> kp, hf;
+    FOR_LANES(G, t) {
+      const int c = k * G + t;
+      kp[t] = c < C && kept[k][t] > 0;
+      hf[t] = c < C && first[k][t] >= 0;
+      if (c < C) sm.first[c] = first[k][t];
+    }
+    kept_at |= static_cast<uint64_t>(ballot(kp)) << (k * G);
+    has_first |= static_cast<uint64_t>(ballot(hf)) << (k * G);
+  }
+  group_sync<G>();
+  uint64_t promoted = 0;
+  for (uint64_t todo = kept_at & has_first; todo != 0; todo &= todo - 1) {
+    const int c = low_bit64(todo);
+    const int f = min_(sm.first[c], C - 1);
+    if ((kept_at >> f) & 1) continue;
+    kept_at |= 1ULL << f;
+    promoted |= 1ULL << f;
+    if (f > c && ((has_first >> f) & 1)) todo |= 1ULL << f;
+  }
+  // the outputs, a coalesced row each
   const long long out = b * p.C;
-  for (int c = 0; c < C; ++c) {
-    p.weight[out + c] = weight[c];
-    p.kept[out + c] = kept[c];
-    p.order[out + c] = order[c];
-    p.beg[out + c] = beg[c];
-    p.end[out + c] = end[c];
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = k * G + t;
+      if (c >= C) continue;
+      p.weight[out + c] = weight[k][t];
+      p.kept[out + c] = (promoted >> c) & 1 ? 1 : kept[k][t];
+      p.order[out + c] = sm.order[c];
+      p.beg[out + c] = beg[k][t];
+      p.end[out + c] = end[k][t];
+    }
   }
 }
+
+#ifndef __CUDACC__
+// filter_chains_group at the G and K that C takes (the host build's
+// dispatch; the card's is launch_filter_chains)
+template <typename R>
+void filter_chains_read(const FilterParams& p, long long b,
+                        unsigned char* smem) {
+  const FilterSmem<R> sm(smem, static_cast<int>(p.C));
+  if (filter_group(p.C) == 16)
+    filter_chains_group<R, 16, 1>(p, b, sm);
+  else if (filter_chains_a_lane(p.C) == 1)
+    filter_chains_group<R, 32, 1>(p, b, sm);
+  else
+    filter_chains_group<R, 32, 2>(p, b, sm);
+}
+#endif
 
 #ifdef __CUDACC__
 template <typename R, int K>
@@ -556,12 +744,32 @@ void launch_chain_seeds(const ChainParams& p, unsigned grid, unsigned smem,
   }
 }
 
-template <typename R>
+template <typename R, int G, int K>
 __global__ void __launch_bounds__(kThreads)
     filter_chains(const FilterParams p) {
-  const long long b = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (b < p.B) filter_chains_lane<R>(p, b);
+  extern __shared__ __align__(16) unsigned char filter_smem[];
+  const int g = threadIdx.x / G;
+  const long long b = static_cast<long long>(blockIdx.x) * (kThreads / G) + g;
+  if (b < p.B)
+    filter_chains_group<R, G, K>(
+        p, b, FilterSmem<R>(filter_smem + g * filter_bytes<R>(p.C),
+                            static_cast<int>(p.C)));
+}
+
+// filter_chains at the G and K that C takes, each its own kernel
+template <typename R>
+void launch_filter_chains(const FilterParams& p, cudaStream_t stream) {
+  const int G = filter_group(p.C);
+  const unsigned grid = static_cast<unsigned>((p.B + kThreads / G - 1) /
+                                              (kThreads / G));
+  const unsigned smem =
+      static_cast<unsigned>(kThreads / G * filter_bytes<R>(p.C));
+  if (G == 16)
+    filter_chains<R, 16, 1><<<grid, kThreads, smem, stream>>>(p);
+  else if (filter_chains_a_lane(p.C) == 1)
+    filter_chains<R, 32, 1><<<grid, kThreads, smem, stream>>>(p);
+  else
+    filter_chains<R, 32, 2><<<grid, kThreads, smem, stream>>>(p);
 }
 #endif
 
@@ -627,19 +835,22 @@ extern "C" int LANE_ENTRY(filter_chains)(
                        static_cast<float>(chain_drop_ratio), min_chain_weight,
                        min_seed_len, max_chain_gap, B, S, C};
 #ifdef __CUDACC__
-  const unsigned grid = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   if (rank_bytes == 8)
-    filter_chains<long long><<<grid, kThreads, 0, stream>>>(p);
+    launch_filter_chains<long long>(p, stream);
   else
-    filter_chains<int32_t><<<grid, kThreads, 0, stream>>>(p);
+    launch_filter_chains<int32_t>(p, stream);
   return static_cast<int>(cudaGetLastError());
 #else
+  unsigned char* buf = new unsigned char[rank_bytes == 8
+                                             ? filter_bytes<long long>(C)
+                                             : filter_bytes<int32_t>(C)];
   for (long long b = 0; b < B; ++b) {
     if (rank_bytes == 8)
-      filter_chains_lane<long long>(p, b);
+      filter_chains_read<long long>(p, b, buf);
     else
-      filter_chains_lane<int32_t>(p, b);
+      filter_chains_read<int32_t>(p, b, buf);
   }
+  delete[] buf;
   return 0;
 #endif
 }

@@ -42,9 +42,9 @@
 //   kb in the fat retry, which doubles S) in a scratch buffer in device
 //   memory that the wrapper allocates, a read's row of it. The plain
 //   twin's two stable argsorts are sorts of (key, slot) entries, which
-//   are distinct, so any sort of them is stable: a bitonic network, in
-//   registers (a lane an entry, shuffles between) up to 32 entries, in
-//   the buffer (a lane a pair a step, padded to a power of two) past it.
+//   are distinct, so any sort of them is stable: a bitonic network
+//   (csrc/sort.cuh), in registers (a lane an entry, shuffles between) up
+//   to 32 entries, in the buffer (a lane a comparator a step) past it.
 //   The chain order's argsort sorts the filter's C entries. For the seed
 //   order a lane a seed (coalesced loads) computes its key (int64, as
 //   the plain twin's), its chain and its window ends, which it folds
@@ -124,6 +124,7 @@
 //   documents) and refuses a count that differs.
 
 #include "lanes.cuh"
+#include "sort.cuh"
 
 namespace {
 
@@ -835,21 +836,9 @@ LANE_HD void seedcov_lane(const CovParams& p, long long b) {
   for (int r = 0; r < Rg; ++r) p.seedcov[reg + r] = acc[r];
 }
 
-// A set-up sort entry: a 32-bit key (its sign bit flipped, so that an
-// unsigned compare orders signed keys) above the slot. Entries are
-// distinct, so any sort of them is the stable sort of their keys.
-LANE_HD inline uint64_t sort_entry(int32_t key, long long slot) {
-  return (static_cast<uint64_t>(static_cast<uint32_t>(key) ^ 0x80000000u)
-          << 32) |
-         static_cast<uint32_t>(slot);
-}
-LANE_HD inline int32_t entry_slot(uint64_t e) {
-  return static_cast<int32_t>(static_cast<uint32_t>(e));
-}
-constexpr uint64_t kSortPad = ~0ULL;  // after every entry
-
 // entries a set-up group's sort buffer holds for n keys: n up to a group,
-// a power of two past it (the bitonic network in memory pads to one)
+// a power of two past it (group_sort uses the first n; the size sets
+// where a read's tables pass a block's shared memory: S past 4,096)
 LANE_HD inline long long sort_cap(long long n) {
   if (n <= kSetupGroup) return n;
   long long c = kSetupGroup;
@@ -881,55 +870,6 @@ struct SetupSmem {
         crank(reinterpret_cast<int32_t*>(r1 + C)),
         kept(crank + C) {}
 };
-
-// Sorts buf[0, n) ascending, by a group of G threads: up to G entries a
-// bitonic network in registers of n's power of two, a lane an entry and
-// shuffles between; more in memory, padded to sort_cap(n) with kSortPad, a
-// lane a pair a step.
-template <int G>
-GROUP_FN void group_sort(uint64_t* buf, long long n) {
-  if (n <= 1) return;
-  if (n <= G) {
-    int P = 2;   // the network's size: n's power of two (lanes past it
-    while (P < n) P <<= 1;   // sort their pads among themselves)
-    Lanes<uint64_t, G> v;
-    FOR_LANES(G, t) { v[t] = t < n ? buf[t] : kSortPad; }
-    for (int k = 2; k <= P; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        const Lanes<uint64_t, G> o = shfl_xor<G>(v, j);
-        FOR_LANES(G, t) {
-          const bool low = ((t & j) == 0) == ((t & k) == 0);
-          v[t] = low ? min_(v[t], o[t]) : max_(v[t], o[t]);
-        }
-      }
-    }
-    FOR_LANES(G, t) {
-      if (t < n) buf[t] = v[t];
-    }
-    group_sync<G>();
-    return;
-  }
-  const long long N = sort_cap(n);
-  FOR_LANES(G, t) {
-    for (long long i = n + t; i < N; i += G) buf[i] = kSortPad;
-  }
-  group_sync<G>();
-  for (long long k = 2; k <= N; k <<= 1) {
-    for (long long j = k >> 1; j > 0; j >>= 1) {
-      FOR_LANES(G, t) {
-        for (long long i = t; i < N / 2; i += G) {
-          const long long lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-          const uint64_t a = buf[lo], c = buf[lo + j];
-          if ((a > c) == ((lo & k) == 0)) {
-            buf[lo] = c;
-            buf[lo + j] = a;
-          }
-        }
-      }
-      group_sync<G>();
-    }
-  }
-}
 
 // the set-up of read b (extend_setup_plain, one read) by a group of
 // kSetupGroup threads

@@ -1,7 +1,8 @@
 // What the port's kernels with host-buildable lane bodies share (chain.cu,
-// extend.cu, fm_seed.cu, kmer.cu, seedsw.cu): the lane-body qualifier, the
-// entry names, min/max, the packed doubled text's decode, and the group
-// exchanges of a kernel that runs several threads a read.
+// extend.cu, fm.cu, fm_seed.cu, kmer.cu, resolve.cu, seedsw.cu): the
+// lane-body qualifier, the entry names, min/max, the packed doubled text's
+// decode, and the group exchanges of a kernel that runs several threads a
+// read.
 //
 // Compiled by nvcc, a source's lane bodies are __host__ __device__ and its
 // entries are NAME_launch(..., stream); compiled by a host compiler (g++ -x
@@ -89,6 +90,11 @@ template <int G, typename T>
 __device__ __forceinline__ Lanes<T, G> shfl_xor(const Lanes<T, G>& x, int m) {
   return Lanes<T, G>{__shfl_xor_sync(group_mask<G>(), x.v, m, G)};
 }
+// each lane t >= d gets the value of lane t - d (the others their own)
+template <int G, typename T>
+__device__ __forceinline__ Lanes<T, G> shfl_up(const Lanes<T, G>& x, int d) {
+  return Lanes<T, G>{__shfl_up_sync(group_mask<G>(), x.v, d, G)};
+}
 template <int G, typename T>
 __device__ __forceinline__ T group_sum(const Lanes<T, G>& x) {
   T v = x.v;
@@ -121,9 +127,16 @@ template <typename T>
 __device__ __forceinline__ void fold_min(T* at, T v) { atomicMin(at, v); }
 template <typename T>
 __device__ __forceinline__ void fold_max(T* at, T v) { atomicMax(at, v); }
+__device__ __forceinline__ void fold_or(uint64_t* at, uint64_t v) {
+  atomicOr(reinterpret_cast<unsigned long long*>(at),
+           static_cast<unsigned long long>(v));
+}
 __device__ __forceinline__ int popc32(uint32_t x) { return __popc(x); }
 // the lowest / highest set bit of x != 0
 __device__ __forceinline__ int low_bit(uint32_t x) { return __ffs(x) - 1; }
+__device__ __forceinline__ int low_bit64(uint64_t x) {
+  return __ffsll(static_cast<long long>(x)) - 1;
+}
 __device__ __forceinline__ int high_bit(uint32_t x) { return 31 - __clz(x); }
 #else
 #define GROUP_FN
@@ -152,6 +165,12 @@ inline Lanes<T, G> shfl_xor(const Lanes<T, G>& x, int m) {
   return y;
 }
 template <int G, typename T>
+inline Lanes<T, G> shfl_up(const Lanes<T, G>& x, int d) {
+  Lanes<T, G> y;
+  for (int t = 0; t < G; ++t) y[t] = x[t >= d ? t - d : t];
+  return y;
+}
+template <int G, typename T>
 inline T group_sum(const Lanes<T, G>& x) {
   T v = 0;
   for (int t = 0; t < G; ++t) v += x[t];
@@ -175,8 +194,10 @@ template <typename T>
 inline void fold_min(T* at, T v) { if (v < *at) *at = v; }
 template <typename T>
 inline void fold_max(T* at, T v) { if (v > *at) *at = v; }
+inline void fold_or(uint64_t* at, uint64_t v) { *at |= v; }
 inline int popc32(uint32_t x) { return __builtin_popcount(x); }
 inline int low_bit(uint32_t x) { return __builtin_ctz(x); }
+inline int low_bit64(uint64_t x) { return __builtin_ctzll(x); }
 inline int high_bit(uint32_t x) { return 31 - __builtin_clz(x); }
 
 // host stand-ins for the card's types and intrinsics the bodies use

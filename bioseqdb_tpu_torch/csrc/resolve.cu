@@ -15,8 +15,8 @@
 // What bounds them: resolve_expand reads a read's M intervals (5 values
 // each) and writes its S slots (three R values and two flags each);
 // resolve_finish reads those and the walked positions and writes the six
-// outputs. Between, a read does ~M^2 / 2 key compares (its sort) and ~S x
-// M offset compares (each slot's interval), all in shared memory: tens of
+// outputs. Between, a read sorts its live intervals' keys, scans their
+// counts and finds each slot's interval, all in shared memory: tens of
 // instructions a slot. So the card's memory rate bounds them, and a
 // launch costs about its bytes plus each read's short chain of shared
 // memory passes.
@@ -27,15 +27,25 @@
 //   (M past 1,536 with int32 ranks, 877 with int64: reads of about 24 kb
 //   and 13 kb on the FM seeder's M = W // 16 + 48) keeps them in a
 //   scratch buffer in device memory instead, which the wrapper allocates
-//   (a read's row of it, the same layout). The plain version's stable
-//   argsort of the M interval keys is a counting rank (a key's rank is
-//   the number of smaller keys plus the number of equal keys at lower
-//   indices; the sorted row at that rank is the interval): a lane an
-//   interval. The exclusive offsets of the sorted counts are a running sum
-//   in one lane (M is 16 to 142 on the port's paths). Each slot's
-//   interval is the number of offsets at or below it, less one, a lane a
-//   slot, which equals the plain version's compare-and-sum whatever the
-//   offsets (negative counts included).
+//   (a read's row of it, the same layout).
+// - resolve_expand loads the read's [M, 5] block (contiguous) coalesced
+//   into shared memory once. The plain version's stable argsort of the M
+//   keys (dead intervals' kDeadKey) sorts the n_mem live keys alone, as
+//   (key, index) entries, by csrc/sort.cuh's bitonic networks: in
+//   registers as 32-bit entries where M <= 32 and the keys lie in [0,
+//   2^27) (the main path: M 24), else as 64-bit ones (in
+//   registers up to 32, in shared memory past it); the dead intervals
+//   follow in index order, placed by arithmetic. That holds
+//   wherever no live key lies past kDeadKey (a ballot); where one does,
+//   all M are sorted, and where an int64 key does not fit 32 bits (a
+//   ballot) every (key, index) pair is ranked by compares instead. The
+//   exclusive offsets of the sorted counts are int32, the low 32 bits of
+//   the plain version's 64-bit sums: a warp scan by shuffles of the
+//   counts' low 32 bits, wrapping. A slot's interval is the number of
+//   offsets at or below it, less one, a lane a slot: an upper-bound
+//   binary search where no offset falls (a ballot), else the count
+//   itself, which equals the plain version's compare-and-sum whatever
+//   the offsets (negative counts and wrapped sums included).
 // - resolve_expand writes the walk's ranks (a position row's position in
 //   its rank's place: the walk's mask leaves it alone), the slot's query
 //   start and seed length, the walk's mask (the valid rank rows) and each
@@ -62,10 +72,12 @@
 #include <type_traits>
 
 #include "lanes.cuh"
+#include "sort.cuh"
 
 namespace {
 
 constexpr int kGroup = 32;        // a read's threads
+constexpr int kLoads = 4;         // a lane's loads of intervals at once
 constexpr int kReads = 4;         // a block's reads at most
 constexpr int kSmem = 49152;      // a block's shared memory at most
 constexpr int kRefused = 1;       // cudaErrorInvalidValue
@@ -133,7 +145,8 @@ struct FinishParams {
   long long B, S, n_refs, cap, l_pac, seq_len;
 };
 
-// a read's intervals in shared memory, sorted by their keys
+// a read's interval tables: six rank values and two int32 an interval
+// (of which the layout below uses 5 R + 12 bytes), rounded up to 16
 template <typename R>
 LANE_HD inline long long expand_bytes(long long M) {
   return (M * (6 * static_cast<long long>(sizeof(R)) + 8) + 15) & ~15LL;
@@ -141,94 +154,187 @@ LANE_HD inline long long expand_bytes(long long M) {
 
 template <typename R>
 struct ExpandSmem {
-  R* key;          // [M] the sort key, by the read's own order
-  R* k;            // [M] by sorted position: the rank (or position)
-  R* st;           // the query start
-  R* en;           // the query end
-  R* step;         // the sampling step
-  R* cnt;          // the seeds it gives (0 if dead)
-  int32_t* off;    // the exclusive offsets of cnt, int32
-  int32_t* pr;     // a position row
+  uint64_t* sort;  // [M] the sort's entries; after it, off
+  int32_t* off;    // [M] the exclusive offsets of the counts, in sorted
+                   // order (int32, as the plain version casts them)
+  R* raw;          // [M, 5] the read's intervals: k, l, s, start, end
+  int32_t* perm;   // [M] the interval at each sorted place
   LANE_HD ExpandSmem(unsigned char* base, long long M)
-      : key(reinterpret_cast<R*>(base)), k(key + M), st(k + M), en(st + M),
-        step(en + M), cnt(step + M),
-        off(reinterpret_cast<int32_t*>(cnt + M)), pr(off + M) {}
+      : sort(reinterpret_cast<uint64_t*>(base)),
+        off(reinterpret_cast<int32_t*>(base)),
+        raw(reinterpret_cast<R*>(sort + M)),
+        perm(reinterpret_cast<int32_t*>(raw + 5 * M)) {}
 };
 
+// an interval's sort key (resolve_seeds_plain's key of a live one)
+template <typename R>
+LANE_HD inline R interval_key(const R* row) {
+  return wadd(wmul(row[3], static_cast<R>(4096)),
+              min_(row[4], static_cast<R>(4095)));
+}
+
 // read b's intervals expanded into its S slots (resolve_seeds_plain up to
-// the walk), by a group of kGroup threads
+// the walk), by a group of kGroup threads. Indices within a read are int
+// (the entry refuses an M or S past them).
 template <typename R>
 GROUP_FN void expand_group(const ExpandParams& p, long long b,
                            ExpandSmem<R> sm) {
   constexpr auto G = kGroup;
-  const long long M = p.M, S = p.S;
-  const R* mems = static_cast<const R*>(p.mems) + b * M * 5;
-  const int32_t n_mem = p.n_mem[b];
+  const int M = static_cast<int>(p.M), S = static_cast<int>(p.S);
+  const R* mems = static_cast<const R*>(p.mems) + b * p.M * 5;
+  const int n_live = static_cast<int>(
+      min_(max_<long long>(p.n_mem[b], 0), p.M));
   const R max_occ = static_cast<R>(p.max_occ);
-  FOR_LANES(G, t) {
-    for (long long m = t; m < M; m += G) {
-      const R* row = mems + m * 5;
-      sm.key[m] = m < n_mem ? wadd(wmul(row[3], static_cast<R>(4096)),
-                                   min_(row[4], static_cast<R>(4095)))
-                            : static_cast<R>(kDeadKey);
-    }
-  }
-  group_sync<G>();
-  // the stable argsort of the keys: interval m goes to its rank
-  FOR_LANES(G, t) {
-    for (long long m = t; m < M; m += G) {
-      const R v = sm.key[m];
-      long long r = 0;
-      for (long long i = 0; i < M; ++i) {
-        const R u = sm.key[i];
-        r += u < v || (u == v && i < m);
+  const R dead = static_cast<R>(kDeadKey);
+  // the read's [M, 5] block (contiguous), loaded coalesced once, a lane's
+  // kLoads loads issued before any is stored
+  for (int i0 = 0; i0 < 5 * M; i0 += kLoads * G) {
+    Lanes<R, G> v[kLoads];
+    FOR_LANES(G, t) {
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = i0 + u * G + t;
+        v[u][t] = i < 5 * M ? mems[i] : static_cast<R>(0);
       }
-      const R* row = mems + m * 5;
-      const R s = row[2];
-      sm.k[r] = row[0];
-      sm.st[r] = row[3];
-      sm.en[r] = row[4];
-      sm.step[r] = s > max_occ ? floordiv(s, max_occ) : static_cast<R>(1);
-      sm.cnt[r] = m < n_mem ? min_(s, max_occ) : static_cast<R>(0);
-      sm.pr[r] = row[1] > 0;
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = i0 + u * G + t;
+        if (i < 5 * M) sm.raw[i] = v[u][t];
+      }
     }
   }
   group_sync<G>();
-  // the exclusive offsets (summed in 64 bits, kept as int32)
+  // the plain version's stable argsort of the keys (the dead ones
+  // kDeadKey). Dead intervals come after every live one in index order
+  // wherever no live key lies past kDeadKey (a live one equal to it has
+  // the lower index), so only the live keys are sorted, and all M where
+  // one does. Up to G intervals whose live keys lie in [0, 2^27) (queries
+  // under 32 kb) sort in registers as 32-bit (key, index) entries, the
+  // keys that fit 32 bits as 64-bit entries (in registers up to G, in the
+  // buffer past it); an int64 key past 32 bits makes the read rank every
+  // (key, index) pair by compares instead.
+  Lanes<bool, G> high, wide, narrow;
+  Lanes<uint32_t, G> small;   // lane m's 32-bit entry, where M <= G
   FOR_LANES(G, t) {
-    if (t != 0) continue;
-    long long run = 0;
-    for (long long r = 0; r < M; ++r) {
-      sm.off[r] = static_cast<int32_t>(static_cast<uint32_t>(
-          static_cast<unsigned long long>(run)));
-      run = static_cast<long long>(static_cast<unsigned long long>(run) +
-                                   static_cast<unsigned long long>(
-                                       static_cast<long long>(sm.cnt[r])));
+    high[t] = wide[t] = narrow[t] = false;
+    small[t] = ~0u;
+    for (int m = t; m < M; m += G) {
+      const R key = m < n_live ? interval_key(sm.raw + 5 * m) : dead;
+      high[t] = high[t] || key > dead;
+      wide[t] = wide[t] || key != static_cast<R>(static_cast<int32_t>(key));
+      narrow[t] = m < n_live && key >= 0 && key < (R(1) << 27);
+      small[t] = (static_cast<uint32_t>(key) << 5) | static_cast<uint32_t>(m);
+      sm.sort[m] = sort_entry(static_cast<int32_t>(key), m);
+    }
+  }
+  const int n_sort = ballot(high) != 0 ? M : n_live;
+  // every live key narrow: none past kDeadKey, so n_sort is n_live
+  if (M <= G && popc32(ballot(narrow)) == n_live) {
+    small = lane_sort<G>(small, n_live, ~0u);
+    FOR_LANES(G, t) {
+      if (t < M)
+        sm.perm[t] = t < n_live ? static_cast<int32_t>(small[t] & 31u) : t;
+    }
+  } else if (ballot(wide) == 0) {
+    group_sync<G>();
+    group_sort<G>(sm.sort, n_sort);
+    FOR_LANES(G, t) {
+      for (int r = t; r < M; r += G)
+        sm.perm[r] = r < n_sort ? entry_slot(sm.sort[r]) : r;
+    }
+  } else {
+    auto key_of = [&](int m) {
+      return m < n_live ? interval_key(sm.raw + 5 * m) : dead;
+    };
+    FOR_LANES(G, t) {
+      for (int m = t; m < M; m += G) {
+        const R v = key_of(m);
+        int r = 0;
+        for (int i = 0; i < M; ++i) {
+          const R u = key_of(i);
+          r += u < v || (u == v && i < m);
+        }
+        sm.perm[r] = m;
+      }
     }
   }
   group_sync<G>();
-  const R total = wadd(static_cast<R>(sm.off[M - 1]), sm.cnt[M - 1]);
+  // the counts in sorted order and their exclusive offsets, int32 as the
+  // plain version casts its 64-bit sums: the low 32 bits of the counts
+  // summed by a warp scan a chunk of G, wrapping
+  auto count_at = [&](int r) {
+    const int m = sm.perm[r];
+    return m < n_live ? min_(sm.raw[5 * m + 2], max_occ) : static_cast<R>(0);
+  };
+  uint32_t carry = 0;
+  for (int c0 = 0; c0 < M; c0 += G) {
+    Lanes<uint32_t, G> cnt, incl;
+    FOR_LANES(G, t) {
+      cnt[t] = incl[t] =
+          c0 + t < M ? static_cast<uint32_t>(count_at(c0 + t)) : 0u;
+    }
+    for (int d = 1; d < G; d <<= 1) {
+      const Lanes<uint32_t, G> up = shfl_up<G>(incl, d);
+      FOR_LANES(G, t) {
+        if (t >= d) incl[t] += up[t];
+      }
+    }
+    FOR_LANES(G, t) {
+      if (c0 + t < M)
+        sm.off[c0 + t] = static_cast<int32_t>(carry + incl[t] - cnt[t]);
+    }
+    carry += shfl<G>(incl, G - 1);
+  }
+  group_sync<G>();
+  // offsets that never fall (no negative count, no int32 wrap): a slot's
+  // count of offsets at or below it is an upper-bound search; else the
+  // count itself
+  Lanes<bool, G> falls;
+  FOR_LANES(G, t) {
+    falls[t] = false;
+    for (int r = t; r + 1 < M; r += G)
+      falls[t] = falls[t] || sm.off[r] > sm.off[r + 1];
+  }
+  const bool rising = ballot(falls) == 0;
+  const R total = wadd(static_cast<R>(sm.off[M - 1]), count_at(M - 1));
   const R lim = min_(total, static_cast<R>(S));
-  const long long row = b * S;
+  const long long row = b * p.S;
+  R* const ranks = static_cast<R*>(p.ranks) + row;
+  R* const start = static_cast<R*>(p.start) + row;
+  R* const slen = static_cast<R*>(p.slen) + row;
   Lanes<int32_t, G> walking;
   FOR_LANES(G, t) {
     walking[t] = 0;
-    for (long long s = t; s < S; s += G) {
-      long long n = 0;
-      for (long long r = 0; r < M; ++r) n += sm.off[r] <= s;
-      const long long mi = min_(max_(n - 1, 0LL), M - 1);
+    for (int s = t; s < S; s += G) {
+      int n = 0;
+      if (rising) {
+        int hi = M;
+        while (n < hi) {
+          const int mid = (n + hi) >> 1;
+          if (sm.off[mid] <= s)
+            n = mid + 1;
+          else
+            hi = mid;
+        }
+      } else {
+        for (int r = 0; r < M; ++r) n += sm.off[r] <= s;
+      }
+      const int mi = min_(max_(n - 1, 0), M - 1);
+      const R* iv = sm.raw + 5 * sm.perm[mi];
       const bool valid = static_cast<R>(s) < lim;
-      const bool pr = sm.pr[mi] != 0;
-      const R k0 = sm.k[mi];
-      const int32_t off_in = static_cast<int32_t>(
-          static_cast<uint32_t>(s) - static_cast<uint32_t>(sm.off[mi]));
+      const bool pr = iv[1] > 0;
       const bool w = valid && !pr;
-      static_cast<R*>(p.ranks)[row + s] =
-          pr ? k0
-             : (w ? wadd(k0, wmul(static_cast<R>(off_in), sm.step[mi]))
-                  : static_cast<R>(1));
-      static_cast<R*>(p.start)[row + s] = sm.st[mi];
-      static_cast<R*>(p.slen)[row + s] = wsub(sm.en[mi], sm.st[mi]);
+      R rank = pr ? iv[0] : static_cast<R>(1);
+      if (w) {
+        const R step = iv[2] > max_occ ? floordiv(iv[2], max_occ)
+                                       : static_cast<R>(1);
+        const int32_t off_in = static_cast<int32_t>(
+            static_cast<uint32_t>(s) - static_cast<uint32_t>(sm.off[mi]));
+        rank = wadd(iv[0], wmul(static_cast<R>(off_in), step));
+      }
+      ranks[s] = rank;
+      start[s] = iv[3];
+      slen[s] = wsub(iv[4], iv[3]);
       p.walk[row + s] = w;
       p.posrow[row + s] = valid && pr;
       walking[t] += w;
@@ -384,7 +490,7 @@ extern "C" int LANE_ENTRY(resolve_expand)(const long long* a,
   p.S = g.num();
   p.max_occ = g.num();
   if (g.i != n || bad_rank(rank_bytes) || p.B < 1 || p.M < 1 || p.S < 1 ||
-      p.max_occ < 1)
+      p.max_occ < 1 || 5 * p.M > INT32_MAX || p.S > INT32_MAX)
     return kRefused;
   const long long bytes = rank_bytes == 8 ? expand_bytes<long long>(p.M)
                                           : expand_bytes<int32_t>(p.M);

@@ -5,15 +5,16 @@ The Hopper counterparts of the JAX package's ``chain_seeds`` and
 ``chain_seeds`` runs mem_chain's insertion loop over every seed slot of
 every read (a group of 8 threads a read), one launch of
 ``filter_chains`` mem_chain_flt's weight, shadow and promotion loops (a
-thread a read). The plain versions are
+group of 16 or 32 threads a read, a lane a chain). The plain versions are
 ``chain.chain_seeds_plain`` and ``chain.filter_chains_plain``;
 ``chain.chain_seeds`` and ``chain.filter_chains`` call these on CUDA
 tensors. They launch on PyTorch's current stream, allocate only their
 outputs, and do not synchronise.
 
 The chain state holds ``MAX_CHAINS`` slots at most (chain_seeds: up to 8
-chains' pos in each thread's registers; filter_chains: per-thread
-arrays), so a ``max_chains`` above it is refused (ValueError): the
+chains' pos in each thread's registers; filter_chains: two chains a lane
+of a warp, a chain's seeds a 64-bit mask a pass), so a ``max_chains``
+above it is refused (ValueError): the
 port's paths take 16, 32 or 64. Nothing falls back to the plain
 versions.
 

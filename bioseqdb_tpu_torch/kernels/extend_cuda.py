@@ -4,8 +4,9 @@
 The Hopper counterparts of the loops around the SW kernel in the JAX
 package's ``extend_all`` (``bioseqdb_tpu/kernels/extend.py``): one launch
 of ``extend_setup`` computes the seed processing order and the chains'
-windows (a warp a read, both stable argsorts as counting ranks), one
-of ``extend_scan`` runs every trip of a round's containment scan, one of
+windows (a warp a read, both stable argsorts as bitonic sorts,
+``csrc/sort.cuh``), one of ``extend_scan`` runs every trip of a round's
+containment scan, one of
 ``extend_windows`` writes both sides' SW buffers in the sorted lane order,
 ``extend_merge`` (two entries, one a side) folds a side's SW results into
 the lanes, and ``extend_seedcov`` sums each region's seeds. The scan runs

@@ -16,7 +16,10 @@ pipeline gives them.
   crossing at l_pac, equal chain positions and weights, all-invalid and
   one-seed reads, a drop chain ranked before a lighter sig chain whose
   slot comes first, positions past 2^31 with int64 ranks, and random
-  reads of seed clusters); ``edge_calls`` the pair of calls on it.
+  reads of seed clusters); ``edge_calls`` the pair of calls on it;
+- ``filter_calls(rank_dtype, C)``: a ``filter_chains`` call on hand-made
+  chains at C chains (``FILTER_CASES`` and random reads; S 131, three
+  passes of the kernel's 64 slots).
 
 ``chip_smoke.py``'s chain phase and the chaining tests use it.
 """
@@ -389,3 +392,95 @@ def edge_calls(rank_dtype: torch.dtype = torch.int32, S: int = 64,
     fc = ChainCall("filter_chains", dict(chains=chains, seeds=seeds,
                                          **dict(FILTER_OPTS, **filter_opts)))
     return cs, fc, kinds
+
+
+# filter_calls' hand-made reads; each read lists (chain, qbeg, len, rbeg
+# offset) seeds in slot order and its chains' pos offsets
+FILTER_CASES = ("n 0", "n C", "equal weight and pos", "ci past C - 1",
+                "two promotions", "drop at the first kept chain")
+
+
+def _filter_rows(C: int) -> dict:
+    """{case: (n, seeds, pos)}: n the read's chains, seeds its (chain,
+    qbeg, len, rbeg offset) in slot order, pos each chain's position
+    offset (the chains from n on get junk)."""
+    heavy = lambda c, q: [(c, q, 30, 1_000 * c + q),
+                          (c, q + 30, 30, 1_000 * c + q + 30),
+                          (c, q + 60, 30, 1_000 * c + q + 60)]
+    n_c = []   # C chains: every fourth heavy (90), the others 20-40
+    for c in range(C):
+        q = (37 * c) % 150
+        n_c += (heavy(c, q) if c % 4 == 0
+                else [(c, q, 20 + 5 * (c % 5), 1_000 * c + q)])
+    return {
+        # seeds assigned to chains of a read with none: all dead
+        "n 0": (0, [(0, 0, 30, 0), (1, 40, 30, 900), (0, 70, 30, 70)],
+                [0, 900]),
+        "n C": (C, n_c, [1_000 * c for c in range(C)]),
+        # three chains at one pos with one weight (40), a fourth at a
+        # higher pos with the same weight: the slot decides, then pos
+        "equal weight and pos": (4, [(0, 0, 40, 0), (1, 50, 40, 50),
+                                     (2, 100, 40, 100),
+                                     (3, 150, 40, 5_000)],
+                                 [0, 0, 0, 5_000]),
+        # assign past C - 1 folds into chain C - 1
+        "ci past C - 1": (C, [(C - 1, 0, 30, 0), (C, 20, 30, 20),
+                              (C + 7, 60, 30, 60), (C - 2, 10, 25, 9_000)],
+                          [9_000] * (C - 1) + [0]),
+        # A (slot 2, 100) drops B (slot 0, 30) and D (slot 3, 80) drops
+        # E (slot 1, 30): both kept chains promote a shadow in a slot
+        # before their own
+        "two promotions": (4, [(2, 0, 50, 0), (0, 10, 30, 10),
+                               (2, 50, 50, 50), (3, 200, 40, 70_000),
+                               (1, 210, 30, 70_010), (3, 240, 40, 70_040)],
+                           [10, 70_010, 0, 70_000]),
+        # the best (slot 0, 100) drops X (slot 2, 30) as the first kept
+        # chain; Y (slot 1, 60) overlaps it undropped: kept 2
+        "drop at the first kept chain": (
+            3, [(0, 0, 50, 0), (1, 20, 60, 40_000), (2, 30, 30, 80_000),
+                (0, 50, 50, 50)], [0, 40_000, 80_000]),
+    }
+
+
+def filter_calls(rank_dtype: torch.dtype = torch.int32, C: int = 16,
+                 device="cpu", S: int = 131, seed: int = 13
+                 ) -> tuple[ChainCall, list[str]]:
+    """(a filter_chains call, kinds): the hand-made reads of
+    FILTER_CASES at C chains, then random ones (n 0 to C, assign -2 to
+    C + 1, overlapping query spans, equal pos), their seeds spread over
+    S slots; with int64 ranks every position past 2^31."""
+    rng = np.random.default_rng(seed + C)
+    base = PAST_2_31 if rank_dtype == torch.int64 else 1 << 20
+    rows = list(_filter_rows(C).values())
+    kinds = list(FILTER_CASES)
+    for _ in range(40):
+        n = int(rng.integers(0, C + 1))
+        k = int(rng.integers(0, min(S, 4 * C) + 1))
+        seeds = [(int(rng.integers(-2, C + 2)), int(rng.integers(0, 300)),
+                  int(rng.integers(15, 60)), int(rng.integers(0, 4_000)))
+                 for _ in range(k)]
+        pos = [int(rng.choice([0, 100, int(rng.integers(0, 4_000))]))
+               for _ in range(C)]
+        rows.append((n, seeds, pos))
+        kinds.append("random")
+    B = len(rows)
+    assign = rng.integers(-2, 0, (B, S)).astype(np.int32)
+    qbeg = rng.integers(-5, 200, (B, S)).astype(np.int32)
+    ln = rng.integers(-5, 60, (B, S)).astype(np.int32)
+    rbeg = rng.integers(base, base + 50_000_000, (B, S), dtype=np.int64)
+    pos = rng.integers(base, base + 50_000_000, (B, C), dtype=np.int64)
+    n = np.zeros(B, np.int32)
+    for b, (nb, seeds, pb) in enumerate(rows):
+        n[b] = nb
+        slots = np.sort(rng.choice(S, len(seeds), replace=False))
+        for s, (c, q, l_, r) in zip(slots, seeds):
+            assign[b, s], qbeg[b, s], ln[b, s] = c, q, l_
+            rbeg[b, s] = base + r
+        pos[b, :nb] = base + np.asarray(pb[:nb], np.int64)
+    t = lambda x, dt: torch.from_numpy(x).to(dt).to(device)
+    chains = dict(n=t(n, torch.int32), assign=t(assign, torch.int32),
+                  pos=t(pos, rank_dtype))
+    seeds = dict(rbeg=t(rbeg, rank_dtype), qbeg=t(qbeg, torch.int32),
+                 len=t(ln, torch.int32))
+    return ChainCall("filter_chains", dict(chains=chains, seeds=seeds,
+                                           **FILTER_OPTS)), kinds

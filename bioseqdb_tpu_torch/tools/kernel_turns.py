@@ -1,11 +1,13 @@
 """Another tree's ``kmer_seed``, ``fm_seed``, ``chain_seeds``,
-``extend_setup``, ``extend_scan`` and ``extend_merge`` against this
-tree's, in turns on one card, at the calls the pipeline gives them.
+``filter_chains``, ``extend_setup``, ``extend_scan``, ``extend_merge``
+and ``resolve_expand`` against this tree's, in turns on one card, at the
+calls the pipeline gives them.
 
     python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT [--only K,..]
 
 Run from this tree's root. Builds OTHER_ROOT's ``csrc/kmer.cu``,
-``csrc/fm_seed.cu``, ``csrc/extend.cu`` and ``csrc/chain.cu`` (nvcc, the
+``csrc/fm_seed.cu``, ``csrc/extend.cu``, ``csrc/chain.cu`` and
+``csrc/resolve.cu`` (nvcc, the
 package's flags, into ``_build/other``) and this tree's, and prints each
 build's ``-Xptxas -v`` lines (registers, stack frame, spills). Runs
 ``chip_smoke.py``'s main, PE, FM-seeded and long-read paths once on this
@@ -13,16 +15,18 @@ tree's kernels, recording their calls, and the int64 warm-up batch (the
 main path's first batch with int64 ranks forced): the main path's and
 the PE step's kmer calls; the machine calls of the main path's reseed
 entry, the FM-seeded batch and the long-read warm-up; the chain_seeds
-calls and the stage calls of the ``extend_all`` calls of the main path,
-the PE step, the FM-seeded batch, the long-read warm-up and the int64
-batch (``ExtendCall.stages``). Each call is checked bit-equal to the
-plain twin on both trees' kernels (the C entry points take the same
-arguments), then timed on them in turns: other, this, this, other
-(``KmerCall.kernel_ms``, ``ChainCall.kernel_ms`` and
-``StageCall.kernel_ms``: a launch in a CUDA graph;
-``MachineCall.kernel_ms``: CUDA events, median of 3). A line a call:
-both trees' times, the bound (``chip_smoke.bound`` / ``fm_bound`` /
-``chain_bound`` / ``extend_bound``) and each share of it; for the
+and filter_chains calls, the ``resolve_seeds`` calls and the stage
+calls of the ``extend_all`` calls of the main path, the PE step, the
+FM-seeded batch, the long-read warm-up and the int64 batch
+(``ExtendCall.stages``). Each call is checked bit-equal to the plain
+twin on both trees' kernels (the C entry points take the same
+arguments; a ``resolve_seeds`` call runs both of the tree's resolve
+kernels), then timed on them in turns: other, this, this, other
+(``KmerCall.kernel_ms``, ``ChainCall.kernel_ms``,
+``ResolveCall.expand_ms`` and ``StageCall.kernel_ms``: a launch in a
+CUDA graph; ``MachineCall.kernel_ms``: CUDA events, median of 3). A line
+a call: both trees' times, the bound (``chip_smoke.bound`` /
+``fm_bound`` / ``chain_bound`` / ``extend_bound``) and each share of it; for the
 machine also its slowest lane's steps (so us a step) and the backward
 share of the summed steps; for the extension kernels, each kernel
 summed over the call's launches (``extend_merge left`` and ``right``
@@ -47,13 +51,14 @@ from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
 from bioseqdb_tpu_torch.tools import (chain_calls, extend_calls, fm_machine,
-                                      kmer_calls, long_leg)
+                                      kmer_calls, long_leg, resolve_calls)
 from bioseqdb_tpu_torch.tools.shapes import card_line
 
-SOURCES = ("kmer", "fm_seed", "extend", "chain")
+SOURCES = ("kmer", "fm_seed", "extend", "chain", "resolve")
 # the extension kernels timed in turns (the others are another tree's too)
 EXTEND_TIMED = ("extend_setup", "extend_scan", "extend_merge")
-TIMED = ("kmer_seed", "fm_seed", "chain_seeds") + EXTEND_TIMED
+TIMED = ("kmer_seed", "fm_seed", "chain_seeds", "filter_chains",
+         "resolve_expand") + EXTEND_TIMED
 ORDER = ("other", "this", "this", "other")
 
 
@@ -101,7 +106,8 @@ def loading(libs: dict | None):
 
 def in_turns(call, other: dict) -> dict:
     """{tree: [ms, ms]} of ``call`` timed in ORDER, each tree's kernel
-    first held bit-equal to the plain twin."""
+    first held bit-equal to the plain twin (a ``ResolveCall``: the whole
+    call through the tree's kernels, its ``resolve_expand`` timed)."""
     err = (fm_machine.max_abs_err
            if isinstance(call, fm_machine.MachineCall)
            else extend_calls.max_abs_err
@@ -109,7 +115,11 @@ def in_turns(call, other: dict) -> dict:
            else (lambda got, want: chain_calls.max_abs_err(got, want,
                                                            call.kind))
            if isinstance(call, chain_calls.ChainCall)
+           else resolve_calls.max_abs_err
+           if isinstance(call, resolve_calls.ResolveCall)
            else kmer_calls.max_abs_err)
+    ms = (call.expand_ms if isinstance(call, resolve_calls.ResolveCall)
+          else call.kernel_ms)
     want = call.run(plain=True)
     times = {"other": [], "this": []}
     for tree in ("other", "this"):
@@ -121,20 +131,22 @@ def in_turns(call, other: dict) -> dict:
                                  f"plain twin on {call.shape}")
     for tree in ORDER:
         with loading(other if tree == "other" else None):
-            times[tree].append(call.kernel_ms())
+            times[tree].append(ms())
     return times
 
 
 def int64_calls(m: dict, dev) -> dict:
-    """The ``extend_all`` call (``ext_calls``) and the chaining calls
-    (``ch_calls``) of the main path's warm-up batch with int64 ranks
-    forced (``chip_smoke.int64_path``'s Aligner)."""
+    """The ``extend_all`` call (``ext_calls``), the chaining calls
+    (``ch_calls``) and the ``resolve_seeds`` calls (``res_calls``) of the
+    main path's warm-up batch with int64 ranks forced
+    (``chip_smoke.int64_path``'s Aligner)."""
     fm64 = kfm.FMDevice.from_host(m["idx"], dev, rank_dtype=torch.int64)
     al = dataclasses.replace(m["al"], fm=fm64, jump=build_r3_jump(fm64))
-    ext, ch = [], []
-    with extend_calls.recording(ext), chain_calls.recording(ch):
+    ext, ch, res = [], [], []
+    with (extend_calls.recording(ext), chain_calls.recording(ch),
+          resolve_calls.recording(res)):
         long_leg.run_batch(al, m["batches"][0])
-    return dict(ext_calls=ext, ch_calls=ch)
+    return dict(ext_calls=ext, ch_calls=ch, res_calls=res)
 
 
 def extend_turns(name: str, call: "extend_calls.ExtendCall", other: dict,
@@ -223,12 +235,22 @@ def main(argv=None) -> None:
     i64 = int64_calls(m, dev)
     paths = (("main path", m), ("PE", pe), ("FM-seeded", fmp),
              ("long-read warm-up", lr), ("int64", i64))
-    if "chain_seeds" in only:
+    for k, kind in enumerate(cs.CHAIN_KERNELS):
+        if kind not in only:
+            continue
         for name, d in paths:
-            call = chain_calls.pairs(d["ch_calls"])[0][0]
+            call = chain_calls.pairs(d["ch_calls"])[0][k]
             times = in_turns(call, other)
-            cs.log(turn_line("chain_seeds", name, call, times,
+            cs.log(turn_line(kind, name, call, times,
                              *cs.chain_bound(call, call.run())[:2]))
+    if "resolve_expand" in only:
+        for name, d in paths:
+            call = d["res_calls"][0]
+            times = in_turns(call, other)
+            ex, _, _ = call.stages()
+            c = call.counts(ex, call.run())["expand"]
+            cs.log(turn_line("resolve_expand", name, call, times,
+                             *cs.bound(c["read"] + c["written"], c["instr"])))
     timed = tuple(k for k in EXTEND_TIMED if k in only)
     if timed:
         for name, d in paths:

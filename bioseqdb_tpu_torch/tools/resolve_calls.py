@@ -19,7 +19,11 @@ against the plain twin, at the shapes the pipeline gives them.
   ends, B x S <= 4,096 (no compaction buffer), no cap, a cap that cuts
   inside a read, the M and S of 8 kb, 18 kb and 25 kb reads and of the
   18 kb fat retry (a read's intervals past a block's shared memory);
-  ``random_calls`` random intervals from a seed;
+  ``random_calls`` random intervals from a seed; ``lane_calls`` the
+  boundaries of ``resolve_expand``'s design (M 1, 24 and 142; no live
+  interval and every one live; equal keys; keys about 0 and 2^27;
+  live keys at and past the dead intervals' key, and int64 keys past 32
+  bits; negative counts and offsets that wrap; S off a multiple of 32);
 - ``host_library``: ``csrc/resolve.cu`` built for the host with g++.
 
 ``chip_smoke.py``'s resolve phase and the resolve kernels' tests use it.
@@ -50,9 +54,11 @@ from bioseqdb_tpu_torch.tools import fm_calls, shapes
 FIELDS = ("rbeg", "qbeg", "len", "rid", "valid", "overflow")
 _SIG = inspect.signature(kch.resolve_seeds)
 PAST_2_31 = fm_calls.PAST_2_31
-# instructions the bound charges: a key or offset compare (~3), a slot's
-# interval, rank and stores (~30); a slot's tests after the walk (~40) and
-# a step of each end's reference search (~4)
+# instructions the bound charges: a key or offset compare (~3: a read's
+# n live keys sorted in n * ceil(log2 n), a count scanned, a slot's
+# interval found in ceil(log2(M + 1))), a slot's interval, rank and
+# stores (~30); a slot's tests after the walk (~40) and a step of each
+# end's reference search (~4)
 RESOLVE_INSTR = dict(compares=3, slots=30, finish=40, search=4)
 
 
@@ -201,13 +207,15 @@ class ResolveCall:
         overflow; the finish reads each slot's two flags, a valid slot's
         position (walked or the row's), start and length, the reads'
         counts, and the reference offsets, and writes the six outputs.
-        Instructions: the sort's and the slots' compares, a slot's work
-        (RESOLVE_INSTR)."""
+        Instructions: the sort's, the scan's and the slots' compares, a
+        slot's work (RESOLVE_INSTR)."""
         a = self.args
         B, M, S = self.dims
         rb = a["mems"].element_size()
         live = a["n_mem"].long().clamp(0, M)
         n_live = int(live.sum())
+        lg = torch.ceil(torch.log2(live.clamp(min=1).double())).long()
+        sort = int((live * lg).sum())
         valid = int((ex["walk"] | ex["posrow"]).sum())
         n_refs = self.fm.ref_offsets.numel()
         size = lambda t: t.numel() * t.element_size()
@@ -217,7 +225,8 @@ class ResolveCall:
             expand=dict(
                 read=5 * rb * n_live + 4 * B,
                 written=sum(size(ex[k]) for k in ex),
-                instr=c["compares"] * (B * M * M + B * S * M)
+                instr=c["compares"] * (sort + B * M
+                                       + B * S * (M + 1).bit_length())
                 + c["slots"] * B * S),
             finish=dict(
                 read=2 * B * S + 3 * rb * valid + (4 + 1 + 8) * B
@@ -364,6 +373,123 @@ def random_calls(es, fm, seed: int, device="cpu", B: int = 512, M: int = 24,
     return {f"random {seed}": ResolveCall.of(
         fm, mems.to(fm.rank_dtype).to(device), n_mem.to(device), max_occ, S,
         sa_interval=es.idx.sa_interval, compact_cap=(B * S) // 8)}
+
+
+DEAD_KEY = 0x3FFFFFFF   # csrc/resolve.cu kDeadKey, a dead interval's key
+LANE_CASES = ("M 1, S 33", "n_mem 0 and M", "equal keys",
+              "keys about 0 and 2^27", "a live key at the dead key",
+              "live keys past the dead key",
+              "keys past 32 bits", "negative counts", "offsets past 2^31",
+              "M 142, S 189, all live")
+
+
+def lane_calls(es, fm, device="cpu") -> dict:
+    """{case (LANE_CASES): call} on ``es``'s index with ``fm`` (either
+    rank dtype): reads of random intervals (``_mems``), each case's
+    reads changed where it says. The key of an interval is start * 4096
+    + min(end, 4095): start 0 with a negative end, and starts 2^15 - 1
+    and 2^15, give keys on either side of 0 and of 2^27 (the register
+    sort's 32-bit entries hold keys in [0, 2^27)), start
+    0x3FFFF and end 4095 give the dead key, start
+    0x40000 one past it; start 2^31 gives an int64 key past 32 bits (its
+    int32 read wraps). Counts of 2^29 to 2^30 at max_occ 2^30 sum past
+    2^32 several times (int32 offsets that wrap); with int64 ranks a tenth
+    case, "counts past 2^62", has counts whose 64-bit sum wraps (in its
+    first read to 3, its offsets not rising)."""
+    rng = np.random.default_rng(73)
+    rdt = fm.rank_dtype
+    iv = es.idx.sa_interval
+
+    def call(name, B, M, S, cap=None, n_mem=None, edit=None, max_occ=500,
+             big_frac=0.05):
+        mems, nm = _mems(es, rng, B, M, 0.7, big_frac, edges=True)
+        if n_mem is not None:
+            nm = torch.as_tensor(n_mem(B, M), dtype=torch.int32)
+        if edit is not None:
+            edit(mems)
+        return name, ResolveCall.of(
+            fm, mems.to(rdt).to(device), nm.to(device), max_occ, S,
+            sa_interval=iv, compact_cap=cap)
+
+    every = lambda B, M: np.full(B, M)
+    rows = lambda B, M, frac: torch.from_numpy(
+        rng.random((B, M)) < frac)
+
+    def equal_keys(m):   # starts and ends from two values each
+        B, M, _ = m.shape
+        m[:, :, 3] = torch.from_numpy(rng.choice([5, 7], (B, M)))
+        m[:, :, 4] = torch.from_numpy(rng.choice([30, 31], (B, M)))
+
+    def starts(value, frac):
+        def edit(m):
+            at = rows(m.shape[0], m.shape[1], frac)
+            m[:, :, 3] = torch.where(at, value, m[:, :, 3])
+            m[:, :, 4] = torch.where(at, 4095 + 20, m[:, :, 4])
+        return edit
+
+    def edges_of_27(m):   # keys -3 to -1, 2^27 - 1 and 2^27
+        B, M, _ = m.shape
+        for start, end, frac in ((0, -2, 0.1), (2 ** 15 - 1, 4095, 0.2),
+                                 (2 ** 15, 0, 0.1)):
+            at = rows(B, M, frac)
+            m[:, :, 3] = torch.where(at, start, m[:, :, 3])
+            m[:, :, 4] = torch.where(at, torch.from_numpy(
+                end + rng.integers(-1, 2, (B, M))), m[:, :, 4])
+
+    def negative(m):
+        at = rows(m.shape[0], m.shape[1], 0.3)
+        m[:, :, 2] = torch.where(at, torch.from_numpy(
+            rng.integers(-5, 0, m.shape[:2])), m[:, :, 2])
+        # read 1 (all live, in index order): counts of 1 but -3 at the
+        # next to last place, so only the last two offsets fall
+        M = m.shape[1]
+        m[1, :, 3] = torch.arange(M)
+        m[1, :, 4] = m[1, :, 3] + 20
+        m[1, :, 2] = 1
+        m[1, M - 2, 2] = -3
+
+    def counts(lo, hi):
+        def edit(m):
+            rank = m[:, :, 1] == 0
+            at = rows(m.shape[0], m.shape[1], 0.8) & rank
+            m[:, :, 2] = torch.where(at, torch.from_numpy(
+                rng.integers(lo, hi, m.shape[:2], dtype=np.int64)),
+                m[:, :, 2])
+        return edit
+
+    def wrapping(m):   # read 0: counts whose 64-bit sum wraps to 3
+        counts(2 ** 62, 2 ** 63 - 1)(m)
+        m[0, :4, 1] = 0   # four rank rows, in this order, then dead ones
+        m[0, :4, 3] = torch.arange(4)
+        m[0, :4, 2] = torch.tensor([7, 2 ** 62 + 2 ** 31, 2 ** 62,
+                                    2 ** 63 - 2 ** 31 - 4])
+
+    past = 2 ** 31 if rdt == torch.int64 else 2 ** 20
+    wide = [call("counts past 2^62", 64, 24, 64, max_occ=2 ** 63 - 1,
+                 n_mem=lambda B, M: np.where(np.arange(B) == 0, 4, M),
+                 edit=wrapping)] if rdt == torch.int64 else []
+    return dict([
+        *wide,
+        call("M 1, S 33", 64, 1, 33,
+             n_mem=lambda B, M: rng.integers(-1, 3, B)),
+        call("n_mem 0 and M", 64, 24, 64, cap=0,
+             n_mem=lambda B, M: np.where(np.arange(B) % 2, M, 0)),
+        call("equal keys", 64, 24, 64, n_mem=every, edit=equal_keys),
+        call("keys about 0 and 2^27", 64, 24, 64, edit=edges_of_27),
+        call("a live key at the dead key", 64, 24, 64,
+             edit=starts(DEAD_KEY >> 12, 0.2)),
+        call("live keys past the dead key", 64, 24, 200,
+             edit=starts((DEAD_KEY >> 12) + 1, 0.2), big_frac=0.0),
+        call("keys past 32 bits", 64, 24, 64, n_mem=every,
+             edit=starts(past, 0.2)),
+        call("negative counts", 64, 24, 77, edit=negative,
+             n_mem=lambda B, M: np.where(np.arange(B) % 2, M,
+                                         rng.integers(0, M + 1, B))),
+        call("offsets past 2^31", 64, 24, 64, max_occ=2 ** 30,
+             n_mem=every, edit=counts(2 ** 29, 2 ** 30)),
+        call("M 142, S 189, all live", 16, 142, 189, n_mem=every,
+             edit=equal_keys),
+    ])
 
 
 def host_library(out_dir) -> ctypes.CDLL:

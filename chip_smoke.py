@@ -155,7 +155,12 @@
    ``edge_seeds`` with int32 and int64 ranks, and (``chain_seeds``) at
    ``chain_calls.group_calls`` (C reached, contained seeds, equal pos,
    a strand crossing and chains below NEG on later lanes of the group,
-   at C 8, 16 and 64, both dtypes). Each: the kernel's time (a
+   at C 8, 16 and 64, both dtypes), and (``filter_chains``) at
+   ``chain_calls.filter_calls`` (no chain, C chains, equal weights at
+   equal pos, assign past C - 1, two promotions, a drop by the first kept
+   chain, random reads over three 64-slot passes; C 8, 16, 32 and 64, both
+   dtypes, the pipeline's options and others). Each recorded and
+   ``edge_seeds`` call: the kernel's time (a
    launch in a CUDA graph), the plain twin's, the bound (each input the
    function needs read once: the valid mask, the fields of the valid or
    assigned seed slots, the live chains' pos; each output written once;
@@ -257,8 +262,12 @@
    ``resolve_calls.edge_calls`` on an index at SA interval 32 (the cap
    flooded at 4,096 and at (B x S) // 4, position rows, sampling past
    max_occ, more seeds than slots, seeds bridging l_pac and reference
-   ends, B x S <= 4,096, no cap, a cap of 64) and its random calls
-   (seeds 1-3), int32, int64 and past 2^31. Each recorded call, the
+   ends, B x S <= 4,096, no cap, a cap of 64), its random calls
+   (seeds 1-3) and ``resolve_calls.lane_calls`` (M 1, 24 and 142, no live
+   interval and every one live, equal keys, keys about 0 and 2^27,
+   live keys at and past the dead key, int64 keys past 32 bits, negative
+   counts and wrapped offsets, S off a multiple of 32), int32, int64 and
+   past 2^31. Each recorded call, the
    flooded edge calls and the random ones: each kernel's time (a launch
    in a CUDA graph), the plain twin's before and after its walk (CUDA
    events), the bound (the live intervals, the slots' values and flags,
@@ -431,6 +440,9 @@ QUAL = "I"   # the base quality written to every FASTQ record
 # order and five stores (~10)
 CHAIN_KERNELS = ("chain_seeds", "filter_chains")
 CHAIN_INSTR = dict(trips=24, scans=5, invalid=2)
+# filter options other than the pipeline's (lower drop and mask levels, a
+# weight floor)
+FILTER_ALT = dict(mask_level=0.3, chain_drop_ratio=0.7, min_chain_weight=25)
 FILTER_INSTR = dict(trips=20, pairs=12, slots=10)
 # the extension kernels: the JAX extend_all lines each replaces (the
 # containment scan's chunked_while, the round's window fetch, its region
@@ -760,6 +772,22 @@ def chain_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
             f"({str(rdt).removeprefix('torch.')}, C 8 / 16 / 64: "
             f"{', '.join(chain_calls.GROUP_CASES)}): {n} calls, "
             f"max_abs_err=0")
+        n = 0
+        for C in (8, 16, 32, 64):   # the filter's groups and passes
+            call, _ = chain_calls.filter_calls(rdt, C, dev)
+            for opts in ({}, FILTER_ALT):
+                c = chain_calls.ChainCall("filter_chains",
+                                          dict(call.args, **opts))
+                if chain_calls.max_abs_err(c.run(), c.run(plain=True),
+                                           c.kind):
+                    raise AssertionError(f"filter_chains disagrees with "
+                                         f"plain on filter_calls, C {C}, "
+                                         f"{rdt}, {opts}")
+                n += 1
+        log(f"filter_chains on chain_calls.filter_calls "
+            f"({str(rdt).removeprefix('torch.')}, C 8 / 16 / 32 / 64, "
+            f"two option sets: {', '.join(chain_calls.FILTER_CASES)}, "
+            f"random reads): {n} calls, max_abs_err=0")
     rows = {k: {} for k in CHAIN_KERNELS}
     for name, calls in inputs:
         for call in calls:
@@ -1255,6 +1283,8 @@ def resolve_phase(m: dict, pe: dict, fmp: dict, lr: dict, i64: dict, dev
         edge = resolve_calls.edge_calls(es, fm, device=dev)
         for seed in RESOLVE_RANDOM_SEEDS:
             edge.update(resolve_calls.random_calls(es, fm, seed, device=dev))
+        edge.update({f"lanes {n}": c for n, c in
+                     resolve_calls.lane_calls(es, fm, device=dev).items()})
         if rdt == torch.int64:
             edge.update({f"{n}, past 2^31": c.shifted()
                          for n, c in list(edge.items())})

@@ -3,8 +3,11 @@ twins on the card, every output exactly: ``chain_seeds`` and
 ``filter_chains`` on ``tools/chain_calls.py``'s edge seeds and on a
 simulated batch's recorded seeds (repeat and chimeric reads included),
 with int32 and int64 ranks, at C 16, 32 and 64 and S 64, 128, 189 and
-378; each call on CUDA tensors is one launch; and a device step on the
-card launches both. Skips without a
+378; ``filter_chains`` on ``chain_calls.filter_calls`` (C 8, 16, 32 and
+64: no chain, C chains, equal weights at equal pos, assign past C - 1,
+two promotions, a drop by the first kept chain, random reads); each call
+on CUDA tensors is one launch; and a device step on the card launches
+both. Skips without a
 CUDA device. Imports no jax, so it runs on a card machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_chain_cuda.py``."""
 
@@ -94,3 +97,12 @@ def test_kernels_equal_plain_on_a_simulated_batch(recorded, rank_dtype, C):
     fc = cc.ChainCall("filter_chains", dict(chains=chains, seeds=cs.seeds,
                                             **cc.FILTER_OPTS))
     _check(fc)
+
+
+@pytest.mark.parametrize("rank_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C", [8, 16, 32, 64])
+def test_filter_kernel_equals_plain_on_filter_calls(rank_dtype, C):
+    _card()
+    call, _ = cc.filter_calls(rank_dtype, C, device="cuda")
+    for opts in ({}, ALT):
+        _check(cc.ChainCall("filter_chains", dict(call.args, **opts)))

@@ -27,6 +27,13 @@ twins, on the CPU (the kernels themselves run only on the card:
   strand crossing and a chain below NEG, each after enough chains that
   the one it is about sits on a later lane, and a read whose only chain
   lies below NEG; each case holds what it was made for.
+- ``filter_chains``' group body (16 threads a read up to C 16, a warp
+  past it, two chains a lane past 32) on the host build equals the twin
+  on ``chain_calls.filter_calls`` at C 8, 16, 32 and 64, int32 and int64
+  past 2^31, at the pipeline's options and others: no chain, C chains,
+  equal weights at equal pos, assign past C - 1, two promotions, a drop
+  by the first kept chain, random reads over three passes of slots; each
+  case holds what it was made for.
 Integer programs: tolerance 0."""
 
 import ctypes
@@ -317,3 +324,28 @@ def test_group_body_equals_plain_on_group_calls(host_lib, rank_dtype, case):
             first = 0 if case == "only chain below NEG" else n_far
             below = int(assign[slot(-(1 << 30) - 400, 100)])
             assert below == first + 1 and n == first + 3
+
+
+@pytest.mark.parametrize("rank_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C", [8, 16, 32, 64])
+def test_filter_group_body_equals_plain_on_filter_calls(host_lib, rank_dtype,
+                                                        C):
+    call, kinds = cc.filter_calls(rank_dtype, C)
+    for opts in (ALT, {}):
+        c = cc.ChainCall("filter_chains", dict(call.args, **opts))
+        want = c.run(plain=True)
+        assert cc.max_abs_err(_host_run(host_lib, c), want, c.kind) == 0
+    row = {k: kinds.index(k) for k in cc.FILTER_CASES}
+    w, kept, order = want["weight"], want["kept"], want["order"]
+    r = row["n 0"]
+    assert (w[r] == -1).all() and (kept[r] == 0).all()
+    assert (w[row["n C"]] >= 0).all()
+    r = row["equal weight and pos"]
+    assert w[r, :4].tolist() == [40] * 4 and order[r, :4].tolist() == [
+        0, 1, 2, 3]
+    r = row["ci past C - 1"]
+    assert int(w[r, C - 1]) == 80 and int(order[r, 0]) == C - 1
+    assert kept[row["two promotions"], :4].tolist() == [1, 1, 3, 3]
+    assert kept[row["drop at the first kept chain"], :3].tolist() == [3, 2, 0]
+    if rank_dtype == torch.int64:
+        assert int(call.seeds["rbeg"].min()) >= 2 ** 31

@@ -4,8 +4,12 @@ equal the plain twin on the card, every output exactly:
 ``resolve_finish`` against ``resolve_seeds_plain`` on
 ``tools/resolve_calls.py``'s edge set (the cap flooded at 4,096 and at
 (B x S) // 4, position rows, sampling past max_occ, more seeds than
-slots, bridges, B x S <= 4,096) and random intervals, int32, int64 and
-past 2^31; a call launches each kernel once and waits on the host
+slots, bridges, B x S <= 4,096), random intervals and
+``resolve_calls.lane_calls`` (M 1, 24 and 142, no live interval and
+every one live, equal keys, keys about 0 and 2^27, live keys at
+and past the dead key, int64 keys past 32 bits, negative counts and
+wrapped offsets, S off a multiple of 32), int32,
+int64 and past 2^31; a call launches each kernel once and waits on the host
 nowhere (``torch.cuda.set_sync_debug_mode("error")``); a device step on
 the card launches both. Skips without a CUDA device. Imports no jax, so
 it runs on a card machine without it:
@@ -66,6 +70,17 @@ def test_kernels_equal_plain_on_edge_and_random_sets(es, rank):
         got = _check(call)
         if name.endswith("past 2^31"):
             assert int(got["rbeg"].max()) >= 2 ** 31, name
+
+
+@pytest.mark.parametrize("rank", list(RANKS))
+def test_kernels_equal_plain_on_lane_calls(es, rank):
+    fm = kfm.FMDevice.from_host(es.idx, "cuda", rank_dtype=RANKS[rank])
+    calls = rc.lane_calls(es, fm, device="cuda")
+    if rank == "int64":
+        calls.update({f"{n}, past 2^31": c.shifted()
+                      for n, c in list(calls.items())})
+    for call in calls.values():
+        _check(call)
 
 
 def test_device_step_launches_both(es):

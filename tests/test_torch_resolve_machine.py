@@ -20,6 +20,12 @@ twin, on the CPU (the kernels themselves run only on the card:
 - The kernels' lane bodies, compiled for the host with g++ (the source's
   host entries, the walk plain between them), equal the plain twin on
   the edge set and random intervals, int32, int64 and past 2^31.
+- The same on ``resolve_calls.lane_calls``, the boundaries of
+  ``resolve_expand``'s design (M 1, 24 and 142; no live interval and
+  every one live; equal keys; keys about 0 and 2^27; live keys at and
+  past the dead key; int64 keys past 32 bits; negative counts and
+  offsets that wrap; S off a multiple of 32), int32, int64 and past
+  2^31; each case holds what it was made for.
 - Dispatch: on CPU tensors ``resolve_seeds`` runs the plain twin and
   never builds or loads a library. The wrappers refuse CPU tensors,
   wrong dtypes and shapes and an empty M (ValueError) before they touch
@@ -195,6 +201,44 @@ def test_host_build_equals_plain(host_lib, es, edge, rank):
         want = c.run(plain=True)
         assert rc.max_abs_err(c.host(host_lib), want) == 0, name
         if name.endswith("past 2^31"):
+            assert int(want["rbeg"].max()) >= 2 ** 31, name
+
+
+@pytest.mark.parametrize("rank", list(RANKS))
+def test_host_build_equals_plain_on_lane_calls(host_lib, es, rank):
+    fm = kfm.FMDevice.from_host(es.idx, "cpu", rank_dtype=RANKS[rank])
+    calls = rc.lane_calls(es, fm)
+    held = {}
+    for name, c in calls.items():
+        assert rc.max_abs_err(c.host(host_lib), c.run(plain=True)) == 0, name
+        m, n_mem = c.args["mems"].long(), c.args["n_mem"].long()
+        live = torch.arange(m.shape[1])[None, :] < n_mem[:, None]
+        key = (m[:, :, 3] * 4096 + m[:, :, 4].clamp(max=4095)).to(
+            RANKS[rank])
+        held[name] = dict(
+            about=(live & (key == 2 ** 27 - 1)).any()
+            and (live & (key == 2 ** 27)).any() and (live & (key < 0)).any(),
+            at=(live & (key == rc.DEAD_KEY)).any(),
+            past=(live & (key > rc.DEAD_KEY)).any(),
+            wide=(live & (key.long() != key.int().long())).any(),
+            neg=(live & (m[:, :, 2] < 0)).any(),
+            none_all=(n_mem <= 0).any() and (n_mem >= m.shape[1]).any())
+    assert calls["M 1, S 33"].dims == (64, 1, 33)
+    assert calls["M 142, S 189, all live"].dims[1:] == (142, 189)
+    assert held["n_mem 0 and M"]["none_all"]
+    assert held["keys about 0 and 2^27"]["about"]
+    assert held["a live key at the dead key"]["at"]
+    assert held["live keys past the dead key"]["past"]
+    assert held["keys past 32 bits"]["wide"] == (rank == "int64")
+    assert held["negative counts"]["neg"]
+    assert calls["negative counts"].dims[2] % 32 != 0
+    assert calls["offsets past 2^31"].args["max_occ"] == 2 ** 30
+    assert ("counts past 2^62" in calls) == (rank == "int64")
+    if rank == "int64":
+        for name, c in calls.items():
+            c = c.shifted()
+            want = c.run(plain=True)
+            assert rc.max_abs_err(c.host(host_lib), want) == 0, name
             assert int(want["rbeg"].max()) >= 2 ** 31, name
 
 
