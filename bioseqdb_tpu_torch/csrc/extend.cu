@@ -97,10 +97,24 @@
 //   row is copied 8 bytes a thread where source and destination share
 //   their alignment (bytes for the head and tail), the slot just
 //   extended set in the word that holds it.
-// - extend_merge_left and extend_seedcov: one thread a read, 128 a
-//   block. The left merge is a gather through inv, a few selects and a
-//   scatter a read: on a group of 8, its leader working, it ran the same
-//   chain in 8 times the warps and was slower on the card.
+// - extend_merge_left: one thread a read, 128 a block. It is a gather
+//   through inv, a few selects and a scatter a read: on a group of 8,
+//   its leader working, it ran the same chain in 8 times the warps and
+//   was slower on the card.
+// - extend_seedcov: a group of kCovGroup threads a read up to kCovWideS
+//   slots (the main path's S 64), kCovWideGroup past it (long reads, the
+//   fat retry), kCovThreads a block, so the main path's 16,384 reads fit
+//   the card in one wave. Lane t takes the slots t, t + G, ...: a group's
+//   load of ok and of each seed field is one contiguous run. A lane
+//   loads kCovChunk ok flags before it tests any, then the fields of its
+//   ok slots alone. Every lane holds the read's region table in
+//   registers (the same element loaded by the whole group: one request),
+//   kCovNarrowRegs of them up to that many regions, kMaxRegs past it, so
+//   the main path's R 8 does not pay for 16. Each lane keeps a partial
+//   sum a region in uint32; a group sum (shuffles) gives the total and
+//   lane r % G stores region r. Wrapping addition does not depend on the
+//   order of its terms, so the result is the twin's int32 sum bit for
+//   bit, overflow included (the lane cases hold one that wraps).
 // - extend_windows: a warp a row of the sorted SW order (perm, from a
 //   library argsort of the scan's work keys), both sides in one launch;
 //   the warp's threads write consecutive columns, the target codes read
@@ -128,7 +142,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // a windows, seedcov or left merge block
+constexpr int kThreads = 128;   // a windows or left merge block
 constexpr int kWarp = 32;       // a windows row's threads
 constexpr int kScanGroup = 32;  // the scan's threads a read
 constexpr int kScanThreads = 128;   // a scan block
@@ -143,6 +157,19 @@ constexpr int kSetupGroup = 32; // the set-up's threads a read
 constexpr int kSetupReads = 4;  // a set-up block's reads at most
 constexpr int kSetupSmem = 49152;   // a set-up block's shared memory at most
 constexpr int32_t kUnusable = 0x7FFFFFF0;   // an unusable seed's sort key
+constexpr int kCovGroup = 4;       // seedcov's threads a read up to kCovWideS
+constexpr int kCovWideGroup = 32;  // seedcov's threads a read past it
+constexpr int kCovWideS = 64;      // the widest S of seedcov's narrow group
+constexpr int kCovThreads = 256;   // a seedcov block
+constexpr int kCovChunk = 8;       // ok flags a seedcov lane loads together
+constexpr int kCovNarrowRegs = 8;  // seedcov's region registers up to Rg 8
+static_assert(kCovGroup >= 1 && kCovGroup <= kWarp &&
+                  (kCovGroup & (kCovGroup - 1)) == 0 &&
+                  kCovWideGroup >= 1 && kCovWideGroup <= kWarp &&
+                  (kCovWideGroup & (kCovWideGroup - 1)) == 0,
+              "a seedcov group is a power of two within a warp");
+static_assert(kCovChunk <= 32 && kCovNarrowRegs <= kMaxRegs,
+              "a lane's ok flags fit a word; the narrow table the wide");
 static_assert(kScanGroup >= kMaxRegs && kScanGroup <= kWarp,
               "a read's group loads region r on its lane r");
 
@@ -807,33 +834,66 @@ GROUP_FN void merge_right_group(const MergeParams& p, long long b) {
   }
 }
 
-// read b's seedcov (extend_seedcov_plain, one lane)
-template <typename R>
-LANE_HD void seedcov_lane(const CovParams& p, long long b) {
-  R rb[kMaxRegs], re[kMaxRegs];
-  int32_t qb[kMaxRegs], qe[kMaxRegs], cc[kMaxRegs], acc[kMaxRegs];
+// read b's seedcov (extend_seedcov_plain, one read) by a group of G
+// threads: lane t takes the slots t, t + G, ..., kCovChunk a pass (their
+// ok flags loaded together, then the fields of the ok ones), and tests
+// each against the read's Rg <= NR regions, which every lane holds in
+// registers. Its sums are uint32: wrapping addition does not depend on
+// the order of its terms, so the group sum of the lanes' partial sums is
+// the twin's int32 sum bit for bit, overflow included.
+template <typename R, int G, int NR>
+GROUP_FN void seedcov_group(const CovParams& p, long long b) {
   const int Rg = static_cast<int>(p.Rg);
   const long long reg = b * p.Rg;
-  for (int r = 0; r < Rg; ++r) {
-    rb[r] = static_cast<const R*>(p.rb)[reg + r];
-    re[r] = static_cast<const R*>(p.re)[reg + r];
-    qb[r] = p.qb[reg + r];
-    qe[r] = p.qe[reg + r];
-    cc[r] = p.cchain[reg + r];
-    acc[r] = 0;
+  // every lane loads the same element: one request a group, and a warp's
+  // groups read neighbouring rows
+  R rb[NR], re[NR];
+  int32_t qb[NR], qe[NR], cc[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const bool in = r < Rg;
+    rb[r] = in ? static_cast<const R*>(p.rb)[reg + r] : static_cast<R>(0);
+    re[r] = in ? static_cast<const R*>(p.re)[reg + r] : static_cast<R>(0);
+    qb[r] = in ? p.qb[reg + r] : 0;
+    qe[r] = in ? p.qe[reg + r] : 0;
+    cc[r] = in ? p.cchain[reg + r] : 0;
+  }
+  Lanes<uint32_t, G> acc[NR];
+  FOR_LANES(G, t) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) acc[r][t] = 0;
   }
   const long long row = b * p.S;
-  for (long long t = 0; t < p.S; ++t) {
-    if (!p.ok[row + t]) continue;
-    const Seed<R> s(p.sd, row + t);
-    const int32_t qend = add_(s.q, s.l);
-    const R rend = add_(s.r, static_cast<R>(s.l));
-    for (int r = 0; r < Rg; ++r)
-      if (s.c == cc[r] && s.q >= qb[r] && qend <= qe[r] && s.r >= rb[r] &&
-          rend <= re[r])
-        acc[r] = add_(acc[r], s.l);
+  for (long long base = 0; base < p.S; base += G * kCovChunk) {
+    FOR_LANES(G, t) {
+      uint32_t ok = 0;   // bit j: slot base + t + j * G is ok
+#pragma unroll
+      for (int j = 0; j < kCovChunk; ++j) {
+        const long long k = base + t + static_cast<long long>(j) * G;
+        if (k < p.S && p.ok[row + k]) ok |= 1u << j;
+      }
+      while (ok != 0) {
+        const int j = low_bit(ok);
+        ok &= ok - 1;
+        const Seed<R> s(p.sd, row + base + t + static_cast<long long>(j) * G);
+        const int32_t qend = add_(s.q, s.l);
+        const R rend = add_(s.r, static_cast<R>(s.l));
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          if (r < Rg && s.c == cc[r] && s.q >= qb[r] && qend <= qe[r] &&
+              s.r >= rb[r] && rend <= re[r])
+            acc[r][t] += static_cast<uint32_t>(s.l);
+      }
+    }
   }
-  for (int r = 0; r < Rg; ++r) p.seedcov[reg + r] = acc[r];
+  uint32_t sum[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) sum[r] = r < Rg ? group_sum<G>(acc[r]) : 0u;
+  FOR_LANES(G, t) {   // lane r % G stores region r: one run a group
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      if (r < Rg && r % G == t) p.seedcov[reg + r] = static_cast<int32_t>(sum[r]);
+  }
 }
 
 // entries a set-up group's sort buffer holds for n keys: n up to a group,
@@ -1051,12 +1111,12 @@ __global__ void __launch_bounds__(kMergeReads * kMergeGroup)
   if (b < p.B) merge_right_group<R>(p, b);
 }
 
-template <typename R>
-__global__ void __launch_bounds__(kThreads)
+template <typename R, int G, int NR>
+__global__ void __launch_bounds__(kCovThreads)
     extend_seedcov(const CovParams p) {
-  const long long b = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (b < p.B) seedcov_lane<R>(p, b);
+  const long long b = static_cast<long long>(blockIdx.x) *
+                          (kCovThreads / G) + threadIdx.x / G;
+  if (b < p.B) seedcov_group<R, G, NR>(p, b);
 }
 
 unsigned blocks(long long n, long long per) {
@@ -1097,6 +1157,34 @@ Opts opts(Args& g) {
 
 bool bad_rank(long long rank_bytes) {
   return rank_bytes != 4 && rank_bytes != 8;
+}
+
+// seedcov at G threads a read and NR region registers: one launch on
+// `stream` (a cudaStream_t), or every read in turn on the host
+template <typename R, int G, int NR>
+int seedcov_run(const CovParams& p, void* stream) {
+#ifdef __CUDACC__
+  extend_seedcov<R, G, NR><<<blocks(p.B, kCovThreads / G), kCovThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+#else
+  (void)stream;
+  for (long long b = 0; b < p.B; ++b) seedcov_group<R, G, NR>(p, b);
+  return 0;
+#endif
+}
+
+// seedcov's layout for the call: kCovWideGroup threads a read past
+// kCovWideS slots, else kCovGroup; kCovNarrowRegs region registers up
+// to that many regions, else kMaxRegs
+template <typename R>
+int seedcov_groups(const CovParams& p, void* stream) {
+  const bool narrow = p.Rg <= kCovNarrowRegs;
+  if (p.S > kCovWideS)
+    return narrow ? seedcov_run<R, kCovWideGroup, kCovNarrowRegs>(p, stream)
+                  : seedcov_run<R, kCovWideGroup, kMaxRegs>(p, stream);
+  return narrow ? seedcov_run<R, kCovGroup, kCovNarrowRegs>(p, stream)
+                : seedcov_run<R, kCovGroup, kMaxRegs>(p, stream);
 }
 
 }  // namespace
@@ -1333,16 +1421,12 @@ extern "C" int LANE_ENTRY(extend_seedcov)(const long long* a,
       p.Rg > kMaxRegs)
     return kRefused;
 #ifdef __CUDACC__
-  EXT_RUN(extend_seedcov, p.B, kThreads, kThreads, p);
+  void* const on = stream;
 #else
-  for (long long b = 0; b < p.B; ++b) {
-    if (rank_bytes == 8)
-      seedcov_lane<long long>(p, b);
-    else
-      seedcov_lane<int32_t>(p, b);
-  }
-  return 0;
+  void* const on = nullptr;
 #endif
+  return rank_bytes == 8 ? seedcov_groups<long long>(p, on)
+                         : seedcov_groups<int32_t>(p, on);
 }
 
 extern "C" int LANE_ENTRY(extend_setup)(const long long* a,

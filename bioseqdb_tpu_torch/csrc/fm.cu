@@ -21,13 +21,33 @@
 // chain of L2 round trips: latency, not the card's memory or issue rate.
 //
 // Design:
-// - A thread a lane (a rank for sa_resolve, a read for backward_search),
+// - Unmasked (the exact step, exact mode, the random and edge sets): a
+//   thread a lane (a rank for sa_resolve, a read for backward_search),
 //   64 threads a block, so that a few thousand lanes still spread over
 //   the card's SMs. Lanes are independent; a lane stops as soon as its
 //   result is fixed, which the plain loops' masks make exact: a marked
 //   rank keeps its state (the plain loop holds r and steps there), and a
 //   read whose interval is empty, or whose bases ran out, keeps it to the
 //   end, where the empty test maps every dead interval to (0, 0).
+// - sa_resolve under a lane mask (resolve_seeds' B x S rank lanes, of
+//   which the main path walks a few dozen of a million, the FM-seeded
+//   batch an eighth and long reads two fifths): kTileBlocks blocks of
+//   kTileThreads an SM, the lanes split evenly over the blocks (a span a
+//   block, kBlockLanes a pass). In a pass each thread takes a tile of
+//   kTile lanes: it loads the tile's mask bytes in one 8-byte load, and
+//   its warp writes the pass's zeros with 16-byte stores, neighbouring
+//   threads on neighbouring addresses. The block lists its walking lanes
+//   in shared memory (each warp's scan of its tiles' counts, then the
+//   warps' counts in order) and its threads walk them one each in turn,
+//   overwriting their zeros after a barrier. So a dense stretch of
+//   walking lanes (a long read's first seed slots) is shared out over a
+//   block's 256 threads, and a call with few lanes still spreads them
+//   over the card. The mask and the positions must start on 16-byte
+//   boundaries: the entry refuses others and the wrapper
+//   (kernels/fm_cuda.py) copies a mask view that does not. PERF.md row
+//   13 has the designs this replaced: a thread a lane in blocks of 64
+//   (16,384 blocks of byte loads for the main path's mask), and lists a
+//   warp (a dense stretch walked several to a thread).
 // - sa_resolve issues a step's loads together: the mark word at r >> 5,
 //   the Occ row of the stored position (checkpoints and words) and the
 //   major row; the code is decoded from the row, so its checkpoint and
@@ -36,8 +56,7 @@
 // - backward_search fetches both Occ rows of a step (at lo and at hi)
 //   before it counts either (occ.cuh occ_fetch / occ_value, the counting
 //   fm_seed.cu shares).
-// - An optional lane mask (resolve_seeds' rank lanes within its compact
-//   cap): a lane off the mask writes 0 without a load, as the plain
+// - A lane off the mask writes 0 and loads nothing else, as the plain
 //   code's zero-filled positions hold there.
 // - Ranks and rank-valued state take the template type R (int32 or int64,
 //   the index's rank dtype). Every table index is clamped as the plain
@@ -45,18 +64,34 @@
 //   exact_align_step) or a garbage rank reads what the plain code reads.
 //   Sums run in long long and are cast to R, so they wrap as the
 //   tensors' do.
-// - The lane bodies build for the host too (LANE_HD / GROUP_FN,
+// - The lane and warp bodies build for the host too (LANE_HD / GROUP_FN,
 //   lanes.cuh): compiled without nvcc, the file gives entries
-//   sa_resolve_host and backward_search_host that run every lane in turn,
-//   which the CPU tests hold against the plain versions.
+//   sa_resolve_host and backward_search_host that run every lane in turn
+//   (a masked call in kHostBlocks blocks, a block's warps in turn between
+//   what the card's barriers separate), which the CPU tests hold against
+//   the plain versions.
 
 #include "lanes.cuh"
 #include "occ.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;    // a block: one lane a thread
+constexpr int kThreads = 64;    // an unmasked block: one lane a thread
 constexpr int kRefused = 1;     // cudaErrorInvalidValue
+constexpr int kWarp = 32;
+constexpr int kTile = 8;        // a masked call's lanes a thread a pass
+constexpr int kWarpLanes = kWarp * kTile;   // a warp's lanes a pass
+constexpr int kTileThreads = 256;   // a masked block
+constexpr int kTileWarps = kTileThreads / kWarp;
+constexpr int kBlockLanes = kTileWarps * kWarpLanes;   // a block's a pass
+constexpr int kTileBlocks = 4;  // masked blocks an SM
+constexpr int kSpanUnit = 16;   // a block's span of lanes is a multiple
+constexpr int kHostBlocks = 3;  // the host build's blocks (spans of n / 3)
+static_assert(kTile == 4 || kTile == 8 || kTile == 16,
+              "a tile's mask is one 4-, 8- or 16-byte load");
+static_assert(kSpanUnit % kTile == 0 && kWarpLanes % kSpanUnit == 0,
+              "a warp's tiles start on the mask's and positions' vectors");
+static_assert(kBlockLanes <= 65536, "a walk list entry is 16 bits");
 
 struct SaParams {
   const void* ranks;          // [n] R
@@ -94,10 +129,6 @@ LANE_HD inline T pick4(T a, T b, T c, T d, int k) {
 template <typename R>
 GROUP_FN void sa_resolve_lane(const SaParams& p, long long i) {
   R* out = static_cast<R*>(p.pos);
-  if (p.mask != nullptr && !p.mask[i]) {
-    out[i] = 0;
-    return;
-  }
   const R* majors = static_cast<const R*>(p.occ_majors);
   const R* L2 = static_cast<const R*>(p.L2);
   const long long l2[4] = {__ldg(L2), __ldg(L2 + 1), __ldg(L2 + 2),
@@ -162,6 +193,97 @@ GROUP_FN void sa_resolve_lane(const SaParams& p, long long i) {
   out[i] = static_cast<R>(static_cast<long long>(sample) + steps);
 }
 
+// the mask bits of the T lanes at m (bit j: lane j), from one load
+template <int T>
+GROUP_FN inline uint32_t tile_bits(const uint8_t* m) {
+  uint32_t w[4] = {0, 0, 0, 0};
+  if constexpr (T == 16) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(m));
+    w[0] = static_cast<uint32_t>(v.x);
+    w[1] = static_cast<uint32_t>(v.y);
+    w[2] = static_cast<uint32_t>(v.z);
+    w[3] = static_cast<uint32_t>(v.w);
+  } else if constexpr (T == 8) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(m));
+    w[0] = static_cast<uint32_t>(v.x);
+    w[1] = static_cast<uint32_t>(v.y);
+  } else {
+    w[0] = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(m)));
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < T; ++j)
+    bits |= static_cast<uint32_t>(((w[j >> 2] >> (8 * (j & 3))) & 0xFFu) !=
+                                  0) << j;
+  return bits;
+}
+
+// the lanes [w0, w1) of a block's pass of a masked call by one of its
+// warps (w1 - w0 <= kWarpLanes; w0 a multiple of kSpanUnit): lane t takes
+// the tile of kTile lanes at w0 + kTile * t and loads its mask bytes in
+// one load, and the warp writes 0 to all of its positions with 16-byte
+// stores (a whole pass: neighbouring threads on neighbouring addresses;
+// the tile that n cuts lane by lane). Returns the warp's walking lanes;
+// walk[t] holds lane t's (bit j: lane w0 + kTile * t + j), before[t]
+// those of the lanes before it. mask and pos are 16-byte aligned (the
+// entry refuses them otherwise).
+template <typename R>
+GROUP_FN int sa_tiles_warp(const SaParams& p, long long w0, long long w1,
+                           Lanes<uint32_t, kWarp>& walk,
+                           Lanes<int, kWarp>& before) {
+  constexpr int G = kWarp;
+  constexpr int kVecs = kTile * static_cast<int>(sizeof(R)) / 16;
+  R* out = static_cast<R*>(p.pos);
+  const bool whole = w1 - w0 == kWarpLanes;
+  Lanes<int, G> end;   // the inclusive scan of the counts
+  FOR_LANES(G, t) {
+    const long long i0 = w0 + static_cast<long long>(kTile) * t;
+    uint32_t bits = 0;
+    if (i0 + kTile <= w1) {
+      bits = tile_bits<kTile>(p.mask + i0);
+      int4* o = reinterpret_cast<int4*>(out + (whole ? w0 : i0));
+      for (int k = 0; k < kVecs; ++k)   // a whole pass: coalesced
+        o[whole ? t + k * G : k] = int4{0, 0, 0, 0};
+    } else {
+      for (long long i = i0; i < w1; ++i) {
+        bits |= static_cast<uint32_t>(p.mask[i] != 0) << (i - i0);
+        out[i] = 0;
+      }
+    }
+    walk[t] = bits;
+    end[t] = popc32(bits);
+  }
+  for (int d = 1; d < G; d <<= 1) {
+    const Lanes<int, G> up = shfl_up<G>(end, d);
+    FOR_LANES(G, t) {
+      if (t >= d) end[t] += up[t];
+    }
+  }
+  FOR_LANES(G, t) { before[t] = end[t] - popc32(walk[t]); }
+  return shfl<G>(end, G - 1);
+}
+
+// a warp's walking lanes into its block's list from entry `at` on, as
+// offsets `off` + kTile * t + j from the pass's first lane
+GROUP_FN inline void sa_list_warp(long long off, int at,
+                                  const Lanes<uint32_t, kWarp>& walk,
+                                  const Lanes<int, kWarp>& before,
+                                  uint16_t* list) {
+  FOR_LANES(kWarp, t) {
+    int k = at + before[t];
+    for (uint32_t bits = walk[t]; bits != 0; bits &= bits - 1)
+      list[k++] = static_cast<uint16_t>(off + kTile * t + low_bit(bits));
+  }
+}
+
+// the lanes a block of a masked launch of `blocks` blocks takes: n split
+// evenly, in multiples of kSpanUnit, so that a call whose lanes walk
+// densely spreads its walks over every block launched
+LANE_HD inline long long block_span(long long n, long long blocks) {
+  const long long per = (n + blocks - 1) / blocks;
+  return (per + kSpanUnit - 1) / kSpanUnit * kSpanUnit;
+}
+
 // kernels/fm.py backward_search_plain for read b: the columns from
 // lens - 1 down, each prepending its code to [lo, hi) by two Occ lookups
 template <typename R>
@@ -202,6 +324,56 @@ __global__ void __launch_bounds__(kThreads) sa_resolve_kernel(
   if (i < p.n) sa_resolve_lane<R>(p, i);
 }
 
+// block b's span of a masked call, kBlockLanes lanes a pass: each warp
+// tiles its kWarpLanes of the pass, the warps' walking lanes go into the
+// block's list (the warps' counts summed in warp order), and the block's
+// threads walk them one each in turn, overwriting their zeros
+template <typename R>
+__global__ void __launch_bounds__(kTileThreads) sa_resolve_masked(
+    const SaParams p, long long span) {
+  __shared__ uint16_t list[kBlockLanes];
+  __shared__ int counts[kTileWarps];
+  const int warp = static_cast<int>(threadIdx.x) / kWarp;
+  const long long b0 = static_cast<long long>(blockIdx.x) * span;
+  const long long b1 = min_(p.n, b0 + span);
+  for (long long q0 = b0; q0 < b1; q0 += kBlockLanes) {
+    const long long w0 = min_(b1, q0 + static_cast<long long>(warp) *
+                                           kWarpLanes);
+    const long long w1 = min_(b1, w0 + kWarpLanes);
+    Lanes<uint32_t, kWarp> walk;
+    Lanes<int, kWarp> before;
+    const int mine = sa_tiles_warp<R>(p, w0, w1, walk, before);
+    if (threadIdx.x % kWarp == 0) counts[warp] = mine;
+    __syncthreads();   // the counts, and the zeros before the walks
+    int at = 0, total = 0;
+    for (int w = 0; w < kTileWarps; ++w) {
+      at += w < warp ? counts[w] : 0;
+      total += counts[w];
+    }
+    if (total != 0) {
+      sa_list_warp(w0 - q0, at, walk, before, list);
+      __syncthreads();
+      for (int k = static_cast<int>(threadIdx.x); k < total;
+           k += kTileThreads)
+        sa_resolve_lane<R>(p, q0 + list[k]);
+    }
+    __syncthreads();   // the counts and the list read before the next pass
+  }
+}
+
+// a masked launch's blocks: kTileBlocks an SM of the current device, but
+// none with fewer lanes than threads
+inline unsigned masked_grid(long long n) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    sms = 1;
+  return static_cast<unsigned>(
+      min_<long long>((n + kTileThreads - 1) / kTileThreads,
+                      static_cast<long long>(sms) * kTileBlocks));
+}
+
 template <typename R>
 __global__ void __launch_bounds__(kThreads) backward_search_kernel(
     const BsParams p) {
@@ -212,6 +384,39 @@ __global__ void __launch_bounds__(kThreads) backward_search_kernel(
 
 inline unsigned grid_of(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+#endif
+
+#ifndef __CUDACC__
+// the masked kernel's blocks on the host (kHostBlocks of them), a block's
+// warps in turn between what the card's barriers separate
+template <typename R>
+void sa_resolve_blocks(const SaParams& p) {
+  uint16_t list[kBlockLanes];
+  Lanes<uint32_t, kWarp> walk[kTileWarps];
+  Lanes<int, kWarp> before[kTileWarps];
+  int counts[kTileWarps];
+  const long long span = block_span(p.n, kHostBlocks);
+  for (long long b = 0; b < kHostBlocks; ++b) {
+    const long long b0 = b * span;
+    const long long b1 = min_(p.n, b0 + span);
+    for (long long q0 = b0; q0 < b1; q0 += kBlockLanes) {
+      for (int w = 0; w < kTileWarps; ++w) {
+        const long long w0 = min_(b1, q0 + static_cast<long long>(w) *
+                                               kWarpLanes);
+        counts[w] = sa_tiles_warp<R>(p, w0, min_(b1, w0 + kWarpLanes),
+                                     walk[w], before[w]);
+      }
+      int at = 0;
+      for (int w = 0; w < kTileWarps; ++w) {
+        const long long w0 = min_(b1, q0 + static_cast<long long>(w) *
+                                               kWarpLanes);
+        sa_list_warp(w0 - q0, at, walk[w], before[w], list);
+        at += counts[w];
+      }
+      for (int k = 0; k < at; ++k) sa_resolve_lane<R>(p, q0 + list[k]);
+    }
+  }
 }
 #endif
 
@@ -233,18 +438,39 @@ extern "C" int LANE_ENTRY(sa_resolve)(
       || n_words < 1 || n_cnt < 1 || n_sa_major < 1 || n_sample < 1 || n < 0
       || max_steps < 0)
     return kRefused;
+  // a masked call's tiles take vector loads and stores
+  if (mask != nullptr && ((reinterpret_cast<uintptr_t>(mask) |
+                           reinterpret_cast<uintptr_t>(pos)) & 15u) != 0)
+    return kRefused;
   const SaParams p{ranks,   mask,       pos,     occ_rows, occ_majors,
                    L2,      sa_words,   sa_cnt,  sa_majors, sa_sample,
                    n_octo,  n_major,    n_words, n_cnt,    n_sa_major,
                    n_sample, primary,   n,       max_steps};
 #ifdef __CUDACC__
   if (n == 0) return 0;
-  if (rank_bytes == 8)
+  if (mask != nullptr) {
+    const unsigned grid = masked_grid(n);
+    const long long span = block_span(n, grid);
+    if (rank_bytes == 8)
+      sa_resolve_masked<long long><<<grid, kTileThreads, 0, stream>>>(p,
+                                                                     span);
+    else
+      sa_resolve_masked<int32_t><<<grid, kTileThreads, 0, stream>>>(p,
+                                                                   span);
+  } else if (rank_bytes == 8) {
     sa_resolve_kernel<long long><<<grid_of(n), kThreads, 0, stream>>>(p);
-  else
+  } else {
     sa_resolve_kernel<int32_t><<<grid_of(n), kThreads, 0, stream>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 #else
+  if (mask != nullptr) {
+    if (rank_bytes == 8)
+      sa_resolve_blocks<long long>(p);
+    else
+      sa_resolve_blocks<int32_t>(p);
+    return 0;
+  }
   for (long long i = 0; i < n; ++i) {
     if (rank_bytes == 8)
       sa_resolve_lane<long long>(p, i);

@@ -204,6 +204,9 @@ inline int high_bit(uint32_t x) { return 31 - __builtin_clz(x); }
 struct int4 {
   int x, y, z, w;
 };
+struct int2 {
+  int x, y;
+};
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 #endif

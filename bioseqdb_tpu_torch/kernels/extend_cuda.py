@@ -12,8 +12,10 @@ containment scan, one of
 the lanes, and ``extend_seedcov`` sums each region's seeds. The scan runs
 a warp a read (32 cursors a pass, the first that stops taken by a
 ballot), the right merge a group of 8 threads a read (its region-table
-and was_ext copies coalesced), the windows a warp a sorted row, and the
-left merge and seedcov a thread a read. The plain versions are
+and was_ext copies coalesced), seedcov a group of 4 threads a read (a
+warp past 64 slots; the slots strided over the lanes, the region table
+in registers, a group sum), the windows a warp a sorted row, and the
+left merge a thread a read. The plain versions are
 ``extend.extend_setup_plain``, ``extend_scan_plain``,
 ``extend_windows_plain``, ``extend_merge_plain`` and
 ``extend_seedcov_plain``, with the same arguments and outputs;

@@ -2,9 +2,11 @@
 
 The Hopper counterparts of the JAX package's ``sa_resolve`` and
 ``backward_search`` loops (``bioseqdb_tpu/kernels/fm.py``): one launch of
-``sa_resolve`` walks every rank lane to its sampled suffix-array row, one
-launch of ``backward_search`` runs every read's backward search, a thread
-a lane. The plain versions are ``fm.sa_resolve_plain`` and
+``sa_resolve`` walks every rank lane to its sampled suffix-array row (a
+thread a lane; under a lane mask a thread a tile of 8 lanes, a block's
+walking lanes shared out among its threads), one launch of
+``backward_search`` runs every read's backward search, a thread a read.
+The plain versions are ``fm.sa_resolve_plain`` and
 ``fm.backward_search_plain``; ``fm.sa_resolve`` and ``fm.backward_search``
 call these on CUDA tensors. They launch on PyTorch's current stream,
 allocate only their outputs, and do not synchronise. Nothing falls back
@@ -14,7 +16,11 @@ to the plain versions.
 allocate the outputs on their device and give the C entry points'
 arguments without the stream: the launch entries (``*_launch``) take
 them and the stream; a build of the source without nvcc has host
-entries (``*_host``) that take them alone.
+entries (``*_host``) that take them alone. A masked ``sa_resolve`` reads
+its mask 8 bytes a thread, writes its zeros 16 bytes a thread, and the
+entry refuses a mask or output off a 16-byte boundary, so
+``sa_resolve_args`` passes a mask that is such a view (``mask[1:]``) as
+an aligned copy.
 """
 
 from __future__ import annotations
@@ -81,6 +87,8 @@ def sa_resolve_args(fm, ranks: torch.Tensor, sa_interval: int,
     _check("ranks", ranks, rdt, (n,))
     if mask is not None:
         _check("mask", mask, torch.bool, (n,))
+        if mask.data_ptr() % 16:   # a view: the tiles load 8 bytes a thread
+            mask = mask.clone()
     tables = {"sa_words": (fm.sa_words, torch.int32),
               "sa_cnt": (fm.sa_cnt, torch.int32),
               "sa_majors": (fm.sa_majors, rdt),

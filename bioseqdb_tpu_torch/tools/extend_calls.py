@@ -42,7 +42,10 @@ the pipeline gives them.
 - ``lane_cases(rank_dtype)``: the boundaries of the kernels' thread
   layout: the scan's first stop on each edge lane of a pass, n_usable off
   a multiple of 32, more extended seeds than a warp, 0 and 16 live
-  regions; the right merge at R 1 and 16 and at S 40 and 70.
+  regions; the right merge at R 1 and 16 and at S 40 and 70; seedcov
+  (``seedcov_cases``) at S one off its group sizes and chunks and 189,
+  Rg 1, 8, 9 and 16, with no ok slot, seeds on every region edge, two
+  chains interleaved across lanes and an int32 sum that wraps.
 
 ``chip_smoke.py``'s extend phase and the extension tests use it.
 """
@@ -952,10 +955,19 @@ def setup_calls(rank_dtype: torch.dtype = torch.int32, device="cpu"
 
 # ---- the lane cases: the warp scan's and the group merge's boundaries ----
 
+SEEDCOV_CASES = ("seedcov S about a group", "seedcov S about a chunk",
+                 "seedcov Rg 1, 8, 9, 16", "seedcov no ok slot",
+                 "seedcov seeds on every region edge",
+                 "seedcov two chains interleaved", "seedcov int32 sum wraps")
 LANE_CASES = ("scan stops at lanes 0, 31, 32", "scan n_usable off 32",
               "scan with every slot extended", "scan with no live regions",
               "scan with 16 live regions", "R 1", "R 16", "S 40", "S 70",
-              "S 70 was_ext at an odd address")
+              "S 70 was_ext at an odd address") + SEEDCOV_CASES
+# seedcov's group sizes and chunks (csrc/extend.cu: kCovGroup 4 up to S 64,
+# kCovWideGroup 32 past it, kCovChunk 8 slots a lane a pass), and those of
+# groups of 8 and 16
+SEEDCOV_S = dict(group=(3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33),
+                 chunk=(63, 64, 65, 127, 128, 129, 189, 255, 256, 257))
 _GEOMETRY = dict(lens=1000, qe=900, bare_q=950, rescue_dq=5, rescue_dr=55)
 
 
@@ -1058,7 +1070,8 @@ def lane_cases(rank_dtype: torch.dtype = torch.int32, device="cpu"
     right merge's table under and over the group's 8 threads) and at S 40
     and 70 (its was_ext rows in 8-byte words, 70 with a byte head and
     tail; and once more with the right merge's was_ext one byte past an
-    aligned address, so its rows copy byte by byte)."""
+    aligned address, so its rows copy byte by byte); and
+    ``seedcov_cases``."""
     lanes = [(cur, 99, stop, how) for cur in (0, 5)
              for stop in (0, 1, 31, 32, 33, 63, 64, None)
              for how in ("bare", "rescued")]
@@ -1089,9 +1102,130 @@ def lane_cases(rank_dtype: torch.dtype = torch.int32, device="cpu"
                                   device=device), None)
     right = out["S 70"][0][3]
     st = dict(right.args[2], was_ext=_at_odd_address(right.args[2]["was_ext"]))
-    out[LANE_CASES[-1]] = ([StageCall(right.kind, (
+    out["S 70 was_ext at an odd address"] = ([StageCall(right.kind, (
         *right.args[:2], st, *right.args[3:]))], None)
+    out.update({k: (v, None) for k, v in seedcov_cases(
+        rank_dtype, device).items()})
     return out
+
+
+def _seedcov(rank_dtype: torch.dtype, seed: int, B: int, S: int, R: int,
+             edit=None) -> StageCall:
+    """A seedcov call of B reads on narrow random inputs from ``seed``:
+    seeds on two diagonals of three chains, about half of them ok, and
+    regions whose ends lie within a base or two of the seeds' (so that
+    every containment test meets its bound often); ``edit(d)`` may then
+    change the numpy arrays of ``d`` (qbeg, rbeg, len, cis, ok; qb, qe,
+    rb, re, cchain)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 100, (B, S))
+    diag = 3 * rng.integers(0, 2, (B, S))
+    d = dict(qbeg=q, rbeg=q + diag, len=rng.integers(1, 25, (B, S)),
+             cis=rng.integers(0, 3, (B, S)), ok=rng.random((B, S)) < 0.5)
+    qb = rng.integers(0, 60, (B, R))
+    qe = qb + rng.integers(0, 60, (B, R))
+    rb = qb + 3 * rng.integers(0, 2, (B, R)) + rng.integers(-1, 2, (B, R))
+    d.update(qb=qb, qe=qe, rb=rb, re=rb + (qe - qb) + rng.integers(-1, 2,
+                                                                    (B, R)),
+             cchain=rng.integers(-1, 3, (B, R)))
+    if edit is not None:
+        edit(d)
+    i32 = lambda k: torch.from_numpy(np.asarray(d[k])).to(torch.int32)
+    rk = lambda k: torch.from_numpy(np.asarray(d[k])).to(rank_dtype)
+    tab = dict(rbeg=rk("rbeg"), qbeg=i32("qbeg"), len=i32("len"),
+               cis=i32("cis"), ok=torch.from_numpy(np.asarray(d["ok"])),
+               # the tables' other shapes, which the wrapper reads
+               rmax0=torch.zeros(B, 3, dtype=rank_dtype),
+               rmax1=torch.zeros(B, 3, dtype=rank_dtype),
+               codes=torch.zeros(B, 1, dtype=torch.int32))
+    regs = dict(rb=rk("rb"), re=rk("re"), qb=i32("qb"), qe=i32("qe"),
+                cchain=i32("cchain"))
+    return StageCall("extend_seedcov", (tab, regs))
+
+
+def _no_ok(d: dict) -> None:
+    d["ok"][::2] = False   # every other read has no ok slot
+
+
+def _region_edges(d: dict) -> None:
+    """Four regions a read, each holding one seed exactly (its four
+    ends on the region's) and eight more on its ends: a seed one base
+    inside or outside an end, in slots shuffled across the lanes."""
+    B, S = d["qbeg"].shape
+    R = d["qb"].shape[1]
+    rng = np.random.default_rng(7)
+    # (dq, dl, dr): the seed's query start, length and reference start
+    # against the region's qb, its length and rb
+    moves = ((0, 0, 0), (-1, 0, 0), (1, -1, 1), (0, 1, 0), (0, -1, 0),
+             (0, 0, -1), (0, 0, 1), (1, 0, 0), (-1, 1, -1))
+    ln = 20
+    for b in range(B):
+        slots = rng.permutation(S)
+        for r in range(R):
+            qb, rb = 10 + 40 * r, 500 + 40 * r + 3 * (b % 3)
+            d["qb"][b, r], d["qe"][b, r] = qb, qb + ln
+            d["rb"][b, r], d["re"][b, r] = rb, rb + ln
+            d["cchain"][b, r] = r % 3
+            for k, (dq, dl, dr) in enumerate(moves):
+                at = slots[r * len(moves) + k]
+                d["qbeg"][b, at], d["len"][b, at] = qb + dq, ln + dl
+                d["rbeg"][b, at], d["cis"][b, at] = rb + dr, r % 3
+                d["ok"][b, at] = True
+
+
+def _interleaved(d: dict) -> None:
+    """Slot k of chain k % 2, both regions spanning every seed: each
+    region sums every other slot."""
+    S = d["qbeg"].shape[1]
+    d["cis"][:] = np.arange(S) % 2
+    d["rbeg"][:] = d["qbeg"]
+    d["qb"][:], d["rb"][:] = 0, 0
+    d["qe"][:], d["re"][:] = 200, 200
+    d["cchain"][:] = np.arange(d["qb"].shape[1]) % 2
+
+
+WRAP_LEN = (1 << 30) - 3   # seedcov int32 sum wraps: a seed's length
+
+
+def _wrapping(d: dict) -> None:
+    """Read b has b % (S + 1) ok seeds of WRAP_LEN inside one region:
+    from the third on, their int32 sum wraps (past 2^31, past 2^32)."""
+    B, S = d["qbeg"].shape
+    d["qbeg"][:], d["rbeg"][:], d["cis"][:] = 0, 0, 0
+    d["len"][:] = WRAP_LEN
+    d["ok"][:] = np.arange(S)[None, :] < (np.arange(B) % (S + 1))[:, None]
+    d["qb"][:], d["rb"][:], d["cchain"][:] = 0, 0, 0
+    d["qe"][:], d["re"][:] = (1 << 31) - 1, (1 << 31) - 1
+
+
+def seedcov_cases(rank_dtype: torch.dtype = torch.int32, device="cpu"
+                  ) -> dict[str, list[StageCall]]:
+    """{case (SEEDCOV_CASES): its seedcov calls}: the boundaries of
+    seedcov's group layout (S one off each group size, each chunk of
+    slots and the narrow group's widest S; 96 reads, a block and a half
+    of the narrow group's 64), both region-register layouts (Rg 1, 8, 9,
+    16), reads with no ok slot, seeds on each end of a region and one
+    base either side, two chains interleaved across the lanes and an
+    int32 sum that wraps."""
+    rdt = rank_dtype
+    out = {
+        SEEDCOV_CASES[0]: [_seedcov(rdt, 100 + S, 96, S, 8)
+                           for S in SEEDCOV_S["group"]],
+        SEEDCOV_CASES[1]: [_seedcov(rdt, 200 + S, 96, S, 8)
+                           for S in SEEDCOV_S["chunk"]],
+        SEEDCOV_CASES[2]: [_seedcov(rdt, 300 + R, 48, 40, R)
+                           for R in (1, 8, 9, 16)],
+        SEEDCOV_CASES[3]: [_seedcov(rdt, 400, 48, 64, 8, _no_ok),
+                           _seedcov(rdt, 401, 48, 189, 8, _no_ok)],
+        SEEDCOV_CASES[4]: [_seedcov(rdt, 500, 40, 36, 4, _region_edges),
+                           _seedcov(rdt, 501, 40, 100, 9, _region_edges)],
+        SEEDCOV_CASES[5]: [_seedcov(rdt, 600, 40, 64, 2, _interleaved),
+                           _seedcov(rdt, 601, 40, 70, 2, _interleaved)],
+        SEEDCOV_CASES[6]: [_seedcov(rdt, 700, 48, 9, 1, _wrapping),
+                           _seedcov(rdt, 701, 80, 70, 1, _wrapping)],
+    }
+    return {k: [StageCall(c.kind, _to(c.args, device)) for c in v]
+            for k, v in out.items()}
 
 
 def _at_odd_address(t: torch.Tensor) -> torch.Tensor:

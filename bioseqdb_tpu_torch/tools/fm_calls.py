@@ -19,8 +19,10 @@ twins, at the shapes the pipeline gives them.
   either end, repeats, a base before the text's start, a length past
   the width; ``edge_calls`` the calls on them
   (with a lane mask; for the kernel and its twin also ranks off the
-  table, an FM with many major checkpoints and one whose primary rank
-  is unmarked), ``random_calls`` random ranks and reads from a seed,
+  table, an FM with many major checkpoints, one whose primary rank
+  is unmarked and ``tile_calls``: masks at the masked kernel's tile
+  boundaries, a mask one byte off a 16-byte boundary), ``random_calls``
+  random ranks and reads from a seed,
   ``shifted`` an FM whose rank values lie past 2^31, ``synthetic_mems``
   seed intervals for ``resolve_seeds``;
 - ``host_library``: ``csrc/fm.cu`` built for the host with g++.
@@ -373,7 +375,8 @@ def edge_calls(es: EdgeSetup, fm: kfm.FMDevice, device="cpu") -> dict:
     ranks), which both clamp alike; the ranks and reads on
     ``many_majors(fm)`` (the ranks also at SA interval 2: one LF step);
     the ranks with the primary rank's mark bit
-    cleared (``unmarked_primary``: a walk through the primary rank)."""
+    cleared (``unmarked_primary``: a walk through the primary rank); and
+    ``tile_calls``, the masked kernel's tile boundaries."""
     t = lambda a: torch.from_numpy(a).to(device)
     ranks = t(es.ranks).to(fm.rank_dtype)
     mask = torch.arange(ranks.numel(), device=device) % 3 != 1
@@ -385,6 +388,7 @@ def edge_calls(es: EdgeSetup, fm: kfm.FMDevice, device="cpu") -> dict:
     far = torch.tensor([(k << 22) + 12345 for k in range(MAJORS + 2)],
                        dtype=fm.rank_dtype, device=device)
     return {
+        **tile_calls(es, fm, device),
         "ranks": FmCall.of("sa_resolve", fm, ranks, iv),
         "ranks masked": FmCall.of("sa_resolve", fm, ranks, iv, mask=mask),
         "ranks [B, 4]": FmCall.of("sa_resolve", fm, ranks[:200].reshape(
@@ -402,6 +406,46 @@ def edge_calls(es: EdgeSetup, fm: kfm.FMDevice, device="cpu") -> dict:
                                         t(es.lens)),
         "ranks, primary unmarked": FmCall.of(
             "sa_resolve", unmarked_primary(fm), ranks, iv),
+    }
+
+
+TILE, WARP_LANES = 8, 256   # csrc/fm.cu kTile, kWarpLanes
+TILE_N = 1101     # tile_calls' lanes: past 512, off a multiple of 4
+# the first and last lanes of tiles of 4, 8 and 16 lanes and of warps of
+# 128, 256 and 512, and the last lane
+TILE_EDGES = (0, 3, 4, 7, 8, 15, 16, 31, 127, 128, 255, 256, 511, 512,
+              TILE_N - 1)
+TILE_CASES = ("tiles, walking at their edges", "tiles, every lane walking",
+              "tiles, fewer lanes than a tile",
+              "tiles, mask and ranks off 16 bytes")
+
+
+def tile_calls(es: EdgeSetup, fm: kfm.FMDevice, device="cpu") -> dict:
+    """{case (TILE_CASES): call}: masked ``sa_resolve`` calls at the
+    boundaries of the kernel's tiles (kTile lanes a thread, kWarpLanes a
+    warp; the cases hold for tiles of 4, 8 and 16 lanes), on ``es``'s
+    ranks repeated to TILE_N lanes (not a multiple of 4): walking lanes
+    at TILE_EDGES (tile positions 0, 15, 16, 31, 511 and 512 among them)
+    and the last; a tile (16-31) and a warp (512-1023) with every lane
+    walking; 3 lanes (a tile that n cuts, and no whole one); and every
+    fifth lane walking with the mask and the ranks views one element past
+    a 16-byte boundary (``mask[1:]``)."""
+    t = lambda a: torch.from_numpy(a).to(device)
+    iv = es.idx.sa_interval
+    n = TILE_N
+    ranks = t(np.resize(es.ranks, n + 1)).to(fm.rank_dtype)
+    lane = np.arange(n + 1)
+    edges = t(np.isin(lane, TILE_EDGES))
+    every = t(((lane >= 16) & (lane < 32)) | ((lane >= 512) & (lane < 1024)))
+    fifth = t(lane % 5 == 1)
+    of = lambda r, m: FmCall.of("sa_resolve", fm, r, iv, mask=m)
+    return {
+        TILE_CASES[0]: of(ranks[:n], edges[:n]),
+        TILE_CASES[1]: of(ranks[:n], every[:n]),
+        TILE_CASES[2]: of(ranks[:3], edges[:3] | fifth[:3]),
+        # views: the recorded call's clones would be aligned
+        TILE_CASES[3]: of(ranks[:n], fifth[:n]).replace(ranks=ranks[1:],
+                                                        mask=fifth[1:]),
     }
 
 

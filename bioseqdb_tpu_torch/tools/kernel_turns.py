@@ -1,38 +1,43 @@
 """Another tree's ``kmer_seed``, ``fm_seed``, ``chain_seeds``,
-``filter_chains``, ``extend_setup``, ``extend_scan``, ``extend_merge``
-and ``resolve_expand`` against this tree's, in turns on one card, at the
-calls the pipeline gives them.
+``filter_chains``, ``extend_setup``, ``extend_scan``, ``extend_merge``,
+``extend_seedcov``, ``resolve_expand`` and ``sa_resolve`` against this
+tree's, in turns on one card, at the calls the pipeline gives them.
 
     python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT [--only K,..]
 
 Run from this tree's root. Builds OTHER_ROOT's ``csrc/kmer.cu``,
-``csrc/fm_seed.cu``, ``csrc/extend.cu``, ``csrc/chain.cu`` and
-``csrc/resolve.cu`` (nvcc, the
-package's flags, into ``_build/other``) and this tree's, and prints each
-build's ``-Xptxas -v`` lines (registers, stack frame, spills). Runs
-``chip_smoke.py``'s main, PE, FM-seeded and long-read paths once on this
-tree's kernels, recording their calls, and the int64 warm-up batch (the
-main path's first batch with int64 ranks forced): the main path's and
-the PE step's kmer calls; the machine calls of the main path's reseed
-entry, the FM-seeded batch and the long-read warm-up; the chain_seeds
-and filter_chains calls, the ``resolve_seeds`` calls and the stage
-calls of the ``extend_all`` calls of the main path, the PE step, the
-FM-seeded batch, the long-read warm-up and the int64 batch
-(``ExtendCall.stages``). Each call is checked bit-equal to the plain
-twin on both trees' kernels (the C entry points take the same
-arguments; a ``resolve_seeds`` call runs both of the tree's resolve
-kernels), then timed on them in turns: other, this, this, other
-(``KmerCall.kernel_ms``, ``ChainCall.kernel_ms``,
-``ResolveCall.expand_ms`` and ``StageCall.kernel_ms``: a launch in a
-CUDA graph; ``MachineCall.kernel_ms``: CUDA events, median of 3). A line
-a call: both trees' times, the bound (``chip_smoke.bound`` /
-``fm_bound`` / ``chain_bound`` / ``extend_bound``) and each share of it; for the
-machine also its slowest lane's steps (so us a step) and the backward
-share of the summed steps; for the extension kernels, each kernel
-summed over the call's launches (``extend_merge left`` and ``right``
-apart). ``--only`` times the kernels it names alone (comma-separated;
-all by default). Unpack the other tree with ``git archive`` into a
-directory that ``.gitignore`` lists. Needs a CUDA device.
+``csrc/fm_seed.cu``, ``csrc/extend.cu``, ``csrc/chain.cu``,
+``csrc/resolve.cu`` and ``csrc/fm.cu`` (nvcc, the package's flags, into
+``_build/other``) and this tree's, and prints each build's ``-Xptxas
+-v`` lines (registers, stack frame, spills). Runs ``chip_smoke.py``'s
+main, PE, FM-seeded and long-read paths once on this tree's kernels,
+recording their calls, and the int64 warm-up batch (the main path's
+first batch with int64 ranks forced): the main path's and the PE step's
+kmer calls; the machine calls of the main path's reseed entry, the
+FM-seeded batch and the long-read warm-up; the chain_seeds and
+filter_chains calls, the ``resolve_seeds`` calls and the stage calls of
+the ``extend_all`` calls of the main path, the PE step (and its fat
+retry, S 128), the FM-seeded batch, the long-read warm-up and the int64
+batch (``ExtendCall.stages``); the ``sa_resolve`` walks of the same
+paths' ``resolve_seeds`` calls (masked), and, unmasked, the exact step's
+(``chip_smoke.exact_path``, with ``--only`` naming ``sa_resolve``) and
+65,536 random ranks on ``fm_calls``' edge index at SA interval 32. Each
+call is checked bit-equal to the plain twin on both trees' kernels (the
+C entry points take the same arguments; a ``resolve_seeds`` call runs
+both of the tree's resolve kernels), then timed on them in turns:
+other, this, this, other (``KmerCall.kernel_ms``,
+``ChainCall.kernel_ms``, ``ResolveCall.expand_ms``,
+``StageCall.kernel_ms`` and ``FmCall.kernel_ms``: a launch in a CUDA
+graph; ``MachineCall.kernel_ms``: CUDA events, median of 3). A line a
+call: both trees' times, the bound (``chip_smoke.bound`` / ``fm_bound``
+/ ``chain_bound`` / ``extend_bound``; ``FmCall.counts`` for the walk)
+and each share of it; for the machine also its slowest lane's steps (so
+us a step) and the backward share of the summed steps; for the
+extension kernels, each kernel summed over the call's launches
+(``extend_merge left`` and ``right`` apart). ``--only`` times the
+kernels it names alone (comma-separated; all by default). Unpack the
+other tree with ``git archive`` into a directory that ``.gitignore``
+lists. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,15 +55,18 @@ import chip_smoke as cs
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
-from bioseqdb_tpu_torch.tools import (chain_calls, extend_calls, fm_machine,
-                                      kmer_calls, long_leg, resolve_calls)
+from bioseqdb_tpu_torch.tools import (chain_calls, extend_calls, fm_calls,
+                                      fm_machine, kmer_calls, long_leg,
+                                      resolve_calls)
 from bioseqdb_tpu_torch.tools.shapes import card_line
 
-SOURCES = ("kmer", "fm_seed", "extend", "chain", "resolve")
+SOURCES = ("kmer", "fm_seed", "extend", "chain", "resolve", "fm")
 # the extension kernels timed in turns (the others are another tree's too)
-EXTEND_TIMED = ("extend_setup", "extend_scan", "extend_merge")
+EXTEND_TIMED = ("extend_setup", "extend_scan", "extend_merge",
+                "extend_seedcov")
 TIMED = ("kmer_seed", "fm_seed", "chain_seeds", "filter_chains",
-         "resolve_expand") + EXTEND_TIMED
+         "resolve_expand", "sa_resolve") + EXTEND_TIMED
+FAT_S = 128   # the PE fat retry's seed slots
 ORDER = ("other", "this", "this", "other")
 
 
@@ -117,6 +125,9 @@ def in_turns(call, other: dict) -> dict:
            if isinstance(call, chain_calls.ChainCall)
            else resolve_calls.max_abs_err
            if isinstance(call, resolve_calls.ResolveCall)
+           else (lambda got, want: fm_calls.max_abs_err(got, want,
+                                                        call.kind))
+           if isinstance(call, fm_calls.FmCall)
            else kmer_calls.max_abs_err)
     ms = (call.expand_ms if isinstance(call, resolve_calls.ResolveCall)
           else call.kernel_ms)
@@ -137,16 +148,63 @@ def in_turns(call, other: dict) -> dict:
 
 def int64_calls(m: dict, dev) -> dict:
     """The ``extend_all`` call (``ext_calls``), the chaining calls
-    (``ch_calls``) and the ``resolve_seeds`` calls (``res_calls``) of the
-    main path's warm-up batch with int64 ranks forced
-    (``chip_smoke.int64_path``'s Aligner)."""
+    (``ch_calls``), the ``resolve_seeds`` calls (``res_calls``) and the
+    FM index's (``fmi_calls``) of the main path's warm-up batch with
+    int64 ranks forced (``chip_smoke.int64_path``'s Aligner)."""
     fm64 = kfm.FMDevice.from_host(m["idx"], dev, rank_dtype=torch.int64)
     al = dataclasses.replace(m["al"], fm=fm64, jump=build_r3_jump(fm64))
-    ext, ch, res = [], [], []
+    ext, ch, res, fmi = [], [], [], []
     with (extend_calls.recording(ext), chain_calls.recording(ch),
-          resolve_calls.recording(res)):
+          resolve_calls.recording(res), fm_calls.recording(fmi)):
         long_leg.run_batch(al, m["batches"][0])
-    return dict(ext_calls=ext, ch_calls=ch, res_calls=res)
+    return dict(ext_calls=ext, ch_calls=ch, res_calls=res, fmi_calls=fmi)
+
+
+def fat_retry(calls: list):
+    """The first of ``calls`` (``extend_all`` or ``sa_resolve`` calls) at
+    the fat retry's S (FAT_S), or None."""
+    for c in calls:
+        S = (c.dims[1] if isinstance(c, extend_calls.ExtendCall)
+             else c.args["ranks"].shape[-1] if c.kind == "sa_resolve"
+             else None)
+        if S == FAT_S:
+            return c
+    return None
+
+
+def walks(calls: list) -> list:
+    """The ``sa_resolve`` calls of ``calls`` (fm_calls)."""
+    return [c for c in calls if c.kind == "sa_resolve"]
+
+
+def walk_calls(paths: dict, m: dict, dev, card: str) -> list:
+    """[(name, call)]: the ``sa_resolve`` walks of ``paths`` ({name:
+    chip_smoke path dict with ``fmi_calls``}: each path's first, and the
+    PE fat retry's (FAT_S) where ``paths`` has "PE"), masked; then,
+    unmasked, the exact step's (``chip_smoke.exact_path`` on ``m``'s
+    index) and 65,536 random ranks on ``fm_calls``' edge index at SA
+    interval 32."""
+    out = []
+    for name, d in paths.items():
+        sa = walks(d["fmi_calls"])
+        out.append((name, sa[0]))
+        if name == "PE" and fat_retry(sa) is not None:
+            out.append(("PE fat retry", fat_retry(sa)))
+    ex = cs.exact_path(m, dev, card)
+    es = fm_calls.edge_setup()
+    fm = kfm.FMDevice.from_host(es.idx, dev)
+    return out + [("exact step", walks(ex["fmi_calls"])[0]),
+                  ("random, interval 32", fm_calls.random_calls(
+                      es, fm, 1, device=dev, n_ranks=65536,
+                      n_reads=16)["random ranks 1"])]
+
+
+def walk_bound(call: "fm_calls.FmCall") -> tuple[float, str]:
+    """``chip_smoke.bound`` of an ``sa_resolve`` call (``FmCall.counts``:
+    the distinct table rows, the ranks, mask and positions; the steps'
+    instructions)."""
+    n = call.counts()
+    return cs.bound(n["table_bytes"] + n["io_bytes"], n["instr"])
 
 
 def extend_turns(name: str, call: "extend_calls.ExtendCall", other: dict,
@@ -207,7 +265,10 @@ def main(argv=None) -> None:
     other = {name: lib for name, (lib, _) in other.items()}
     build.build()
     m = cs.main_path(dev, card)
-    pe = cs.pe_path(m, card)
+    pe_walks = []
+    with fm_calls.recording(pe_walks):
+        pe = cs.pe_path(m, card)
+    pe["fmi_calls"] = pe_walks
     fmp = cs.fm_main_path(m, dev, card)
     lr = cs.long_path(m, card)
     if "kmer_seed" in only:
@@ -233,18 +294,18 @@ def main(argv=None) -> None:
                      f"backward steps {touched['bwd']} of {summed} summed "
                      f"({100 * touched['bwd'] / max(summed, 1):.1f}%)")
     i64 = int64_calls(m, dev)
-    paths = (("main path", m), ("PE", pe), ("FM-seeded", fmp),
-             ("long-read warm-up", lr), ("int64", i64))
+    paths = {"main path": m, "PE": pe, "FM-seeded": fmp,
+             "long-read warm-up": lr, "int64": i64}
     for k, kind in enumerate(cs.CHAIN_KERNELS):
         if kind not in only:
             continue
-        for name, d in paths:
+        for name, d in paths.items():
             call = chain_calls.pairs(d["ch_calls"])[0][k]
             times = in_turns(call, other)
             cs.log(turn_line(kind, name, call, times,
                              *cs.chain_bound(call, call.run())[:2]))
     if "resolve_expand" in only:
-        for name, d in paths:
+        for name, d in paths.items():
             call = d["res_calls"][0]
             times = in_turns(call, other)
             ex, _, _ = call.stages()
@@ -253,8 +314,17 @@ def main(argv=None) -> None:
                              *cs.bound(c["read"] + c["written"], c["instr"])))
     timed = tuple(k for k in EXTEND_TIMED if k in only)
     if timed:
-        for name, d in paths:
-            extend_turns(name, d["ext_calls"][0], other, timed)
+        ext = [(name, d["ext_calls"][0]) for name, d in paths.items()]
+        fat = fat_retry(pe["ext_calls"])
+        if fat is not None:
+            ext.insert(2, ("PE fat retry", fat))
+        for name, call in ext:
+            extend_turns(name, call, other, timed)
+    if "sa_resolve" in only:
+        for name, call in walk_calls(paths, m, dev, card):
+            times = in_turns(call, other)
+            cs.log(turn_line("sa_resolve", name, call, times,
+                             *walk_bound(call)))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ equal their plain twins on the card, every output exactly: each stage call
 both sides, ``extend_seedcov``) of a simulated batch's ``extend_all`` call, of
 ``tools/extend_calls.py``'s edge set with its fat retry at int32 and
 int64 ranks (and past 2^31), of its random stage inputs and of its lane
-cases (the scan's and the merge's thread-layout boundaries), and the
+cases (the scan's, the merge's and seedcov's thread-layout
+boundaries), and the
 set-up on ``extend_calls.setup_calls`` (S up to 3,128, C up to 256: past
 a block's shared memory, a scratch in device memory); each call on CUDA
 tensors is one launch; ``extend_all`` with the kernels equals it with
@@ -167,8 +168,9 @@ def test_kernels_equal_plain_on_random_inputs(dtype, seed):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_kernels_equal_plain_on_lane_cases(dtype):
     _card()
-    for name, (calls, want) in ec.lane_cases(DTYPES[dtype],
-                                             device="cuda").items():
+    cases = ec.lane_cases(DTYPES[dtype], device="cuda")
+    assert set(ec.SEEDCOV_CASES) <= set(cases)
+    for name, (calls, want) in cases.items():
         if dtype == "int64":
             calls = calls + [s.shifted() for s in calls
                              if s.kind != "extend_windows"]

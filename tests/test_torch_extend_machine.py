@@ -19,12 +19,16 @@ plain twins, on the CPU (the kernels themselves run only on the card:
 - The lane cases (``extend_calls.lane_cases``) hold what they were made
   for: the scan's first stop on lanes 0, 1, 31, 32, 33, 63 and 64 of a
   pass, bare and rescued; n_usable off a multiple of 32; every slot
-  extended; no live regions and 16.
+  extended; no live regions and 16; seedcov's
+  (``extend_calls.seedcov_cases``) S one off each group size and chunk,
+  Rg 1, 8, 9 and 16, reads with no ok slot, seeds on every region edge,
+  two chains interleaved and an int32 sum that wraps.
 - The kernels' lane bodies, compiled for the host with g++ (the source's
   host entries), equal the plain twins on every stage call of the edge
   set (int32, int64, and int64 past 2^31), of a recorded batch with its
   fat retry (S 128, R 16), on random stage inputs and on the lane cases
-  (the right merge at R 1 and 16 and at S 40 and 70 too); the host
+  (the right merge at R 1 and 16 and at S 40 and 70, and seedcov's
+  cases, too); the host
   entries refuse an argument array of the wrong length. Skipped without
   g++.
 - The set-up (``extend_setup``): its host entry equals
@@ -321,6 +325,40 @@ def test_lane_cases_hold_their_cases(lanes, case):
         assert st["was_ext"].all() and tab["order"].shape[1] > 64
     if case == "scan with 16 live regions":
         assert (st["n_regs"] == 16).all()
+
+
+@pytest.mark.parametrize("case", ec.SEEDCOV_CASES)
+def test_seedcov_cases_hold_their_cases(lanes, case):
+    calls, _ = lanes["int32"][case]
+    for c in calls:
+        tab, regs = c.args
+        B, S = tab["ok"].shape
+        out = c.run(plain=True)
+        n_ok = tab["ok"].sum(1)
+        assert (out[n_ok == 0] == 0).all()
+        if case == "seedcov no ok slot":
+            assert (n_ok == 0).any() and (n_ok > 0).any()
+        elif case == "seedcov seeds on every region edge":
+            # each region holds 3 of its 9 edge seeds: 20 + 19 + 19
+            assert (out[:, :4] == 58).all()
+        elif case == "seedcov two chains interleaved":
+            assert (tab["cis"][:, :2] == torch.tensor([0, 1])).all()
+            assert (out > 0).all()
+        elif case == "seedcov int32 sum wraps":
+            want = n_ok.long() * ec.WRAP_LEN
+            assert (want > 2 ** 32).any()
+            assert torch.equal(out[:, 0].long(),
+                               (want + 2 ** 31) % 2 ** 32 - 2 ** 31)
+        else:
+            assert (out > 0).any()
+    dims = [(c.args[0]["ok"].shape[1], c.args[1]["rb"].shape[1])
+            for c in calls]
+    if case == "seedcov S about a group":
+        assert [S for S, _ in dims] == list(ec.SEEDCOV_S["group"])
+    elif case == "seedcov S about a chunk":
+        assert [S for S, _ in dims] == list(ec.SEEDCOV_S["chunk"])
+    elif case == "seedcov Rg 1, 8, 9, 16":
+        assert [R for _, R in dims] == [1, 8, 9, 16]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

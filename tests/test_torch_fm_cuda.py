@@ -1,6 +1,7 @@
 """The hand-written CUDA FM-index kernels (csrc/fm.cu) equal their plain
 twins on the card, every output exactly: ``sa_resolve`` and
 ``backward_search`` on ``tools/fm_calls.py``'s edge sets (masked lanes,
+the masked kernel's tile boundaries and a mask off a 16-byte boundary,
 ranks off the table), random inputs and an FM whose rank values lie past
 2^31, with int32 and int64 ranks; each call on CUDA tensors is one
 launch. ``resolve_seeds`` on the kernel's path waits on the host nowhere
@@ -55,9 +56,10 @@ def test_kernels_equal_plain_on_edge_and_random_sets(es, rank):
     calls = fc.edge_calls(es, fm, device="cuda")
     for seed in (1, 2, 3):
         calls.update(fc.random_calls(es, fm, seed, device="cuda"))
+    assert set(fc.TILE_CASES) <= set(calls)
     for name, call in calls.items():
         got = _check(call)
-        if name == "ranks masked":
+        if name == "ranks masked" or name in fc.TILE_CASES:
             assert (got["pos"][~call.args["mask"]] == 0).all()
 
 

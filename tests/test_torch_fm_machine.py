@@ -19,7 +19,13 @@ run only on the card: ``tests/test_torch_fm_cuda.py``).
   without g++.
 - The kernels' lane bodies, compiled for the host with g++ (the source's
   host entries), equal the plain twins on the edge sets (masked, off the
-  table, many major checkpoints, an unmarked primary rank, past 2^31),
+  table, many major checkpoints, an unmarked primary rank, past 2^31;
+  the masked kernel's tile cases, ``fm_calls.tile_calls``: walking
+  lanes at the edges of tiles of 4, 8 and 16 lanes and of warps of 128
+  to 512 (0, 15, 16, 31, 511, 512 among them) and the last of 1,101
+  lanes, a tile and a warp with every lane walking, 3 lanes, a mask and
+  ranks one element off a 16-byte boundary, which the wrapper copies
+  aligned and the entry refuses as they are),
   random inputs and the calls a pipeline batch (full
   and exact mode) recorded; skipped without g++.
 - Lane independence, the premise of a thread a lane.
@@ -267,6 +273,80 @@ def test_host_build_equals_plain_on_a_recorded_batch(host_lib, recorded):
                                   c.kind) == 0, (c.kind, c.shape)
 
 
+@pytest.mark.parametrize("case", fc.TILE_CASES)
+def test_tile_cases_hold_their_cases(es, fms, case):
+    call = fc.tile_calls(es, fms["int32"])[case]
+    mask, ranks = call.args["mask"], call.args["ranks"]
+    walking = set(torch.nonzero(mask)[:, 0].tolist())
+    n = mask.numel()
+    if case == fc.TILE_CASES[0]:
+        assert walking == set(fc.TILE_EDGES)
+        assert n % fc.TILE and n > 512 and 512 % fc.WARP_LANES == 0
+    elif case == fc.TILE_CASES[1]:
+        assert set(range(16, 32)) | set(range(512, 1024)) == walking
+        assert 512 % fc.WARP_LANES == 0 and 16 % fc.TILE == 0
+    elif case == fc.TILE_CASES[2]:
+        assert n < fc.TILE and walking and len(walking) < n
+    else:
+        assert mask.data_ptr() % 16 == 1
+        assert ranks.data_ptr() % 16 == ranks.element_size()
+        # the wrapper passes an aligned copy of the mask; the entry refuses
+        # a mask off a 16-byte boundary
+        _, args, _ = fm_cuda.sa_resolve_args(fms["int32"], ranks, 32, mask)
+        assert args[2] % 16 == 0 and args[3] % 16 == 0
+
+
+@pytest.mark.parametrize("rank", list(RANKS))
+@pytest.mark.parametrize("case", fc.TILE_CASES)
+def test_host_build_equals_plain_on_tile_cases(host_lib, es, fms, rank,
+                                               case):
+    fm = fms[rank]
+    calls = [fc.tile_calls(es, fm)[case]]
+    if rank == "int64":
+        calls.append(fc.tile_calls(es, fc.shifted(fm))[case])
+    for call in calls:
+        want = call.run(plain=True)
+        got = call.host(host_lib)
+        assert fc.max_abs_err(got, want, call.kind) == 0
+        assert (got["pos"][~call.args["mask"]] == 0).all()
+        assert (want["pos"][call.args["mask"]] != 0).any()
+
+
+def test_host_entry_refuses_a_mask_off_16_bytes(host_lib, es, fms):
+    call = fc.tile_calls(es, fms["int32"])[fc.TILE_CASES[0]]
+    pos, args, _ = fm_cuda.sa_resolve_args(
+        call.fm, call.args["ranks"], 32, call.args["mask"])
+    entry = fm_cuda.bind(host_lib, "sa_resolve_host", stream=False)
+    wide = torch.zeros(pos.numel() + 16, dtype=pos.dtype)
+    for k, by in ((2, 1), (3, pos.element_size()), (2, 8)):
+        bad = list(args)
+        if k == 3:
+            bad[3] = wide.data_ptr() + by   # pos one element off
+        else:
+            buf = torch.zeros(pos.numel() + 16, dtype=torch.bool)
+            bad[2] = buf.data_ptr() + by
+        assert entry(*bad) == 1, (k, by)
+    assert entry(*args) == 0
+
+
+# with the host build's three blocks: n one or a few lanes past three
+# blocks' spans rounded down (289, 330), and a last warp of 253 lanes
+@pytest.mark.parametrize("n", [3, 255, 257, 289, 330, 765, fc.TILE_N])
+def test_host_entry_writes_every_position_and_none_past_n(host_lib, es, fms,
+                                                          n):
+    fm = fms["int64"]
+    call = fc.tile_calls(es, fm)[fc.TILE_CASES[0]]
+    ranks, mask = call.args["ranks"][:n], call.args["mask"][:n] | (
+        torch.arange(n) % 3 == 0)
+    want = kfm.sa_resolve_plain(fm, ranks, 32, mask=mask)
+    _, args, _ = fm_cuda.sa_resolve_args(fm, ranks, 32, mask)
+    buf = torch.full((n + 64,), -7, dtype=fm.rank_dtype)
+    args[3] = buf.data_ptr()
+    assert fm_cuda.bind(host_lib, "sa_resolve_host", stream=False)(
+        *args) == 0
+    assert torch.equal(buf[:n], want) and (buf[n:] == -7).all()
+
+
 @pytest.mark.parametrize("rank", list(RANKS))
 def test_lanes_are_independent(es, fms, rank):
     fm = fms[rank]
@@ -350,6 +430,7 @@ def test_kernel_constants_equal_the_modules():
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr int (\w+) = (\d+);", src + occ)}
     assert consts["kLog2OccBlock"] == kfm.LOG2_OCC_BLOCK
+    assert consts["kTile"] == fc.TILE and fc.WARP_LANES == 32 * fc.TILE
     assert consts["kLog2Major"] == kfm.LOG2_MAJOR
     assert set(build.EXACT_KERNELS) == {"sa_resolve", "backward_search"}
     for k in build.EXACT_KERNELS:
