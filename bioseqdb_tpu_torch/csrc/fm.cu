@@ -21,10 +21,10 @@
 // chain of L2 round trips: latency, not the card's memory or issue rate.
 //
 // Design:
-// - Unmasked (the exact step, exact mode, the random and edge sets): a
-//   thread a lane (a rank for sa_resolve, a read for backward_search),
-//   64 threads a block, so that a few thousand lanes still spread over
-//   the card's SMs. Lanes are independent; a lane stops as soon as its
+// - sa_resolve unmasked (the exact step, exact mode, the random and edge
+//   sets): a thread a rank lane, 64 threads a block, so that a few
+//   thousand lanes still spread over the card's SMs (backward_search: a
+//   group a read, below). Lanes are independent; a lane stops as soon as its
 //   result is fixed, which the plain loops' masks make exact: a marked
 //   rank keeps its state (the plain loop holds r and steps there), and a
 //   read whose interval is empty, or whose bases ran out, keeps it to the
@@ -53,9 +53,21 @@
 //   major row; the code is decoded from the row, so its checkpoint and
 //   major entry are picked from registers, not loaded after. L2's four
 //   entries are loaded once a lane.
-// - backward_search fetches both Occ rows of a step (at lo and at hi)
-//   before it counts either (occ.cuh occ_fetch / occ_value, the counting
-//   fm_seed.cu shares).
+// - backward_search runs a pair of threads a read (kBsGroup), kBsThreads
+//   a block: lane 0 holds lo and lane 1 hi. A step loads each end's whole
+//   Occ row (checkpoints and words, three 16-byte vectors) and major row by
+//   addresses that depend on its rank alone, with 32-bit index arithmetic
+//   where R is 32 bits; the code is picked from registers after the loads,
+//   and the next step's code is loaded while this step's rows are in
+//   flight, so no step waits on a code (a thread a read before, whose
+//   every step loaded its code, then the rows it addressed). Where both
+//   ends lie in one block the pair's loads are one request. Each lane
+//   counts its end (occ.cuh count_code, which sa_resolve and fm_seed.cu
+//   share; 32-bit sums where R is) and two shuffles swap the new ends.
+//   Groups of 4 threads (lane 0 the checkpoints, lanes 1 and 2 the words,
+//   lane 3 the majors, two rounds of shuffles summing them, each lane
+//   repeating the address arithmetic) and the lean thread a read
+//   were slower on the exact step (PERF.md row 14).
 // - A lane off the mask writes 0 and loads nothing else, as the plain
 //   code's zero-filled positions hold there.
 // - Ranks and rank-valued state take the template type R (int32 or int64,
@@ -68,8 +80,8 @@
 //   lanes.cuh): compiled without nvcc, the file gives entries
 //   sa_resolve_host and backward_search_host that run every lane in turn
 //   (a masked call in kHostBlocks blocks, a block's warps in turn between
-//   what the card's barriers separate), which the CPU tests hold against
-//   the plain versions.
+//   what the card's barriers separate; a search's group lane by lane),
+//   which the CPU tests hold against the plain versions.
 
 #include "lanes.cuh"
 #include "occ.cuh"
@@ -87,6 +99,8 @@ constexpr int kBlockLanes = kTileWarps * kWarpLanes;   // a block's a pass
 constexpr int kTileBlocks = 4;  // masked blocks an SM
 constexpr int kSpanUnit = 16;   // a block's span of lanes is a multiple
 constexpr int kHostBlocks = 3;  // the host build's blocks (spans of n / 3)
+constexpr int kBsGroup = 2;     // backward_search: threads a read
+constexpr int kBsThreads = 128; // backward_search: a block (64 reads)
 static_assert(kTile == 4 || kTile == 8 || kTile == 16,
               "a tile's mask is one 4-, 8- or 16-byte load");
 static_assert(kSpanUnit % kTile == 0 && kWarpLanes % kSpanUnit == 0,
@@ -284,35 +298,88 @@ LANE_HD inline long long block_span(long long n, long long blocks) {
   return (per + kSpanUnit - 1) / kSpanUnit * kSpanUnit;
 }
 
-// kernels/fm.py backward_search_plain for read b: the columns from
-// lens - 1 down, each prepending its code to [lo, hi) by two Occ lookups
+// one end of an interval at a step: its whole Occ row and major row,
+// loaded by addresses that depend on the rank alone
 template <typename R>
-GROUP_FN void backward_search_lane(const BsParams& p, long long b) {
-  const R* majors = static_cast<const R*>(p.occ_majors);
+struct BsEnd {
+  int4 ck;
+  OccWords ws;
+  R m[4];
+  int off;
+};
+
+template <typename R>
+GROUP_FN inline BsEnd<R> bs_end(const BsParams& p, R r, R primary) {
+  const R jr = r - static_cast<R>(r > primary);
+  const R blk = jr >> kLog2OccBlock;
+  const int32_t* row = p.occ_rows + occ_row_index(blk, p.n_octo) * 12;
+  const R* mj = static_cast<const R*>(p.occ_majors) +
+                major_index(blk, p.n_major) * 4;
+  return BsEnd<R>{__ldg(reinterpret_cast<const int4*>(row)), load_words(row),
+                  {__ldg(mj), __ldg(mj + 1), __ldg(mj + 2), __ldg(mj + 3)},
+                  static_cast<int>(jr & 127)};
+}
+
+// L2[c] + 1 + occ(c, end): the end's new value, summed in 32 bits where R
+// is (the checkpoint and the row's count in int32, then the major in R)
+template <typename R>
+GROUP_FN inline R bs_next(const BsEnd<R>& x, int c, R l2c) {
+  const uint32_t in_block = static_cast<uint32_t>(
+      pick4(x.ck.x, x.ck.y, x.ck.z, x.ck.w, c)) +
+      static_cast<uint32_t>(count_code(x.ws, c, x.off));
+  const R major = pick4(x.m[0], x.m[1], x.m[2], x.m[3], c);
+  if constexpr (sizeof(R) == 4)
+    return static_cast<R>(in_block + static_cast<uint32_t>(major) +
+                          static_cast<uint32_t>(l2c) + 1u);
+  else
+    return static_cast<R>(static_cast<long long>(static_cast<int32_t>(
+                              in_block)) + major + l2c + 1);
+}
+
+// kernels/fm.py backward_search_plain for read b, a pair of threads a
+// read: lane 0 holds lo, lane 1 hi. Each loads its end's whole Occ row and
+// major row by an address that depends on the rank alone (where both ends
+// lie in one block the pair's loads are one request), counts its end, and
+// the pair swaps its new ends by two shuffles; the next step's code is
+// loaded before this step's rows are counted
+template <typename R>
+GROUP_FN void backward_search_pair(const BsParams& p, long long b) {
+  constexpr int G = kBsGroup;
   const R* L2 = static_cast<const R*>(p.L2);
+  const R l2[4] = {__ldg(L2), __ldg(L2 + 1), __ldg(L2 + 2), __ldg(L2 + 3)};
   const R primary = static_cast<R>(p.primary);
   const int32_t* q = p.codes + b * p.W;
   const long long L = p.lens[b];
+  const long long T = min_(L, p.W);   // the steps a live read takes
+  // the plain loop's column (its clamp) and code (>= 4 ambiguous, a
+  // negative one counted as 0, as the plain clamp(0, 3) does)
+  const auto code = [&](long long t) {
+    return clampv(__ldg(q + clampv<long long>(L - 1 - t, 0, p.W - 1)), 0, 4);
+  };
   R lo = 0;
   R hi = static_cast<R>(p.seq_len + 1);
-  for (long long t = 0; t < p.W && t < L && lo < hi; ++t) {
-    const int c = __ldg(q + clampv<long long>(L - 1 - t, 0, p.W - 1));
+  int c = T > 0 ? code(0) : 0;
+  for (long long t = 0; t < T && lo < hi; ++t) {
+    const int cn = t + 1 < T ? code(t + 1) : 0;
     if (c >= 4) {   // an ambiguous base kills the match
       lo = 1;
       hi = 1;
       break;
     }
-    const OccFetch<R> flo =
-        occ_fetch<R>(p.occ_rows, p.n_octo, majors, p.n_major, lo, primary, c);
-    const OccFetch<R> fhi =
-        occ_fetch<R>(p.occ_rows, p.n_octo, majors, p.n_major, hi, primary, c);
-    const long long base = static_cast<long long>(__ldg(L2 + c)) + 1;
-    lo = static_cast<R>(base + static_cast<long long>(occ_value(flo, c)));
-    hi = static_cast<R>(base + static_cast<long long>(occ_value(fhi, c)));
+    Lanes<R, G> v;
+    FOR_LANES(G, j) {
+      const BsEnd<R> x = bs_end<R>(p, j == 0 ? lo : hi, primary);
+      v[j] = bs_next<R>(x, c, pick4(l2[0], l2[1], l2[2], l2[3], c));
+    }
+    lo = shfl<G>(v, 0);
+    hi = shfl<G>(v, 1);
+    c = cn;
   }
   const bool empty = hi <= lo || L == 0;
-  static_cast<R*>(p.lo)[b] = empty ? static_cast<R>(0) : lo;
-  static_cast<R*>(p.hi)[b] = empty ? static_cast<R>(0) : hi;
+  if (group_leader<G>()) {
+    static_cast<R*>(p.lo)[b] = empty ? static_cast<R>(0) : lo;
+    static_cast<R*>(p.hi)[b] = empty ? static_cast<R>(0) : hi;
+  }
 }
 
 #ifdef __CUDACC__
@@ -375,13 +442,12 @@ inline unsigned masked_grid(long long n) {
 }
 
 template <typename R>
-__global__ void __launch_bounds__(kThreads) backward_search_kernel(
+__global__ void __launch_bounds__(kBsThreads) backward_search_kernel(
     const BsParams p) {
-  const long long b = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
-  if (b < p.B) backward_search_lane<R>(p, b);
+  const long long b = static_cast<long long>(blockIdx.x) *
+                      (kBsThreads / kBsGroup) + threadIdx.x / kBsGroup;
+  if (b < p.B) backward_search_pair<R>(p, b);
 }
-
 inline unsigned grid_of(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -497,18 +563,19 @@ extern "C" int LANE_ENTRY(backward_search)(
                    W};
 #ifdef __CUDACC__
   if (B == 0) return 0;
+  const unsigned grid = static_cast<unsigned>(
+      (B + kBsThreads / kBsGroup - 1) / (kBsThreads / kBsGroup));
   if (rank_bytes == 8)
-    backward_search_kernel<long long><<<grid_of(B), kThreads, 0, stream>>>(
-        p);
+    backward_search_kernel<long long><<<grid, kBsThreads, 0, stream>>>(p);
   else
-    backward_search_kernel<int32_t><<<grid_of(B), kThreads, 0, stream>>>(p);
+    backward_search_kernel<int32_t><<<grid, kBsThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 #else
   for (long long b = 0; b < B; ++b) {
     if (rank_bytes == 8)
-      backward_search_lane<long long>(p, b);
+      backward_search_pair<long long>(p, b);
     else
-      backward_search_lane<int32_t>(p, b);
+      backward_search_pair<int32_t>(p, b);
   }
   return 0;
 #endif

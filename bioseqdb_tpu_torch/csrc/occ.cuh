@@ -24,25 +24,33 @@ LANE_HD inline T clampv(T v, T lo, T hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// _MASK_TABLE[v]: the first v bases (2 bits each, big-endian) of a word
-LANE_HD inline uint32_t first_bases(int v) {
-  return v == 0 ? 0u : (0x55555555u << (2 * (16 - v)));
-}
-
 // the Occ table row of block blk (kernels/fm.py _block_row): octo row
-// blk >> 3 clamped, sub-block blk & 7
+// blk >> 3 clamped, sub-block blk & 7; in 32 bits where R is (a table of
+// 32-bit ranks has fewer than 2^31 / 96 octo rows), clamped by min_ and
+// max_ (with clampv's compares ptxas issued backward_search's three row
+// loads apart, 18% slower: PERF.md row 14)
 template <typename R>
-LANE_HD inline long long occ_row_index(R blk, long long n_octo) {
-  const long long octo =
-      clampv<long long>(static_cast<long long>(blk >> 3), 0, n_octo - 1);
-  return octo * 8 + static_cast<long long>(blk & 7);
+LANE_HD inline auto occ_row_index(R blk, long long n_octo) {
+  if constexpr (sizeof(R) == 4) {
+    const int32_t octo =
+        min_(max_(blk >> 3, 0), static_cast<int32_t>(n_octo - 1));
+    return octo * 8 + static_cast<int32_t>(blk & 7);
+  } else {
+    const long long octo =
+        clampv<long long>(static_cast<long long>(blk >> 3), 0, n_octo - 1);
+    return octo * 8 + static_cast<long long>(blk & 7);
+  }
 }
 
-// the major checkpoint row of block blk, clamped
+// the major checkpoint row of block blk, clamped; in 32 bits where R is
 template <typename R>
-LANE_HD inline long long major_index(R blk, long long n_major) {
-  return clampv<long long>(static_cast<long long>(blk >> kLog2Major), 0,
-                           n_major - 1);
+LANE_HD inline auto major_index(R blk, long long n_major) {
+  if constexpr (sizeof(R) == 4)
+    return min_(max_(blk >> kLog2Major, 0),
+                static_cast<int32_t>(n_major - 1));
+  else
+    return clampv<long long>(static_cast<long long>(blk >> kLog2Major), 0,
+                             n_major - 1);
 }
 
 // an Occ row's eight packed words, loaded as two 16-byte vectors
@@ -60,16 +68,21 @@ GROUP_FN inline OccWords load_words(const int32_t* row) {
 }
 
 // the count of code c in a row's first off bases (kernels/fm.py
-// _row_counts), off in [0, 127]
+// _row_counts), off in [0, 127]: a word's mask is its first 2 off - 32 w
+// bits by one shift (none from a shift of 32 or more), and one popcount
+// takes two words, their even bits interleaved
 GROUP_FN inline int count_code(const OccWords& ws, int c, int off) {
   const uint32_t pat = static_cast<uint32_t>(c) * 0x55555555u;
-  int cnt = 0;
+  uint32_t y[8];
 #pragma unroll
   for (int w = 0; w < 8; ++w) {
     const uint32_t x = ws.w[w] ^ pat;
-    const uint32_t y = ~(x | (x >> 1)) & 0x55555555u;
-    cnt += popc32(y & first_bases(clampv(off - 16 * w, 0, 16)));
+    const int sh = max_(32 * (w + 1) - 2 * off, 0);
+    y[w] = ~(x | (x >> 1)) & (sh >= 32 ? 0u : (0x55555555u << sh));
   }
+  int cnt = 0;
+#pragma unroll
+  for (int w = 0; w < 8; w += 2) cnt += popc32(y[w] | (y[w + 1] << 1));
   return cnt;
 }
 

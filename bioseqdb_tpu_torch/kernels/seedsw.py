@@ -6,16 +6,17 @@ that chain weights stop being selective (~>= 720 bp at the defaults),
 every short seed (< 200 bp) is re-scored with a local affine-gap
 Smith-Waterman over a +-50-base window and dropped below the min-HSP
 score. Each seed's window is one 200-wide lane; the DP is the lazy-F
-prefix-max local SW. ``seed_sw_filter`` computes the windows and the
-need mask as eager torch ops (``seed_sw_windows``), then scores the
-lanes: on CUDA tensors in one launch of the hand-written kernel
-(``kernels/seedsw_cuda.py``: a warp a lane, over every lane with the
-need mask; it raises rather than falls back), on CPU tensors with the
-plain twin ``seed_sw_scores_plain`` (the window gathers and
-``local_sw_batch``: 200 rows of plain torch ops over all the seeds that
-need it at once). ``seed_sw_filter_plain`` is the whole filter with the
-plain twin. The JAX version's barrel-shift window extract and one-hot
-picks become gathers.
+prefix-max local SW. On CUDA tensors ``seed_sw_filter`` is one launch of
+the hand-written kernel (``kernels/seedsw_cuda.py``): the windows, the
+need mask, the SW of the lanes that need it and the filter's outputs,
+with each read length's activation and min_hsp read from
+``activation_table`` (this module's torch expression, made once on the
+device); it raises rather than falls back. On CPU tensors it runs the
+plain twin ``seed_sw_filter_plain``: the windows and need mask as eager
+torch ops (``seed_sw_windows``), then ``seed_sw_scores_plain`` (the
+window gathers and ``local_sw_batch``: 200 rows of plain torch ops over
+all the seeds that need it at once). The JAX version's barrel-shift
+window extract and one-hot picks become gathers.
 
 Statically absent for short-read batches: ``possibly_active`` is False
 whenever no read of the batch width can trigger the filter.
@@ -29,7 +30,7 @@ import torch
 
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.extend import window_doubled
-from bioseqdb_tpu_torch.kernels.seedsw_cuda import seed_sw_cuda
+from bioseqdb_tpu_torch.kernels.seedsw_cuda import seed_sw_filter_cuda
 
 # the oracle's constants (cpu/oracle.py, bwa's macros)
 MEM_SHORT_EXT = 50
@@ -92,6 +93,39 @@ def local_sw_batch(q: torch.Tensor, t: torch.Tensor, tlen: torch.Tensor,
     return best
 
 
+def read_activation(lens, match_score: int, min_chain_weight: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(active bool, min_hsp int32) of reads of lengths ``lens`` (the
+    oracle's seed_sw_filter_active and min-HSP score), float32 as in the
+    JAX version."""
+    f32 = torch.float32
+    min_l_r = (torch.full(lens.shape, MEM_HSP_COEF * min_chain_weight,
+                          dtype=f32, device=lens.device) if min_chain_weight
+               else MEM_MINSC_COEF * torch.log(lens.clamp(min=1).to(f32)))
+    active_r = (lens > 0) & (min_l_r <= MEM_SEEDSW_COEF * lens.to(f32))
+    min_hsp_r = (match_score * min_l_r + 0.499).to(torch.int32)
+    return active_r, min_hsp_r
+
+
+# activation_table's tables by (device, W, match_score, min_chain_weight)
+_TABLES: dict = {}
+
+
+def activation_table(W: int, match_score: int, min_chain_weight: int,
+                     device) -> torch.Tensor:
+    """int32 [W + 1, 2]: ``read_activation`` of every read length 0..W
+    (active, min_hsp), computed on ``device`` by the same torch expression
+    as ``seed_sw_windows``' (so the kernel never takes a float log) and
+    kept for later calls."""
+    key = (str(torch.device(device)), W, match_score, min_chain_weight)
+    if key not in _TABLES:
+        lens = torch.arange(W + 1, dtype=torch.int32, device=device)
+        active, min_hsp = read_activation(lens, match_score, min_chain_weight)
+        _TABLES[key] = torch.stack([active.to(torch.int32), min_hsp],
+                                   1).contiguous()
+    return _TABLES[key]
+
+
 def seed_sw_windows(fm: kfm.FMDevice, lens, seeds: dict, match_score: int,
                     min_chain_weight: int) -> dict:
     """Each seed lane's query window [qb, qe) (int32 [N]), reference window
@@ -109,14 +143,7 @@ def seed_sw_windows(fm: kfm.FMDevice, lens, seeds: dict, match_score: int,
     valid = seeds["valid"].reshape(N)
     L = lens.to(i32).repeat_interleave(S)
 
-    # per-read activation (the oracle's seed_sw_filter_active), float32
-    # as in the JAX version
-    f32 = torch.float32
-    min_l_r = (torch.full((B,), MEM_HSP_COEF * min_chain_weight, dtype=f32,
-                          device=dev) if min_chain_weight
-               else MEM_MINSC_COEF * torch.log(lens.clamp(min=1).to(f32)))
-    active_r = (lens > 0) & (min_l_r <= MEM_SEEDSW_COEF * lens.to(f32))
-    min_hsp_r = (match_score * min_l_r + 0.499).to(i32)
+    active_r, min_hsp_r = read_activation(lens, match_score, min_chain_weight)
     active = active_r.repeat_interleave(S)
     min_hsp = min_hsp_r.repeat_interleave(S)
 
@@ -180,12 +207,20 @@ def seed_sw_filter(fm: kfm.FMDevice, pac_rows, codes, lens, seeds: dict,
                    e_del: int, o_ins: int, e_ins: int,
                    min_chain_weight: int) -> dict:
     """Re-score the short seeds of long reads and drop the sub-HSP ones
-    (see ``seed_sw_filter_plain``): on CUDA tensors the scores are one
-    launch of the hand-written kernel (``seedsw_cuda.seed_sw_cuda``), on
-    CPU tensors the plain twin's."""
-    return _filter(fm, pac_rows, codes, lens, seeds, match_score,
-                   mismatch_penalty, o_del, e_del, o_ins, e_ins,
-                   min_chain_weight, plain=not codes.is_cuda)
+    (see ``seed_sw_filter_plain``): on CUDA tensors one launch of the
+    hand-written kernel (``seedsw_cuda.seed_sw_filter_cuda``; codes and
+    lens int32, qbeg and len int32, rbeg in the rank dtype, each length
+    at most the batch width), on CPU tensors the plain twin."""
+    if not codes.is_cuda:
+        return seed_sw_filter_plain(fm, pac_rows, codes, lens, seeds,
+                                    match_score, mismatch_penalty, o_del,
+                                    e_del, o_ins, e_ins, min_chain_weight)
+    table = activation_table(codes.shape[1], match_score, min_chain_weight,
+                             codes.device)
+    valid, score = seed_sw_filter_cuda(
+        fm, pac_rows, codes, lens, seeds, table, match_score,
+        mismatch_penalty, o_del, e_del, o_ins, e_ins)
+    return dict(seeds, valid=valid, score=score)
 
 
 def seed_sw_filter_plain(fm: kfm.FMDevice, pac_rows, codes, lens,
@@ -198,24 +233,11 @@ def seed_sw_filter_plain(fm: kfm.FMDevice, pac_rows, codes, lens,
     added (bwa's s->score: the SW score where checked, len * a
     otherwise), which ``extend_all`` orders seeds by. Reads below the
     length threshold keep every seed, scored len * a."""
-    return _filter(fm, pac_rows, codes, lens, seeds, match_score,
-                   mismatch_penalty, o_del, e_del, o_ins, e_ins,
-                   min_chain_weight, plain=True)
-
-
-def _filter(fm, pac_rows, codes, lens, seeds, match_score, mismatch_penalty,
-            o_del, e_del, o_ins, e_ins, min_chain_weight, plain: bool
-            ) -> dict:
     B, S = seeds["rbeg"].shape
     win = seed_sw_windows(fm, lens, seeds, match_score, min_chain_weight)
-    scoring = (match_score, mismatch_penalty, o_del, e_del, o_ins, e_ins)
-    if plain:
-        score = seed_sw_scores_plain(pac_rows, fm.seq_len, codes, win,
-                                     *scoring)
-    else:
-        score = seed_sw_cuda(pac_rows, fm.seq_len,
-                             codes.to(torch.int32).contiguous(), win,
-                             *scoring)
+    score = seed_sw_scores_plain(pac_rows, fm.seq_len, codes, win,
+                                 match_score, mismatch_penalty, o_del, e_del,
+                                 o_ins, e_ins)
     need = win["need"]
     keep = ~need | (score >= win["min_hsp"])
     slen = seeds["len"].reshape(B * S)

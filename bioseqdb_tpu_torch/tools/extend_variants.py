@@ -1,10 +1,10 @@
-"""Variants of csrc/extend.cu or csrc/fm.cu in turns on one card: this
-tree's source with some of its layout constants changed, and another
-tree's.
+"""Variants of csrc/extend.cu, csrc/fm.cu or csrc/seedsw.cu in turns on
+one card: this tree's source with some of its layout constants changed,
+and another tree's.
 
     python -m bioseqdb_tpu_torch.tools.extend_variants \\
         --variant NAME:CONST=VALUE[,CONST=VALUE...] ... [--other ROOT] \\
-        [--source extend|fm] [--only KIND,...]
+        [--source extend|fm|seedsw] [--only KIND,...]
 
 Run from this tree's root. Builds this tree's source (``extend.cu`` by
 default, ``fm.cu`` with ``--source fm``), each ``--variant`` (the source
@@ -19,7 +19,12 @@ kind ``--only`` names (comma-separated, of
 ``kernel_turns.EXTEND_TIMED``; all of them by default), and of the int64
 warm-up's (``kernel_turns.int64_calls``); ``fm``: the ``sa_resolve``
 calls ``kernel_turns.walk_calls`` gives (each path's masked walk, the
-exact step's and random ranks). Each call holds every build bit-equal
+exact step's and random ranks) and the ``backward_search`` calls
+``kernel_turns.search_calls`` gives (the exact step's, random and edge
+reads), as ``--only`` names them; ``seedsw``: the whole filter calls
+(``seedsw_calls.FilterCall``) of the long-read warm-up and timed
+batches and of the 8, 18 and 25 kb batches. Each
+call holds every build bit-equal
 to the plain twin, then times them in palindromic turns (this, the
 variants, other, and back; ``kernel_ms``: a launch in a CUDA graph). A
 line a kernel and call: each build's two times (an extension kernel's
@@ -41,13 +46,15 @@ import torch
 
 import chip_smoke as cs
 from bioseqdb_tpu_torch.kernels import build
-from bioseqdb_tpu_torch.tools import extend_calls, fm_calls
+from bioseqdb_tpu_torch.tools import extend_calls, fm_calls, seedsw_calls
 from bioseqdb_tpu_torch.tools.kernel_turns import (EXTEND_TIMED, fat_retry,
                                                   int64_calls, loading,
-                                                  walk_bound, walk_calls)
+                                                  search_calls, walk_bound,
+                                                  walk_calls)
 from bioseqdb_tpu_torch.tools.shapes import card_line
 
 OUT = build.BUILD_DIR / "variants"
+FM_TIMED = ("sa_resolve", "backward_search")   # --source fm's kinds
 
 
 def variant_source(text: str, consts: dict) -> str:
@@ -160,13 +167,17 @@ def main(argv=None) -> None:
     ap.add_argument("--variant", action="append", default=[],
                     type=parse_variant)
     ap.add_argument("--other", type=Path)
-    ap.add_argument("--source", choices=("extend", "fm"), default="extend")
+    ap.add_argument("--source", choices=("extend", "fm", "seedsw"),
+                    default="extend")
     ap.add_argument("--only", default=",".join(EXTEND_TIMED),
                     help="the extension kernels to time, comma-separated")
     args = ap.parse_args(argv)
     only = tuple(args.only.split(","))
-    if not set(only) <= set(EXTEND_TIMED):
-        raise SystemExit(f"--only takes kinds of {EXTEND_TIMED}")
+    kinds = FM_TIMED if args.source == "fm" else EXTEND_TIMED
+    if args.source == "fm" and args.only == ",".join(EXTEND_TIMED):
+        only = FM_TIMED
+    if args.source != "seedsw" and not set(only) <= set(kinds):
+        raise SystemExit(f"--only takes kinds of {kinds}")
     if not torch.cuda.is_available():
         raise SystemExit("extend_variants needs a CUDA device")
     card = card_line()
@@ -179,26 +190,46 @@ def main(argv=None) -> None:
     if args.other is not None:
         csrc = args.other / "bioseqdb_tpu_torch" / "csrc"
         sources["other"] = (csrc, (csrc / file).read_text())
-    keys = (("sa_resolve",) if args.source == "fm"
+    keys = (only if args.source == "fm"
+            else ("seed_sw",) if args.source == "seedsw"
             else tuple(k.removeprefix("extend_") for k in only))
     libs = build_all(sources, args.source, keys)
     build.build()
     dev = torch.device("cuda", 0)
     m = cs.main_path(dev, card)
-    pe_walks = []
-    with fm_calls.recording(pe_walks):
-        pe = cs.pe_path(m, card)
-    pe["fmi_calls"] = pe_walks
-    lr = cs.long_path(m, card)
-    i64 = int64_calls(m, dev)
+    if args.source == "seedsw":
+        lr = cs.long_path(m, card)
+        huge = cs.huge_reads_path(m)
+        for name, call in (("long-read warm-up", lr["sw_calls"][0][0]),
+                           ("long-read timed", lr["sw_calls"][1][0]),
+                           ("8 kb", lr["sw_wide"][0]),
+                           *((f"{k} kb", c) for k, c in huge.items())):
+            ms, _ = in_turns(call, libs, "seedsw", seedsw_calls.max_abs_err)
+            n = call.counts()
+            cs.log(line("seed_sw", name, call.shape, ms,
+                        cs.bound(n["read"] + n["written"], n["instr"])[0]))
+        cs.log(card)
+        return
+    if args.source == "extend" or "sa_resolve" in only:
+        pe_walks = []
+        with fm_calls.recording(pe_walks):
+            pe = cs.pe_path(m, card)
+        pe["fmi_calls"] = pe_walks
+        lr = cs.long_path(m, card)
+        i64 = int64_calls(m, dev)
     if args.source == "fm":
-        fmp = cs.fm_main_path(m, dev, card)
-        paths = {"main path": m, "PE": pe, "FM-seeded": fmp,
-                 "long-read warm-up": lr, "int64": i64}
-        for name, call in walk_calls(paths, m, dev, card):
+        calls = []
+        if "sa_resolve" in only:
+            fmp = cs.fm_main_path(m, dev, card)
+            paths = {"main path": m, "PE": pe, "FM-seeded": fmp,
+                     "long-read warm-up": lr, "int64": i64}
+            calls += walk_calls(paths, m, dev, card)
+        if "backward_search" in only:
+            calls += search_calls(m, dev, card)
+        for name, call in calls:
             ms, _ = in_turns(call, libs, "fm", lambda got, want:
                              fm_calls.max_abs_err(got, want, call.kind))
-            cs.log(line("sa_resolve", name, call.shape, ms,
+            cs.log(line(call.kind, name, call.shape, ms,
                         walk_bound(call)[0]))
     else:
         calls = [("main path", m["ext_calls"][0]),

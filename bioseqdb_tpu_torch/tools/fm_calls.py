@@ -24,7 +24,10 @@ twins, at the shapes the pipeline gives them.
   boundaries, a mask one byte off a 16-byte boundary), ``random_calls``
   random ranks and reads from a seed,
   ``shifted`` an FM whose rank values lie past 2^31, ``synthetic_mems``
-  seed intervals for ``resolve_seeds``;
+  seed intervals for ``resolve_seeds``; ``group_calls`` backward searches
+  at the edges of the kernel's pair layout (long reads, ambiguous ends,
+  intervals emptied mid-read, one and two Occ blocks a step:
+  ``search_steps``);
 - ``host_library``: ``csrc/fm.cu`` built for the host with g++.
 
 ``chip_smoke.py``'s FM-index phase and the FM kernels' tests use it.
@@ -447,6 +450,93 @@ def tile_calls(es: EdgeSetup, fm: kfm.FMDevice, device="cpu") -> dict:
         TILE_CASES[3]: of(ranks[:n], fifth[:n]).replace(ranks=ranks[1:],
                                                         mask=fifth[1:]),
     }
+
+
+GROUP_W = 300     # group_calls' reads' width
+# group_calls' read lengths: 0, 1, either side of 128 and 256, the width,
+# and past it
+GROUP_LENS = (0, 1, 127, 128, 129, 200, 255, 256, 257, 300, 310)
+GROUP_CASES = ("group, exact matches", "group, ambiguous ends",
+               "group, emptied mid-read")
+
+
+def group_calls(es: EdgeSetup, fm: kfm.FMDevice, device="cpu") -> dict:
+    """{case (GROUP_CASES): call}: ``backward_search`` at the edges of the
+    kernel's layout (a pair of threads a read, one an end), reads GROUP_W
+    wide on ``es``' genome: exact matches of GROUP_LENS (0 and 1 base,
+    long reads, the width, a length past it) and of its repeat (an interval
+    of two, lo and hi in one Occ block, where the wide ones span two; one
+    two past the width that matches through every step);
+    the same reads with an N at their first column and at their last;
+    and reads with a substitution mid-read, whose interval empties there,
+    at every step's position within a load."""
+    rng = np.random.default_rng(67)
+    g, rep = es.refs[0], es.refs[0][8000:8300]
+    W = GROUP_W
+
+    def row(text: str) -> tuple[np.ndarray, int]:
+        c = np.full(W, 4, np.int32)
+        codes = np.frombuffer(text.encode(), np.uint8)
+        lut = np.full(256, 4, np.int32)
+        lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+        c[: min(W, len(text))] = lut[codes[:W]]
+        return c, len(text)
+
+    exact = [g[p: p + n] for n in GROUP_LENS
+             for p in rng.integers(0, len(g) - 400, 2)]
+    exact += [rep[:n] for n in (129, 257, 300)]
+    # two past the width, its last three bases equal: the first steps
+    # reread the last column and the match lives through every step
+    p = next(p for p in range(len(g) - W - 2)
+             if g[p + W - 1] == g[p + W] == g[p + W + 1])
+    exact.append(g[p: p + W + 2])
+    ambig = ([s[:-1] + "N" for s in exact if 1 < len(s) <= W]
+             + ["N" + s[1:] for s in exact if 1 < len(s) <= W])
+    mid = []
+    for n in (129, 257, 300):
+        for at in (1, 60, 127, 128, 129, n - 2):
+            p = int(rng.integers(0, len(g) - 400))
+            s = list(g[p: p + n])
+            s[n - 1 - at] = "ACGT"[("ACGT".index(s[n - 1 - at]) + 1) % 4]
+            mid.append("".join(s))
+
+    def call(reads):
+        rows = [row(r) for r in reads]
+        codes = torch.from_numpy(np.stack([c for c, _ in rows])).to(device)
+        lens = torch.tensor([n for _, n in rows], dtype=torch.int32,
+                            device=device)
+        return FmCall.of("backward_search", fm, codes, lens)
+
+    return dict(zip(GROUP_CASES, (call(exact), call(ambig), call(mid))))
+
+
+def search_steps(call: FmCall) -> dict:
+    """A ``backward_search`` call's steps by the plain twin's loop: ``one``
+    the steps whose lo and hi read one Occ block, ``two`` those that read
+    two, ``steps`` int64 [B] each read's steps (its chain of dependent
+    Occ fetches)."""
+    fm, codes, lens = call.fm, call.args["codes"], call.args["lens"]
+    B, W = codes.shape
+    lo = torch.zeros(B, dtype=fm.rank_dtype, device=codes.device)
+    hi = torch.full((B,), fm.seq_len + 1, dtype=fm.rank_dtype,
+                    device=codes.device)
+    one = torch.zeros((), dtype=torch.int64, device=codes.device)
+    two = torch.zeros_like(one)
+    steps = torch.zeros(B, dtype=torch.int64, device=codes.device)
+    for t in range(W):
+        idx = (lens - 1 - t).clamp(0, W - 1).long()
+        c = torch.gather(codes, 1, idx[:, None])[:, 0]
+        live = (t < lens) & (lo < hi)
+        active = live & (c < 4)
+        rl, rh = ((r - (r > fm.primary).to(r.dtype)) >> kfm.LOG2_OCC_BLOCK
+                  for r in (lo, hi))
+        one += (active & (rl == rh)).sum()
+        two += (active & (rl != rh)).sum()
+        steps += active
+        nlo, nhi = kfm.backward_ext(fm, lo, hi, c.clamp(0, 3))
+        lo = torch.where(active, nlo, torch.where(live & (c >= 4), 1, lo))
+        hi = torch.where(active, nhi, torch.where(live & (c >= 4), 1, hi))
+    return dict(one=int(one), two=int(two), steps=steps)
 
 
 MAJORS = 16   # many_majors' major checkpoint rows

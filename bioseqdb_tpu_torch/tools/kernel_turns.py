@@ -1,7 +1,8 @@
 """Another tree's ``kmer_seed``, ``fm_seed``, ``chain_seeds``,
 ``filter_chains``, ``extend_setup``, ``extend_scan``, ``extend_merge``,
-``extend_seedcov``, ``resolve_expand`` and ``sa_resolve`` against this
-tree's, in turns on one card, at the calls the pipeline gives them.
+``extend_seedcov``, ``resolve_expand``, ``sa_resolve``, ``seed_sw`` and
+``backward_search`` against this tree's, in turns on one card, at the
+calls the pipeline gives them.
 
     python -m bioseqdb_tpu_torch.tools.kernel_turns OTHER_ROOT [--only K,..]
 
@@ -21,7 +22,16 @@ retry, S 128), the FM-seeded batch, the long-read warm-up and the int64
 batch (``ExtendCall.stages``); the ``sa_resolve`` walks of the same
 paths' ``resolve_seeds`` calls (masked), and, unmasked, the exact step's
 (``chip_smoke.exact_path``, with ``--only`` naming ``sa_resolve``) and
-65,536 random ranks on ``fm_calls``' edge index at SA interval 32. Each
+65,536 random ranks on ``fm_calls``' edge index at SA interval 32;
+``backward_search`` on the exact step and on ``fm_calls``' random reads
+(4,096 of 0-120 bp, seed 1) and edge reads (``edge_calls`` "reads" and
+``group_calls``); ``seed_sw`` as the whole filter call
+(``seedsw_calls.FilterCall``) of the long-read warm-up and timed
+batches and of the 8, 18 and 25 kb batches (``chip_smoke.long_path``,
+``huge_reads_path``): this tree's one launch against, for a tree whose
+``csrc/seedsw.cu`` has the scores entry alone (``seed_sw_launch``),
+that tree's filter: the eager windows (``seed_sw_windows``), its
+scores launch and the keep / score selects. Each
 call is checked bit-equal to the plain twin on both trees' kernels (the
 C entry points take the same arguments; a ``resolve_seeds`` call runs
 both of the tree's resolve kernels), then timed on them in turns:
@@ -52,20 +62,21 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from bioseqdb_tpu_torch.kernels import build
+from bioseqdb_tpu_torch.kernels import build, seedsw
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
 from bioseqdb_tpu_torch.tools import (chain_calls, extend_calls, fm_calls,
                                       fm_machine, kmer_calls, long_leg,
-                                      resolve_calls)
+                                      resolve_calls, seedsw_calls, shapes)
 from bioseqdb_tpu_torch.tools.shapes import card_line
 
-SOURCES = ("kmer", "fm_seed", "extend", "chain", "resolve", "fm")
+SOURCES = ("kmer", "fm_seed", "extend", "chain", "resolve", "fm", "seedsw")
 # the extension kernels timed in turns (the others are another tree's too)
 EXTEND_TIMED = ("extend_setup", "extend_scan", "extend_merge",
                 "extend_seedcov")
 TIMED = ("kmer_seed", "fm_seed", "chain_seeds", "filter_chains",
-         "resolve_expand", "sa_resolve") + EXTEND_TIMED
+         "resolve_expand", "sa_resolve", "seed_sw",
+         "backward_search") + EXTEND_TIMED
 FAT_S = 128   # the PE fat retry's seed slots
 ORDER = ("other", "this", "this", "other")
 
@@ -110,6 +121,74 @@ def loading(libs: dict | None):
         yield
     finally:
         build.library = saved
+
+
+def eager_filter(call: "seedsw_calls.FilterCall", lib: ctypes.CDLL) -> dict:
+    """``call`` as a tree whose seedsw.cu has the scores entry alone
+    (``seed_sw_launch``: the scores of given windows) filters:
+    ``seedsw.seed_sw_windows`` as eager ops, that entry's one launch, then
+    the keep and score selects (the filter before the window bounds
+    joined the kernel)."""
+    a = call.args
+    win = seedsw.seed_sw_windows(a["fm"], a["lens"], a["seeds"],
+                                 a["match_score"], a["min_chain_weight"])
+    codes, pac_rows = a["codes"], a["pac_rows"]
+    B, W = codes.shape
+    N = win["need"].shape[0]
+    score = torch.empty(N, dtype=torch.int32, device=codes.device)
+    ins = [codes, pac_rows] + [win[k] for k in ("qb", "qe", "rb", "re",
+                                                "need")] + [score]
+    fn = lib.seed_sw_launch
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = [ll] + [vp] * 8 + [ll] * 11 + [vp]
+    fn.restype = ctypes.c_int
+    rc = fn(win["rb"].element_size(), *[t.data_ptr() for t in ins],
+            pac_rows.numel(), a["fm"].seq_len, N, N // B, W,
+            *[a[k] for k in seedsw_calls.SCORING],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("the other tree's seed_sw launch failed")
+    need = win["need"]
+    S = N // B
+    keep = ~need | (score >= win["min_hsp"])
+    slen = a["seeds"]["len"].reshape(N)
+    return dict(valid=(a["seeds"]["valid"].reshape(N) & keep).reshape(B, S),
+                score=torch.where(need, score, slen * a["match_score"]
+                                  ).reshape(B, S).to(torch.int32))
+
+
+def filter_turns(name: str, call: "seedsw_calls.FilterCall", other: dict
+                 ) -> None:
+    """Log the whole filter ``call`` on both trees in turns (a call in a
+    CUDA graph), each first held bit-equal to ``seed_sw_filter_plain``,
+    with the bound (``FilterCall.counts``) and the first count's."""
+    lib = other["seedsw"]
+    old = ((lambda: eager_filter(call, lib))
+           if not hasattr(lib, "seed_sw_filter_launch") else None)
+
+    def run(tree):
+        if tree == "this" or old is None:
+            with loading(other if tree == "other" else None):
+                return call.run()
+        return old()
+
+    want = call.run(plain=True)
+    for tree in ("other", "this"):
+        got = run(tree)
+        torch.cuda.synchronize()
+        if seedsw_calls.max_abs_err(got, want) != 0:
+            raise AssertionError(f"{tree} tree's filter disagrees with the "
+                                 f"plain twin on {call.shape}")
+    times = {"other": [], "this": []}
+    for tree in ORDER:
+        with loading(other if tree == "other" else None):
+            times[tree].append(shapes.graph_ms(lambda: run(tree)))
+    n = call.counts()
+    bound_ms, bound_by = cs.bound(n["read"] + n["written"], n["instr"])
+    first, _ = cs.bound(n["read"] + n["written"], n["instr_first"])
+    cs.log(turn_line("seed_sw", name, call, times, bound_ms, bound_by)
+           + f"; {n['lanes']} lanes need the SW, {n['cells']} DP cells; the "
+             f"first count's bound {first:.5f} ms")
 
 
 def in_turns(call, other: dict) -> dict:
@@ -199,9 +278,28 @@ def walk_calls(paths: dict, m: dict, dev, card: str) -> list:
                       n_reads=16)["random ranks 1"])]
 
 
+def search_calls(m: dict, dev, card: str) -> list:
+    """[(name, call)]: the ``backward_search`` calls timed: the exact
+    step's (``chip_smoke.exact_path`` on ``m``'s index), 4,096 random
+    reads (``fm_calls.random_calls`` seed 1) and the edge reads
+    (``edge_calls`` "reads", ``group_calls``) on ``fm_calls``' edge
+    index."""
+    ex = cs.exact_path(m, dev, card)
+    es = fm_calls.edge_setup()
+    fm = kfm.FMDevice.from_host(es.idx, dev)
+    out = [("exact step", [c for c in ex["fmi_calls"]
+                           if c.kind == "backward_search"][0]),
+           ("random reads", fm_calls.random_calls(
+               es, fm, 1, device=dev, n_ranks=16,
+               n_reads=4096)["random reads 1"]),
+           ("edge reads", fm_calls.edge_calls(es, fm, device=dev)["reads"])]
+    return out + list(fm_calls.group_calls(es, fm, device=dev).items())
+
+
 def walk_bound(call: "fm_calls.FmCall") -> tuple[float, str]:
-    """``chip_smoke.bound`` of an ``sa_resolve`` call (``FmCall.counts``:
-    the distinct table rows, the ranks, mask and positions; the steps'
+    """``chip_smoke.bound`` of an ``sa_resolve`` or ``backward_search``
+    call (``FmCall.counts``: the distinct table rows, the ranks, mask and
+    positions or the lengths, codes and intervals; the steps'
     instructions)."""
     n = call.counts()
     return cs.bound(n["table_bytes"] + n["io_bytes"], n["instr"])
@@ -325,6 +423,21 @@ def main(argv=None) -> None:
             times = in_turns(call, other)
             cs.log(turn_line("sa_resolve", name, call, times,
                              *walk_bound(call)))
+    if "backward_search" in only:
+        for name, call in search_calls(m, dev, card):
+            times = in_turns(call, other)
+            cs.log(turn_line("backward_search", name, call, times,
+                             *walk_bound(call))
+                   + f"; slowest read "
+                     f"{int(fm_calls.search_steps(call)['steps'].max())} "
+                     f"steps")
+    if "seed_sw" in only:
+        huge = cs.huge_reads_path(m)
+        for name, call in (("long-read warm-up", lr["sw_calls"][0][0]),
+                           ("long-read timed", lr["sw_calls"][1][0]),
+                           ("8 kb", lr["sw_wide"][0]),
+                           *((f"{k} kb", c) for k, c in huge.items())):
+            filter_turns(name, call, other)
 
 
 if __name__ == "__main__":

@@ -112,7 +112,8 @@
    (``seed.collect_seeds_plain``) on the card, bit-equal on all six
    outputs (mems, n_mem, overflow, iters, it_r1, it_r2) at the recorded
    inputs: the main path's reseed entry, the FM-seeded batch (jump depth
-   8), the long-read warm-up (W 1,504, max_mem 142), both short ones with
+   8), the long-read warm-up's first 256 reads (W 1,504, max_mem 142;
+   the twin of all 1,024 takes minutes), both short ones with
    int64 ranks, the FM-seeded batch's first 4,096 reads at the fat
    retry's caps, the FM-seeded batch under a 300-step budget (it must
    overflow lanes), 2,048 ragged reads (lengths 0-150, Ns, junk, all-N,
@@ -221,20 +222,25 @@
    entries) and the share; then the main path's timed batch clocked
    with the kernel and with the plain twin, in turns (plain, kernel,
    kernel, plain);
-9e. seed-SW phase: ``seed_sw_filter`` with ``seed_sw`` against
+9e. seed-SW phase: ``seed_sw_filter`` (one launch of ``seed_sw``: the
+   windows, the need test, the SW and the outputs) against
    ``seed_sw_filter_plain`` on the card, bit-equal on ``valid`` and
-   ``score``, at the long-read batches' recorded calls (the warm-up's
-   1,024 and the timed 4,096 reads, S 189) and at
+   ``score``, at every recorded call (the long-read warm-up's 1,024 and
+   timed 4,096 reads, S 189; the 8, 18 and 25 kb batches) and at
    ``seedsw_calls.edge_calls`` (activation length, min_hsp, windows at
-   l_pac and reference ends, asymmetric gaps) with int32 and int64
-   ranks; the kernel's scores equal the plain twin's on
-   ``seedsw_calls.edge_score_calls`` (tlen and qlen 0-199, windows
-   outside the read and the text), int32, int64 and int64 past 2^31.
-   Each recorded call: the kernel's time (a launch in a CUDA graph), the
-   plain twin's scoring (CUDA events), the bound (the DP cells the
-   needed lanes' windows span, tlen x qlen; the bytes of their windows)
-   and the share; then
-   the long-read timed batch clocked with the kernel and with the plain
+   l_pac and reference ends, asymmetric gaps), ``fold_calls`` (five
+   references, both activation thresholds, the kernel's column
+   boundaries, tlen 1, 2 and 199, an all-N read) and ``random_calls``
+   (seeds 1, 2), each at the three ``seedsw_calls.SCORINGS`` (the s16x2
+   body at the defaults and asymmetric gaps, the s32 body at ``WIDE``),
+   with int32 and int64 ranks, int64 also past 2^31. One
+   filter call of the timed batch under ``torch.profiler`` issues the
+   one ``seed_sw`` kernel and nothing else. Each recorded call: the
+   whole filter's time (a call in a CUDA graph), the plain filter's
+   (CUDA events), the bound (the DP cells the needed lanes' windows
+   span, tlen x qlen, at 3.5 instructions a cell, the first count's 10
+   beside; the seeds' and windows' bytes) and the share; then the
+   long-read timed batch clocked with the kernel and with the plain
    twin, in turns;
 9f. FM-index phase: ``sa_resolve`` and ``backward_search`` against their
    plain twins (``fm.sa_resolve_plain``, ``fm.backward_search_plain``)
@@ -248,11 +254,16 @@
    full-width, all-ambiguous and no-match reads, an ambiguous base at
    either end, repeats, a length past the width) with int32 and int64
    ranks and past 2^31, and at its random calls (seeds 1-3: 65,536
-   ranks, 4,096 reads). Each recorded and random call: the kernel's time
-   (a launch in a CUDA graph), the plain twin's (CUDA events), the bound
-   (the distinct mark, Occ, major, count and sample rows the lanes read,
-   each once, the ranks, mask and positions, or the lengths, codes and
-   intervals; or the steps' instructions) and the share;
+   ranks, 4,096 reads), and ``fm_calls.group_calls`` (the search's
+   group layout: reads either side of a load of codes, ambiguous ends,
+   intervals emptied mid-read). Each recorded and random call: the
+   kernel's time (a launch in a CUDA graph), the plain twin's (CUDA
+   events), the bound (the distinct mark, Occ, major, count and sample
+   rows the lanes read, each once, the ranks, mask and positions, or the
+   lengths, codes and intervals; or the steps' instructions) and the
+   share; a search also beside its latency floor (its slowest read's
+   steps x one dependent L2 round trip, ``gather_chain`` on an
+   L2-resident table of the main path's Occ shape);
 9g. resolve phase: ``resolve_seeds`` through ``resolve_expand``, the
    ``sa_resolve`` walk and ``resolve_finish`` against its plain twin
    (``chain.resolve_seeds_plain``) on the card, bit-equal on the whole
@@ -376,7 +387,7 @@ from bioseqdb_tpu_torch.align.pipeline import Aligner, exact_align_step
 from bioseqdb_tpu_torch.api import multi_search
 from bioseqdb_tpu_torch.io.batch import pack_reads, pack_reads_from_file
 from bioseqdb_tpu_torch.io.fasta import FastaRecord, write_fasta, write_fastq
-from bioseqdb_tpu_torch.kernels import build
+from bioseqdb_tpu_torch.kernels import build, probes, seedsw
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
 from bioseqdb_tpu_torch.kernels.sw_cuda import (FULL_MAX_QLEN, blocks_per_sm,
@@ -391,7 +402,8 @@ from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
                                       microbench_seed, pe_leg, resolve_calls,
                                       seedsw_calls)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
-                                             card_line, event_ms)
+                                             card_line, event_ms, graph_ms,
+                                             make_table)
 from bioseqdb_tpu_torch.tools.sw_sets import (BATCH, GENOME_LEN, LONG_WQ,
                                               MAIN_WQ, READ_LEN, WIDE_LAYOUT,
                                               WIDE_WQ,
@@ -420,6 +432,7 @@ PROBES = ("gather_rows", "gather_chain", "add_one")
 OCC_ROW_BYTES = 48
 FM_INSTR_PER_STEP = 2 * 4 * 4 * 3 + 30
 FAT_READS = 4096               # the fat-retry-caps input's lanes
+LONG_PLAIN_READS = 256   # the long-read warm-up's reads the twin replays
 RAGGED_READS, RAGGED_SEED = 2048, 900
 # exact phase: bench.py bench_exact's reads and step
 EXACT_SEED, EXACT_STEPS, EXACT_MAX_HITS = 2, 5, 4
@@ -460,6 +473,10 @@ FM_RANDOM_SEEDS = (1, 2, 3)
 RESOLVE_LINES = dict(resolve_expand=76, resolve_finish=141)
 RESOLVE_RANDOM_SEEDS = (1, 2, 3)
 KMER_RANDOM_SEEDS = (1, 2, 3)   # kmer_calls.random_calls' inputs
+SEEDSW_RANDOM_SEEDS = (1, 2)    # seedsw_calls.random_calls' inputs
+# the lanes of the gather chain that times one dependent L2 round trip:
+# 8 an SM, so that the loads wait on latency, not on L2's bandwidth
+L2_TRIP_LANES = 1024
 REPLACES = dict(gather_rows="tools/microbench_pallas_gather.py:48",
                 gather_chain="tools/microbench_mosaic_seed.py:180",
                 add_one="tools/microbench_pallas_gather.py:110")
@@ -636,7 +653,8 @@ def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
     """``fm_seed`` against its plain twin on the card, bit-equal on all
     six outputs, at the inputs the pipeline gave it (recorded in the
     warm-up batches): the main path's reseed entry, the FM-seeded batch
-    (jump depth 8), the long-read warm-up (W 1,504, max_mem 142), both
+    (jump depth 8), the long-read warm-up's first LONG_PLAIN_READS reads
+    (W 1,504, max_mem 142), both
     short ones with int64 ranks, the FM-seeded batch's first FAT_READS
     reads at the fat retry's caps, the FM-seeded batch under a 300-step
     budget, a ragged batch, every fat retry the short warm-ups made, and
@@ -661,7 +679,10 @@ def fm_machine_phase(m: dict, fmp: dict, lr: dict, dev) -> dict:
     inputs = [
         ("reseed entry", reseed),
         ("FM-seeded", fmc),
-        ("long-read warm-up", long_),
+        # its plain twin takes minutes at 1,024 reads: the first
+        # LONG_PLAIN_READS, held against the kernel on the same reads
+        (f"long-read warm-up, first {LONG_PLAIN_READS} reads",
+         long_.lanes(slice(0, LONG_PLAIN_READS))),
         ("int64 reseed entry", reseed.replace(fm=fm64)),
         ("int64 FM-seeded", fmc.replace(fm=fm64, jump=build_r3_jump(fm64))),
         ("fat-retry caps", fmc.lanes(slice(0, FAT_READS)).replace(
@@ -1089,16 +1110,34 @@ def kmer_phase(m: dict, pe: dict, i64: dict, dev) -> dict:
     return dict(rows["main path"], max_abs_err=0)
 
 
-def seedsw_phase(m: dict, lr: dict, dev) -> dict:
-    """``seed_sw_filter`` with ``seed_sw`` against ``seed_sw_filter_plain``
-    on the card, bit-equal on ``valid`` and ``score``, at the long-read
-    batches' recorded calls and at ``seedsw_calls.edge_calls`` with int32
-    and int64 ranks; the kernel's scores against the plain twin's at
-    ``seedsw_calls.edge_score_calls`` (int64 also past 2^31). Each
-    recorded call's scoring: the kernel's time (a launch in a CUDA graph),
-    the plain twin's, the bound and the share. Then the long-read timed
-    batch clocked with the kernel and with the plain twin, in turns.
-    Returns the kernels line's entry (the timed batch's numbers)."""
+def kernels_of(fn) -> list[str]:
+    """The CUDA kernels (and copies) that one ``fn()`` issues on the card,
+    by name, in order (``torch.profiler``'s CUDA activity)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def seedsw_phase(m: dict, lr: dict, huge: dict, dev) -> dict:
+    """``seed_sw_filter`` (one launch of ``seed_sw``: the windows, the need
+    test, the SW and the outputs) against ``seed_sw_filter_plain`` on the
+    card, bit-equal on ``valid`` and ``score``, at every recorded call
+    (the long-read warm-up and timed batches, the 8, 18 and 25 kb
+    batches) and at ``seedsw_calls``' edge, fold and random calls
+    (SEEDSW_RANDOM_SEEDS), each at the three ``seedsw_calls.SCORINGS``
+    (the s16x2 body at two, the s32 body at ``WIDE``), with int32 and
+    int64 ranks, int64 also past 2^31. One filter call of the timed batch under ``torch.profiler``
+    issues the one ``seed_sw`` kernel and nothing else (the windows' eager
+    ops alone issue the number logged). Each recorded call: the whole
+    filter's time (a call in a CUDA graph), the plain filter's, the
+    bound (the needed cells at ``seedsw_calls.INSTR_PER_CELL``, the first
+    count's beside) and the share. Then the long-read timed batch clocked
+    with the kernel and with the plain filter, in turns. Returns the
+    kernels line's entry (the timed batch's numbers)."""
     recorded = {}
     for batch, calls, B in (("warm-up", lr["sw_calls"][0],
                              long_leg.WARM_READS),
@@ -1109,16 +1148,29 @@ def seedsw_phase(m: dict, lr: dict, dev) -> dict:
                                  f"the pipeline's: {calls[0].shape}")
         for k, call in enumerate(calls):
             recorded[f"long-read {batch}" + (f" call {k}" if k else "")] = call
+    recorded[f"{WIDE_LEN // 1000} kb"] = lr["sw_wide"][0]
+    recorded.update({f"{kb} kb": call for kb, call in huge.items()})
+    timed = recorded["long-read timed"]
+    issued = kernels_of(timed.run)
+    eager = kernels_of(lambda: seedsw.seed_sw_windows(
+        timed.args["fm"], timed.args["lens"], timed.args["seeds"],
+        timed.args["match_score"], timed.args["min_chain_weight"]))
+    log(f"seed_sw_filter [long-read timed]: the card ran {issued}; the "
+        f"windows' eager ops alone {len(eager)} kernels")
+    if len(issued) != 1 or "seed_sw" not in issued[0]:
+        raise AssertionError(f"a seed_sw_filter call issued {issued}, not "
+                             f"the one seed_sw kernel")
     inputs = list(recorded.items())
+    fold = seedsw_calls.fold_setup()
     for rdt in (torch.int32, torch.int64):
         dt = str(rdt).removeprefix("torch.")
-        inputs += [(f"edge {dt} {name}", call)
-                   for name, call in seedsw_calls.edge_calls(rdt, dev)]
-        for name, call in seedsw_calls.edge_score_calls(rdt, dev):
-            inputs.append((f"edge {dt} {name}", call))
-            if rdt == torch.int64:
-                inputs.append((f"edge {dt} {name}, past 2^31",
-                               call.shifted()))
+        calls = (seedsw_calls.edge_calls(rdt, dev)
+                 + seedsw_calls.fold_calls(rdt, dev, setup=fold))
+        for seed in SEEDSW_RANDOM_SEEDS:
+            calls += seedsw_calls.random_calls(rdt, seed, dev, setup=fold)
+        if rdt == torch.int64:
+            calls += [(f"{n}, past 2^31", c.shifted()) for n, c in calls]
+        inputs += [(f"{dt} {name}", call) for name, call in calls]
     rows = {}
     for name, call in inputs:
         n0 = build.LAUNCHES["seed_sw"]
@@ -1126,26 +1178,26 @@ def seedsw_phase(m: dict, lr: dict, dev) -> dict:
         torch.cuda.synchronize()
         if build.LAUNCHES["seed_sw"] != n0 + 1:
             raise AssertionError(f"seed_sw [{name}]: not one launch")
-        err = seedsw_calls.max_abs_err(got, call.run(plain=True))
-        st = call.stage() if isinstance(call, seedsw_calls.FilterCall) \
-            else call
-        text = f"seed_sw [{name}] {st.shape}"
-        if isinstance(got, dict):
-            dropped = int((call.args["seeds"]["valid"] & ~got["valid"]).sum())
-            text += f": seeds dropped {dropped}"
+        want = call.run(plain=True)
+        err = seedsw_calls.max_abs_err(got, want)
+        dropped = int((call.args["seeds"]["valid"] & ~got["valid"]).sum())
+        text = f"seed_sw [{name}] {call.shape}: seeds dropped {dropped}"
         if name in recorded:
-            ms = st.kernel_ms()
-            plain_ms, _ = st.plain_ms()
-            n = st.counts()
+            ms = call.kernel_ms()
+            plain_ms, _ = call.plain_ms()
+            n = call.counts()
             bound_ms, bound_by = bound(n["read"] + n["written"], n["instr"])
-            text += (f"; scoring: cuda {ms:.4f} ms a launch in a CUDA graph, "
-                     f"plain {plain_ms:.1f} ms ({plain_ms / ms:.0f}x); "
-                     f"{n['lanes']} lanes need it, {n['cells']} DP cells; "
-                     f"bound {bound_ms:.5f} ms ({bound_by}), kernel at "
-                     f"{100 * bound_ms / ms:.2f}% of it")
+            first, _ = bound(n["read"] + n["written"], n["instr_first"])
+            text += (f"; the filter: cuda {ms:.4f} ms a call in a CUDA "
+                     f"graph, plain {plain_ms:.1f} ms ({plain_ms / ms:.0f}x); "
+                     f"{n['lanes']} lanes need the SW, {n['cells']} DP "
+                     f"cells; bound {bound_ms:.5f} ms ({bound_by}), kernel "
+                     f"at {100 * bound_ms / ms:.2f}% of it (the first "
+                     f"count's bound {first:.5f} ms, "
+                     f"{100 * first / ms:.2f}%)")
             rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=None, shape=f"{name}: {st.shape}")
+                              library_ms=None, shape=f"{name}: {call.shape}")
         log(f"{text}; max_abs_err={err}")
         if err != 0:
             raise AssertionError(f"seed_sw disagrees with plain on {name}")
@@ -1157,6 +1209,20 @@ def seedsw_phase(m: dict, lr: dict, dev) -> dict:
             f"{stage_line(clock)}; the batch "
             f"{sum(res['seconds'].values()):.4f} s")
     return dict(rows["long-read timed"], max_abs_err=0)
+
+
+def l2_round_trip_us(dev, lanes: int = L2_TRIP_LANES,
+                     steps: int = SEED_STEPS[0]) -> float:
+    """One dependent L2 round trip on this card, in microseconds:
+    ``probes.cu`` ``gather_chain`` (one row a step) over the main path's
+    Occ-table shape (OCC_MAIN: 71,875 x 12 int32, 3.45 MB, which stays in
+    L2), ``lanes`` lanes of ``steps`` dependent loads, a launch in a CUDA
+    graph, over its steps."""
+    tab, idx = make_table(OCC_MAIN, 0, dev)
+    mask = probes.chain_mask(OCC_MAIN.rows)
+    ms = graph_ms(lambda: probes.gather_chain_cuda(tab, idx[:lanes], steps,
+                                                   mask))
+    return 1e3 * ms / steps
 
 
 def fm_index_phase(m: dict, fmp: dict, lr: dict, i64: dict, ex: dict,
@@ -1198,6 +1264,8 @@ def fm_index_phase(m: dict, fmp: dict, lr: dict, i64: dict, ex: dict,
         tag = str(rdt).removeprefix("torch.")
         inputs += [(f"edge {n}, {tag}", c, False) for n, c in
                    fm_calls.edge_calls(es, fm, device=dev).items()]
+        inputs += [(f"edge {n}, {tag}", c, False) for n, c in
+                   fm_calls.group_calls(es, fm, device=dev).items()]
         for seed in FM_RANDOM_SEEDS:
             inputs += [(f"{n}, {tag}", c, True) for n, c in
                        fm_calls.random_calls(es, fm, seed, device=dev,
@@ -1207,6 +1275,9 @@ def fm_index_phase(m: dict, fmp: dict, lr: dict, i64: dict, ex: dict,
             inputs += [(f"edge {n}, past 2^31", c, False) for n, c in
                        fm_calls.edge_calls(es, fm_calls.shifted(fm),
                                            device=dev).items()]
+    trip = l2_round_trip_us(dev)
+    log(f"one dependent L2 round trip: {trip:.4f} us (gather_chain, "
+        f"{L2_TRIP_LANES} lanes on {OCC_MAIN.name})")
     rows = {k: {} for k in FM_LINES}
     for name, call, timed in inputs:
         got = call.run()
@@ -1224,10 +1295,16 @@ def fm_index_phase(m: dict, fmp: dict, lr: dict, i64: dict, ex: dict,
         bound_ms, bound_by = bound(n["table_bytes"] + n["io_bytes"],
                                    n["instr"])
         work = ", ".join(f"{k} {v}" for k, v in n.items())
+        floor = ""
+        if call.kind == "backward_search":
+            slow = int(fm_calls.search_steps(call)["steps"].max())
+            floor = (f"; latency floor {slow * trip / 1e3:.5f} ms (the "
+                     f"slowest read's {slow} steps x {trip:.4f} us), kernel "
+                     f"at {100 * slow * trip / 1e3 / ms:.2f}% of it")
         log(f"{call.kind} [{name}] {call.shape}: cuda {ms:.4f} ms a launch "
             f"in a CUDA graph; plain {plain_ms:.2f} ms ({plain_ms / ms:.0f}x)"
             f"; {work}; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
-            f"{100 * bound_ms / ms:.2f}% of it; max_abs_err={err}")
+            f"{100 * bound_ms / ms:.2f}% of it{floor}; max_abs_err={err}")
         rows[call.kind][name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, shape=f"{name}: {call.shape}")
@@ -1535,7 +1612,10 @@ def long_path(m: dict, card: str) -> dict:
                                    read_len=WIDE_LEN)
     build.reset_launches()
     t0 = time.time()
-    wide = [long_leg.run_batch(al, batch) for _ in range(2)]
+    sw_wide = []
+    with seedsw_calls.recording(sw_wide):
+        wide = [long_leg.run_batch(al, batch)]
+    wide.append(long_leg.run_batch(al, batch))
     log(f"wide reads ({WIDE_READS} x {WIDE_LEN} bp, twice): "
         f"{time.time() - t0:.2f} s; launches {dict(build.LAUNCHES)}")
     must_launch("wide reads", dict(build.LAUNCHES), kmer=False,
@@ -1546,24 +1626,27 @@ def long_path(m: dict, card: str) -> dict:
         raise AssertionError("wide reads: two runs differ")
     return dict(launches=launches, fm_calls=mc_calls, ch_calls=ch_calls,
                 ext_calls=ext_calls, timed_ext_call=timed_ext[0],
-                sw_calls=sw_calls, fmi_calls=fmi_calls,
+                sw_calls=sw_calls, sw_wide=sw_wide, fmi_calls=fmi_calls,
                 res_calls=res_calls, batch=timed[1])
 
 
-def huge_reads_path(m: dict) -> None:
+def huge_reads_path(m: dict) -> dict:
     """Reads past the SW ring layout's shared memory (18 kb and 25 kb) on
     the main path's index and Aligner, twice each: every step kernel
-    launches, sw_extend at its wide layout; truth; the same records."""
+    launches, sw_extend at its wide layout; truth; the same records.
+    Returns each batch's first seed-SW filter call by its kb."""
     al = m["al"]
+    sw = {}
     for n_reads, read_len, seed in HUGE_READS:
         what = f"{read_len // 1000} kb reads"
         sim, batch = long_leg.simulate(m["genome"], n_reads, seed,
                                        read_len=read_len)
         build.reset_launches()
-        ext = []
+        ext, flt = [], []
         t0 = time.time()
-        with extend_calls.recording(ext):
+        with extend_calls.recording(ext), seedsw_calls.recording(flt):
             runs = [long_leg.run_batch(al, batch)]
+        sw[read_len // 1000] = flt[0]
         runs.append(long_leg.run_batch(al, batch))
         huge_launches = dict(build.LAUNCHES)
         widths = sorted({c.args["codes"].shape[1] for c in ext})
@@ -1581,6 +1664,7 @@ def huge_reads_path(m: dict) -> None:
         truth_check(what, al, sim, batch, runs[0]["cols"], runs[0]["n_ovf"])
         if not cols_equal(runs[0]["cols"], runs[1]["cols"]):
             raise AssertionError(f"{what}: two runs differ")
+    return sw
 
 
 def pe_path(m: dict, card: str) -> dict:
@@ -2200,7 +2284,7 @@ def main() -> None:
     log(f"FM-seeded phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     lr = long_path(m, card)
-    huge_reads_path(m)
+    huge = huge_reads_path(m)
     log(f"long-read phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     fms = fm_machine_phase(m, fm, lr, dev)
@@ -2221,7 +2305,7 @@ def main() -> None:
     kms = kmer_phase(m, pe, i64, dev)
     log(f"kmer phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    sws = seedsw_phase(m, lr, dev)
+    sws = seedsw_phase(m, lr, huge, dev)
     log(f"seed-SW phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     fmi = fm_index_phase(m, fm, lr, i64, ex, dev)
@@ -2254,7 +2338,7 @@ def main() -> None:
                     launches=sum(x["kmer_seed"] for x in runs), **kms),
                dict(name="seed_sw", route="cuda",
                     source="bioseqdb_tpu_torch/csrc/seedsw.cu",
-                    replaces="bioseqdb_tpu/kernels/seedsw.py:56",
+                    replaces="bioseqdb_tpu/kernels/seedsw.py:99",
                     launches=sum(x["seed_sw"] for x in runs), **sws)]
     kernels += [dict(name=name, route="cuda",
                      source="bioseqdb_tpu_torch/csrc/chain.cu",

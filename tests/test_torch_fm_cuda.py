@@ -2,7 +2,7 @@
 twins on the card, every output exactly: ``sa_resolve`` and
 ``backward_search`` on ``tools/fm_calls.py``'s edge sets (masked lanes,
 the masked kernel's tile boundaries and a mask off a 16-byte boundary,
-ranks off the table), random inputs and an FM whose rank values lie past
+ranks off the table, the search's group cases), random inputs and an FM whose rank values lie past
 2^31, with int32 and int64 ranks; each call on CUDA tensors is one
 launch. ``resolve_seeds`` on the kernel's path waits on the host nowhere
 (``torch.cuda.set_sync_debug_mode("error")``) and equals the CPU's
@@ -54,6 +54,7 @@ def _check(call: fc.FmCall) -> dict:
 def test_kernels_equal_plain_on_edge_and_random_sets(es, rank):
     fm = kfm.FMDevice.from_host(es.idx, "cuda", rank_dtype=RANKS[rank])
     calls = fc.edge_calls(es, fm, device="cuda")
+    calls.update(fc.group_calls(es, fm, device="cuda"))
     for seed in (1, 2, 3):
         calls.update(fc.random_calls(es, fm, seed, device="cuda"))
     assert set(fc.TILE_CASES) <= set(calls)
@@ -66,7 +67,10 @@ def test_kernels_equal_plain_on_edge_and_random_sets(es, rank):
 def test_kernels_equal_plain_past_2_31(es):
     fm = fc.shifted(kfm.FMDevice.from_host(es.idx, "cuda",
                                            rank_dtype=torch.int64))
-    for name, call in fc.edge_calls(es, fm, device="cuda").items():
+    calls = fc.edge_calls(es, fm, device="cuda")
+    calls[fc.GROUP_CASES[0]] = fc.group_calls(es, fm, device="cuda")[
+        fc.GROUP_CASES[0]]
+    for name, call in calls.items():
         got = _check(call)
         key = "pos" if call.kind == "sa_resolve" else "hi"
         assert int(got[key].max()) >= 2 ** 31, name

@@ -28,6 +28,13 @@ run only on the card: ``tests/test_torch_fm_cuda.py``).
   aligned and the entry refuses as they are),
   random inputs and the calls a pipeline batch (full
   and exact mode) recorded; skipped without g++.
+- The search's group cases (``fm_calls.group_calls``: reads of 0 and 1
+  base and of 127-310, the width and past it, an N at the first and the
+  last column, intervals
+  emptied mid-read, steps whose lo and hi share an Occ row and steps
+  that read two): the plain twin equals the JAX package's
+  ``backward_search`` there, and the host build equals the twin, int32,
+  int64 and past 2^31.
 - Lane independence, the premise of a thread a lane.
 - Dispatch: on CPU tensors ``sa_resolve``, ``backward_search`` and
   ``resolve_seeds`` run the plain twins and never build or load a
@@ -229,6 +236,48 @@ def test_resolve_seeds_masked_route_on_a_recorded_call(recorded,
                 assert torch.equal(got[k], want[k]), (cap, k)
 
 
+@pytest.mark.parametrize("rank", list(RANKS))
+def test_plain_search_equals_jax_on_group_cases(es, fms, rank):
+    calls = fc.group_calls(es, fms[rank]).values()
+    codes = torch.cat([c.args["codes"] for c in calls])
+    lens = torch.cat([c.args["lens"] for c in calls])
+    lo, hi = kfm.backward_search_plain(fms[rank], codes, lens)
+    with jax.enable_x64(rank == "int64"):
+        want = jax.device_get(jfm.backward_search(
+            _jax_fm(es, rank), jnp.asarray(codes.numpy()),
+            jnp.asarray(lens.numpy())))
+    for w, got in zip(want, (lo, hi)):
+        assert got.dtype == fms[rank].rank_dtype
+        assert np.array_equal(np.asarray(w), got.numpy())
+
+
+def test_group_cases_hold_their_cases(es, fms):
+    calls = fc.group_calls(es, fms["int32"])
+    exact, ambig, mid = (calls[k] for k in fc.GROUP_CASES)
+    lens = exact.args["lens"]
+    assert set(fc.GROUP_LENS) <= set(lens.tolist())
+    assert exact.args["codes"].shape[1] == fc.GROUP_W
+    out = exact.run(plain=True)
+    n = out["hi"] - out["lo"]
+    assert (n[lens == 0] == 0).all()
+    assert ((n >= 1) | (lens == 0) | (lens > fc.GROUP_W)).all()
+    assert (n == 2).any()   # the repeat
+    for call in (ambig, mid):
+        out = call.run(plain=True)
+        assert (out["hi"] == 0).all() and (out["lo"] == 0).all()
+    codes = ambig.args["codes"]
+    L = ambig.args["lens"].long()
+    first = codes[:, 0] == 4
+    inside = (L >= 1) & (L <= fc.GROUP_W)
+    last = codes[torch.arange(len(L)), (L - 1).clamp(0, fc.GROUP_W - 1)] == 4
+    assert (first & inside).any() and (last & inside).any()
+    assert (first | last)[inside].all()
+    for call in calls.values():
+        n = fc.search_steps(call)
+        assert n["one"] > 0 and n["two"] > 0
+        assert int(n["steps"].max()) > 256
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     try:
@@ -257,6 +306,14 @@ def test_host_build_equals_plain(host_lib, es, fms, rank):
         if name.startswith("past 2^31"):
             key = "pos" if call.kind == "sa_resolve" else "hi"
             assert int(want[key].max()) >= 2 ** 31, name
+
+
+@pytest.mark.parametrize("rank", ["int32", "int64", "past 2^31"])
+def test_host_build_equals_plain_on_group_cases(host_lib, es, fms, rank):
+    fm = (fc.shifted(fms["int64"]) if rank == "past 2^31" else fms[rank])
+    for name, call in fc.group_calls(es, fm).items():
+        want = call.run(plain=True)
+        assert fc.max_abs_err(call.host(host_lib), want, call.kind) == 0, name
 
 
 def test_host_build_equals_plain_on_a_recorded_batch(host_lib, recorded):
@@ -432,6 +489,8 @@ def test_kernel_constants_equal_the_modules():
     assert consts["kLog2OccBlock"] == kfm.LOG2_OCC_BLOCK
     assert consts["kTile"] == fc.TILE and fc.WARP_LANES == 32 * fc.TILE
     assert consts["kLog2Major"] == kfm.LOG2_MAJOR
+    assert consts["kBsGroup"] == 2   # lo and hi, a lane each
+    assert fc.GROUP_W < max(fc.GROUP_LENS)
     assert set(build.EXACT_KERNELS) == {"sa_resolve", "backward_search"}
     for k in build.EXACT_KERNELS:
         assert f"LANE_ENTRY({k})" in src

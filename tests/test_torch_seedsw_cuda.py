@@ -1,11 +1,12 @@
 """The hand-written CUDA seed-SW kernel (csrc/seedsw.cu) equals its plain
 twin on the card: ``seed_sw_filter`` (valid and score) on
-``tools/seedsw_calls.py``'s edge filter calls and the kernel's scores on
-its hand-made windows, int32 and int64 ranks (int64 also past 2^31), and
-on a simulated long-read batch's recorded call; each call on CUDA
-tensors is one launch; and a long-read device step on the card launches
-it (a short-read one does not). Skips without a CUDA device. Imports no
-jax, so it runs on a card machine without it:
+``tools/seedsw_calls.py``'s edge, fold and random filter calls at each of
+its ``SCORINGS`` (the s16x2 body at the defaults and asymmetric gaps, the
+s32 body at ``WIDE``), int32 and int64 ranks (int64 also past 2^31), and
+on a simulated long-read batch's recorded call; each call on CUDA tensors
+is one launch; and a long-read device step on the card launches it (a
+short-read one does not). Skips without a CUDA device. Imports no jax, so
+it runs on a card machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_seedsw_cuda.py``."""
 
 import pytest
@@ -65,8 +66,9 @@ def test_long_read_step_launches_the_kernel(recorded):
 def test_kernel_equals_plain_on_a_recorded_batch(recorded):
     call = recorded[0]
     _check(call)
-    _check(call.stage())
-    assert call.stage().counts()["lanes"] > 1_000
+    for _, scores, mcw in sc.SCORINGS[1:]:
+        _check(sc.FilterCall(dict(call.args, **scores, min_chain_weight=mcw)))
+    assert call.counts()["lanes"] > 1_000
 
 
 @pytest.mark.parametrize("rank_dtype", list(DTYPES))
@@ -74,13 +76,24 @@ def test_kernel_equals_plain_on_edge_filter_calls(rank_dtype):
     _card()
     for _, call in sc.edge_calls(DTYPES[rank_dtype], "cuda"):
         _check(call)
-        _check(call.stage())
 
 
 @pytest.mark.parametrize("rank_dtype", list(DTYPES))
 def test_kernel_equals_plain_on_edge_windows(rank_dtype):
     _card()
-    for _, call in sc.edge_score_calls(DTYPES[rank_dtype], "cuda"):
+    calls = sc.random_calls(DTYPES[rank_dtype], 1, "cuda")
+    if rank_dtype == "int64":
+        calls += [(f"{n}, past 2^31", c.shifted()) for n, c in calls]
+    for _, call in calls:
         _check(call)
-        if rank_dtype == "int64":
-            _check(call.shifted())
+
+
+@pytest.mark.parametrize("rank_dtype", list(DTYPES))
+def test_both_bodies_equal_plain_on_fold_calls(rank_dtype):
+    _card()
+    rdt = DTYPES[rank_dtype]
+    calls = sc.edge_calls(rdt, "cuda") + sc.fold_calls(rdt, "cuda")
+    if rdt == torch.int64:
+        calls += [(f"{n}, past 2^31", c.shifted()) for n, c in calls]
+    for _, call in calls:
+        _check(call)
