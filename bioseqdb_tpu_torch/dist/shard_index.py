@@ -9,7 +9,12 @@ and the forward codes ``pac``; the small arrays (C counts, sampled SA,
 major checkpoints, reference offsets) are whole on every rank. Each rank
 answers every query against its own rows (rows it does not own count
 zero) and one ``all_reduce`` over the index group sums each value to its
-owner's (``kernels/fm.py`` ``group``). The tables never move.
+owner's (``kernels/fm.py`` ``group``). The tables never move. On the
+card the FM machine and the SA walk run each step as two launches of
+``csrc/fm_shard.cu`` with that ``all_reduce`` between them
+(``kernels/seed.py`` ``collect_seeds_sharded``, ``kernels/fm.py``
+``sa_walk_sharded``); the backward search, the seeds' expansion and the
+extension windows' fetch stay eager there.
 
 ``full_align_step_sharded`` runs the whole device pipeline (seeding,
 seed resolution, chaining, the chain filter, extension) over a ``data``
@@ -108,7 +113,9 @@ def backward_search_sharded(fms: FMSharded, codes: torch.Tensor,
 
 def sa_resolve_sharded(fms: FMSharded, ranks: torch.Tensor, mesh,
                        sa_interval: int = 32) -> torch.Tensor:
-    """Position-sampled SA resolution with sharded rank tables."""
+    """Position-sampled SA resolution with sharded rank tables: on CUDA
+    tensors ``csrc/fm_shard.cu``'s walk (a query, the all_reduce and an
+    apply a step), on CPU tensors the plain twin."""
     return kfm.sa_resolve(fms.fm, ranks, sa_interval,
                           group=mesh.get_group("index"))
 
@@ -127,8 +134,9 @@ def full_align_step_sharded(
     l_rep (+ mems with ``keep_mems``), as the JAX function returns them.
     The JAX caps: ``MAX_SEEDS``, ``MAX_CHAINS``, ``max_cand`` 16 and
     ``max_mem`` 16 up to 200 bases wide, else ``max_cand`` only when
-    given; the FM seeder without fetch sharing or the round-3 jump, and
-    no seed-SW filter."""
+    given; the FM seeder without fetch sharing or the round-3 jump (on
+    the card ``csrc/fm_shard.cu``'s query and apply a step), and no
+    seed-SW filter."""
     group = mesh.get_group("index")
     fm = fms.fm
     rows = dmesh.local_rows(codes.shape[0], mesh)

@@ -28,10 +28,14 @@ BUILD_DIR = PKG / "_build"
 SOURCES = {"sw_extend": "sw_extend.cu", "fm_seed": "fm_seed.cu",
            "kmer": "kmer.cu", "seedsw": "seedsw.cu", "chain": "chain.cu",
            "extend": "extend.cu", "fm": "fm.cu", "resolve": "resolve.cu",
-           "probes": "probes.cu"}
+           "fm_shard": "fm_shard.cu", "probes": "probes.cu"}
 EXTEND_KERNELS = ("extend_setup", "extend_scan", "extend_windows",
                   "extend_merge", "extend_seedcov")
 RESOLVE_KERNELS = ("resolve_expand", "resolve_finish")
+# an index mesh's FM machine and SA walk: a query and an apply launch a
+# step, its all_reduce between them
+SHARD_KERNELS = ("fm_shard_query", "fm_shard_apply", "sa_shard_query",
+                 "sa_shard_apply")
 KERNELS = ("sw_extend",                            # sw_extend.cu
            "fm_seed",                              # fm_seed.cu
            "kmer_seed",                            # kmer.cu
@@ -40,6 +44,7 @@ KERNELS = ("sw_extend",                            # sw_extend.cu
            *EXTEND_KERNELS,                        # extend.cu
            "sa_resolve", "backward_search",        # fm.cu
            *RESOLVE_KERNELS,                       # resolve.cu
+           *SHARD_KERNELS,                         # fm_shard.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
 # the kernels a full-pipeline device step launches: kmer_seed on the kmer
 # seeder's batches (W <= 320), seed_sw on long reads only
@@ -48,8 +53,10 @@ STEP_KERNELS = ("sw_extend", "fm_seed", "kmer_seed", "seed_sw",
                 *RESOLVE_KERNELS)
 # the kernels an exact-mode step launches
 EXACT_KERNELS = ("backward_search", "sa_resolve")
-# the kernels a user's path launches (every kernel but the probes)
-PATH_KERNELS = STEP_KERNELS + ("backward_search",)
+# the kernels a user's path launches (every kernel but the probes): an
+# index mesh's step launches the shard kernels in place of fm_seed,
+# sa_resolve and the resolve kernels
+PATH_KERNELS = STEP_KERNELS + ("backward_search",) + SHARD_KERNELS
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -59,10 +59,14 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     walking lanes where the cap may cut some, and one launch of
     ``resolve_finish``, which applies the cap; no host wait. Elsewhere
     the plain twin ``resolve_seeds_plain``: on CPU tensors, and under a
-    group by an explicit branch: there the walk is an owner sum a step
-    (``kernels/fm.py``), so it takes the lanes under the cap alone,
-    compacted by eager ops that need the cap's mask before the walk,
-    which the expansion kernel does not give. Both give the same dict."""
+    group by an explicit branch: there the walk is an owner sum a step,
+    so it takes the lanes under the cap alone, compacted by eager ops
+    that need the cap's mask before the walk, which the expansion kernel
+    does not give. Under a group on CUDA tensors that walk is
+    ``kernels/fm.py`` ``sa_walk_sharded`` (two launches of
+    ``csrc/fm_shard.cu`` a step, its all_reduce between them); the
+    expansion and the finish stay eager there. Both give the same
+    dict."""
     if not mems.is_cuda or group is not None:
         return resolve_seeds_plain(fm, mems, n_mem, max_occ, max_seeds,
                                    sa_interval, compact_cap, group)

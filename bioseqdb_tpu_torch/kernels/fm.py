@@ -29,10 +29,13 @@ kernel launches.
 The two device loops here, ``sa_resolve`` and ``backward_search``, are
 one launch each of ``csrc/fm.cu``'s kernels on CUDA tensors without a
 group (``kernels/fm_cuda.py``: a thread a lane runs every step), which
-raise rather than fall back; on CPU tensors, and under a group, whose
-every step is an owner sum, they run their plain twins
+raise rather than fall back; on CPU tensors they run their plain twins
 ``sa_resolve_plain`` and ``backward_search_plain``, the loops as eager
-ops, bit-equal to the kernels.
+ops, bit-equal to the kernels. Under a group every step is an owner sum,
+an ``all_reduce`` that no launch holds: on CUDA tensors ``sa_resolve``
+then runs ``sa_walk_sharded``, each step two launches of
+``csrc/fm_shard.cu`` (``kernels/fm_shard_cuda.py``) around the
+``all_reduce``; ``backward_search`` keeps its plain twin there.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch.distributed as dist
 
 from bioseqdb_tpu_torch.index import layout
 from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK, FMIndex
+from bioseqdb_tpu_torch.kernels import fm_shard_cuda as fsc
 from bioseqdb_tpu_torch.kernels.fm_cuda import (backward_search_cuda,
                                                 sa_resolve_cuda)
 
@@ -424,15 +428,49 @@ def sa_resolve(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32,
     ``sa_interval - 1`` LF steps to a marked rank. ``mask`` (bool, the
     ranks' shape): only its lanes walk, the others give 0. On CUDA
     tensors without a group one launch of ``csrc/fm.cu``'s kernel
-    (``fm_cuda``), which raises rather than fall back; on CPU tensors,
-    and under a group (every step an owner sum, which no launch holds),
-    the plain twin."""
+    (``fm_cuda``), under a group ``sa_walk_sharded`` (two launches of
+    ``csrc/fm_shard.cu`` around each step's owner sum), both raising
+    rather than falling back; on CPU tensors the plain twin."""
     r = ranks.to(fm.rank_dtype)
-    if r.device.type != "cuda" or group is not None:
+    if r.device.type != "cuda":
         return sa_resolve_plain(fm, r, sa_interval, group, mask)
+    if group is not None:
+        return sa_walk_sharded(fm, r, sa_interval, group, mask)
     m = None if mask is None else mask.reshape(-1).contiguous()
     return sa_resolve_cuda(fm, r.reshape(-1).contiguous(), sa_interval,
                            m).reshape(r.shape)
+
+
+def sa_walk_sharded(fm: FMDevice, ranks: torch.Tensor, sa_interval: int,
+                    group, mask: torch.Tensor | None = None,
+                    entries: dict | None = None) -> torch.Tensor:
+    """``sa_resolve`` under an index group on the kernels of
+    ``csrc/fm_shard.cu``: ``sa_interval - 1`` steps over every lane, each
+    a query launch (this rank's mark-bit and LF partials), the
+    ``all_reduce`` of ``sa_resolve_plain``'s int64 [2, n] buffer and an
+    apply launch (the LF step of the unmarked lanes); then the slot's
+    round (the mark words' and the count's partials, int32 [2, n]; the
+    sample plus the steps, 0 off ``mask``). ``entries``:
+    ``fm_shard_cuda.card_entries()`` (the default, on CUDA tensors) or a
+    host build's. Bit-equal to ``sa_resolve_plain(..., group)``, with the
+    same ``all_reduce`` calls and bytes."""
+    entries = entries or fsc.card_entries()
+    shard = dist.get_rank(group)
+    r = ranks.to(fm.rank_dtype).reshape(-1).clone()
+    n, dev = r.shape[0], r.device
+    steps = torch.zeros_like(r)
+    buf = torch.empty((2, n), dtype=torch.int64, device=dev)
+    args = fsc.pack(fsc.sa_args(fm, r, steps, buf, 0, shard))
+    for _ in range(sa_interval - 1):
+        fsc.owner_sum_step(entries, "sa_shard", args, n, dev,
+                           lambda: _all_reduce(buf, group))
+    m = None if mask is None else mask.reshape(-1).contiguous()
+    pos = torch.empty_like(r)
+    slot = torch.empty((2, n), dtype=torch.int32, device=dev)
+    args = fsc.pack(fsc.sa_args(fm, r, steps, slot, 1, shard, m, pos))
+    fsc.owner_sum_step(entries, "sa_shard", args, n, dev,
+                       lambda: _all_reduce(slot, group))
+    return pos.reshape(ranks.shape)
 
 
 def sa_resolve_plain(fm: FMDevice, ranks: torch.Tensor, sa_interval: int = 32,

@@ -14,8 +14,12 @@ LAST-like pass); every step performs one FMD extension. The JAX
   every ``CHUNK`` steps and runs each chunk on the live lanes only.
 Lanes are independent and a finished lane's step changes nothing, so
 both give the same result. ``collect_seeds_device`` picks the kernel on
-CUDA tensors and the plain machine on CPU tensors; a sharded index
-(``group``) runs the plain machine on any device.
+CUDA tensors and the plain machine on CPU tensors. On a sharded index
+(``group``) every step's occ query is an owner sum, an ``all_reduce``
+that no launch can hold: on CUDA tensors each step is then two launches
+of ``csrc/fm_shard.cu`` (``kernels/fm_shard_cuda.py``) with the
+``all_reduce`` between them, in the plain machine's own host loop
+(``collect_seeds_sharded``); on CPU tensors the plain machine.
 
 Dropped from the TPU version, with unchanged results: multi-candidate
 columns (``kcand > 1``), quad rows and the fetch sharing itself. The
@@ -46,10 +50,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from bioseqdb_tpu_torch.index.fmindex import MAJOR_BLOCKS, OCC_BLOCK
 from bioseqdb_tpu_torch.index.layout import OCT_BLOCKS
 from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels import fm_shard_cuda as fsc
 from bioseqdb_tpu_torch.kernels.fm_seed_cuda import fm_seed_cuda
 from bioseqdb_tpu_torch.kernels.rows import pick_row, put_row
 
@@ -196,13 +202,84 @@ def collect_seeds_device(
     occ query is an owner sum over the group, and the machine is the JAX
     machine without fetch sharing: no split-row stall steps, the budget
     10 * W + 256, no jump. Every step's owner sum is an ``all_reduce``
-    that no single launch can hold, so a group runs the plain machine on
-    any device. Every rank of the group holds the same reads, so the
-    live-lane compaction picks the same lanes on each."""
-    kernel = codes.device.type == "cuda" and group is None
+    that no single launch can hold: on CUDA tensors each step is two
+    launches of ``csrc/fm_shard.cu`` around it (``collect_seeds_sharded``),
+    which raise rather than fall back; on CPU tensors the plain machine.
+    Every rank of the group holds the same reads, so the live-lane
+    compaction picks the same lanes on each."""
+    if codes.device.type == "cuda" and group is not None:
+        return collect_seeds_sharded(
+            fm, codes, lens, min_seed_len, split_len, split_width,
+            max_mem_intv, max_cand, max_mem, max_iters, entry_reseed,
+            reseed_entry, group)
+    kernel = codes.device.type == "cuda"
     return _collect(kernel, fm, codes, lens, min_seed_len, split_len,
                     split_width, max_mem_intv, max_cand, max_mem, max_iters,
                     entry_reseed, reseed_entry, jump, group)
+
+
+def collect_seeds_sharded(
+    fm: kfm.FMDevice, codes: torch.Tensor, lens: torch.Tensor,
+    min_seed_len: int, split_len: int, split_width: int, max_mem_intv: int,
+    max_cand: int = 24, max_mem: int = 48, max_iters: int = 0,
+    entry_reseed: bool = False, reseed_entry: dict | None = None,
+    group=None, entries: dict | None = None,
+) -> dict:
+    """``collect_seeds_device`` under an index group on the kernels of
+    ``csrc/fm_shard.cu``: the plain machine's host loop (``_machine_loop``:
+    the live lanes compacted every CHUNK steps), each step a query launch
+    (the budget, the pivot and this rank's occ partials at a and a + s),
+    the ``all_reduce`` of the plain machine's owner-sum buffer over
+    ``group`` and an apply launch (the extension and the rest of the
+    step). ``entries``: ``fm_shard_cuda.card_entries()`` (the default, on
+    CUDA tensors) or ``host_entries(lib)``, a host build's, on CPU
+    tensors. Bit-equal to ``collect_seeds_plain(..., group=group)``, with
+    the same ``all_reduce`` calls and bytes."""
+    if group is None:
+        raise ValueError("collect_seeds_sharded: needs the index group")
+    st, kw = _sharded_setup(fm, codes, lens, min_seed_len, split_len,
+                            split_width, max_mem_intv, max_cand, max_mem,
+                            max_iters, entry_reseed, reseed_entry, group)
+    entries = entries or fsc.card_entries()
+    shard = dist.get_rank(group)
+    dev = codes.device
+    chunk = {}    # a chunk's lanes: the kernels update them in place
+
+    def step(sub):
+        if chunk.get("sub") is not sub:
+            buf, args = _chunk_args(fm, sub, shard, kw)
+            chunk.update(sub=sub, B=sub["phase"].shape[0], buf=buf,
+                         args=args)
+        fsc.owner_sum_step(entries, "fm_shard", chunk["args"], chunk["B"],
+                           dev, lambda: kfm._all_reduce(chunk["buf"], group))
+        return sub
+
+    return _result(_machine_loop(st, step))
+
+
+def _sharded_setup(
+    fm: kfm.FMDevice, codes: torch.Tensor, lens: torch.Tensor,
+    min_seed_len: int, split_len: int, split_width: int, max_mem_intv: int,
+    max_cand: int = 24, max_mem: int = 48, max_iters: int = 0,
+    entry_reseed: bool = False, reseed_entry: dict | None = None,
+    group=None,
+) -> tuple[dict, dict]:
+    """``collect_seeds_sharded``'s set-up: (the machine's state of every
+    lane, ``fm_shard_cuda.machine_args``' keyword arguments)."""
+    st, _, kw = _prepare(fm, codes, lens, min_seed_len, split_len,
+                         split_width, max_mem_intv, max_cand, max_mem,
+                         max_iters, entry_reseed, reseed_entry, None, group)
+    return _machine_state(fm, st, max_cand), kw
+
+
+def _chunk_args(fm: kfm.FMDevice, sub: dict, shard: int, kw: dict):
+    """A chunk's owner-sum buffer (int32 [1, 2B, 4], the plain machine's)
+    and the kernels' packed argument array for its lanes ``sub`` on rank
+    ``shard``."""
+    B = sub["phase"].shape[0]
+    buf = torch.empty((1, 2 * B, 4), dtype=torch.int32,
+                      device=sub["phase"].device)
+    return buf, fsc.pack(fsc.machine_args(fm, sub, buf, shard, **kw))
 
 
 def collect_seeds_plain(
@@ -315,7 +392,6 @@ def _plain_machine(fm: kfm.FMDevice, st: dict, *, J: int,
     Returns the final state."""
     B, W = st["codes"].shape
     P, M = max_cand, st["mem_k"].shape[1]
-    dev = st["codes"].device
     i32 = torch.int32
     rdt = fm.rank_dtype
     share = group is None
@@ -323,24 +399,11 @@ def _plain_machine(fm: kfm.FMDevice, st: dict, *, J: int,
     primary = fm.primary
     L2 = fm.L2
 
-    z = lambda *s: torch.zeros(*s, dtype=i32, device=dev)
-    zr = lambda *s: torch.zeros(*s, dtype=rdt, device=dev)
-    st = dict(
-        st, codes=st["codes"].to(torch.int64), x=z(B), i=z(B),
-        ik=zr(B, 3),                     # current bi-interval (k, l, s)
-        ik_end=z(B),
-        cand=zr(B, P, 3), n_cand=z(B),   # candidates (k, s, end)
-        prev=zr(B, P, 3), n_prev=z(B),
-        curr=zr(B, P, 3), n_curr=z(B),
-        j=z(B), ret=z(B),
-        rev1=torch.zeros(B, dtype=torch.bool, device=dev),
-        min_intv=torch.ones(B, dtype=rdt, device=dev),
-        r2i=z(B),
-        last_start=torch.full((B,), W + 1, dtype=i32, device=dev),
-    )
+    st = _machine_state(fm, st, P)
+    st["codes"] = st["codes"].to(torch.int64)
     if use_jump:
         st["jkey"] = _jump_keys(st["codes"], J)
-        st["jkey_pend"] = z(B)      # the key latched at the pivot
+        st["jkey_pend"] = torch.zeros_like(st["x"])  # latched at the pivot
 
     def qat(s, pos):
         """Code at per-lane column ``pos`` (clamped): 0..3 base, >= 4
@@ -598,15 +661,55 @@ def _plain_machine(fm: kfm.FMDevice, st: dict, *, J: int,
         return {k: (v.to(dtypes[k]) if v.dtype != dtypes[k] else v)
                 for k, v in new.items()}
 
+    return _machine_loop(st, body)
+
+
+def _machine_state(fm: kfm.FMDevice, st: dict, P: int) -> dict:
+    """``_prepare``'s state with the machine's working state added: the
+    bi-interval, the candidate stacks of ``P`` rows and the pass
+    state."""
+    B, W = st["codes"].shape
+    dev = st["codes"].device
+    i32 = torch.int32
+    rdt = fm.rank_dtype
+    z = lambda *s: torch.zeros(*s, dtype=i32, device=dev)
+    zr = lambda *s: torch.zeros(*s, dtype=rdt, device=dev)
+    return dict(
+        st, x=z(B), i=z(B),
+        ik=zr(B, 3),                     # current bi-interval (k, l, s)
+        ik_end=z(B),
+        cand=zr(B, P, 3), n_cand=z(B),   # candidates (k, s, end)
+        prev=zr(B, P, 3), n_prev=z(B),
+        curr=zr(B, P, 3), n_curr=z(B),
+        j=z(B), ret=z(B),
+        rev1=torch.zeros(B, dtype=torch.bool, device=dev),
+        min_intv=torch.ones(B, dtype=rdt, device=dev),
+        r2i=z(B),
+        last_start=torch.full((B,), W + 1, dtype=i32, device=dev),
+    )
+
+
+def _machine_loop(st: dict, step) -> dict:
+    """Run the machine's steps to the end: the live lanes (by one
+    ``nonzero``) every CHUNK steps, their state gathered, ``step`` (sub
+    state -> sub state) taken CHUNK times, the state scattered back.
+    Every rank of an index group holds the same reads and gets the same
+    sums, so the compaction picks the same lanes on each. Returns the
+    final state."""
     st = {k: v.clone() for k, v in st.items()}  # updated in place below
     while True:
-        live = torch.nonzero(st["phase"] != PH_DONE)[:, 0]
+        live, sub = _live(st)
         if live.numel() == 0:
             break
-        sub = {k: v[live] for k, v in st.items()}
         for _ in range(CHUNK):
-            sub = body(sub)
+            sub = step(sub)
         for k, v in sub.items():
             st[k][live] = v
-
     return st
+
+
+def _live(st: dict) -> tuple[torch.Tensor, dict]:
+    """The lanes of ``st`` that are not done (one ``nonzero``) and their
+    state gathered: a chunk of ``_machine_loop``."""
+    live = torch.nonzero(st["phase"] != PH_DONE)[:, 0]
+    return live, {k: v[live] for k, v in st.items()}

@@ -86,6 +86,10 @@ def _job(al: Aligner, job: dict, rank: int) -> dict:
         return dict(results=al.align_pairs(*batch))
     if kind == "columns":
         return long_leg.run_batch(al, batch, finalize=rank == 0)
+    if kind == "shard_check":
+        from bioseqdb_tpu_torch.tools import shard_calls
+
+        return dict(shard=shard_calls.shard_check(al, batch))
     raise ValueError(f"job kind {kind!r}")
 
 
@@ -118,7 +122,7 @@ def _cell(rank: int, device_type: str, shape, names, idx, jobs: list
         kfm.reset_collectives()
         rows.append(r if rank == 0 else dict(
             {k: r[k] for k in build.PATH_KERNELS}, stages=r.get("stages"),
-            collectives=r.get("collectives")))
+            collectives=r.get("collectives"), shard=r.get("shard")))
     return dict(jobs=rows, build_s=built)
 
 
@@ -154,7 +158,10 @@ def run_tasks(rank: int, world_size: int, device_type: str, tasks: list
       jobs (``job["mode"]``, default full; ``job["seeder"]``), then each
       job: ``kind`` ``regions`` (``device_regions``), ``align``
       (``align_batch``), ``pairs`` (``align_pairs`` of a batch pair) or
-      ``columns`` (``long_leg.run_batch``, finalized on rank 0); with
+      ``columns`` (``long_leg.run_batch``, finalized on rank 0) or, on
+      an index mesh, ``shard_check`` (``shard_calls.shard_check``: the
+      step's FM machine calls and SA walks, recorded, on the kernels and
+      on their plain twins, clocked; every rank returns it); with
       ``job["clock"]`` under ``long_leg.stage_clock`` and with the owner
       sums timed. Rank 0 returns the jobs' results; every rank the
       launches of each ``build.PATH_KERNELS`` kernel and

@@ -11,7 +11,9 @@
    ``extend_scan``, ``extend_windows``, ``extend_merge`` and
    ``extend_seedcov`` (``extend.cu``), ``sa_resolve`` and
    ``backward_search`` (``fm.cu``), ``resolve_expand`` and
-   ``resolve_finish`` (``resolve.cu``) and the probes. Every phase that
+   ``resolve_finish`` (``resolve.cu``), the index mesh's
+   ``fm_shard_query``, ``fm_shard_apply``, ``sa_shard_query`` and
+   ``sa_shard_apply`` (``fm_shard.cu``) and the probes. Every phase that
    runs the full pipeline on one device (main path, PE, FM-seeded, long
    reads, int64, API, the CLI's full-mode ``align`` commands) must launch
    every step kernel of its path in its counted window (``sa_resolve``,
@@ -324,11 +326,25 @@
    ``extend_seedcov`` and ``extend_setup`` in both runs, ``fm_seed``,
    ``extend_windows``, ``kmer_seed``, ``sa_resolve``, ``resolve_expand``
    and ``resolve_finish`` too on the data mesh and never on an index mesh
-   (the FM machine, the windows, the SA walk and the seeds' resolution
-   stay plain there, and its FM seeder has no kmer stage), ``seed_sw``
-   (short reads) and ``backward_search`` on no rank
-   (counts zeroed just before each job and read just after, in each
-   rank; the unclocked runs' go on the kernels line);
+   (its FM machine and SA walk take the shard kernels, its windows and
+   its seeds' expansion and finish stay plain, and its FM seeder has no
+   kmer stage), ``fm_shard_query``, ``fm_shard_apply``,
+   ``sa_shard_query`` and ``sa_shard_apply`` on every rank of an index
+   mesh and never on the data mesh, ``seed_sw`` (short reads) and
+   ``backward_search`` on no rank (counts zeroed just before each job
+   and read just after, in each rank; the unclocked runs' go on the
+   kernels line). The ``index`` 2 cell then records the FM machine
+   calls and SA walks of the whole timed batch (16,384 reads;
+   ``tools/shard_calls.py`` ``shard_check``) and runs each in every
+   rank on the shard kernels and on its plain twin under the group
+   (each walk also under a lane mask): all outputs bit-equal and the
+   all_reduce calls and bytes equal; it prints each one's steps, each
+   launch's device ms a step and the all_reduce's (CUDA events around
+   each on a stream the blocking all_reduce left idle, so a launch's
+   include its host submit), each kernel's ms a launch in a CUDA graph
+   of 20 (the call's first chunk, or the walk's LF step) beside its
+   bound, and the plain twin's seconds (the walk's warmed, then timed
+   three times);
 13. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
@@ -346,9 +362,14 @@
    batch's, the extension kernels' the main path's call with each
    kernel's launches summed, ``sa_resolve``'s the main path's walk,
    ``backward_search``'s the exact step's, ``resolve_expand``'s and
-   ``resolve_finish``'s the main path's call; the exact step's and the
-   dist phase's exact run's launches count too), then the device line as
-   the last line.
+   ``resolve_finish``'s the main path's call; the shard kernels' the
+   ``index`` 2 cell's check, rank 0's first machine call and walk: ms a
+   launch in a CUDA graph, the plain twin's ms a whole step outside its
+   all_reduce (the machine call's; the median over every walk's timed
+   runs, masked and unmasked), the bound of the bytes that launch must
+   move (``shard_calls.machine_bytes`` / ``walk_bytes``); the exact step's
+   and the dist phase's exact run's launches count too), then the
+   device line as the last line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``kmer_seed``,
@@ -441,6 +462,10 @@ WIDE_READS, WIDE_LEN, WIDE_SEED = 64, 8000, 302   # long_path's wide batch
 # huge_reads_path's reads past the SW ring layout: (reads, length, seed)
 HUGE_READS = ((16, 18000, 303), (16, 25000, 304))
 DIST_GRID_READS = 4096    # the data x index cell's batch
+# the TPU loops the index mesh's kernels replace: the FM machine's owner
+# sums under shard_axis, the SA walk's loop
+SHARD_LINES = dict(fm_shard_query="seed.py:736", fm_shard_apply="seed.py:736",
+                   sa_shard_query="fm.py:536", sa_shard_apply="fm.py:536")
 PROFILE_READS = 2048
 QUAL = "I"   # the base quality written to every FASTQ record
 # chaining: a valid seed's trip issues at least its five loads, the
@@ -2082,24 +2107,95 @@ def dist_line(what: str, timed: dict, clocked: dict, n: int, backend: str,
         f"the clocked step)")
 
 
+def shard_rows(what: str, res: list, job: int, card: str) -> dict:
+    """The index cell's ``shard_check`` job (``tools/shard_calls.py``):
+    in every rank, each recorded FM machine call and SA walk on the
+    kernels bit-equal to its plain twin under the group, with equal
+    all_reduce calls and bytes; logs each one's steps and its split a
+    step (each launch's device ms, the all_reduce's); returns rank 0's
+    rows and the median plain walk step (``walk_plain_ms``)."""
+    for r in res:
+        sh = r["tasks"][0]["jobs"][job]["shard"]
+        rows = sh["machine"] + sh["walks"]
+        for row in rows:
+            kind = "machine" if "width" in row else "walk"
+            names = [n for n in build.SHARD_KERNELS if n in row]
+            log(f"  {what} rank {r['rank']} {kind} ({row['lanes']} lanes"
+                + (f", W {row['width']}" if kind == "machine" else
+                   f", masked {row['masked']}")
+                + f") on {card}: {row['steps']} steps, "
+                + ", ".join(f"{n} {row[n]['ms']:.4f} ms" for n in names)
+                + f", all_reduce {row['all_reduce_ms_per_step']:.4f} ms a "
+                f"step (CUDA events around each on an idle stream: a "
+                f"launch's include its host submit); "
+                + "".join(f"{n} {g['ms']:.4f} ms a launch in a CUDA graph "
+                          f"({g['lanes']} lanes, bound "
+                          f"{bound(g['bytes'], 0)[0]:.6f} ms); "
+                          for n, g in row.get("graph", {}).items())
+                + f"kernels {row['kernel_s']:.3f} s, plain "
+                f"twin {row['plain_s']:.3f} s ({row['plain_ms_per_step']:.4f}"
+                f" ms a whole step outside its all_reduce, runs "
+                + ", ".join(f"{t:.4f}" for t in row["plain_step_ms"])
+                + " ms, "
+                f"{row['plain_reduce_s']:.3f} s in it); equal {row['equal']}"
+                f", all_reduce calls {row['steps']} / {row['plain_steps']}, "
+                f"bytes {row['bytes']} / {row['plain_bytes']}")
+            if (not row["equal"] or row["steps"] != row["plain_steps"]
+                    or row["bytes"] != row["plain_bytes"]):
+                raise AssertionError(f"{what}: a shard kernel pair differs "
+                                     f"from its plain twin: {row}")
+        if not sh["machine"] or not sh["walks"]:
+            raise AssertionError(f"{what}: no machine call or walk recorded")
+    sh = res[0]["tasks"][0]["jobs"][job]["shard"]
+    return dict(machine=sh["machine"][0], walk=sh["walks"][0],
+                walk_plain_ms=sh["walk_plain_ms"],
+                err=max(row["max_abs_err"] for r in res for row in
+                        r["tasks"][0]["jobs"][job]["shard"]["machine"]
+                        + r["tasks"][0]["jobs"][job]["shard"]["walks"]))
+
+
+def shard_entry(name: str, shard: dict, launches: int) -> dict:
+    """The kernels line's entry of shard kernel ``name`` from the index
+    cell's check (rank 0's first machine call or walk): device ms a
+    launch in a CUDA graph (its first chunk's lanes, or the walk's LF
+    step), the plain twin's ms a whole step outside its all_reduce (the
+    work of both launches of the step: the machine call's, or the median
+    over the walks' timed runs), the bound of the bytes that launch must
+    move."""
+    machine = name.startswith("fm")
+    row = shard["machine" if machine else "walk"]
+    k = row["graph"][name]
+    bound_ms, bound_by = bound(k["bytes"], 0)
+    return dict(name=name, route="cuda",
+                source="bioseqdb_tpu_torch/csrc/fm_shard.cu",
+                replaces=f"bioseqdb_tpu/kernels/{SHARD_LINES[name]}",
+                launches=launches, max_abs_err=shard["err"], ms=k["ms"],
+                plain_ms=(row["plain_ms_per_step"] if machine
+                          else shard["walk_plain_ms"]), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 def dist_path(m: dict, fmp: dict, ex: dict, card: str,
               device_type: str = "cuda", grid_reads: int = DIST_GRID_READS
-              ) -> dict:
+              ) -> tuple[dict, dict]:
     """The dist phase: ranks spawned through ``dist/launch.py`` running
     ``tools/dist_leg.py``'s ``run_tasks`` on the main path's index. Each
     cell runs its batch clocked (the stage split and the collectives;
     also the ranks' warm-up), then unclocked (reads/s, the records);
     returns the step kernels' launches of the unclocked runs, every rank
     summed (each rank's counts zeroed just before a job and read just
-    after). Every rank launches ``sw_extend``, ``chain_seeds``,
-    ``filter_chains``, ``extend_scan``, ``extend_merge`` and
-    ``extend_seedcov`` and ``extend_setup`` in both runs; ``fm_seed``,
-    ``extend_windows``, ``kmer_seed``, ``sa_resolve``, ``resolve_expand``
-    and ``resolve_finish`` too on a data mesh, and never on an index mesh
-    (their owner sums keep the FM machine, the windows and the seeds'
-    resolution plain, and the mesh's
-    FM seeder has no kmer stage); ``seed_sw`` on no rank (short
-    reads)."""
+    after), and the index cell's shard check (``shard_rows``). Every
+    rank launches ``sw_extend``, ``chain_seeds``, ``filter_chains``,
+    ``extend_scan``, ``extend_merge`` and ``extend_seedcov`` and
+    ``extend_setup`` in both runs; ``fm_seed``, ``extend_windows``,
+    ``kmer_seed``, ``sa_resolve``, ``resolve_expand`` and
+    ``resolve_finish`` too on a data mesh, and never on an index mesh
+    (its FM machine and SA walk take the shard kernels, its windows'
+    and its seeds' resolution stay plain, and its FM seeder has no kmer
+    stage); the shard kernels (``build.SHARD_KERNELS``) on every rank of
+    an index mesh and never on a data mesh; ``seed_sw`` on no rank
+    (short reads). The index cell then runs ``shard_check`` on the
+    whole timed batch."""
     idx, batch = m["idx"], m["batches"][1]
     grid = dist_leg.head(batch, grid_reads)
     runs = lambda b: [dict(kind="regions", batch=b, clock=True),
@@ -2107,10 +2203,12 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
     cells = [
         ("data-parallel", (2,), ("data",),
          runs(batch) + [dict(kind="align", batch=ex["batch"], mode="exact")]),
-        ("index-sharded", (2,), ("index",), runs(batch)),
+        ("index-sharded", (2,), ("index",),
+         runs(batch) + [dict(kind="shard_check", batch=batch)]),
         ("data x index", (2, 2), ("data", "index"), runs(grid)),
     ]
     launches = {k: 0 for k in build.PATH_KERNELS}
+    shard = None
     for what, shape, names, jobs in cells:
         t0 = time.time()
         res, backend = dist_leg.spawn_tasks(
@@ -2123,18 +2221,25 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         for k, job in enumerate(jobs[:2]):
             per_rank = {n: [r["tasks"][0]["jobs"][k][n] for r in res]
                         for n in launches}
-            # the FM machine, the windows and the SA walk stay plain on an
-            # index mesh (each owner sum is a collective no launch holds),
-            # whose FM seeder has no kmer stage; no short read runs the
-            # seed-SW, and no full step the backward search
+            # an index mesh's FM machine and SA walk take the shard
+            # kernels (a query, the all_reduce and an apply a step); its
+            # windows and its seeds' resolution stay plain, and its FM
+            # seeder has no kmer stage; no short read runs the seed-SW,
+            # and no full step the backward search
             mesh_plain = ("fm_seed", "extend_windows", "kmer_seed",
                           "sa_resolve", *build.RESOLVE_KERNELS)
             never = ("seed_sw", "backward_search")
-            plain_ok = all(min(per_rank[n]) > 0 if names == ("data",)
+            data = names == ("data",)
+            plain_ok = all(min(per_rank[n]) > 0 if data
                            else max(per_rank[n]) == 0 for n in mesh_plain)
-            if (not plain_ok or max(max(per_rank[n]) for n in never) > 0
+            shard_ok = all(max(per_rank[n]) == 0 if data
+                           else min(per_rank[n]) > 0
+                           for n in build.SHARD_KERNELS)
+            if (not plain_ok or not shard_ok
+                    or max(max(per_rank[n]) for n in never) > 0
                     or min(min(per_rank[n]) for n in launches
-                           if n not in (*mesh_plain, *never)) <= 0):
+                           if n not in (*mesh_plain, *never,
+                                        *build.SHARD_KERNELS)) <= 0):
                 raise AssertionError(f"{what}: launches by rank in job {k}: "
                                      f"{per_rank}")
             if job.get("timed"):
@@ -2171,11 +2276,13 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         else:
             dist_records(what, m, job, fmp, b)
             al = fmp["al"]
+            if names == ("index",):
+                shard = shard_rows(what, res, 2, card)
         sim = m["sims"][1]
         sim = dataclasses.replace(sim, positions=sim.positions[: b.n],
                                   strands=sim.strands[: b.n])
         truth_check(what, al, sim, b, job["cols"], job["n_ovf"])
-    return launches
+    return launches, shard
 
 
 def chain_instructions(rows: int = 1, floor: str | None = None,
@@ -2320,7 +2427,7 @@ def main() -> None:
     cl = cli_path(m, ex, pe, card)
     log(f"CLI phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    dl = dist_path(m, fm, ex, card)
+    dl, shard = dist_path(m, fm, ex, card)
     log(f"dist phase: {time.time() - t0:.1f} s")
     runs = (m["launches"], pe["launches"], fm["launches"], lr["launches"],
             ex["launches"], i64["launches"], api, cl, dl)
@@ -2360,6 +2467,8 @@ def main() -> None:
                      replaces=f"bioseqdb_tpu/kernels/chain.py:{line}",
                      launches=sum(x[name] for x in runs), **rsv[name])
                 for name, line in RESOLVE_LINES.items()]
+    kernels += [shard_entry(name, shard, sum(x[name] for x in runs))
+                for name in build.SHARD_KERNELS]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,13 @@ fewer GPUs than ranks, else ``nccl``: ``launch.cuda_backend``), spawned
 through ``dist/launch.py``. An index-sharded step (``index`` 2) gives
 the single-device port's regions on the card, and a data-parallel
 batch (``data`` 2) its records; both launch the CUDA SW kernel in every
-rank. Skips without a CUDA device. Imports no jax, so it runs on a card
-machine without it:
+rank. At ``index`` 2 the shard kernels of ``csrc/fm_shard.cu`` (the FM
+machine's and the SA walk's query and apply) equal their plain twins
+under the group bit for bit, with equal all_reduce calls and bytes, at
+int32 and int64 ranks (``tools/shard_calls.py`` ``pair_rank``: the
+CPU tests' 120 bp, 250 bp and 300-step-budget calls, a walk unmasked,
+masked and through an unmarked primary). Skips without a CUDA device.
+Imports no jax, so it runs on a card machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_dist_cuda.py``.
 """
 
@@ -16,9 +21,11 @@ import torch
 
 from bioseqdb_tpu_torch.align.options import AlignOptions
 from bioseqdb_tpu_torch.align.pipeline import Aligner
+from bioseqdb_tpu_torch.dist import launch
 from bioseqdb_tpu_torch.index.builder import build_index
 from bioseqdb_tpu_torch.io.batch import pack_reads
 from bioseqdb_tpu_torch.kernels import build
+from bioseqdb_tpu_torch.tools import shard_calls as sc
 from bioseqdb_tpu_torch.tools.dist_leg import spawn_tasks
 from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
 
@@ -52,3 +59,31 @@ def test_meshes_on_the_card_equal_single_device():
     single = Aligner.build(idx, AlignOptions(), device="cuda")
     assert ([dataclasses.asdict(r) for r in dp["results"]]
             == [dataclasses.asdict(r) for r in single.align_batch(batch)])
+
+
+def test_index_mesh_shard_kernels_equal_plain_twins():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build.build(["fm_shard"])   # in the parent, before the ranks start
+    refs = sc.edge_refs(simulate_genome(30_000, seed=81))
+    idx = build_index(refs, sa_interval=32)
+    short, wide = sc.edge_batches(refs)
+    opt = AlignOptions()
+    calls = [sc.machine_call(short, opt), sc.machine_call(wide, opt),
+             sc.machine_call(short, opt, max_iters=300)]
+    rng = np.random.default_rng(3)
+    ranks = torch.from_numpy(rng.integers(0, idx.seq_len + 1, 4096))
+    mask = torch.from_numpy(rng.random(4096) < 0.5)
+    ranks[:2] = torch.tensor([idx.primary, 0])
+    walks = [dict(ranks=ranks, sa_interval=32),
+             dict(ranks=ranks, sa_interval=32, mask=mask),
+             dict(ranks=ranks, sa_interval=32, unmarked_primary=True)]
+    res = launch.spawn(sc.pair_rank, 2, launch.cuda_backend(2),
+                       args=("cuda", None, idx, calls, walks,
+                             (torch.int32, torch.int64)), timeout_s=900)
+    for r in res:
+        assert not r["forbidden"]
+        assert all(v > 0 for v in r["launches"].values()), r["launches"]
+        for d in r["dtypes"]:
+            for pair in d["machine"] + d["walks"]:
+                assert sc.pair_equal(pair) and sc.max_abs_err(pair) == 0
