@@ -121,6 +121,23 @@
 //   from the packed doubled text (16 bases a 32-bit word, the first base
 //   in the high bits). It writes the inverse permutation, through which
 //   the merge kernels read the sorted SW results.
+// - Under an index mesh (dist/shard_index.py) each rank holds one row
+//   range of the forward codes, and a round's targets are an owner sum
+//   over the group (JAX kernels/extend.py fetch_doubled under shard_axis,
+//   its psum at :141), which no launch holds. So the window fetch is two
+//   launches around one all_reduce (kernels/extend.py
+//   extend_windows_sharded): windows_shard_query, a warp a window row of
+//   the round's lanes (those of the host's one nonzero of act, in its
+//   order; both sides), writes this rank's forward code at each column's
+//   position where the rank owns the base and 0 elsewhere, into the int8
+//   [2, n, T] buffer the plain twin's owner sum stacks (so the
+//   collective's bytes stay the twin's), and each lane's row in it; after
+//   the all_reduce extend_windows runs in its summed-target mode, reading
+//   a target's code from that buffer (3 - code on the reverse strand)
+//   instead of the packed doubled text. Positions are int64, clamped into
+//   the text and folded onto the forward strand as the twin folds them.
+//   The query writes 2 n T bytes and reads as many codes of its shard:
+//   memory bound, like the windows themselves.
 // - Ranks and reference positions take the template type R (int32 or
 //   int64, the index's rank dtype); query positions, lengths and scores
 //   int32, as in the plain twins. Every sum and difference wraps in its
@@ -314,7 +331,10 @@ struct WinParams {
   const void* rmax0;       // [B, C] R
   const void* rmax1;
   const int32_t* codes;    // [B, W]
-  const int32_t* pac;      // [n_words] the packed doubled text
+  const int32_t* pac;      // [n_words] the packed doubled text, or null
+  const int8_t* sums;      // [2, n_sel, T] or null: the round's forward
+                           // codes, owner-summed (read in place of pac)
+  const int32_t* sel_of;   // [B] with sums: a lane of the round -> its row
   int32_t* qbuf;           // [2, B, W] out
   int32_t* tbuf;           // [2, B, T] out
   int32_t* qn;             // [2, B] out
@@ -325,6 +345,18 @@ struct WinParams {
   const int32_t* gate;     // [1] or null: 0 skips the SW buffers
   long long B, S, C, W, T, n_words, seq_len;
   int32_t match;
+  long long n_sel, l_pac;  // with sums: the round's lanes, the strand end
+};
+
+// an index mesh's window fetch: the query of the round's lanes
+struct WinQueryParams {
+  const long long* sel;    // [n] the round's lanes, in order
+  const int32_t* slot;     // [B]
+  Seeds sd;
+  const int8_t* pac;       // [rows] this rank's range of the forward codes
+  int8_t* buf;             // [2, n, T] out: this rank's partials
+  int32_t* sel_of;         // [B] out: a lane of the round -> its row
+  long long B, S, n, T, rows, shard, l_pac, seq_len;
 };
 
 struct MergeParams {
@@ -692,11 +724,20 @@ LANE_HD void windows_row(const WinParams& p, long long row, int lane,
   int32_t* t = p.tbuf + row * p.T;
   const long long t0 = k == 0 ? static_cast<long long>(s.r) - 1
                               : static_cast<long long>(re0);
+  // the summed-target mode: the lane's row of the owner-summed codes
+  const int8_t* sums =
+      p.pac == nullptr && has ? p.sums + (k * p.n_sel + p.sel_of[b]) * p.T
+                              : nullptr;
   for (long long j = lane; j < T; j += step) {
     int32_t v = kNoCode;
     const long long pos = t0 + qdir * j;
     if (has && j < static_cast<long long>(tn) && pos >= 0 && pos < p.seq_len) {
-      v = packed_code(p.pac, p.n_words, pos);
+      if (sums != nullptr) {
+        const int32_t base = sums[j];
+        v = pos < p.l_pac ? base : 3 - base;
+      } else {
+        v = packed_code(p.pac, p.n_words, pos);
+      }
     }
     t[j] = v;
   }
@@ -707,6 +748,34 @@ LANE_HD void windows_row(const WinParams& p, long long row, int lane,
     p.inv[k * p.B + b] = static_cast<int32_t>(i);
     if (k == 0) p.h0[i] = mul_(s.l, p.match);
   }
+}
+
+// window row `row` of the round's lanes (side row / n), columns lane,
+// lane + step, ...: this rank's forward code at each column's position
+// (kernels/extend.py fetch_doubled: clamped into the text, folded onto
+// the forward strand) where it owns the base, else 0; the side-0 row's
+// lane 0 writes the lane's row
+template <typename R>
+LANE_HD void windows_query_row(const WinQueryParams& p, long long row,
+                               int lane, int step) {
+  const int k = row >= p.n;
+  const long long i = row - k * p.n;
+  const long long b = p.sel[i];
+  const long long at = b * p.S + p.slot[b];
+  const R r = static_cast<const R*>(p.sd.rbeg)[at];
+  const R re0 = add_(r, static_cast<R>(p.sd.len[at]));
+  const long long t0 = k == 0 ? static_cast<long long>(r) - 1
+                              : static_cast<long long>(re0);
+  const long long dir = k == 0 ? -1 : 1;
+  const long long base = p.shard * p.rows;
+  int8_t* out = p.buf + row * p.T;
+  for (long long j = lane; j < p.T; j += step) {
+    const long long q = min_(max_(t0 + dir * j, 0LL), p.seq_len - 1);
+    const long long local = (q < p.l_pac ? q : p.seq_len - 1 - q) - base;
+    out[j] = local >= 0 && local < p.rows ? p.pac[local]
+                                          : static_cast<int8_t>(0);
+  }
+  if (k == 0 && lane == 0) p.sel_of[b] = static_cast<int32_t>(i);
 }
 
 // side k's SW result of lane b: the retry's where it retried (bwa keeps
@@ -1097,6 +1166,15 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
+    windows_shard_query(const WinQueryParams p) {
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kThreads / kWarp) + threadIdx.x / kWarp;
+  if (row < 2 * p.n)
+    windows_query_row<R>(p, row, threadIdx.x % kWarp, kWarp);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kThreads)
     extend_merge_left(const MergeParams p) {
   const long long b = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
@@ -1272,6 +1350,8 @@ extern "C" int LANE_ENTRY(extend_windows)(const long long* a,
   p.rmax1 = g.ptr<const void*>();
   p.codes = g.ptr<const int32_t*>();
   p.pac = g.ptr<const int32_t*>();
+  p.sums = g.ptr<const int8_t*>();
+  p.sel_of = g.ptr<const int32_t*>();
   p.qbuf = g.ptr<int32_t*>();
   p.tbuf = g.ptr<int32_t*>();
   p.qn = g.ptr<int32_t*>();
@@ -1288,8 +1368,17 @@ extern "C" int LANE_ENTRY(extend_windows)(const long long* a,
   p.n_words = g.num();
   p.seq_len = g.num();
   p.match = static_cast<int32_t>(g.num());
+  p.n_sel = g.num();
+  p.l_pac = g.num();
+  // the packed text, or (summed-target mode) the round's summed codes
+  // (no pac; a round with no lane has no row of sums)
+  const bool text = p.pac != nullptr && p.sums == nullptr && p.n_words >= 1;
+  const bool summed = p.pac == nullptr && p.n_sel >= 0 && p.n_sel <= p.B &&
+                      p.l_pac >= 0 &&
+                      (p.n_sel == 0 ||
+                       (p.sums != nullptr && p.sel_of != nullptr));
   if (g.i != n || bad_rank(rank_bytes) || p.B < 1 || p.S < 1 || p.C < 1 ||
-      p.W < 1 || p.T < 1 || p.n_words < 1)
+      p.W < 1 || p.T < 1 || !(text || summed))
     return kRefused;
 #ifdef __CUDACC__
   EXT_RUN(extend_windows, 2 * p.B, kThreads / kWarp, kThreads, p);
@@ -1299,6 +1388,43 @@ extern "C" int LANE_ENTRY(extend_windows)(const long long* a,
       windows_row<long long>(p, row, 0, 1);
     else
       windows_row<int32_t>(p, row, 0, 1);
+  }
+  return 0;
+#endif
+}
+
+extern "C" int LANE_ENTRY(windows_shard_query)(const long long* a,
+                                              long long n LANE_STREAM) {
+  Args g{a, n, 0};
+  const long long rank_bytes = g.num();
+  WinQueryParams p;
+  p.sel = g.ptr<const long long*>();
+  p.slot = g.ptr<const int32_t*>();
+  p.sd = seeds(g);
+  p.pac = g.ptr<const int8_t*>();
+  p.buf = g.ptr<int8_t*>();
+  p.sel_of = g.ptr<int32_t*>();
+  p.B = g.num();
+  p.S = g.num();
+  p.n = g.num();
+  p.T = g.num();
+  p.rows = g.num();
+  p.shard = g.num();
+  p.l_pac = g.num();
+  p.seq_len = g.num();
+  if (g.i != n || bad_rank(rank_bytes) || p.B < 1 || p.S < 1 || p.n < 0 ||
+      p.n > p.B || p.T < 1 || p.rows < 1 || p.shard < 0 || p.l_pac < 0 ||
+      p.seq_len < 1)
+    return kRefused;
+#ifdef __CUDACC__
+  if (p.n == 0) return 0;
+  EXT_RUN(windows_shard_query, 2 * p.n, kThreads / kWarp, kThreads, p);
+#else
+  for (long long row = 0; row < 2 * p.n; ++row) {
+    if (rank_bytes == 8)
+      windows_query_row<long long>(p, row, 0, 1);
+    else
+      windows_query_row<int32_t>(p, row, 0, 1);
   }
   return 0;
 #endif

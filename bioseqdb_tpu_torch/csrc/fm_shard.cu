@@ -1,13 +1,15 @@
-// The index mesh's two owner-sum loops for Hopper: the FM seeding machine
-// and the SA walk over an index whose Occ and SA-mark tables are split by
-// row range across the ranks of a process group (dist/shard_index.py).
+// The index mesh's owner-sum loops for Hopper: the FM seeding machine, the
+// SA walk and the exact backward search over an index whose Occ and
+// SA-mark tables are split by row range across the ranks of a process
+// group (dist/shard_index.py).
 //
 // Replaces the TPU program of bioseqdb_tpu/kernels/seed.py
 // collect_seeds_device under shard_axis (its lax.while_loop, the owner sums
-// at :736-743) and of bioseqdb_tpu/kernels/fm.py sa_resolve under
+// at :736-743), of bioseqdb_tpu/kernels/fm.py sa_resolve under
 // shard_axis (its lax.fori_loop at :536 over lf_step :491, then _sa_slot
-// :462). XLA compiled those loops, each step's psum inside, into the one
-// TPU device program; no Pallas. On the card a step's owner sum is an
+// :462) and of bioseqdb_tpu/dist/shard_index.py backward_search_sharded
+// (:155, its lax.fori_loop at :164-181). XLA compiled those loops, each
+// step's psum inside, into the one TPU device program; no Pallas. On the card a step's owner sum is an
 // all_reduce between processes, which no launch can hold, so every step is
 // two launches with the all_reduce between them:
 // - a query launch: this rank's partial of every value the step sums,
@@ -20,8 +22,8 @@
 // - an apply launch: the step's update from the summed values.
 // The kernels compute exactly what the plain twins compute step for step:
 // kernels/seed.py _plain_machine's body under a group (no fetch sharing, no
-// split-row stalls, no jump) and kernels/fm.py sa_resolve_plain under a
-// group. The host loop around them is the plain machine's own (the live
+// split-row stalls, no jump), kernels/fm.py sa_resolve_plain and
+// backward_search_plain under a group. The host loop around them is the plain machine's own (the live
 // lanes compacted every CHUNK steps), so every rank of the group makes the
 // same launches and collectives on the same shapes.
 //
@@ -55,6 +57,15 @@
 //   the popcount of the mark words before the rank (each word masked by
 //   its owner) and the group's count, as int32 [2, n]; its apply adds the
 //   major and writes the sample plus the steps, 0 off the lane mask.
+// - The backward search (kernels/fm.py search_sharded), W steps over every
+//   read, a thread a read: step t's query takes the read's column
+//   lens - 1 - t and, where the step extends it (live, lo < hi, a base),
+//   this rank's partial occ of its code at lo and at hi (the row's
+//   checkpoint plus its count, zero off the rank's Occ rows; zero for a
+//   read the step leaves) into the twin's int32 [1, 2B] buffer, lo first;
+//   the apply adds the major rows and L2[c] + 1, kills a read at an
+//   ambiguous base (lo = hi = 1), and after the last step applies the
+//   empty rule. The step index is an argument the host loop rewrites.
 // - Ranks and rank-valued state take the template type R (int32 or int64,
 //   the index's rank dtype). Table rows are clamped where XLA's gathers
 //   clamp them; sums are cast to R, so they wrap as the tensors' do.
@@ -81,6 +92,7 @@ constexpr int kThreads = 128;   // a block: a lane a thread
 constexpr int kRefused = 1;     // cudaErrorInvalidValue
 constexpr long long kMachineArgs = 48;  // kernels/fm_shard_cuda.py machine_args
 constexpr long long kSaArgs = 23;       // kernels/fm_shard_cuda.py sa_args
+constexpr long long kBsArgs = 16;       // kernels/fm_shard_cuda.py bs_args
 
 // the FM machine's call: its sizes and options, the tables, the owner-sum
 // buffer and the state tensors of the call's lanes (B of them)
@@ -142,6 +154,20 @@ struct SParams {
   void* buf;                // mode 0: int64 [2, n]; mode 1: int32 [2, n]
   const uint8_t* mask;      // [n] torch.bool, or null
   void* pos;                // [n] R, out (the slot's apply)
+};
+
+// the backward search's step t: B reads of W columns, their intervals in
+// place
+struct BParams {
+  long long rank_bytes, B, W, t, shard, n_octo, n_major, primary;
+  const int32_t* occ_rows;  // [n_octo * 8, 12] this rank's shard
+  const void* occ_majors;   // [n_major, 4] R, whole
+  const void* L2;           // [5] R
+  const int32_t* codes;     // [B, W]
+  const int32_t* lens;      // [B]
+  void* lo;                 // [B] R, in place
+  void* hi;                 // [B] R, in place
+  int32_t* buf;             // [2B]: the partials at lo, then at hi
 };
 
 // kernels/fm.py _local_row under a group: the row of global row idx in
@@ -681,6 +707,81 @@ GROUP_FN void sa_apply_lane(const SParams& p, long long k) {
   }
 }
 
+// ---- the backward search ----
+
+// step t of read b: its code (column lens - 1 - t, clamped), whether the
+// read reaches the step, and whether the step extends its interval
+struct BsStep {
+  int c;
+  bool live, active;
+};
+
+template <typename R>
+LANE_HD inline BsStep bs_step(const BParams& p, long long b, R lo, R hi) {
+  const long long L = p.lens[b];
+  const int c = p.codes[b * p.W + clampv<long long>(L - 1 - p.t, 0,
+                                                     p.W - 1)];
+  const bool live = p.t < L;
+  return BsStep{c, live, live && lo < hi && c < 4};
+}
+
+// this rank's partial of occ(c, r) (kernels/fm.py occ_stored's owner sum):
+// the checkpoint plus the count where the rank owns the row, else 0
+template <typename R>
+GROUP_FN inline int32_t occ_part(const BParams& p, R r, int c) {
+  const ShardRow<R> x = shard_row<R>(p.occ_rows, p.n_octo, p.shard, r,
+                                     static_cast<R>(p.primary));
+  if (!x.mine) return 0;
+  return static_cast<int32_t>(
+      static_cast<uint32_t>(__ldg(x.row + c)) +
+      static_cast<uint32_t>(count_code(load_words(x.row), c, x.off)));
+}
+
+template <typename R>
+GROUP_FN void bs_query_lane(const BParams& p, long long b) {
+  const R lo = static_cast<const R*>(p.lo)[b];
+  const R hi = static_cast<const R*>(p.hi)[b];
+  const BsStep s = bs_step<R>(p, b, lo, hi);
+  const int c = clampv(s.c, 0, 3);
+  p.buf[b] = s.active ? occ_part<R>(p, lo, c) : 0;
+  p.buf[p.B + b] = s.active ? occ_part<R>(p, hi, c) : 0;
+}
+
+// occ(c, r) from its summed partial: the major checkpoint added
+template <typename R>
+LANE_HD inline R occ_summed(const BParams& p, R r, int c, int32_t part) {
+  const R jr = r - static_cast<R>(r > static_cast<R>(p.primary));
+  const R major = static_cast<const R*>(p.occ_majors)[
+      major_index(jr >> kLog2OccBlock, p.n_major) * 4 + c];
+  return cast<R>(static_cast<long long>(part) +
+                 static_cast<long long>(major));
+}
+
+template <typename R>
+GROUP_FN void bs_apply_lane(const BParams& p, long long b) {
+  R* lo = static_cast<R*>(p.lo) + b;
+  R* hi = static_cast<R*>(p.hi) + b;
+  R l = *lo, h = *hi;
+  const BsStep s = bs_step<R>(p, b, l, h);
+  if (s.active) {   // kernels/fm.py backward_ext
+    const int c = clampv(s.c, 0, 3);
+    const R C = static_cast<const R*>(p.L2)[c] + 1;
+    l = cast<R>(static_cast<long long>(C) +
+                occ_summed<R>(p, l, c, p.buf[b]));
+    h = cast<R>(static_cast<long long>(C) +
+                occ_summed<R>(p, h, c, p.buf[p.B + b]));
+  } else if (s.live && s.c >= 4) {   // an ambiguous base kills the match
+    l = 1;
+    h = 1;
+  }
+  if (p.t == p.W - 1 && (h <= l || p.lens[b] == 0)) {   // the empty rule
+    l = 0;
+    h = 0;
+  }
+  *lo = l;
+  *hi = h;
+}
+
 // ---- the entries' argument arrays ----
 
 template <typename T>
@@ -779,7 +880,45 @@ inline bool sa_params(const long long* a, long long n_args, SParams& p) {
          p.n_sa_major >= 1 && p.n_sample >= 1;
 }
 
+inline bool bs_params(const long long* a, long long n_args, BParams& p) {
+  if (n_args != kBsArgs) return false;
+  long long k = 0;
+  p.rank_bytes = a[k++];
+  p.B = a[k++];
+  p.W = a[k++];
+  p.t = a[k++];
+  p.shard = a[k++];
+  p.n_octo = a[k++];
+  p.n_major = a[k++];
+  p.primary = a[k++];
+  p.occ_rows = ptr<const int32_t>(a[k++]);
+  p.occ_majors = ptr<const void>(a[k++]);
+  p.L2 = ptr<const void>(a[k++]);
+  p.codes = ptr<const int32_t>(a[k++]);
+  p.lens = ptr<const int32_t>(a[k++]);
+  p.lo = ptr<void>(a[k++]);
+  p.hi = ptr<void>(a[k++]);
+  p.buf = ptr<int32_t>(a[k++]);
+  return k == kBsArgs && (p.rank_bytes == 4 || p.rank_bytes == 8) &&
+         p.B >= 0 && p.W >= 1 && p.t >= 0 && p.t < p.W && p.shard >= 0 &&
+         p.n_octo >= 1 && p.n_major >= 1;
+}
+
 #ifdef __CUDACC__
+template <typename R>
+__global__ void __launch_bounds__(kThreads) bs_query_kernel(const BParams p) {
+  const long long b = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (b < p.B) bs_query_lane<R>(p, b);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kThreads) bs_apply_kernel(const BParams p) {
+  const long long b = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (b < p.B) bs_apply_lane<R>(p, b);
+}
+
 template <typename R>
 __global__ void __launch_bounds__(kThreads) machine_query_kernel(
     const MParams p) {
@@ -819,7 +958,7 @@ inline unsigned grid_of(long long n) {
 
 }  // namespace
 
-// The four entries, each taking the argument array kernels/fm_shard_cuda.py
+// The six entries, each taking the argument array kernels/fm_shard_cuda.py
 // builds (its length first checked) and, from nvcc, the stream: 0, or a
 // CUDA error code (kRefused for refused arguments). From a host compiler
 // (NAME_host) every lane runs in turn.
@@ -907,6 +1046,50 @@ extern "C" int LANE_ENTRY(sa_shard_apply)(const long long* a,
       sa_apply_lane<long long>(p, k);
     else
       sa_apply_lane<int32_t>(p, k);
+  }
+  return 0;
+#endif
+}
+
+extern "C" int LANE_ENTRY(bs_shard_query)(const long long* a,
+                                          long long n_args LANE_STREAM) {
+  BParams p;
+  if (!bs_params(a, n_args, p)) return kRefused;
+#ifdef __CUDACC__
+  if (p.B == 0) return 0;
+  if (p.rank_bytes == 8)
+    bs_query_kernel<long long><<<grid_of(p.B), kThreads, 0, stream>>>(p);
+  else
+    bs_query_kernel<int32_t><<<grid_of(p.B), kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+#else
+  for (long long b = 0; b < p.B; ++b) {
+    if (p.rank_bytes == 8)
+      bs_query_lane<long long>(p, b);
+    else
+      bs_query_lane<int32_t>(p, b);
+  }
+  return 0;
+#endif
+}
+
+extern "C" int LANE_ENTRY(bs_shard_apply)(const long long* a,
+                                          long long n_args LANE_STREAM) {
+  BParams p;
+  if (!bs_params(a, n_args, p)) return kRefused;
+#ifdef __CUDACC__
+  if (p.B == 0) return 0;
+  if (p.rank_bytes == 8)
+    bs_apply_kernel<long long><<<grid_of(p.B), kThreads, 0, stream>>>(p);
+  else
+    bs_apply_kernel<int32_t><<<grid_of(p.B), kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+#else
+  for (long long b = 0; b < p.B; ++b) {
+    if (p.rank_bytes == 8)
+      bs_apply_lane<long long>(p, b);
+    else
+      bs_apply_lane<int32_t>(p, b);
   }
   return 0;
 #endif

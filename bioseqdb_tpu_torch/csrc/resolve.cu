@@ -4,7 +4,8 @@
 //
 // Replaces the TPU program of bioseqdb_tpu/kernels/chain.py resolve_seeds
 // (:44-157) but its SA walk (csrc/fm.cu sa_resolve, launched between the
-// two): the argsort of the intervals (:76), their counts and exclusive
+// two; under an index mesh csrc/fm_shard.cu's sharded walk, of the lanes
+// the plain twin walks: kernels/chain.py resolve_seeds_sharded): the argsort of the intervals (:76), their counts and exclusive
 // offsets (:84), each slot's interval (:90-105), the compaction cap's
 // global offsets (:119) and the bridge and reference tests (:141-148). XLA
 // compiled them into the one TPU device program; no Pallas. The kernels

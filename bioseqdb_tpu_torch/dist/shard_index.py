@@ -10,11 +10,14 @@ major checkpoints, reference offsets) are whole on every rank. Each rank
 answers every query against its own rows (rows it does not own count
 zero) and one ``all_reduce`` over the index group sums each value to its
 owner's (``kernels/fm.py`` ``group``). The tables never move. On the
-card the FM machine and the SA walk run each step as two launches of
-``csrc/fm_shard.cu`` with that ``all_reduce`` between them
-(``kernels/seed.py`` ``collect_seeds_sharded``, ``kernels/fm.py``
-``sa_walk_sharded``); the backward search, the seeds' expansion and the
-extension windows' fetch stay eager there.
+card every such loop runs each step as a query launch, that
+``all_reduce`` and an apply launch: the FM machine, the SA walk and the
+backward search on ``csrc/fm_shard.cu`` (``kernels/seed.py``
+``collect_seeds_sharded``, ``kernels/fm.py`` ``sa_walk_sharded`` and
+``search_sharded``), the extension windows' fetch on ``csrc/extend.cu``
+(``kernels/extend.py`` ``extend_windows_sharded``); the seeds' expansion
+and finish launch ``csrc/resolve.cu`` around the sharded walk
+(``kernels/chain.py`` ``resolve_seeds_sharded``).
 
 ``full_align_step_sharded`` runs the whole device pipeline (seeding,
 seed resolution, chaining, the chain filter, extension) over a ``data``
@@ -106,7 +109,9 @@ def backward_search_sharded(fms: FMSharded, codes: torch.Tensor,
                             lens: torch.Tensor, mesh):
     """Exact-match intervals with the Occ table sharded by BWT interval;
     every rank of the index group gives the same reads and gets the
-    same intervals."""
+    same intervals: on CUDA tensors ``csrc/fm_shard.cu``'s search (a
+    query, the all_reduce and an apply a step), on CPU tensors the plain
+    twin."""
     return kfm.backward_search(fms.fm, codes, lens,
                                group=mesh.get_group("index"))
 

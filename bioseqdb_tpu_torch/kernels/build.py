@@ -36,15 +36,21 @@ RESOLVE_KERNELS = ("resolve_expand", "resolve_finish")
 # step, its all_reduce between them
 SHARD_KERNELS = ("fm_shard_query", "fm_shard_apply", "sa_shard_query",
                  "sa_shard_apply")
+# an index mesh's window fetch: the query, its all_reduce, then
+# extend_windows reading the sums
+WINDOWS_SHARD_KERNELS = ("windows_shard_query",)
+# an index mesh's backward search (exact queries): a query and an apply
+# launch a step
+SEARCH_SHARD_KERNELS = ("bs_shard_query", "bs_shard_apply")
 KERNELS = ("sw_extend",                            # sw_extend.cu
            "fm_seed",                              # fm_seed.cu
            "kmer_seed",                            # kmer.cu
            "seed_sw",                              # seedsw.cu
            "chain_seeds", "filter_chains",         # chain.cu
-           *EXTEND_KERNELS,                        # extend.cu
+           *EXTEND_KERNELS, *WINDOWS_SHARD_KERNELS,  # extend.cu
            "sa_resolve", "backward_search",        # fm.cu
            *RESOLVE_KERNELS,                       # resolve.cu
-           *SHARD_KERNELS,                         # fm_shard.cu
+           *SHARD_KERNELS, *SEARCH_SHARD_KERNELS,  # fm_shard.cu
            "gather_rows", "gather_chain", "add_one")  # probes.cu
 # the kernels a full-pipeline device step launches: kmer_seed on the kmer
 # seeder's batches (W <= 320), seed_sw on long reads only
@@ -53,10 +59,9 @@ STEP_KERNELS = ("sw_extend", "fm_seed", "kmer_seed", "seed_sw",
                 *RESOLVE_KERNELS)
 # the kernels an exact-mode step launches
 EXACT_KERNELS = ("backward_search", "sa_resolve")
-# the kernels a user's path launches (every kernel but the probes): an
-# index mesh's step launches the shard kernels in place of fm_seed,
-# sa_resolve and the resolve kernels
-PATH_KERNELS = STEP_KERNELS + ("backward_search",) + SHARD_KERNELS
+# the kernels a user's path launches (every kernel but the probes)
+PATH_KERNELS = (STEP_KERNELS + ("backward_search",) + SHARD_KERNELS
+                + WINDOWS_SHARD_KERNELS + SEARCH_SHARD_KERNELS)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -15,8 +15,9 @@ rather than fall back; on CPU tensors they run their plain twins,
 ``chain_seeds_plain`` and ``filter_chains_plain``, the loops as eager
 torch ops vectorized over reads, bit-equal to the kernels. ``resolve_seeds``
 on CUDA tensors is two launches of ``csrc/resolve.cu``'s kernels
-(``kernels/resolve_cuda.py``: a warp a read) around the SA walk's, and
-on CPU tensors its plain twin ``resolve_seeds_plain``.
+(``kernels/resolve_cuda.py``: a warp a read) around the SA walk's (under
+an index group ``resolve_seeds_sharded``: the same two around the
+sharded walk), and on CPU tensors its plain twin ``resolve_seeds_plain``.
 Reference positions (``rbeg``, a chain's ``pos``, ``f_rbeg`` and
 ``l_rbeg``, the filter's reference ends) hold the index's rank dtype,
 int64 past 2^31 doubled bases, as in the JAX version; query positions,
@@ -28,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels import resolve_cuda as rcu
 from bioseqdb_tpu_torch.kernels.chain_cuda import (chain_seeds_cuda,
                                                    filter_chains_cuda)
 from bioseqdb_tpu_torch.kernels.resolve_cuda import (resolve_expand_cuda,
@@ -57,19 +59,17 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     ``resolve_expand``, the SA walk (``csrc/fm.cu``'s ``sa_resolve``) of
     every rank lane under the expansion's mask, one cumsum of the reads'
     walking lanes where the cap may cut some, and one launch of
-    ``resolve_finish``, which applies the cap; no host wait. Elsewhere
-    the plain twin ``resolve_seeds_plain``: on CPU tensors, and under a
-    group by an explicit branch: there the walk is an owner sum a step,
-    so it takes the lanes under the cap alone, compacted by eager ops
-    that need the cap's mask before the walk, which the expansion kernel
-    does not give. Under a group on CUDA tensors that walk is
-    ``kernels/fm.py`` ``sa_walk_sharded`` (two launches of
-    ``csrc/fm_shard.cu`` a step, its all_reduce between them); the
-    expansion and the finish stay eager there. Both give the same
-    dict."""
-    if not mems.is_cuda or group is not None:
+    ``resolve_finish``, which applies the cap; no host wait. Under a
+    group on CUDA tensors ``resolve_seeds_sharded``: the same two
+    launches around the sharded walk (an owner sum a step), which takes
+    the lanes the twin walks. On CPU tensors the plain twin
+    ``resolve_seeds_plain``. All give the same dict."""
+    if not mems.is_cuda:
         return resolve_seeds_plain(fm, mems, n_mem, max_occ, max_seeds,
                                    sa_interval, compact_cap, group)
+    if group is not None:
+        return resolve_seeds_sharded(fm, mems, n_mem, max_occ, max_seeds,
+                                     sa_interval, compact_cap, group)
     B = mems.shape[0]
     S = max_seeds
     ex = resolve_expand_cuda(mems, n_mem, max_occ, S)
@@ -77,6 +77,42 @@ def resolve_seeds(fm: kfm.FMDevice, mems: torch.Tensor, n_mem: torch.Tensor,
     cap = walk_cap(B, S, compact_cap)
     ends = (torch.cumsum(ex["n_walk"], 0) if cap < B * S else None)
     return resolve_finish_cuda(fm, ex, pos, ends, cap)
+
+
+def resolve_seeds_sharded(fm: kfm.FMDevice, mems: torch.Tensor,
+                          n_mem: torch.Tensor, max_occ: int, max_seeds: int,
+                          sa_interval: int = 32,
+                          compact_cap: int | None = 0, group=None, run=None,
+                          walk=None) -> dict:
+    """``resolve_seeds`` under an index group on the kernels: one launch
+    of ``resolve_expand``; the walk (``walk``, default ``kfm.sa_resolve``,
+    which under the group on CUDA tensors is ``sa_walk_sharded``) of the
+    lanes ``resolve_seeds_plain`` walks, so that the owner sums' calls and
+    bytes are the twin's: up to the no-buffer size (B * S <= 4096) every
+    lane unmasked, past it the walking lanes within the cap, compacted in
+    slot order by one ``nonzero`` of the expansion's mask and scattered
+    back; then one launch of ``resolve_finish`` with the twin's cap (the
+    reads' cumsum of walking lanes where it may cut). ``run``:
+    ``resolve_cuda.launch`` (the default) or a host build's
+    (``resolve_cuda.host_launcher``). Bit-equal to the twin."""
+    run = run or rcu.launch
+    walk = walk or kfm.sa_resolve
+    B = mems.shape[0]
+    S = max_seeds
+    ex = run("resolve_expand", *rcu.expand_args(mems, n_mem, max_occ, S))
+    cap, ends = B * S, None
+    if B * S > 4096:
+        cap = walk_cap(B, S, compact_cap)
+        src = torch.nonzero(ex["walk"].reshape(-1))[:cap, 0]
+        pos = torch.zeros(B * S, dtype=fm.rank_dtype, device=mems.device)
+        pos[src] = walk(fm, ex["ranks"].reshape(-1)[src], sa_interval,
+                        group)
+        pos = pos.reshape(B, S)
+        if cap < B * S:
+            ends = torch.cumsum(ex["n_walk"], 0)
+    else:
+        pos = walk(fm, ex["ranks"], sa_interval, group)
+    return run("resolve_finish", *rcu.finish_args(fm, ex, pos, ends, cap))
 
 
 def walk_cap(B: int, S: int, compact_cap: int | None) -> int:

@@ -58,12 +58,18 @@ the packed text by 64-bit positions.
 Under a sharded index (``group``, ``dist/shard_index.py``) the targets
 come from this rank's range of the per-base forward codes instead,
 summed to their owner over the group (``fetch_doubled``), as in the JAX
-version; a round's two windows share one owner sum. No single launch
-holds that sum, so there ``extend_windows`` takes its plain twin by an
-explicit branch; set-up, scan, merge and seedcov still launch their
-kernels. Every rank must enter a round's window fetch together, so there
-the host tests the branches too, as on the CPU, and nothing is captured:
-the ranks hold the same reads, so they take the same branches.
+version; a round's two windows share one owner sum, over the round's
+lanes alone (one ``nonzero`` of the scan's active reads, the round's one
+host read, which also serves its guard). No single launch holds that
+sum, so on CUDA tensors ``extend_windows`` runs
+``extend_windows_sharded``: a query launch (``windows_shard_query``:
+this rank's codes at the windows' positions, 0 where it does not own
+them), the ``all_reduce`` over the group, and ``extend_windows``' kernel
+reading its targets from the sum; set-up, scan, merge and seedcov launch
+their kernels as everywhere. Every rank must enter a round's window
+fetch together, so there the host tests the branches, as on the CPU,
+and nothing is captured: the ranks hold the same reads, so they take the
+same branches.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from __future__ import annotations
 from collections import OrderedDict
 
 import torch
+import torch.distributed as dist
 
 from bioseqdb_tpu_torch.kernels import build
 from bioseqdb_tpu_torch.kernels import extend_cuda as ecu
@@ -307,7 +314,9 @@ def extend_windows_plain(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
     (lane b is row inv[k, b]). ``pac`` is the packed doubled text, or
     under ``group`` this rank's forward codes (owner-summed). Every output
     is computed whatever the ``gate`` (the kernel's skips the buffers at
-    0, when no launch reads them)."""
+    0, when no launch reads them). Under ``group`` the round's lanes are
+    ``scan["sel"]`` where the caller gives them (``torch.nonzero`` of
+    ``act``), else that ``nonzero``."""
     codes, lens = tab["codes"], tab["lens"]
     B, W = codes.shape
     T = W + 4 * p["bandwidth"] + 64
@@ -325,7 +334,9 @@ def extend_windows_plain(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
     if group is None:
         t = window_doubled(pac, fm.seq_len, pos)
     else:   # the lanes of the round only: the others' windows read 4
-        sel = torch.nonzero(act)[:, 0]
+        sel = scan.get("sel")
+        if sel is None:
+            sel = torch.nonzero(act)[:, 0]
         t = torch.full((2, B, T), 4, dtype=torch.int32, device=dev)
         t[:, sel] = fetch_doubled(pac, fm.l_pac, fm.seq_len,
                                   pos[:, sel].reshape(-1), group
@@ -441,13 +452,42 @@ def extend_scan(tab: dict, st: dict, p: dict, count=None) -> dict:
 
 def extend_windows(tab: dict, fm, pac, scan: dict, perm: torch.Tensor,
                    p: dict, group=None, gate=None) -> dict:
-    """``extend_windows_plain``: the kernel on CUDA tensors with no
-    ``group``, else the twin (the owner sum of an index mesh's targets
-    is a collective no launch holds)."""
-    if tab["order"].is_cuda and group is None:
-        return ecu.extend_windows_cuda(tab, fm.seq_len, pac, scan, perm, p,
-                                       gate)
-    return extend_windows_plain(tab, fm, pac, scan, perm, p, group)
+    """``extend_windows_plain``: on CUDA tensors the kernel, or under a
+    ``group`` ``extend_windows_sharded`` (the owner sum of an index
+    mesh's targets is a collective no launch holds); on CPU tensors the
+    twin."""
+    if not tab["order"].is_cuda:
+        return extend_windows_plain(tab, fm, pac, scan, perm, p, group)
+    if group is not None:
+        return extend_windows_sharded(tab, fm, pac, scan, perm, p, group)
+    return ecu.extend_windows_cuda(tab, fm.seq_len, pac, scan, perm, p, gate)
+
+
+def extend_windows_sharded(tab: dict, fm, pac: torch.Tensor, scan: dict,
+                           perm: torch.Tensor, p: dict, group, run=None
+                           ) -> dict:
+    """``extend_windows_plain(..., group)`` on the kernels of
+    ``csrc/extend.cu``: ``windows_shard_query`` over the round's lanes
+    (``scan["sel"]``, else one ``nonzero`` of ``act``; this rank's
+    forward codes ``pac`` at both windows' T columns where it owns them,
+    into the twin's int8 [1, 2 n T] owner-sum buffer), the ``all_reduce``
+    of that buffer over ``group`` (even of no lane, as the twin's), then
+    ``extend_windows``' kernel in its summed-target mode. ``run``:
+    ``extend_cuda.launch`` (the default, on CUDA tensors) or a host
+    build's (``extend_cuda.host_launcher``). Bit-equal to the twin, with
+    the same ``all_reduce`` calls and bytes."""
+    run = run or ecu.launch
+    sel = scan.get("sel")
+    if sel is None:
+        sel = torch.nonzero(scan["act"])[:, 0]
+    q = run("windows_shard_query", "windows_shard_query",
+            *ecu.windows_query_args(tab, fm, pac, sel.contiguous(),
+                                    scan["slot"], p, dist.get_rank(group)))
+    kfm._all_reduce(q["buf"], group)
+    return run("extend_windows", "extend_windows",
+               *ecu.windows_args(tab, fm.seq_len, None, scan, perm, p,
+                                 sums=q["buf"], sel_of=q["sel_of"],
+                                 l_pac=fm.l_pac))
 
 
 def extend_merge(side: int, tab: dict, st: dict, scan: dict, win: dict,
@@ -653,7 +693,13 @@ def _rounds(fm, pac_rows, codes, lens, seeds: dict, chains: dict, flt: dict,
         gate = None if counts is None else counts[rnd]
         scan = extend_scan(tab, st, p, count=gate)
         st.update(cursor=scan["cursor"], overflow=scan["overflow"])
-        if guards and not bool(scan["act"].any()):
+        if group is not None:
+            # the round's one host read: its lanes, which serve the guard
+            # and the window fetch's owner sum
+            scan = dict(scan, sel=torch.nonzero(scan["act"])[:, 0])
+            if not scan["sel"].numel():
+                continue
+        elif guards and not bool(scan["act"].any()):
             continue
         perm = torch.argsort(-scan["work"], dim=1, stable=True)
         win = extend_windows(tab, fm, pac_rows, scan, perm, p, group,

@@ -15,7 +15,12 @@ ballot), the right merge a group of 8 threads a read (its region-table
 and was_ext copies coalesced), seedcov a group of 4 threads a read (a
 warp past 64 slots; the slots strided over the lanes, the region table
 in registers, a group sum), the windows a warp a sorted row, and the
-left merge a thread a read. The plain versions are
+left merge a thread a read. Under an index mesh the windows' targets are
+an owner sum of the ranks' forward codes: ``windows_shard_query`` (a
+warp a window row of the round's lanes) writes this rank's codes into
+the sum's buffer, and after the ``all_reduce`` ``extend_windows`` reads
+its targets from the sums (its summed-target mode;
+``extend.extend_windows_sharded``). The plain versions are
 ``extend.extend_setup_plain``, ``extend_scan_plain``,
 ``extend_windows_plain``, ``extend_merge_plain`` and
 ``extend_seedcov_plain``, with the same arguments and outputs;
@@ -76,8 +81,10 @@ SCAN_ARGS = (("order", "n_usable") + _SEEDS
                 "w", "seedlen0", "n_regs", "was_ext", "cursor", "overflow")
              + ("cursor_out", "overflow_out", "slot", "act", "work", "count"))
 WINDOWS_ARGS = (("perm", "slot", "act") + _SEEDS
-                + ("lens", "rmax0", "rmax1", "codes", "pac")
+                + ("lens", "rmax0", "rmax1", "codes", "pac", "sums", "sel_of")
                 + ("qbuf", "tbuf", "qn", "tn", "active", "h0", "inv", "gate"))
+# an index mesh's window query: the round's lanes, then the outputs
+WINDOWS_QUERY_ARGS = ("sel", "slot") + _SEEDS + ("pac", "buf", "sel_of")
 MERGE_ARGS = (("inv", "retry") + tuple(f"r1.{f}" for f in FIELDS)
               + tuple(f"r2.{f}" for f in FIELDS) + ("slot", "act") + _SEEDS
               + ("lens",) + tuple(f"left.{f}" for f in LEFT_FIELDS))
@@ -212,18 +219,36 @@ def scan_args(tab: dict, st: dict, p: dict, count=None
     return out, args, tensors
 
 
-def windows_args(tab: dict, seq_len: int, pac: torch.Tensor, scan: dict,
-                 perm: torch.Tensor, p: dict, gate=None
+def windows_args(tab: dict, seq_len: int, pac: torch.Tensor | None,
+                 scan: dict, perm: torch.Tensor, p: dict, gate=None,
+                 sums: torch.Tensor | None = None,
+                 sel_of: torch.Tensor | None = None, l_pac: int = 0
                  ) -> tuple[dict, list, list]:
     """(outputs, arguments, tensors) of ``extend_windows`` on the packed
     doubled text ``pac`` (int32, 16 bases a word) of ``seq_len`` bases and
     the sorted order ``perm`` (int64 [2, B]); at a ``gate`` of 0 the SW
-    buffers are not written."""
+    buffers are not written. Summed-target mode (``pac`` None): the
+    targets' forward codes come from ``sums`` (int8 [1, 2 n T], the
+    window query's buffer summed over an index group, n = ``sel_of``'s
+    rows: the round's lanes) through ``sel_of`` (int32 [B], a lane of the
+    round -> its row), reverse-strand codes past ``l_pac``."""
     B, S, C, rdt = _tables(tab, ("rbeg", "qbeg", "len", "cis", "lens",
                                  "rmax0", "rmax1", "codes"))
     W = tab["codes"].shape[1]
     T = W + 4 * p["bandwidth"] + 64
-    if pac.dtype != torch.int32 or not pac.is_contiguous() or not pac.numel():
+    n_sel = 0
+    if pac is None:
+        if sums is None or sel_of is None:
+            raise ValueError("extend kernels: the summed-target mode needs "
+                             "sums and sel_of")
+        n_sel = sums.numel() // (2 * T)
+        _check("sums", sums, torch.int8, (1, 2 * n_sel * T))
+        _check("sel_of", sel_of, torch.int32, (B,))
+        if not 0 <= l_pac <= seq_len:
+            raise ValueError(f"extend kernels: l_pac {l_pac} outside [0, "
+                             f"{seq_len}]")
+    elif (pac.dtype != torch.int32 or not pac.is_contiguous()
+          or not pac.numel()):
         raise ValueError("extend kernels: pac must be a contiguous int32 "
                          "table of the packed doubled text")
     if not 0 <= seq_len <= torch.iinfo(rdt).max:
@@ -239,10 +264,45 @@ def windows_args(tab: dict, seq_len: int, pac: torch.Tensor, scan: dict,
                active=new(torch.bool, 2, B), h0=new(torch.int32, B),
                inv=new(torch.int32, 2, B))
     named = dict(tab, perm=perm, slot=scan["slot"], act=scan["act"], pac=pac,
-                 gate=gate, **out)
+                 sums=sums if n_sel else None, sel_of=sel_of, gate=gate,
+                 **out)
     args, tensors = pack_args(rdt, named, WINDOWS_ARGS,
-                              [B, S, C, W, T, pac.numel(), seq_len,
-                               p["match_score"]])
+                              [B, S, C, W, T,
+                               0 if pac is None else pac.numel(), seq_len,
+                               p["match_score"], n_sel, l_pac])
+    return out, args, tensors
+
+
+def windows_query_args(tab: dict, fm, pac: torch.Tensor, sel: torch.Tensor,
+                       slot: torch.Tensor, p: dict, shard: int
+                       ) -> tuple[dict, list, list]:
+    """(outputs, arguments, tensors) of ``windows_shard_query``: for the
+    round's lanes ``sel`` (int64 [n], in order), both sides' T window
+    columns of this rank's forward codes ``pac`` (int8, its row range of
+    ``fm``'s forward text; rank ``shard`` of the index group) where it
+    owns the base, else 0: ``buf`` int8 [1, 2 n T] (the owner sum's
+    buffer, as ``extend_windows_plain`` stacks it under a group) and
+    ``sel_of`` int32 [B] (a lane of the round -> its row; the other lanes'
+    entries are not written)."""
+    B, S, C, rdt = _tables(tab, ("rbeg", "qbeg", "len", "cis"))
+    T = tab["codes"].shape[1] + 4 * p["bandwidth"] + 64
+    n = sel.shape[0] if sel.dim() == 1 else -1
+    _check("sel", sel, torch.int64, (n,))
+    _check("slot", slot, torch.int32, (B,))
+    if pac.dim() != 1 or not pac.numel():
+        raise ValueError("extend kernels: pac must be a rank's non-empty "
+                         "range of the forward codes")
+    _check("pac", pac, torch.int8, (pac.shape[0],))
+    if not 0 <= fm.l_pac <= fm.seq_len or fm.seq_len < 1:
+        raise ValueError(f"extend kernels: l_pac {fm.l_pac}, seq_len "
+                         f"{fm.seq_len}")
+    dev = tab["rbeg"].device
+    out = dict(buf=torch.empty((1, 2 * n * T), dtype=torch.int8, device=dev),
+               sel_of=torch.empty(B, dtype=torch.int32, device=dev))
+    named = dict(tab, sel=sel, slot=slot, pac=pac, **out)
+    args, tensors = pack_args(rdt, named, WINDOWS_QUERY_ARGS,
+                              [B, S, n, T, pac.shape[0], shard, fm.l_pac,
+                               fm.seq_len])
     return out, args, tensors
 
 
@@ -413,6 +473,22 @@ def launch(kernel: str, entry: str, out, args: list, tensors: list):
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     build.LAUNCHES[kernel] += 1
     return out
+
+
+def host_launcher(lib: ctypes.CDLL):
+    """``launch`` on ``lib``, a host build of csrc/extend.cu
+    (``tools/extend_calls.py`` ``host_library``): the entry's ``_host``
+    twin on CPU tensors, nothing counted."""
+    def run(kernel: str, entry: str, out, args: list, tensors: list):
+        if any(t.device.type != "cpu" for t in tensors):
+            raise ValueError("the host build takes CPU tensors")
+        if tensors[0].numel() == 0:
+            return out
+        rc = bind(lib, f"{entry}_host", stream=False)(array(args), len(args))
+        if rc != 0:
+            raise RuntimeError(f"{entry}_host refused its arguments ({rc})")
+        return out
+    return run
 
 
 def extend_setup_cuda(seeds: dict, chains: dict, flt: dict,

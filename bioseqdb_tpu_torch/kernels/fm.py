@@ -33,9 +33,9 @@ raise rather than fall back; on CPU tensors they run their plain twins
 ``sa_resolve_plain`` and ``backward_search_plain``, the loops as eager
 ops, bit-equal to the kernels. Under a group every step is an owner sum,
 an ``all_reduce`` that no launch holds: on CUDA tensors ``sa_resolve``
-then runs ``sa_walk_sharded``, each step two launches of
-``csrc/fm_shard.cu`` (``kernels/fm_shard_cuda.py``) around the
-``all_reduce``; ``backward_search`` keeps its plain twin there.
+then runs ``sa_walk_sharded`` and ``backward_search`` runs
+``search_sharded``, each step two launches of ``csrc/fm_shard.cu``
+(``kernels/fm_shard_cuda.py``) around the ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -283,13 +283,47 @@ def backward_search(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor,
     (0..3 bases, >= 4 ambiguous), lens int32 [B]. Returns (lo, hi) [B]
     in the rank dtype; the empty interval (0, 0) on no match, an
     ambiguous base or an empty read. On CUDA tensors without a group one
-    launch of ``csrc/fm.cu``'s kernel (``fm_cuda``), which raises rather
-    than fall back; on CPU tensors, and under a group (every step an
-    owner sum, which no launch holds), the plain twin."""
-    if codes.device.type != "cuda" or group is not None:
+    launch of ``csrc/fm.cu``'s kernel (``fm_cuda``), under a group
+    ``search_sharded`` (two launches of ``csrc/fm_shard.cu`` around each
+    step's owner sum), both raising rather than falling back; on CPU
+    tensors the plain twin."""
+    if codes.device.type != "cuda":
         return backward_search_plain(fm, codes, lens, group)
+    if group is not None:
+        return search_sharded(fm, codes, lens, group)
     return backward_search_cuda(fm, codes.to(torch.int32).contiguous(),
                                 lens.to(torch.int32).contiguous())
+
+
+def search_sharded(fm: FMDevice, codes: torch.Tensor, lens: torch.Tensor,
+                   group, entries: dict | None = None):
+    """``backward_search`` under an index group on the kernels of
+    ``csrc/fm_shard.cu``: the twin's W steps over every read, each a query
+    launch (this rank's partial occ at lo and at hi of the reads the step
+    extends), the ``all_reduce`` of ``backward_search_plain``'s int32 [1,
+    2B] buffer and an apply launch (the extension, an ambiguous base's
+    kill and, after the last step, the empty rule). ``entries``:
+    ``fm_shard_cuda.card_entries()`` (the default, on CUDA tensors) or a
+    host build's. Bit-equal to ``backward_search_plain(..., group)``,
+    with the same ``all_reduce`` calls and bytes."""
+    B, W = codes.shape
+    dev = codes.device
+    codes = codes.to(torch.int32).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    lo = torch.zeros(B, dtype=fm.rank_dtype, device=dev)
+    hi = torch.full((B,), fm.seq_len + 1, dtype=fm.rank_dtype, device=dev)
+    if W == 0:          # no step: the empty rule alone
+        empty = lens == 0
+        return torch.where(empty, 0, lo), torch.where(empty, 0, hi)
+    entries = entries or fsc.card_entries()
+    buf = torch.empty((1, 2 * B), dtype=torch.int32, device=dev)
+    args = fsc.pack(fsc.bs_args(fm, codes, lens, lo, hi, buf,
+                                dist.get_rank(group)))
+    for t in range(W):
+        args[fsc.BS_STEP] = t
+        fsc.owner_sum_step(entries, "bs_shard", args, B, dev,
+                           lambda: _all_reduce(buf, group))
+    return lo, hi
 
 
 def backward_search_plain(fm: FMDevice, codes: torch.Tensor,

@@ -1,19 +1,22 @@
 """Wrappers of the index mesh's hand-written CUDA kernels (csrc/fm_shard.cu).
 
-The Hopper counterparts of the JAX package's two loops under a shard
+The Hopper counterparts of the JAX package's three loops under a shard
 axis: ``collect_seeds_device(..., shard_axis=)``
-(``bioseqdb_tpu/kernels/seed.py``, its owner sums at :736-743) and
-``sa_resolve(..., shard_axis=)`` (``bioseqdb_tpu/kernels/fm.py``). Each
-step of either is a query launch (this rank's partials of the values the
-step sums, into the buffer ``kernels/fm.py`` ``_owner_sums`` would
+(``bioseqdb_tpu/kernels/seed.py``, its owner sums at :736-743),
+``sa_resolve(..., shard_axis=)`` (``bioseqdb_tpu/kernels/fm.py``) and
+``backward_search_sharded`` (``bioseqdb_tpu/dist/shard_index.py:155``).
+Each step of any is a query launch (this rank's partials of the values
+the step sums, into the buffer ``kernels/fm.py`` ``_owner_sums`` would
 stack), one ``all_reduce`` over the index group, and an apply launch (the
 step's update from the sums). The loops around them are
-``kernels/seed.py`` ``collect_seeds_sharded`` and ``kernels/fm.py``
-``sa_walk_sharded``; their plain twins are ``collect_seeds_plain`` and
-``sa_resolve_plain`` under the group.
+``kernels/seed.py`` ``collect_seeds_sharded``, ``kernels/fm.py``
+``sa_walk_sharded`` and ``search_sharded``; their plain twins are
+``collect_seeds_plain``, ``sa_resolve_plain`` and
+``backward_search_plain`` under the group.
 
 Every entry takes one int64 array, which ``machine_args`` / ``sa_args``
-build from the state and the tables (and check) and ``pack`` packs, and
+/ ``bs_args`` build from the state and the tables (and check) and
+``pack`` packs, and
 refuses one of the wrong length. ``card_entries()`` launches them on
 PyTorch's current stream (each adds one to ``build.LAUNCHES``; nothing
 is allocated and nothing synchronises), and raises on a failed build or
@@ -30,8 +33,11 @@ import torch
 
 from bioseqdb_tpu_torch.kernels import build
 
+# the FM machine's and the SA walk's entries (an index mesh's step), then
+# the backward search's
 ENTRIES = ("fm_shard_query", "fm_shard_apply", "sa_shard_query",
            "sa_shard_apply")
+SEARCH_ENTRIES = ("bs_shard_query", "bs_shard_apply")
 # the machine's state tensors in the entries' order (kernels/seed.py
 # _machine_state): kind "i" int32 [B], "b" bool [B], "r" rank [B], and
 # the wider ones by their trailing shape
@@ -46,6 +52,8 @@ MACHINE_STATE = (
     ("overflow", "b"))
 MACHINE_ARGS = 18 + len(MACHINE_STATE)   # csrc/fm_shard.cu kMachineArgs
 SA_ARGS = 23                             # csrc/fm_shard.cu kSaArgs
+BS_ARGS = 16                             # csrc/fm_shard.cu kBsArgs
+BS_STEP = 3     # bs_args' step index, which the search's loop rewrites
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple
@@ -135,6 +143,29 @@ def sa_args(fm, r: torch.Tensor, steps: torch.Tensor, buf: torch.Tensor,
             0 if pos is None else pos.data_ptr()]
 
 
+def bs_args(fm, codes: torch.Tensor, lens: torch.Tensor, lo: torch.Tensor,
+            hi: torch.Tensor, buf: torch.Tensor, shard: int) -> list[int]:
+    """The search entries' argument array at step 0 (``BS_STEP`` holds
+    the step): ``codes`` int32 [B, W] (W >= 1), ``lens`` int32 [B], the
+    intervals ``lo`` and ``hi`` (rank dtype [B]; the apply updates them in
+    place) and ``buf`` int32 [1, 2B], the owner sum's buffer, on rank
+    ``shard``."""
+    rdt = fm.rank_dtype
+    B, W = codes.shape if codes.dim() == 2 else (-1, -1)
+    _tables(fm)
+    _check("codes", codes, torch.int32, (B, W))
+    _check("lens", lens, torch.int32, (B,))
+    _check("lo", lo, rdt, (B,))
+    _check("hi", hi, rdt, (B,))
+    _check("buf", buf, torch.int32, (1, 2 * B))
+    if W < 1:
+        raise ValueError("fm_shard kernels: the search needs W >= 1")
+    return [rdt.itemsize, B, W, 0, shard, fm.blocks.shape[0],
+            fm.occ_majors.shape[0], fm.primary, fm.occ_rows.data_ptr(),
+            fm.occ_majors.data_ptr(), fm.L2.data_ptr(), codes.data_ptr(),
+            lens.data_ptr(), lo.data_ptr(), hi.data_ptr(), buf.data_ptr()]
+
+
 def bind(lib: ctypes.CDLL, name: str, stream: bool = True):
     """``lib``'s entry ``name`` with its argument types: the array, its
     length (and the stream, if ``stream``)."""
@@ -174,7 +205,7 @@ def card_entries() -> dict:
                                    f"error {rc} ({lanes} lanes)")
             build.LAUNCHES[name] += 1
         return call
-    return {name: entry(name) for name in ENTRIES}
+    return {name: entry(name) for name in ENTRIES + SEARCH_ENTRIES}
 
 
 def host_entries(lib: ctypes.CDLL) -> dict:
@@ -190,7 +221,7 @@ def host_entries(lib: ctypes.CDLL) -> dict:
             if rc != 0:
                 raise RuntimeError(f"{name}_host refused its arguments")
         return call
-    return {name: entry(name) for name in ENTRIES}
+    return {name: entry(name) for name in ENTRIES + SEARCH_ENTRIES}
 
 
 def owner_sum_step(entries: dict, kernel: str, args, lanes: int,

@@ -9,7 +9,8 @@ lanes), ``fm.sa_resolve`` walks, and one launch of ``resolve_finish``
 applies the compaction cap and the bridge and reference tests and writes
 ``resolve_seeds``' dict; a warp a read each. The plain version is
 ``chain.resolve_seeds_plain``; ``chain.resolve_seeds`` calls these on
-CUDA tensors with no group. They launch on PyTorch's current stream,
+CUDA tensors, and ``chain.resolve_seeds_sharded`` under an index group
+(around the sharded walk). They launch on PyTorch's current stream,
 allocate only their outputs, and do not synchronise. Nothing falls back
 to the plain version.
 
@@ -149,6 +150,23 @@ def launch(kernel: str, out, args: list, tensors: list):
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     build.LAUNCHES[kernel] += 1
     return out
+
+
+def host_launcher(lib):
+    """``launch`` on ``lib``, a host build of csrc/resolve.cu
+    (``tools/resolve_calls.py`` ``host_library``): the kernel's ``_host``
+    entry on CPU tensors, nothing counted."""
+    def run(kernel: str, out, args: list, tensors: list):
+        if any(t.device.type != "cpu" for t in tensors):
+            raise ValueError("the host build takes CPU tensors")
+        if tensors[0].numel() == 0:
+            return out
+        rc = bind(lib, f"{kernel}_host", stream=False)(array(args),
+                                                      len(args))
+        if rc != 0:
+            raise RuntimeError(f"{kernel}_host refused its arguments ({rc})")
+        return out
+    return run
 
 
 def resolve_expand_cuda(mems: torch.Tensor, n_mem: torch.Tensor,

@@ -86,10 +86,19 @@ def _job(al: Aligner, job: dict, rank: int) -> dict:
         return dict(results=al.align_pairs(*batch))
     if kind == "columns":
         return long_leg.run_batch(al, batch, finalize=rank == 0)
+    if kind == "queries":
+        codes, lens = (torch.from_numpy(np.asarray(a)).to(al.device)
+                       for a in (batch.codes, batch.lens))
+        t0 = time.perf_counter()
+        lo, hi = dshard.backward_search_sharded(al.fms, codes, lens, al.mesh)
+        intervals = (lo.cpu().numpy(), hi.cpu().numpy())
+        return dict(intervals=intervals, seconds=dict(
+            backward_search_sharded=time.perf_counter() - t0))
     if kind == "shard_check":
         from bioseqdb_tpu_torch.tools import shard_calls
 
-        return dict(shard=shard_calls.shard_check(al, batch))
+        return dict(shard=shard_calls.shard_check(al, batch,
+                                                  search=job.get("search")))
     raise ValueError(f"job kind {kind!r}")
 
 
@@ -122,7 +131,8 @@ def _cell(rank: int, device_type: str, shape, names, idx, jobs: list
         kfm.reset_collectives()
         rows.append(r if rank == 0 else dict(
             {k: r[k] for k in build.PATH_KERNELS}, stages=r.get("stages"),
-            collectives=r.get("collectives"), shard=r.get("shard")))
+            collectives=r.get("collectives"), shard=r.get("shard"),
+            intervals=r.get("intervals")))
     return dict(jobs=rows, build_s=built)
 
 
@@ -159,9 +169,13 @@ def run_tasks(rank: int, world_size: int, device_type: str, tasks: list
       job: ``kind`` ``regions`` (``device_regions``), ``align``
       (``align_batch``), ``pairs`` (``align_pairs`` of a batch pair) or
       ``columns`` (``long_leg.run_batch``, finalized on rank 0) or, on
-      an index mesh, ``shard_check`` (``shard_calls.shard_check``: the
-      step's FM machine calls and SA walks, recorded, on the kernels and
-      on their plain twins, clocked; every rank returns it); with
+      an index mesh, ``queries`` (``backward_search_sharded`` of the
+      batch's reads: ``intervals``, lo and hi, every rank) or
+      ``shard_check`` (``shard_calls.shard_check``: the step's FM machine
+      calls, SA walks, window fetches and ``resolve_seeds`` call,
+      recorded, and the backward search of ``job["search"]`` (codes,
+      lens) if given, on the kernels and on their plain twins, clocked;
+      every rank returns it); with
       ``job["clock"]`` under ``long_leg.stage_clock`` and with the owner
       sums timed. Rank 0 returns the jobs' results; every rank the
       launches of each ``build.PATH_KERNELS`` kernel and

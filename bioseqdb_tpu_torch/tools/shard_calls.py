@@ -1,10 +1,14 @@
-"""The index mesh's sharded FM machine and SA walk, held against their
-plain twins.
+"""The index mesh's sharded loops, held against their plain twins.
 
-``csrc/fm_shard.cu``'s four kernels (``kernels/fm_shard_cuda.py``) run
-the FM machine (``seed.collect_seeds_sharded``) and the SA walk
-(``fm.sa_walk_sharded``) of an index group, a query launch, an
-``all_reduce`` and an apply launch a step. Here:
+``csrc/fm_shard.cu``'s kernels (``kernels/fm_shard_cuda.py``) run the
+FM machine (``seed.collect_seeds_sharded``), the SA walk
+(``fm.sa_walk_sharded``) and the backward search (``fm.search_sharded``)
+of an index group, a query launch, an ``all_reduce`` and an apply launch
+a step; ``csrc/extend.cu``'s ``windows_shard_query`` and
+``extend_windows`` run its window fetch
+(``extend.extend_windows_sharded``), and ``csrc/resolve.cu``'s two
+kernels ``resolve_seeds`` around the sharded walk
+(``chain.resolve_seeds_sharded``). Here:
 
 - ``host_library`` builds the source for the host with g++ (its
   ``*_host`` entries), so that ``pair_rank``, a rank function for
@@ -25,7 +29,18 @@ the FM machine (``seed.collect_seeds_sharded``) and the SA walk
   on them (``tools/dist_leg.py``'s ``shard_check`` job, which
   ``chip_smoke.py``'s dist phase runs), ``launch_ms`` times a launch in
   a CUDA graph and ``machine_bytes`` / ``walk_bytes`` give the bytes
-  that launch must move, its bound's numerator.
+  that launch must move, its bound's numerator;
+- ``host_libraries`` builds the three sources for the host, and
+  ``route_rank`` runs the window fetch, ``resolve_seeds`` and the
+  backward search of an index-mesh step (recorded) on the kernels and on
+  their twins under the group (``windows_pair``, ``resolve_pair``,
+  ``search_pair``), on the host builds in gloo ranks
+  (``tests/test_torch_shard_extend.py``) or on the card
+  (``tests/test_torch_dist_cuda.py``, with a forced build failure);
+  ``shard_check`` replays a step's window fetches and ``resolve_seeds``
+  call and a search too, ``windows_launch_ms`` / ``resolve_launch_ms``
+  / ``search_launch_ms`` time their launches in a CUDA graph and
+  ``windows_bytes`` / ``search_bytes`` give their bounds' bytes.
 """
 
 from __future__ import annotations
@@ -45,9 +60,11 @@ import torch.distributed as dist
 from bioseqdb_tpu_torch.dist import mesh as dmesh
 from bioseqdb_tpu_torch.dist import shard_index as dshard
 from bioseqdb_tpu_torch.io.batch import pack_reads
-from bioseqdb_tpu_torch.kernels import build
+from bioseqdb_tpu_torch.kernels import build, chain, extend
+from bioseqdb_tpu_torch.kernels import extend_cuda as ecu
 from bioseqdb_tpu_torch.kernels import fm as kfm
 from bioseqdb_tpu_torch.kernels import fm_shard_cuda as fsc
+from bioseqdb_tpu_torch.kernels import resolve_cuda as rcu
 from bioseqdb_tpu_torch.kernels import seed
 from bioseqdb_tpu_torch.utils.sim import simulate_genome, simulate_reads
 
@@ -126,6 +143,51 @@ def edge_batches(refs: list, seed_: int = 5):
             pack_reads(wide, [f"w{k}" for k in range(len(wide))]))
 
 
+def _rc(s: str) -> str:
+    return s[::-1].translate(str.maketrans("ACGTN", "TGCAN"))
+
+
+def strand_batch(refs: list):
+    """Eight 120 bp reads at ``edge_refs``' repeat contig's end, the last
+    forward base (l_pac): four forward, a substitution at base 110, and
+    their reverse complements (the first of the reverse strand), a
+    substitution at base 10, so that their windows run across the
+    strands' boundary and the extended seeds' targets reach its last
+    forward base and its first reverse one."""
+    rep = refs[1][1]
+    sub = lambda s, i: s[:i] + "ACGT"[("ACGT".index(s[i]) + 1) % 4] + s[i + 1:]
+    ends = [rep[len(rep) - end - 120:len(rep) - end] for end in (0, 7, 30, 80)]
+    reads = [sub(r, 110) for r in ends] + [sub(_rc(r), 10) for r in ends]
+    return pack_reads(reads, [f"e{k}" for k in range(len(reads))])
+
+
+def search_batch(refs: list, short) -> tuple[np.ndarray, np.ndarray]:
+    """The backward search's reads on ``edge_refs`` as (codes, lens):
+    16 exact reads of the genome, half 120 bp (full width) and half 20 to
+    119 bp, every other pair reverse-complemented; three 100 bp copies of
+    the repeated 400 bases (two hits each); the genome's last 120 bases,
+    the reverse complement of its first 120 (in the repeat too) and its
+    first 120 with an N; then ``short``'s reads (``edge_batches``:
+    substitutions, an N-sprinkled, an empty, an all-N and a junk read)."""
+    genome, rep = refs[0][1], refs[1][1]
+    rng = np.random.default_rng(11)
+    reads = []
+    for k in range(16):
+        n = 120 if k % 2 else int(rng.integers(20, 120))
+        st = int(rng.integers(0, len(genome) - n))
+        r = genome[st:st + n]
+        reads.append(r if k % 4 < 2 else _rc(r))
+    reads += [rep[st:st + 100] for st in (0, 150, 290)]
+    reads += [genome[-120:], _rc(genome[:120]),
+              genome[:60] + "N" + genome[61:120]]
+    b = pack_reads(reads, [f"x{k}" for k in range(len(reads))])
+    parts = [np.asarray(b.codes), np.asarray(short.codes)]
+    W = max(x.shape[1] for x in parts)
+    return (np.concatenate([np.pad(x, ((0, 0), (0, W - x.shape[1])),
+                                   constant_values=4) for x in parts]),
+            np.concatenate([np.asarray(b.lens), np.asarray(short.lens)]))
+
+
 def unmarked_primary(fm, shard: int):
     """This rank's shard ``fm`` with the primary rank's mark bit cleared
     where the rank owns its word (``fm_calls.unmarked_primary`` on a
@@ -178,77 +240,111 @@ def _event_pair():
     return tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
 
 
+def route_hooks(libs: dict | None = None) -> dict:
+    """The kernels the sharded routes launch: ``entries`` (the
+    ``fm_shard`` entries), ``ext`` (``extend_cuda.launch``'s signature)
+    and ``res`` (``resolve_cuda.launch``'s): the card's (``libs`` None)
+    or the host builds' at ``libs`` (``host_libraries``' paths)."""
+    if libs is None:
+        return dict(entries=fsc.card_entries(), ext=ecu.launch,
+                    res=rcu.launch)
+    return dict(entries=fsc.host_entries(ctypes.CDLL(libs["fm_shard"])),
+                ext=ecu.host_launcher(ctypes.CDLL(libs["extend"])),
+                res=rcu.host_launcher(ctypes.CDLL(libs["resolve"])))
+
+
 @contextlib.contextmanager
-def _clocked(on: bool, dev):
-    """When ``on`` (on the card): yields (entries, sums): the card's
-    entries, each launch between two CUDA events, with ``kfm._all_reduce``
-    wrapped the same way for the block; ``sums`` gets ``_events``' sums
-    after it. Otherwise (None, {})."""
+def _clocked(on: bool, dev, hooks: dict | None = None):
+    """Yields (hooks, sums). When ``on`` (on the card): ``hooks``
+    (``route_hooks``' dict; the card's by default) with each launch
+    between two CUDA events, and ``kfm._all_reduce`` wrapped the same way
+    for the block; ``sums`` gets ``_events``' sums after it. Otherwise
+    ``hooks`` as given and {}."""
     sums = {}
     if not on or dev.type != "cuda":
-        yield None, sums
+        yield hooks, sums
         return
-    events, card, reduce = [], fsc.card_entries(), kfm._all_reduce
+    events, reduce = [], kfm._all_reduce
+    card = dict(route_hooks(), **(hooks or {}))
 
-    def entry(name):
-        def call(args, lanes: int, device) -> None:
-            e0, e1 = _event_pair()
-            e0.record()
-            card[name](args, lanes, device)
-            e1.record()
-            events.append((name, e0, e1, lanes))
-        return call
-
-    def all_reduce(buf, group) -> None:
+    def timed(name: str, fn, lanes: int, *a):
         e0, e1 = _event_pair()
         e0.record()
-        reduce(buf, group)
+        out = fn(*a)
         e1.record()
-        events.append(("all_reduce", e0, e1, 0))
+        events.append((name, e0, e1, lanes))
+        return out
 
-    kfm._all_reduce = all_reduce
+    def entry(name):
+        return lambda args, lanes, device: timed(
+            name, card["entries"][name], lanes, args, lanes, device)
+
+    ext = lambda kernel, *a: timed(kernel, card["ext"], 0, kernel, *a)
+    res = lambda kernel, *a: timed(kernel, card["res"], 0, kernel, *a)
+    kfm._all_reduce = lambda buf, group: timed("all_reduce", reduce, 0, buf,
+                                               group)
     try:
-        yield {name: entry(name) for name in fsc.ENTRIES}, sums
+        yield dict(entries={name: entry(name) for name in card["entries"]},
+                   ext=ext, res=res), sums
         _sync(dev)
         sums.update(_events(events))
     finally:
         kfm._all_reduce = reduce
 
 
+def _route_pair(dev, kernel, plain, hooks: dict | None = None,
+                clock: bool = False, plain_reps: int = 1) -> dict:
+    """One call on the kernels (``kernel(hooks)``: ``hooks`` None takes
+    the card's) and on its plain twin (``plain()``) under a group: each
+    route's outputs (a dict of tensors, as numpy), ``COLLECTIVES``
+    (calls, bytes) and seconds. With ``clock`` (on the card) the kernel
+    route's launches and ``all_reduce``s between CUDA events
+    (``events``: name -> launches, lanes, ms), and the plain twin run
+    ``plain_reps`` times with its ``all_reduce``s timed, after an
+    untimed warm-up where ``plain_reps`` > 1 (``plain_step_ms``: each
+    run's ms a step outside them; the outputs and collectives are the
+    last run's)."""
+    out = {}
+    for route in ("kernel", "plain"):
+        reps = plain_reps if clock and route == "plain" else 1
+        if clock and route == "plain" and plain_reps > 1:
+            plain()                                   # warm-up
+        step_ms = []
+        for _ in range(reps):
+            kfm.reset_collectives(timed=clock and route == "plain")
+            with _clocked(clock and route == "kernel", dev, hooks) as (h,
+                                                                       ev):
+                _sync(dev)
+                t0 = time.perf_counter()
+                res = kernel(h) if route == "kernel" else plain()
+                _sync(dev)
+                sec = time.perf_counter() - t0
+            step_ms.append(_plain_step_ms(sec))
+        out[route] = dict(out={k: v.cpu().numpy() for k, v in res.items()},
+                          collectives=dict(kfm.COLLECTIVES), seconds=sec,
+                          events=ev, plain_step_ms=step_ms)
+        kfm.reset_collectives()
+    return out
+
+
 def machine_pair(fm, group, call: dict, entries: dict | None = None,
                  clock: bool = False) -> dict:
     """``call`` (``machine_call``'s dict, on ``fm``'s device) on the
     kernels (``seed.collect_seeds_sharded``; ``entries`` None: the card's)
-    and on the plain twin (``collect_seeds_plain``) under ``group``:
-    each route's outputs (numpy) and ``COLLECTIVES`` (calls, bytes), and
-    with ``clock`` (on the card) the kernels' launch and all_reduce
-    events (``events``: name -> launches, lanes, ms), both routes'
-    seconds and the plain twin's ms a step outside its all_reduce
-    (``plain_step_ms``, a list of one)."""
+    and on the plain twin (``collect_seeds_plain``) under ``group``
+    (``_route_pair``: the plain twin once, its ms a step outside its
+    all_reduce a list of one)."""
     dev = fm.L2.device
     call = _to(call, dev)
-    out = {}
-    for route in ("kernel", "plain"):
-        kfm.reset_collectives(timed=clock and route == "plain")
-        with _clocked(clock and route == "kernel", dev) as (clocked, ev):
-            _sync(dev)
-            t0 = time.perf_counter()
-            if route == "kernel":
-                res = seed.collect_seeds_sharded(
-                    fm, call["codes"], call["lens"], group=group,
-                    entries=clocked or entries, **call["kw"])
-            else:
-                res = seed.collect_seeds_plain(
-                    fm, call["codes"], call["lens"], group=group,
-                    **call["kw"])
-            _sync(dev)
-            sec = time.perf_counter() - t0
-        out[route] = dict(out={k: res[k].cpu().numpy()
-                               for k in MACHINE_OUTPUTS},
-                          collectives=dict(kfm.COLLECTIVES), seconds=sec,
-                          events=ev, plain_step_ms=[_plain_step_ms(sec)])
-        kfm.reset_collectives()
-    return out
+    hooks = None if entries is None else dict(entries=entries)
+    pick = lambda res: {k: res[k] for k in MACHINE_OUTPUTS}
+    return _route_pair(
+        dev, lambda h: pick(seed.collect_seeds_sharded(
+            fm, call["codes"], call["lens"], group=group,
+            entries=h and h["entries"], **call["kw"])),
+        lambda: pick(seed.collect_seeds_plain(
+            fm, call["codes"], call["lens"], group=group, **call["kw"])),
+        hooks, clock)
 
 
 def _plain_step_ms(sec: float) -> float:
@@ -263,38 +359,18 @@ def walk_pair(fm, group, ranks: torch.Tensor, sa_interval: int,
               entries: dict | None = None, clock: bool = False,
               plain_reps: int = 3) -> dict:
     """``machine_pair`` for the SA walk: ``fm.sa_walk_sharded`` and
-    ``fm.sa_resolve_plain`` under ``group`` on ``ranks`` (and ``mask``).
-    With ``clock`` the plain twin runs once untimed, then ``plain_reps``
-    times timed (``plain_step_ms``: each run's ms a step outside its
-    all_reduce; the outputs and collectives are the last run's)."""
+    ``fm.sa_resolve_plain`` under ``group`` on ``ranks`` (and ``mask``);
+    with ``clock`` the plain twin warmed, then timed ``plain_reps``
+    times."""
     dev = fm.L2.device
     r = ranks.to(dev, fm.rank_dtype)
     m = None if mask is None else mask.to(dev)
-    out = {}
-    for route in ("kernel", "plain"):
-        reps = plain_reps if clock and route == "plain" else 1
-        if reps > 1:
-            kfm.sa_resolve_plain(fm, r, sa_interval, group, m)   # warm-up
-        step_ms = []
-        for _ in range(reps):
-            kfm.reset_collectives(timed=clock and route == "plain")
-            with _clocked(clock and route == "kernel", dev) as (clocked,
-                                                                ev):
-                _sync(dev)
-                t0 = time.perf_counter()
-                if route == "kernel":
-                    pos = kfm.sa_walk_sharded(fm, r, sa_interval, group, m,
-                                              clocked or entries)
-                else:
-                    pos = kfm.sa_resolve_plain(fm, r, sa_interval, group, m)
-                _sync(dev)
-                sec = time.perf_counter() - t0
-            step_ms.append(_plain_step_ms(sec))
-        out[route] = dict(out=dict(pos=pos.cpu().numpy()),
-                          collectives=dict(kfm.COLLECTIVES), seconds=sec,
-                          events=ev, plain_step_ms=step_ms)
-        kfm.reset_collectives()
-    return out
+    hooks = None if entries is None else dict(entries=entries)
+    return _route_pair(
+        dev, lambda h: dict(pos=kfm.sa_walk_sharded(
+            fm, r, sa_interval, group, m, h and h["entries"])),
+        lambda: dict(pos=kfm.sa_resolve_plain(fm, r, sa_interval, group, m)),
+        hooks, clock, plain_reps)
 
 
 def pair_equal(pair: dict) -> bool:
@@ -364,16 +440,28 @@ def pair_rank(rank: int, world_size: int, device_type: str,
 
 @contextlib.contextmanager
 def recording():
-    """Within the block, every FM machine call and SA walk the index
-    mesh's step makes (``dist/shard_index.py``'s ``collect_seeds_device``,
-    ``kernels/chain.py``'s ``kfm.sa_resolve`` under a group) is recorded
+    """Within the block, every FM machine call, SA walk, window fetch and
+    ``resolve_seeds`` call the index mesh's step makes
+    (``dist/shard_index.py``'s ``collect_seeds_device`` and
+    ``resolve_seeds``, ``kernels/chain.py``'s ``kfm.sa_resolve`` and
+    ``kernels/extend.py``'s ``extend_windows`` under a group) is recorded
     in the yielded dict: ``machine`` (``machine_call``'s dicts, inputs on
-    the CPU) and ``walks`` (dict(ranks, sa_interval, mask)); the calls
-    still run."""
-    from bioseqdb_tpu_torch.kernels import chain
-
-    rec = dict(machine=[], walks=[])
+    the CPU), ``walks`` (dict(ranks, sa_interval, mask)), ``windows``
+    (dict(tab, scan, perm, p), the step's tensors on its device) and
+    ``resolve`` (dict(mems, n_mem, kw)); the calls still run."""
+    rec = dict(machine=[], walks=[], windows=[], resolve=[])
     collect, resolve = dshard.collect_seeds_device, chain.kfm.sa_resolve
+    windows, seeds = extend.extend_windows, dshard.resolve_seeds
+
+    def windows_rec(tab, fm, pac, scan, perm, p, group=None, gate=None):
+        if group is not None:
+            rec["windows"].append(dict(tab=tab, scan=scan, perm=perm, p=p))
+        return windows(tab, fm, pac, scan, perm, p, group, gate)
+
+    def seeds_rec(fm, mems, n_mem, **kw):
+        rec["resolve"].append(dict(mems=mems, n_mem=n_mem, kw={
+            k: v for k, v in kw.items() if k != "group"}))
+        return seeds(fm, mems, n_mem, **kw)
 
     def collect_rec(fm, codes, lens, **kw):
         rec["machine"].append(dict(
@@ -391,11 +479,15 @@ def recording():
 
     dshard.collect_seeds_device = collect_rec
     chain.kfm.sa_resolve = resolve_rec
+    extend.extend_windows = windows_rec
+    dshard.resolve_seeds = seeds_rec
     try:
         yield rec
     finally:
         dshard.collect_seeds_device = collect
         chain.kfm.sa_resolve = resolve
+        extend.extend_windows = windows
+        dshard.resolve_seeds = seeds
 
 
 def _occ_blocks(fm, r: torch.Tensor, shard: int):
@@ -552,8 +644,8 @@ def launch_ms(fm, group, call: dict | None = None,
         r = walk["ranks"].to(dev, fm.rank_dtype).reshape(-1).clone()
         n = r.shape[0]
         buf = torch.empty((2, n), dtype=torch.int64, device=dev)
-        args = fsc.pack(fsc.sa_args(fm, r, torch.zeros_like(r), buf, 0,
-                                    shard))
+        steps = torch.zeros_like(r)    # held: the apply writes it
+        args = fsc.pack(fsc.sa_args(fm, r, steps, buf, 0, shard))
         names = fsc.ENTRIES[2:]
         need = lambda name: walk_bytes(fm, r, buf, shard, name)
     out = {}
@@ -564,21 +656,28 @@ def launch_ms(fm, group, call: dict | None = None,
     return out
 
 
-def shard_check(al, batch, mask_seed: int = 7) -> dict:
+def shard_check(al, batch, mask_seed: int = 7, search=None) -> dict:
     """On an index-mesh ``Aligner`` (in every rank of the group): the FM
-    machine calls and SA walks of ``al.device_regions(batch)`` recorded,
-    then each run again on the kernels and on the plain twin under the
-    group, clocked (``machine_pair`` / ``walk_pair``), every walk also
-    under a lane mask (half the lanes, from ``mask_seed``, the same on
-    every rank). Returns dict(machine=[...], walks=[...]) of ``_summary``
-    rows (with the call's lanes and width, and each unmasked call's
-    ``launch_ms`` as ``graph``) and ``walk_plain_ms``, the median over
-    every walk's timed plain runs of its ms a step outside the
-    all_reduce (a whole step: both launches' work)."""
-    fm, group = al.fms.fm, al.mesh.get_group("index")
+    machine calls, SA walks, window fetches and ``resolve_seeds`` calls
+    of ``al.device_regions(batch)`` recorded, then each run again on the
+    kernels and on the plain twin under the group, clocked
+    (``machine_pair`` / ``walk_pair`` / ``windows_pair`` /
+    ``resolve_pair``), every walk also under a lane mask (half the lanes,
+    from ``mask_seed``, the same on every rank); and the backward search
+    of ``search`` (codes, lens), if given (``search_pair``). Returns
+    dict(machine=[...], walks=[...], windows=[...], resolve=[...],
+    search=row or None) of ``_summary`` rows (with each call's lanes and
+    width; the machine's and the unmasked walks' ``launch_ms``, the first
+    window fetch's ``windows_launch_ms``, the first resolve call's
+    ``resolve_launch_ms`` and the search's ``search_launch_ms`` as
+    ``graph``) and ``walk_plain_ms``, the median over every walk's timed
+    plain runs of its ms a step outside the all_reduce (a whole step:
+    both launches' work)."""
+    fm, pac = al.fms.fm, al.fms.pac
+    group = al.mesh.get_group("index")
     with recording() as rec:
         al.device_regions(batch)
-    out = dict(machine=[], walks=[])
+    out = dict(machine=[], walks=[], windows=[], resolve=[], search=None)
     for call in rec["machine"]:
         row = _summary(machine_pair(fm, group, call, clock=True),
                        fsc.ENTRIES[:2])
@@ -600,4 +699,453 @@ def shard_check(al, batch, mask_seed: int = 7) -> dict:
             out["walks"].append(row)
     out["walk_plain_ms"] = statistics.median(
         [t for row in out["walks"] for t in row["plain_step_ms"]] or [0.0])
+    for k, call in enumerate(rec["windows"]):
+        row = _summary(windows_pair(fm, pac, group, call, clock=True),
+                       WINDOWS_LAUNCHES)
+        row.update(lanes=int(call["scan"]["sel"].numel()),
+                   width=int(call["tab"]["codes"].shape[1]))
+        if k == 0:
+            row["graph"] = windows_launch_ms(fm, pac, group, call)
+        out["windows"].append(row)
+    for k, call in enumerate(rec["resolve"]):
+        row = _summary(resolve_pair(fm, group, call, clock=True),
+                       RESOLVE_LAUNCHES)
+        row.update(lanes=int(call["mems"].shape[0]
+                             * call["kw"]["max_seeds"]))
+        if k == 0:
+            row["graph"] = resolve_launch_ms(fm, group, call)
+        out["resolve"].append(row)
+    if search is not None:
+        codes, lens = (torch.as_tensor(np.asarray(a), dtype=torch.int32)
+                       for a in search)
+        row = _summary(search_pair(fm, group, codes, lens, clock=True,
+                                   plain_reps=2), fsc.SEARCH_ENTRIES)
+        row.update(lanes=int(codes.shape[0]), width=int(codes.shape[1]),
+                   graph=search_launch_ms(fm, group, codes, lens))
+        out["search"] = row
     return out
+
+
+# ---- the window fetch, resolve_seeds and the backward search ----
+
+# the sources the three routes build for the host, and the kernels they
+# launch on the card
+ROUTE_SOURCES = ("fm_shard", "extend", "resolve")
+ROUTE_KERNELS = (*build.WINDOWS_SHARD_KERNELS, "extend_windows",
+                 *build.RESOLVE_KERNELS, "sa_shard_query", "sa_shard_apply",
+                 *build.SEARCH_SHARD_KERNELS)
+WINDOW_OUTPUTS = ("qbuf", "tbuf", "qn", "tn", "active", "h0", "inv")
+# the launches a route's clocked pair reports (``_summary``)
+WINDOWS_LAUNCHES = (*build.WINDOWS_SHARD_KERNELS, "extend_windows")
+RESOLVE_LAUNCHES = (*build.RESOLVE_KERNELS, "sa_shard_query",
+                    "sa_shard_apply")
+RESOLVE_OUTPUTS = ("rbeg", "qbeg", "len", "rid", "valid", "overflow")
+
+
+def host_libraries(out_dir) -> dict:
+    """``ROUTE_SOURCES`` built for the host with g++ (their host entries)
+    in ``out_dir``, one g++ each, concurrently: {source: path}, which a
+    rank process loads (``route_hooks``). Raises without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    paths = {n: Path(out_dir) / f"lib{n}_host.so" for n in ROUTE_SOURCES}
+    procs = {n: subprocess.Popen(
+        [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-o",
+         str(paths[n]), str(build.CSRC / build.SOURCES[n])])
+        for n in ROUTE_SOURCES}
+    failed = [n for n, pr in procs.items() if pr.wait() != 0]
+    if failed:
+        raise RuntimeError(f"g++ failed for {failed}")
+    return {n: str(path) for n, path in paths.items()}
+
+
+def windows_pair(fm, pac, group, call: dict, hooks: dict | None = None,
+                 clock: bool = False) -> dict:
+    """A recorded window fetch (``recording``'s ``windows``) on the
+    kernels (``extend.extend_windows_sharded``) and on the plain twin
+    under ``group`` (``_route_pair``)."""
+    a = (call["tab"], fm, pac, call["scan"], call["perm"], call["p"])
+    return _route_pair(
+        fm.L2.device,
+        lambda h: extend.extend_windows_sharded(*a, group,
+                                                run=h and h.get("ext")),
+        lambda: extend.extend_windows_plain(*a, group), hooks, clock)
+
+
+def _walk_on(h: dict | None):
+    """The walk ``chain.resolve_seeds_sharded`` takes on ``h``'s entries
+    (None: its default, ``kfm.sa_resolve``)."""
+    if h is None or "entries" not in h:
+        return None
+    return lambda fm, r, iv, group: kfm.sa_walk_sharded(
+        fm, r, iv, group, entries=h["entries"])
+
+
+def resolve_pair(fm, group, call: dict, hooks: dict | None = None,
+                 clock: bool = False) -> dict:
+    """A ``resolve_seeds`` call (``recording``'s ``resolve``) on the
+    kernels (``chain.resolve_seeds_sharded``) and on the plain twin under
+    ``group`` (``_route_pair``)."""
+    mems, n_mem, kw = call["mems"], call["n_mem"], call["kw"]
+    return _route_pair(
+        fm.L2.device,
+        lambda h: chain.resolve_seeds_sharded(
+            fm, mems, n_mem, group=group, run=h and h.get("res"),
+            walk=_walk_on(h), **kw),
+        lambda: chain.resolve_seeds_plain(fm, mems, n_mem, group=group,
+                                          **kw), hooks, clock)
+
+
+def search_pair(fm, group, codes: torch.Tensor, lens: torch.Tensor,
+                hooks: dict | None = None, clock: bool = False,
+                plain_reps: int = 1) -> dict:
+    """The backward search of (``codes``, ``lens``) on the kernels
+    (``fm.search_sharded``) and on the plain twin under ``group``
+    (``_route_pair``)."""
+    dev = fm.L2.device
+    codes, lens = codes.to(dev, torch.int32), lens.to(dev, torch.int32)
+    as_dict = lambda lohi: dict(lo=lohi[0], hi=lohi[1])
+    return _route_pair(
+        dev, lambda h: as_dict(kfm.search_sharded(
+            fm, codes, lens, group, entries=h and h.get("entries"))),
+        lambda: as_dict(kfm.backward_search_plain(fm, codes, lens, group)),
+        hooks, clock, plain_reps)
+
+
+def wide_resolve_calls(call: dict, copies: int = 3, caps=(None, 0, 600)
+                       ) -> list[dict]:
+    """``call`` (a recorded ``resolve_seeds`` call) with its reads
+    repeated ``copies`` times, past the no-buffer size of 4,096 lanes
+    when ``copies`` x B x S is, at each compaction cap of ``caps``: every
+    walking lane (None, the index mesh's step), the JAX buffer's (B * S)
+    // 4 (0) and a cap that cuts (a number)."""
+    mems = call["mems"].repeat(copies, 1, 1)
+    n_mem = call["n_mem"].repeat(copies)
+    return [dict(mems=mems, n_mem=n_mem, kw=dict(call["kw"], compact_cap=c))
+            for c in caps]
+
+
+def window_reach(fm, calls: list) -> dict:
+    """Over recorded window fetches, the round lanes (a lane a side with
+    a target window) whose T columns reach past the text's ends
+    (``text_end``), across the strands' boundary l_pac (``strand``), and
+    whose window a chain's reference window cuts short (``clipped``: tn
+    below T)."""
+    out = dict(text_end=0, strand=0, clipped=0, lanes=0)
+    for c in calls:
+        tab, scan, p = c["tab"], c["scan"], c["p"]
+        T = tab["codes"].shape[1] + 4 * p["bandwidth"] + 64
+        has, _, tn = extend._sides(tab, scan["act"], scan["slot"])
+        sq, sr, sl, _, _, _ = extend._lanes(tab, scan["slot"])
+        first = torch.stack([sr.long() - T, (sr + sl).long()])
+        last = first + T - 1
+        out["lanes"] += int(has.sum())
+        out["text_end"] += int((has & ((first < 0)
+                                       | (last >= fm.seq_len))).sum())
+        out["strand"] += int((has & (first < fm.l_pac)
+                              & (last >= fm.l_pac)).sum())
+        out["clipped"] += int((has & (tn < T)).sum())
+    return out
+
+
+def _forced_failures(dev, group, fms, windows: dict, resolve: dict,
+                     codes, lens, out_dir) -> dict:
+    """Each route on CUDA tensors under ``group`` with the three sources
+    made unbuildable (``build.CSRC`` a copy under ``out_dir`` with an
+    ``#error`` line added to each, built into a fresh directory): {route:
+    the error it raised, or None if it ran}. The build is restored after."""
+    import tempfile
+
+    src = Path(tempfile.mkdtemp(dir=out_dir, prefix="csrc_"))
+    shutil.copytree(build.CSRC, src, dirs_exist_ok=True)
+    for n in ROUTE_SOURCES:
+        f = src / build.SOURCES[n]
+        f.write_text(f.read_text() + "\n#error forced build failure\n")
+    saved = build.CSRC, build.BUILD_DIR
+    build.CSRC, build.BUILD_DIR = src, src / "_build"
+    build.library.cache_clear()
+    calls = dict(
+        windows=lambda: extend.extend_windows(
+            windows["tab"], fms.fm, fms.pac, windows["scan"],
+            windows["perm"], windows["p"], group),
+        resolve=lambda: chain.resolve_seeds(
+            fms.fm, resolve["mems"], resolve["n_mem"], group=group,
+            **resolve["kw"]),
+        search=lambda: kfm.backward_search(fms.fm, codes.to(dev),
+                                           lens.to(dev), group))
+    out = {}
+    try:
+        for name, fn in calls.items():
+            try:
+                fn()
+                out[name] = None
+            except RuntimeError as e:
+                out[name] = str(e)[:200]
+    finally:
+        build.CSRC, build.BUILD_DIR = saved
+        build.library.cache_clear()
+    return out
+
+
+@contextlib.contextmanager
+def twin_calls():
+    """Within the block, the calls of ``extend_windows_plain``,
+    ``resolve_seeds_plain`` and ``backward_search_plain`` on CUDA tensors
+    under a group (none may happen: those routes launch their kernels
+    there) are counted in the yielded dict."""
+    counts = dict(windows=0, resolve=0, search=0)
+    saved = (extend.extend_windows_plain, chain.resolve_seeds_plain,
+             kfm.backward_search_plain)
+
+    def counting(name, fn, cuda, group_at):
+        def call(*a, **kw):
+            group = kw.get("group", a[group_at] if len(a) > group_at
+                           else None)
+            if group is not None and cuda(*a):
+                counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    extend.extend_windows_plain = counting(
+        "windows", saved[0], lambda tab, *a: tab["order"].is_cuda, 6)
+    chain.resolve_seeds_plain = counting(
+        "resolve", saved[1], lambda fm, mems, *a: mems.is_cuda, 7)
+    kfm.backward_search_plain = counting(
+        "search", saved[2], lambda fm, codes, *a: codes.is_cuda, 3)
+    try:
+        yield counts
+    finally:
+        (extend.extend_windows_plain, chain.resolve_seeds_plain,
+         kfm.backward_search_plain) = saved
+
+
+def route_rank(rank: int, world_size: int, device_type: str,
+               libs: dict | None, idx, batches: list, search: tuple,
+               rank_dtypes: tuple = (torch.int32,),
+               broken_dir: str | None = None) -> dict:
+    """A rank function (``dist/launch.py``): an index mesh of every rank
+    on ``device_type`` and, at each of ``rank_dtypes``, an ``Aligner`` on
+    this rank's shard of ``idx`` whose step (``device_regions`` of each
+    of ``batches``) is recorded (``recording``), then each recorded window
+    fetch and ``resolve_seeds`` call (and ``wide_resolve_calls`` of the
+    first) and the backward search of ``search`` (codes, lens) as pairs
+    of routes (``windows_pair``, ``resolve_pair``, ``search_pair``): on
+    the card (``libs`` None) or on the CPU through the host builds at
+    ``libs``. Also: ``reach`` (``window_reach``); on the card ``twins``
+    (``twin_calls`` over the step and a ``backward_search_sharded`` call:
+    all must be 0) and ``launches`` (of ``ROUTE_KERNELS`` over the pairs),
+    and with ``broken_dir`` ``broken`` (``_forced_failures``); on the CPU
+    ``dispatch`` (the dispatchers on CPU tensors under the group equal
+    the twins) and ``built`` (``build.library``'s loads: must be 0).
+    Returns dict(rank, dtypes: [...], dispatch, built, forbidden)."""
+    import dataclasses
+
+    from bioseqdb_tpu_torch.align.options import AlignOptions
+    from bioseqdb_tpu_torch.align.pipeline import Aligner
+    from bioseqdb_tpu_torch.tools.dist_leg import forbidden_modules
+
+    hooks = None if libs is None else route_hooks(libs)
+    dev = dmesh.rank_device(device_type)
+    mesh = dmesh.make_mesh((world_size,), ("index",), device_type)
+    group = mesh.get_group("index")
+    codes, lens = (torch.as_tensor(np.asarray(a), dtype=torch.int32)
+                   for a in search)
+    out, dispatch = [], None
+    for rdt in rank_dtypes:
+        al = dataclasses.replace(
+            Aligner.build(idx, AlignOptions(), device=dev, mesh=mesh),
+            fms=dshard.shard_index(idx, mesh, dev, rank_dtype=rdt))
+        fm, pac = al.fms.fm, al.fms.pac
+        with recording() as rec, twin_calls() as twins:
+            for b in batches:
+                al.device_regions(b)
+            dshard.backward_search_sharded(al.fms, codes.to(dev),
+                                           lens.to(dev), mesh)
+        build.reset_launches()
+        res_calls = rec["resolve"] + wide_resolve_calls(rec["resolve"][0])
+        row = dict(
+            rank_dtype=str(fm.rank_dtype),
+            windows=[windows_pair(fm, pac, group, c, hooks)
+                     for c in rec["windows"]],
+            resolve=[dict(resolve_pair(fm, group, c, hooks),
+                          lanes=int(c["mems"].shape[0]
+                                    * c["kw"]["max_seeds"]),
+                          cap=c["kw"]["compact_cap"])
+                     for c in res_calls],
+            search=search_pair(fm, group, codes, lens, hooks),
+            reach=window_reach(fm, rec["windows"]))
+        if device_type == "cuda":
+            row.update(twins=twins, launches={
+                k: build.LAUNCHES[k] for k in ROUTE_KERNELS})
+            if broken_dir is not None and rdt == rank_dtypes[0]:
+                row["broken"] = _forced_failures(
+                    dev, group, al.fms, rec["windows"][0], res_calls[-1],
+                    codes, lens, broken_dir)
+        elif dispatch is None:
+            w, r = rec["windows"][0], rec["resolve"][0]
+            a = (w["tab"], fm, pac, w["scan"], w["perm"], w["p"], group)
+            got = [extend.extend_windows(*a),
+                   chain.resolve_seeds(fm, r["mems"], r["n_mem"],
+                                       group=group, **r["kw"]),
+                   dict(zip("lh", kfm.backward_search(fm, codes, lens,
+                                                      group)))]
+            want = [extend.extend_windows_plain(*a),
+                    chain.resolve_seeds_plain(fm, r["mems"], r["n_mem"],
+                                              group=group, **r["kw"]),
+                    dict(zip("lh", kfm.backward_search_plain(
+                        fm, codes, lens, group)))]
+            dispatch = all(torch.equal(g[k], x[k]) for g, x in zip(got, want)
+                           for k in x)
+        out.append(row)
+    return dict(rank=rank, dtypes=out, dispatch=dispatch,
+                built=build.library.cache_info().misses,
+                forbidden=forbidden_modules())
+
+
+def windows_bytes(fm, tab: dict, scan: dict, out: dict, shard: int,
+                  kernel: str, pac_rows: int) -> int:
+    """The bytes one launch of ``kernel`` must move in a window fetch
+    (``out``: the query's outputs, or the apply's): the query reads each
+    round lane's entry of ``sel``, its slot and its seed's start and
+    length, and once each the forward codes this rank owns in the lanes'
+    windows (a byte each), and writes its 2 n T partials and the lanes'
+    rows (4 bytes); the apply (``extend_windows``' summed-target mode)
+    reads what the packed-text mode reads but a target's code from the
+    sums (a byte, up to tn) and each active lane's row, and writes every
+    output once."""
+    rb = tab["rbeg"].element_size()
+    size = lambda t: t.numel() * t.element_size()
+    sel = scan["sel"]
+    n = sel.numel()
+    if kernel == "windows_shard_query":
+        T = out["buf"].numel() // max(2 * n, 1)
+        slot = scan["slot"][sel].long()
+        sr = tab["rbeg"][sel, slot].long()
+        re0 = sr + tab["len"][sel, slot].long()
+        cols = torch.arange(T, device=sel.device)
+        pos = torch.cat([(sr - 1)[:, None] - cols, re0[:, None] + cols])
+        q = pos.clamp(0, fm.seq_len - 1)
+        local = torch.where(q < fm.l_pac, q, fm.seq_len - 1 - q) - (
+            shard * pac_rows)
+        owned = _distinct(local[(local >= 0) & (local < pac_rows)])
+        return n * (8 + 4 + rb + 4 + 4) + size(out["buf"]) + owned
+    qn, tn = out["qn"].long(), out["tn"].long()
+    B = tab["rbeg"].shape[0]
+    seed_bytes = rb + 12
+    return (B * (2 * 8 + 4 + 1 + seed_bytes + 4 + 2 * rb)
+            + 4 * int(qn.sum()) + int(tn.sum()) + 4 * n
+            + sum(size(out[k]) for k in WINDOW_OUTPUTS))
+
+
+def search_bytes(fm, codes: torch.Tensor, lens: torch.Tensor,
+                 lo: torch.Tensor, hi: torch.Tensor, t: int, shard: int,
+                 kernel: str) -> int:
+    """The bytes one launch of ``kernel`` at the search's step ``t`` must
+    move for the intervals (lo, hi) it finds: the query reads each read's
+    length, its step's code and interval and writes its 8 bytes of
+    partials, and reads once each the distinct Occ rows this rank owns at
+    the extended reads' lo and hi (48 bytes); the apply reads the same
+    per read and an extended read's 8 bytes of sums, writes the
+    intervals it changes (an extended or killed read's), and reads once
+    each the distinct major rows at the extended reads' ends (4 rb) and
+    L2."""
+    rb = fm.rank_dtype.itemsize
+    B, W = codes.shape
+    col = (lens.long() - 1 - t).clamp(0, W - 1)
+    c = codes.gather(1, col[:, None])[:, 0]
+    live = t < lens
+    act = live & (lo < hi) & (c < 4)
+    per_read = B * (4 + 4 + 2 * rb)
+    r = torch.cat([lo[act], hi[act]])
+    blk, mine = _occ_blocks(fm, r, shard)
+    if kernel == "bs_shard_query":
+        return per_read + 8 * B + 48 * _distinct(blk[mine])
+    changed = int((act | (live & (c >= 4))).sum())
+    return (per_read + 8 * int(act.sum()) + 2 * rb * changed
+            + 4 * rb * _distinct(_majors(fm, blk)) + 5 * rb)
+
+
+def windows_launch_ms(fm, pac, group, call: dict) -> dict:
+    """The card's device ms a launch of the window fetch's two kernels on
+    a recorded call (``recording``'s ``windows``), from a CUDA graph of 20
+    back-to-back launches (``shapes.graph_ms``): the query, and after one
+    real ``all_reduce`` of its buffer, ``extend_windows`` on the sums;
+    with the bytes each must move (``windows_bytes``): {name: dict(ms,
+    bytes, lanes)}."""
+    from bioseqdb_tpu_torch.tools.shapes import graph_ms
+
+    shard = dist.get_rank(group)
+    tab, scan, perm, p = (call[k] for k in ("tab", "scan", "perm", "p"))
+    q, qargs, qt = ecu.windows_query_args(tab, fm, pac, scan["sel"],
+                                          scan["slot"], p, shard)
+    ecu.launch("windows_shard_query", "windows_shard_query", q, qargs, qt)
+    kfm._all_reduce(q["buf"], group)
+    o, aargs, at = ecu.windows_args(tab, fm.seq_len, None, scan, perm, p,
+                                    sums=q["buf"], sel_of=q["sel_of"],
+                                    l_pac=fm.l_pac)
+    ecu.launch("extend_windows", "extend_windows", o, aargs, at)
+    rows = pac.shape[0]
+    return {name: dict(ms=graph_ms(lambda: ecu.launch(name, name, *run)),
+                       bytes=windows_bytes(fm, tab, scan, run[0], shard,
+                                           name, rows), lanes=lanes)
+            for name, run, lanes in (
+                ("windows_shard_query", (q, qargs, qt),
+                 int(scan["sel"].numel())),
+                ("extend_windows", (o, aargs, at), 2 * int(perm.shape[1])))}
+
+
+def resolve_launch_ms(fm, group, call: dict) -> dict:
+    """``windows_launch_ms`` for a recorded ``resolve_seeds`` call: the
+    expansion, then (after the route's sharded walk, every rank) the
+    finish; with each one's bytes and instructions
+    (``resolve_calls.ResolveCall.counts``): {name: dict(ms, bytes, instr,
+    lanes)}."""
+    from bioseqdb_tpu_torch.tools.resolve_calls import ResolveCall
+    from bioseqdb_tpu_torch.tools.shapes import graph_ms
+
+    mems, n_mem, kw = call["mems"], call["n_mem"], call["kw"]
+    seen = {}
+
+    def run(kernel: str, *a):
+        seen[kernel] = a
+        return rcu.launch(kernel, *a)
+
+    res = chain.resolve_seeds_sharded(fm, mems, n_mem, group=group, run=run,
+                                      **kw)
+    counts = ResolveCall.of(fm, mems, n_mem, **kw).counts(
+        seen["resolve_expand"][0], res)
+    return {name: dict(ms=graph_ms(lambda: rcu.launch(name, *seen[name])),
+                       bytes=counts[key]["read"] + counts[key]["written"],
+                       instr=counts[key]["instr"],
+                       lanes=int(mems.shape[0]))
+            for name, key in (("resolve_expand", "expand"),
+                              ("resolve_finish", "finish"))}
+
+
+def search_launch_ms(fm, group, codes: torch.Tensor, lens: torch.Tensor
+                     ) -> dict:
+    """``windows_launch_ms`` for the backward search's first step (every
+    read of length live, its interval the whole text): the query, and
+    after one real ``all_reduce`` of its partials, the apply (whose
+    replays move the intervals on, as a step does); with the bytes each
+    must move at that step (``search_bytes``): {name: dict(ms, bytes,
+    lanes)}."""
+    from bioseqdb_tpu_torch.tools.shapes import graph_ms
+
+    dev, shard = fm.L2.device, dist.get_rank(group)
+    codes = codes.to(dev, torch.int32).contiguous()
+    lens = lens.to(dev, torch.int32).contiguous()
+    B = codes.shape[0]
+    lo = torch.zeros(B, dtype=fm.rank_dtype, device=dev)
+    hi = torch.full((B,), fm.seq_len + 1, dtype=fm.rank_dtype, device=dev)
+    buf = torch.empty((1, 2 * B), dtype=torch.int32, device=dev)
+    args = fsc.pack(fsc.bs_args(fm, codes, lens, lo, hi, buf, shard))
+    entries = fsc.card_entries()
+    need = {name: search_bytes(fm, codes, lens, lo, hi, 0, shard, name)
+            for name in fsc.SEARCH_ENTRIES}
+    entries["bs_shard_query"](args, B, dev)
+    kfm._all_reduce(buf, group)
+    return {name: dict(ms=graph_ms(lambda: entries[name](args, B, dev)),
+                       bytes=need[name], lanes=B)
+            for name in fsc.SEARCH_ENTRIES}

@@ -322,29 +322,34 @@
    (index) on every read that overflowed in neither run (the others are
    counted), exact mode's the exact phase's; truth >= 98% and
    ``device_ne_oracle`` 0; every rank must launch ``sw_extend``,
-   ``chain_seeds``, ``filter_chains``, ``extend_scan``, ``extend_merge``
-   ``extend_seedcov`` and ``extend_setup`` in both runs, ``fm_seed``,
-   ``extend_windows``, ``kmer_seed``, ``sa_resolve``, ``resolve_expand``
-   and ``resolve_finish`` too on the data mesh and never on an index mesh
-   (its FM machine and SA walk take the shard kernels, its windows and
-   its seeds' expansion and finish stay plain, and its FM seeder has no
-   kmer stage), ``fm_shard_query``, ``fm_shard_apply``,
-   ``sa_shard_query`` and ``sa_shard_apply`` on every rank of an index
-   mesh and never on the data mesh, ``seed_sw`` (short reads) and
-   ``backward_search`` on no rank (counts zeroed just before each job
-   and read just after, in each rank; the unclocked runs' go on the
-   kernels line). The ``index`` 2 cell then records the FM machine
-   calls and SA walks of the whole timed batch (16,384 reads;
-   ``tools/shard_calls.py`` ``shard_check``) and runs each in every
-   rank on the shard kernels and on its plain twin under the group
-   (each walk also under a lane mask): all outputs bit-equal and the
-   all_reduce calls and bytes equal; it prints each one's steps, each
-   launch's device ms a step and the all_reduce's (CUDA events around
-   each on a stream the blocking all_reduce left idle, so a launch's
-   include its host submit), each kernel's ms a launch in a CUDA graph
-   of 20 (the call's first chunk, or the walk's LF step) beside its
-   bound, and the plain twin's seconds (the walk's warmed, then timed
-   three times);
+   ``chain_seeds``, ``filter_chains``, ``extend_setup``, ``extend_scan``,
+   ``extend_windows``, ``extend_merge``, ``extend_seedcov``,
+   ``resolve_expand`` and ``resolve_finish`` in both runs, ``fm_seed``,
+   ``kmer_seed`` and ``sa_resolve`` too on the data mesh and never on an
+   index mesh (its FM machine and SA walk take the shard kernels, and its
+   FM seeder has no kmer stage), ``fm_shard_query``, ``fm_shard_apply``,
+   ``sa_shard_query``, ``sa_shard_apply`` and ``windows_shard_query``
+   on every rank of an index mesh and never on the data mesh, and
+   ``seed_sw`` (short reads), ``backward_search``, ``bs_shard_query``
+   and ``bs_shard_apply`` on no rank (counts zeroed just before each
+   job and read just after, in each rank; the unclocked runs' go on the
+   kernels line). The ``index`` 2 cell also runs ``queries``: the
+   sharded backward search of the exact phase's 16,384 reads, which
+   must launch ``bs_shard_query`` and ``bs_shard_apply`` and no other
+   kernel in every rank and equal the exact phase's intervals. It then
+   records the FM machine calls, SA walks, window fetches and
+   ``resolve_seeds`` call of the whole timed batch (16,384 reads;
+   ``tools/shard_calls.py`` ``shard_check``), with that search, and runs
+   each in every rank on the kernels and on its plain twin under the
+   group (each walk also under a lane mask): all outputs bit-equal and
+   the all_reduce calls and bytes equal; it prints each one's steps,
+   each launch's device ms a step and the all_reduce's (CUDA events
+   around each on a stream the blocking all_reduce left idle, so a
+   launch's include its host submit), each kernel's ms a launch in a
+   CUDA graph of 20 (the call's first chunk, the walk's LF step, the
+   first window fetch, the resolve call, the search's first step)
+   beside its bound, and the plain twin's seconds (the walk's and the
+   search's warmed, then timed);
 13. probe path: counts zeroed, the two probe entry points
    (``tools/microbench_gather.py``, ``tools/microbench_seed.py``) run at
    the TPU tools' shapes and the seeding machine's (16,384 lanes over
@@ -362,14 +367,17 @@
    batch's, the extension kernels' the main path's call with each
    kernel's launches summed, ``sa_resolve``'s the main path's walk,
    ``backward_search``'s the exact step's, ``resolve_expand``'s and
-   ``resolve_finish``'s the main path's call; the shard kernels' the
-   ``index`` 2 cell's check, rank 0's first machine call and walk: ms a
-   launch in a CUDA graph, the plain twin's ms a whole step outside its
-   all_reduce (the machine call's; the median over every walk's timed
-   runs, masked and unmasked), the bound of the bytes that launch must
-   move (``shard_calls.machine_bytes`` / ``walk_bytes``); the exact step's
-   and the dist phase's exact run's launches count too), then the
-   device line as the last line.
+   ``resolve_finish``'s the main path's call; the index mesh's kernels'
+   the ``index`` 2 cell's check, rank 0's first machine call, walk and
+   window fetch and the exact reads' search: ms a launch in a CUDA
+   graph, the plain twin's ms a whole step outside its all_reduce (the
+   machine call's; the median over every walk's timed runs, masked and
+   unmasked; the window fetch's; the search's), the bound of the bytes
+   that launch must move (``shard_calls.machine_bytes`` /
+   ``walk_bytes`` / ``windows_bytes`` / ``search_bytes``); the exact
+   step's, the dist phase's exact run's and the index cell's sharded
+   search's launches count too), then the device line as the last
+   line.
 
 Kernel times: the device time per call of a CUDA graph of calls
 (``sw_extend``: 5 launches; ``gather_rows``, ``add_one``, ``kmer_seed``,
@@ -410,6 +418,7 @@ from bioseqdb_tpu_torch.io.batch import pack_reads, pack_reads_from_file
 from bioseqdb_tpu_torch.io.fasta import FastaRecord, write_fasta, write_fastq
 from bioseqdb_tpu_torch.kernels import build, probes, seedsw
 from bioseqdb_tpu_torch.kernels import fm as kfm
+from bioseqdb_tpu_torch.kernels import fm_shard_cuda as fsc
 from bioseqdb_tpu_torch.kernels.seed import build_r3_jump
 from bioseqdb_tpu_torch.kernels.sw_cuda import (FULL_MAX_QLEN, blocks_per_sm,
                                                 layout as sw_layout)
@@ -421,7 +430,7 @@ from bioseqdb_tpu_torch.tools import (chain_calls, dist_leg, extend_calls,
                                       fm_calls, fm_machine, kmer_calls,
                                       long_leg, microbench_gather,
                                       microbench_seed, pe_leg, resolve_calls,
-                                      seedsw_calls)
+                                      seedsw_calls, shard_calls)
 from bioseqdb_tpu_torch.tools.shapes import (OCC_MAIN, SEED_STEPS,
                                              card_line, event_ms, graph_ms,
                                              make_table)
@@ -464,8 +473,23 @@ HUGE_READS = ((16, 18000, 303), (16, 25000, 304))
 DIST_GRID_READS = 4096    # the data x index cell's batch
 # the TPU loops the index mesh's kernels replace: the FM machine's owner
 # sums under shard_axis, the SA walk's loop
-SHARD_LINES = dict(fm_shard_query="seed.py:736", fm_shard_apply="seed.py:736",
-                   sa_shard_query="fm.py:536", sa_shard_apply="fm.py:536")
+# the index mesh's kernels on the kernels line: the TPU loop each replaces
+# (JAX package paths) and, where not fm_shard.cu, its source
+SHARD_LINES = dict(fm_shard_query="kernels/seed.py:736",
+                   fm_shard_apply="kernels/seed.py:736",
+                   sa_shard_query="kernels/fm.py:536",
+                   sa_shard_apply="kernels/fm.py:536",
+                   windows_shard_query="kernels/extend.py:125",
+                   bs_shard_query="dist/shard_index.py:155",
+                   bs_shard_apply="dist/shard_index.py:155")
+SHARD_SOURCES = dict(windows_shard_query="extend.cu")
+# the dist phase's launch rules (``dist_path``): on every mesh, on a data
+# mesh only, on an index mesh only, nowhere in a full step
+MESH_BOTH = ("sw_extend", "chain_seeds", "filter_chains",
+             *build.EXTEND_KERNELS, *build.RESOLVE_KERNELS)
+DATA_ONLY = ("fm_seed", "kmer_seed", "sa_resolve")
+INDEX_ONLY = (*build.SHARD_KERNELS, *build.WINDOWS_SHARD_KERNELS)
+NEVER = ("seed_sw", "backward_search", *build.SEARCH_SHARD_KERNELS)
 PROFILE_READS = 2048
 QUAL = "I"   # the base quality written to every FASTQ record
 # chaining: a valid seed's trip issues at least its five loads, the
@@ -1822,8 +1846,10 @@ def exact_path(m: dict, dev, card: str, n_reads: int = BATCH) -> dict:
         f"({time.time() - t0:.1f} s)")
     if not same:
         raise AssertionError("exact mode on the card differs from the CPU")
+    lo, hi = kfm.backward_search(al.fm, codes, lens)
     return dict(sim=sim, batch=batch, al=al, res=res, sam=sam,
-                launches=launches, fmi_calls=fmi_calls)
+                launches=launches, fmi_calls=fmi_calls,
+                intervals=(lo.cpu().numpy(), hi.cpu().numpy()))
 
 
 def cols_equal(a, b) -> bool:
@@ -2107,72 +2133,124 @@ def dist_line(what: str, timed: dict, clocked: dict, n: int, backend: str,
         f"the clocked step)")
 
 
+# the index cell's shard check: its kinds of recorded call, each with the
+# launches its rows report
+SHARD_KINDS = dict(machine=fsc.ENTRIES[:2], walks=fsc.ENTRIES[2:],
+                   windows=shard_calls.WINDOWS_LAUNCHES,
+                   resolve=shard_calls.RESOLVE_LAUNCHES,
+                   search=fsc.SEARCH_ENTRIES)
+
+
+def shard_line(what: str, rank: int, kind: str, row: dict, card: str
+               ) -> None:
+    """Log one row of the shard check: its steps, each launch's device ms
+    a step and the all_reduce's, each kernel's ms a launch in a CUDA graph
+    beside its bound, both routes' seconds, equality and collectives;
+    raise where the kernels differ from the twin."""
+    names = [n for n in SHARD_KINDS[kind] if n in row]
+    shape = (f", W {row['width']}" if "width" in row else "") + (
+        f", masked {row['masked']}" if "masked" in row else "")
+    log(f"  {what} rank {rank} {kind} ({row['lanes']} lanes{shape}) on "
+        f"{card}: {row['steps']} steps, "
+        + ", ".join(f"{n} {row[n]['ms']:.4f} ms x {row[n]['launches']}"
+                    for n in names)
+        + f", all_reduce {row['all_reduce_ms_per_step']:.4f} ms a "
+        f"step (CUDA events around each on an idle stream: a "
+        f"launch's include its host submit); "
+        + "".join(f"{n} {g['ms']:.4f} ms a launch in a CUDA graph "
+                  f"({g['lanes']} lanes, bound "
+                  f"{bound(g['bytes'], g.get('instr', 0))[0]:.6f} ms); "
+                  for n, g in row.get("graph", {}).items())
+        + f"kernels {row['kernel_s']:.3f} s, plain "
+        f"twin {row['plain_s']:.3f} s ({row['plain_ms_per_step']:.4f}"
+        f" ms a whole step outside its all_reduce, runs "
+        + ", ".join(f"{t:.4f}" for t in row["plain_step_ms"])
+        + " ms, "
+        f"{row['plain_reduce_s']:.3f} s in it); equal {row['equal']}"
+        f", all_reduce calls {row['steps']} / {row['plain_steps']}, "
+        f"bytes {row['bytes']} / {row['plain_bytes']}")
+    if (not row["equal"] or row["steps"] != row["plain_steps"]
+            or row["bytes"] != row["plain_bytes"]):
+        raise AssertionError(f"{what}: a sharded route differs from its "
+                             f"plain twin: {row}")
+
+
 def shard_rows(what: str, res: list, job: int, card: str) -> dict:
     """The index cell's ``shard_check`` job (``tools/shard_calls.py``):
-    in every rank, each recorded FM machine call and SA walk on the
-    kernels bit-equal to its plain twin under the group, with equal
-    all_reduce calls and bytes; logs each one's steps and its split a
-    step (each launch's device ms, the all_reduce's); returns rank 0's
-    rows and the median plain walk step (``walk_plain_ms``)."""
+    in every rank, each recorded FM machine call, SA walk, window fetch
+    and ``resolve_seeds`` call and the exact reads' backward search on
+    the kernels bit-equal to its plain twin under the group, with equal
+    all_reduce calls and bytes (``shard_line``); returns rank 0's first
+    row of each kind, the median plain walk step (``walk_plain_ms``) and
+    the largest error."""
+    rows_of = lambda sh: [(kind, row) for kind in SHARD_KINDS
+                          for row in (sh[kind] if kind != "search"
+                                      else [sh[kind]] if sh[kind] else [])]
     for r in res:
         sh = r["tasks"][0]["jobs"][job]["shard"]
-        rows = sh["machine"] + sh["walks"]
-        for row in rows:
-            kind = "machine" if "width" in row else "walk"
-            names = [n for n in build.SHARD_KERNELS if n in row]
-            log(f"  {what} rank {r['rank']} {kind} ({row['lanes']} lanes"
-                + (f", W {row['width']}" if kind == "machine" else
-                   f", masked {row['masked']}")
-                + f") on {card}: {row['steps']} steps, "
-                + ", ".join(f"{n} {row[n]['ms']:.4f} ms" for n in names)
-                + f", all_reduce {row['all_reduce_ms_per_step']:.4f} ms a "
-                f"step (CUDA events around each on an idle stream: a "
-                f"launch's include its host submit); "
-                + "".join(f"{n} {g['ms']:.4f} ms a launch in a CUDA graph "
-                          f"({g['lanes']} lanes, bound "
-                          f"{bound(g['bytes'], 0)[0]:.6f} ms); "
-                          for n, g in row.get("graph", {}).items())
-                + f"kernels {row['kernel_s']:.3f} s, plain "
-                f"twin {row['plain_s']:.3f} s ({row['plain_ms_per_step']:.4f}"
-                f" ms a whole step outside its all_reduce, runs "
-                + ", ".join(f"{t:.4f}" for t in row["plain_step_ms"])
-                + " ms, "
-                f"{row['plain_reduce_s']:.3f} s in it); equal {row['equal']}"
-                f", all_reduce calls {row['steps']} / {row['plain_steps']}, "
-                f"bytes {row['bytes']} / {row['plain_bytes']}")
-            if (not row["equal"] or row["steps"] != row["plain_steps"]
-                    or row["bytes"] != row["plain_bytes"]):
-                raise AssertionError(f"{what}: a shard kernel pair differs "
-                                     f"from its plain twin: {row}")
-        if not sh["machine"] or not sh["walks"]:
-            raise AssertionError(f"{what}: no machine call or walk recorded")
+        for kind, row in rows_of(sh):
+            shard_line(what, r["rank"], kind, row, card)
+        missing = [k for k in SHARD_KINDS if not sh[k]]
+        if missing:
+            raise AssertionError(f"{what}: nothing recorded of {missing}")
     sh = res[0]["tasks"][0]["jobs"][job]["shard"]
     return dict(machine=sh["machine"][0], walk=sh["walks"][0],
-                walk_plain_ms=sh["walk_plain_ms"],
-                err=max(row["max_abs_err"] for r in res for row in
-                        r["tasks"][0]["jobs"][job]["shard"]["machine"]
-                        + r["tasks"][0]["jobs"][job]["shard"]["walks"]))
+                windows=sh["windows"][0], resolve=sh["resolve"][0],
+                search=sh["search"], walk_plain_ms=sh["walk_plain_ms"],
+                err=max(row["max_abs_err"] for r in res for _, row in
+                        rows_of(r["tasks"][0]["jobs"][job]["shard"])))
 
 
 def shard_entry(name: str, shard: dict, launches: int) -> dict:
-    """The kernels line's entry of shard kernel ``name`` from the index
-    cell's check (rank 0's first machine call or walk): device ms a
-    launch in a CUDA graph (its first chunk's lanes, or the walk's LF
-    step), the plain twin's ms a whole step outside its all_reduce (the
-    work of both launches of the step: the machine call's, or the median
-    over the walks' timed runs), the bound of the bytes that launch must
+    """The kernels line's entry of index-mesh kernel ``name`` from the
+    index cell's check (rank 0's first machine call, walk or window fetch,
+    or the search): device ms a launch in a CUDA graph (the call's first
+    chunk's lanes, the walk's LF step, the first window fetch's lanes,
+    the search's first step), the plain twin's ms a whole step outside
+    its all_reduce (the work of both launches of the step: the machine
+    call's, the median over the walks' timed runs, the window fetch's
+    whole twin, the search's), the bound of the bytes that launch must
     move."""
-    machine = name.startswith("fm")
-    row = shard["machine" if machine else "walk"]
+    kind = {"fm": "machine", "sa": "walk", "windows": "windows",
+            "bs": "search"}[name.split("_")[0]]
+    row = shard[kind]
     k = row["graph"][name]
     bound_ms, bound_by = bound(k["bytes"], 0)
     return dict(name=name, route="cuda",
-                source="bioseqdb_tpu_torch/csrc/fm_shard.cu",
-                replaces=f"bioseqdb_tpu/kernels/{SHARD_LINES[name]}",
+                source="bioseqdb_tpu_torch/csrc/"
+                       + SHARD_SOURCES.get(name, "fm_shard.cu"),
+                replaces=f"bioseqdb_tpu/{SHARD_LINES[name]}",
                 launches=launches, max_abs_err=shard["err"], ms=k["ms"],
-                plain_ms=(row["plain_ms_per_step"] if machine
-                          else shard["walk_plain_ms"]), bound_ms=bound_ms,
+                plain_ms=(shard["walk_plain_ms"] if kind == "walk"
+                          else row["plain_ms_per_step"]), bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def dist_queries(res: list, job: int, ex: dict, card: str,
+                 launches: dict) -> None:
+    """The index cell's ``queries`` job: in every rank the sharded
+    backward search launched ``bs_shard_query`` and ``bs_shard_apply``
+    and no other kernel, and its intervals equal the exact phase's
+    (``ex["intervals"]``); adds its launches to ``launches``."""
+    want = ex["intervals"]
+    for r in res:
+        j = r["tasks"][0]["jobs"][job]
+        ran = {n: j[n] for n in build.PATH_KERNELS if j[n]}
+        same = all(np.array_equal(a, b) for a, b in zip(j["intervals"], want))
+        if set(ran) != set(build.SEARCH_SHARD_KERNELS) or not same:
+            raise AssertionError(f"index mesh's backward search, rank "
+                                 f"{r['rank']}: launches {ran}, intervals "
+                                 f"equal to the exact phase's: {same}")
+        for n, v in ran.items():
+            launches[n] += v
+    j = res[0]["tasks"][0]["jobs"][job]
+    sec = j["seconds"]["backward_search_sharded"]
+    co = j["collectives"]
+    log(f"  index mesh's backward search ({want[0].size} exact reads) on "
+        f"{card}: {sec:.3f} s, {co['calls']} all_reduces ({co['bytes']} "
+        f"bytes); launches rank 0 "
+        f"{ {n: j[n] for n in build.SEARCH_SHARD_KERNELS} }; intervals "
+        f"equal to the exact phase's in every rank")
 
 
 def dist_path(m: dict, fmp: dict, ex: dict, card: str,
@@ -2184,18 +2262,19 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
     also the ranks' warm-up), then unclocked (reads/s, the records);
     returns the step kernels' launches of the unclocked runs, every rank
     summed (each rank's counts zeroed just before a job and read just
-    after), and the index cell's shard check (``shard_rows``). Every
-    rank launches ``sw_extend``, ``chain_seeds``, ``filter_chains``,
-    ``extend_scan``, ``extend_merge`` and ``extend_seedcov`` and
-    ``extend_setup`` in both runs; ``fm_seed``, ``extend_windows``,
-    ``kmer_seed``, ``sa_resolve``, ``resolve_expand`` and
-    ``resolve_finish`` too on a data mesh, and never on an index mesh
-    (its FM machine and SA walk take the shard kernels, its windows'
-    and its seeds' resolution stay plain, and its FM seeder has no kmer
-    stage); the shard kernels (``build.SHARD_KERNELS``) on every rank of
-    an index mesh and never on a data mesh; ``seed_sw`` on no rank
-    (short reads). The index cell then runs ``shard_check`` on the
-    whole timed batch."""
+    after; the index cell's sharded search's too), and the index cell's
+    shard check (``shard_rows``). Every rank launches ``MESH_BOTH``'s
+    kernels in both runs; ``DATA_ONLY``'s too on a data mesh and never
+    on an index mesh (its FM machine and SA walk take the shard kernels,
+    and its FM seeder has no kmer stage); ``INDEX_ONLY``'s (the FM
+    machine's, the walk's and the window fetch's shard kernels) on every
+    rank of an index mesh and never on a data mesh; ``NEVER``'s on no
+    rank (short reads run no seed-SW, a full step no backward search).
+    The index cell then runs the sharded backward search of the exact
+    phase's reads (``queries``: only ``bs_shard_query`` and
+    ``bs_shard_apply`` launch, and its intervals equal the exact
+    phase's) and ``shard_check`` on the whole timed batch with that
+    search."""
     idx, batch = m["idx"], m["batches"][1]
     grid = dist_leg.head(batch, grid_reads)
     runs = lambda b: [dict(kind="regions", batch=b, clock=True),
@@ -2204,7 +2283,9 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         ("data-parallel", (2,), ("data",),
          runs(batch) + [dict(kind="align", batch=ex["batch"], mode="exact")]),
         ("index-sharded", (2,), ("index",),
-         runs(batch) + [dict(kind="shard_check", batch=batch)]),
+         runs(batch) + [dict(kind="shard_check", batch=batch,
+                             search=(ex["batch"].codes, ex["batch"].lens)),
+                        dict(kind="queries", batch=ex["batch"])]),
         ("data x index", (2, 2), ("data", "index"), runs(grid)),
     ]
     launches = {k: 0 for k in build.PATH_KERNELS}
@@ -2221,25 +2302,14 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
         for k, job in enumerate(jobs[:2]):
             per_rank = {n: [r["tasks"][0]["jobs"][k][n] for r in res]
                         for n in launches}
-            # an index mesh's FM machine and SA walk take the shard
-            # kernels (a query, the all_reduce and an apply a step); its
-            # windows and its seeds' resolution stay plain, and its FM
-            # seeder has no kmer stage; no short read runs the seed-SW,
-            # and no full step the backward search
-            mesh_plain = ("fm_seed", "extend_windows", "kmer_seed",
-                          "sa_resolve", *build.RESOLVE_KERNELS)
-            never = ("seed_sw", "backward_search")
             data = names == ("data",)
-            plain_ok = all(min(per_rank[n]) > 0 if data
-                           else max(per_rank[n]) == 0 for n in mesh_plain)
-            shard_ok = all(max(per_rank[n]) == 0 if data
-                           else min(per_rank[n]) > 0
-                           for n in build.SHARD_KERNELS)
-            if (not plain_ok or not shard_ok
-                    or max(max(per_rank[n]) for n in never) > 0
-                    or min(min(per_rank[n]) for n in launches
-                           if n not in (*mesh_plain, *never,
-                                        *build.SHARD_KERNELS)) <= 0):
+            ok = (all(min(per_rank[n]) > 0 for n in MESH_BOTH)
+                  and all(min(per_rank[n]) > 0 if data
+                          else max(per_rank[n]) == 0 for n in DATA_ONLY)
+                  and all(max(per_rank[n]) == 0 if data
+                          else min(per_rank[n]) > 0 for n in INDEX_ONLY)
+                  and all(max(per_rank[n]) == 0 for n in NEVER))
+            if not ok:
                 raise AssertionError(f"{what}: launches by rank in job {k}: "
                                      f"{per_rank}")
             if job.get("timed"):
@@ -2278,6 +2348,7 @@ def dist_path(m: dict, fmp: dict, ex: dict, card: str,
             al = fmp["al"]
             if names == ("index",):
                 shard = shard_rows(what, res, 2, card)
+                dist_queries(res, 3, ex, card, launches)
         sim = m["sims"][1]
         sim = dataclasses.replace(sim, positions=sim.positions[: b.n],
                                   strands=sim.strands[: b.n])
@@ -2468,7 +2539,9 @@ def main() -> None:
                      launches=sum(x[name] for x in runs), **rsv[name])
                 for name, line in RESOLVE_LINES.items()]
     kernels += [shard_entry(name, shard, sum(x[name] for x in runs))
-                for name in build.SHARD_KERNELS]
+                for name in (*build.SHARD_KERNELS,
+                             *build.WINDOWS_SHARD_KERNELS,
+                             *build.SEARCH_SHARD_KERNELS)]
     kernels += probe_path()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,15 @@ machine's and the SA walk's query and apply) equal their plain twins
 under the group bit for bit, with equal all_reduce calls and bytes, at
 int32 and int64 ranks (``tools/shard_calls.py`` ``pair_rank``: the
 CPU tests' 120 bp, 250 bp and 300-step-budget calls, a walk unmasked,
-masked and through an unmarked primary). Skips without a CUDA device.
+masked and through an unmarked primary). So do, at ``index`` 2 and both
+rank dtypes, the window fetch (``windows_shard_query``, the all_reduce,
+``extend_windows`` reading the sums), ``resolve_seeds`` (its two kernels
+around the sharded walk) and the backward search (``bs_shard_query`` /
+``bs_shard_apply`` a step) on every call of a recorded index-mesh step
+and on ``shard_calls.search_batch`` (``shard_calls.route_rank``): each
+route launches its kernels, no plain twin runs under the group on the
+card, and with the sources made unbuildable each route raises.
+Skips without a CUDA device.
 Imports no jax, so it runs on a card machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_dist_cuda.py``.
 """
@@ -87,3 +95,30 @@ def test_index_mesh_shard_kernels_equal_plain_twins():
         for d in r["dtypes"]:
             for pair in d["machine"] + d["walks"]:
                 assert sc.pair_equal(pair) and sc.max_abs_err(pair) == 0
+
+
+def test_index_mesh_routes_equal_plain_twins(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build.build()               # in the parent, before the ranks start
+    refs = sc.edge_refs(simulate_genome(30_000, seed=81))
+    idx = build_index(refs, sa_interval=32)
+    short, wide = sc.edge_batches(refs)
+    res = launch.spawn(
+        sc.route_rank, 2, launch.cuda_backend(2),
+        args=("cuda", None, idx, [short, wide, sc.strand_batch(refs)],
+              sc.search_batch(refs, short), (torch.int32, torch.int64),
+              str(tmp_path)), timeout_s=900)
+    for r in res:
+        assert not r["forbidden"]
+        for d in r["dtypes"]:
+            assert not any(d["twins"].values()), d["twins"]
+            assert all(d["launches"][k] > 0 for k in sc.ROUTE_KERNELS), (
+                d["launches"])
+            assert d["reach"]["strand"] > 0 and d["reach"]["text_end"] > 0
+            for pair in d["windows"] + d["resolve"] + [d["search"]]:
+                assert sc.pair_equal(pair) and sc.max_abs_err(pair) == 0
+        broken = r["dtypes"][0]["broken"]
+        assert set(broken) == {"windows", "resolve", "search"}
+        assert all(msg and "nvcc failed" in msg for msg in broken.values()), (
+            broken)
